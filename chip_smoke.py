@@ -2,30 +2,61 @@
 """Smoke test of zero_tpu_torch on one NVIDIA card: build the CUDA kernels,
 hold them against their plain PyTorch versions, serve transformer-base
 through ``python -m zero_tpu_torch.run --mode test`` (beam 4, then beam 1),
-and check the served path against the CPU on a small model.
+train it through ``python -m zero_tpu_torch.run --mode train``, and check
+both paths against the CPU on small models.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py                 # every phase (the smoke test)
+  python3 chip_smoke.py --phases build,train_kernels   # a subset, no
+                                        # summary lines
 
-Phases (each prints one line; any failure raises and exits non-zero):
-  1 device   card name, power limit, TF32 off
-  2 build    nvcc build of csrc/decode_attention.cu (sm_90a)
-  3 kernels  decode_attention and decode_pool_attention (softmax, relu) at
+Phases (each prints one line or more; any failure raises and exits
+non-zero):
+  device     card name, power limit, TF32 off
+  build      nvcc builds of csrc/{decode_attention,fused_attention,
+             fused_ffn}.cu (sm_90a), one process each, all at once; the
+             ptxas register/shared-memory report
+  kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
              their plain versions; device times of kernel, plain version,
              and scaled_dot_product_attention as a yardstick, beside the
              memory/compute bound
-  4 serve    beam 4: random transformer-base weights from a seed saved
+  train_kernels  fused_attention (forward, backward) at B=16, H=8, Dh=64:
+             causal self-attention L=256, self-attention L=256 under a pad
+             mask with an all-pad row, cross attention Lq=200 Lk=256; and
+             fused_ffn (forward, backward) at N=4096, 512->2048->512; fp32
+             and bf16, dropout 0 and 0.1, outputs and every gradient held
+             against the plain versions; device times of kernel, plain
+             version and a PyTorch yardstick (SDPA; F.linear/relu/F.linear)
+             beside the bound
+  serve      beam 4: random transformer-base weights from a seed saved
              through the port's saver, a synthetic 32768-token vocabulary
              and a 64-sentence test set; counts prove the decode went
              through decode_pool_attention and never a plain version
-  5 serve    beam 1: the same through decode_attention
-  6 reference  a small fp32 model decoded on the card (kernels) and on the
+  serve      beam 1: the same through decode_attention
+  reference  a small fp32 model decoded on the card (kernels) and on the
              CPU (plain versions): identical sequences, scores within 1e-4
+  train      transformer-base (configs/transformer_base_wmt14.json: bf16,
+             dropout 0.1, token_size 4096, update_cycle 4) trained for
+             TRAIN_STEPS steps on a synthetic corpus with both kernel flags
+             on: ms/step, target tokens/s, loss and gnorm, model FLOPs and
+             MFU; launch counts = 18 attention and 12 FFN forwards and
+             backwards per microbatch, no plain version; then the same
+             steps with both flags off (the PyTorch composite), and
+             --mode test and --mode score on the checkpoint the kernel run
+             saved
+  train_reference  a small fp32 model: train_fn loss and grads on the card
+             (kernels) against the CPU (plain versions), dropout off,
+             within 1e-4; dropout on, kernels against plain versions on
+             the card from the same seed words, loss within 1e-5
+  converge   the copy task (a 12-word vocabulary, target = source;
+             hidden 32, 700 steps, lr 3e-3) through --mode train with both
+             flags on: final dev BLEU >= 0.95
 Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
 as the last line {"ok": true, "device": {...}}.
 """
 
+import argparse
 import functools
 import json
 import math
@@ -34,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -53,6 +85,12 @@ TIMES = (0, 1, 57, T - 1)
 # bf16: the plain version rounds logits and weights to bf16 before the
 # products (as the JAX package does); the kernel keeps them fp32.
 TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
+# training kernels: fp32 sums run in another order over up to 4096 rows
+# (dW, dk/dv), so the relative part is 1e-4; bf16 as above
+TRAIN_TOLERANCE = {torch.float32: (1e-5, 1e-4),
+                   torch.bfloat16: (1e-2, 2e-2)}
+TRAIN_STEPS = 30
+PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
 # the card spins this many cycles before each timed run (~0.25 s), so the
 # host enqueues the whole run first and events time device work only
 SLEEP_CYCLES = 500_000_000
@@ -112,11 +150,11 @@ def bound(nbytes, flops, dtype):
                                                            "operations")
 
 
-def check(name, out, ref, dtype):
+def check(name, out, ref, dtype, tolerance=TOLERANCE):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    atol, rtol = TOLERANCE[dtype]
+    atol, rtol = tolerance[dtype]
     if not (math.isfinite(err) and err <= atol + rtol * scale):
         raise AssertionError("%s %s: max |kernel - plain| %.3g > %.3g + "
                              "%.3g * %.3g" % (name, dtype, err, atol, rtol,
@@ -241,7 +279,7 @@ def kernels_phase(da):
 
 def write_corpus(d):
     """A 32768-token vocabulary and a 64-sentence test set of 20 to 60
-    tokens, made from SEED."""
+    tokens, made from SEED; returns the vocabulary's words."""
     rs = np.random.RandomState(SEED)
     words = ["w%d" % i for i in range(32768 - 3)]   # + pad, unk, eos
     with open(os.path.join(d, "vocab.txt"), "w") as w:
@@ -252,6 +290,7 @@ def write_corpus(d):
                 n = rs.randint(20, 61)
                 w.write(" ".join(words[i] for i in rs.randint(0, len(words),
                                                               n)) + "\n")
+    return words
 
 
 def serve_phase(da, d, beam, kernel):
@@ -345,13 +384,557 @@ def reference_phase(da):
     phase("reference", **out)
 
 
-def main():
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+# (name, B, H, Lq, Lk, Dh, causal, pad mask with an all-pad row); the
+# small cases (train_reference's model shapes: ragged tails, Dh 16) are
+# checked, not timed
+ATTN_CASES = (("self_causal", 16, 8, 256, 256, 64, True, False),
+              ("self_pad", 16, 8, 256, 256, 64, False, True),
+              ("cross", 16, 8, 200, 256, 64, False, True))
+ATTN_SMALL = (("small_causal", 6, 4, 9, 9, 16, True, False),
+              ("small_pad", 6, 4, 12, 12, 16, False, True),
+              ("small_cross", 6, 4, 9, 12, 16, False, True))
+FFN_SHAPE = (4096, 512, 2048, 512)
+FFN_SMALL = ((54, 64, 128, 64), (72, 64, 128, 64))
+SEED_WORDS = (0x12345678, 0x9ABCDEF0)
+
+
+def grad_ms(outputs, inputs, dout):
+    """A callable timing one backward pass alone (autograd.grad over a
+    retained forward graph)."""
+    def run():
+        return torch.autograd.grad(outputs, inputs, dout, retain_graph=True)
+    return run
+
+
+def fwd_bwd(fn, n_inputs):
+    """fn's forward and backward together, over a set whose first
+    ``n_inputs`` tensors take gradients and whose last is the output
+    gradient."""
+    def run(*s):
+        return torch.autograd.grad(fn(*s), s[:n_inputs], s[-1])
+    run.__name__ = fn.__name__ + "_fwd_bwd"
+    return run
+
+
+def train_attention_rows(fa, gen):
+    """Kernels #1/#2 against fused_attention_ref; returns the JSON rows of
+    the encoder self-attention case (bf16, dropout 0.1)."""
+    dev = "cuda"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES + ATTN_SMALL:
+        timed = name in [c[0] for c in ATTN_CASES]
+        for dtype in (torch.float32, torch.bfloat16):
+            def inputs():
+                q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                pad = torch.ones(b, lk)
+                if padded:
+                    lens = torch.randint(lk // 4, lk + 1, (b,), generator=gen)
+                    pad = (torch.arange(lk)[None] < lens[:, None]).float()
+                    pad[3] = 0.0   # an all-pad batch row
+                do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                return [t.requires_grad_() for t in (q, k, v)] + [
+                    pad.to(dev), do]
+
+            # bound: the keys each row's output needs (all Lk for a row
+            # with no valid key) in the forward's two products
+            pad0 = inputs()[3]
+            keep = (pad0 > 0)[:, None, None, :].expand(b, 1, lq, lk)
+            if causal:
+                keep = keep & torch.ones(lq, lk, dtype=torch.bool,
+                                         device=dev).tril()
+            pairs = torch.where(keep.any(-1, keepdim=True), keep,
+                                True).sum().item() * h
+            eb = torch.tensor([], dtype=dtype).element_size()
+            fwd_bytes = (2 * b * h * lq * dh + 2 * b * h * lk * dh) * eb \
+                + 4 * b * lk
+            bwd_bytes = (4 * b * h * lq * dh + 4 * b * h * lk * dh) * eb \
+                + 4 * b * lk + 8 * b * h * lq
+            for rate in (0.0, 0.1):
+                q, k, v, pad, do = inputs()
+                words = SEED_WORDS if rate else None
+                out = fa.fused_attention(q, k, v, pad, causal=causal,
+                                         dropout_rate=rate, rng=words)
+                grads = torch.autograd.grad(out, (q, k, v), do)
+                ref = fa.fused_attention_ref(q, k, v, pad, causal, rate,
+                                             words)
+                rgrads = torch.autograd.grad(ref, (q, k, v), do)
+                label = "%s[%s,p=%g]" % (name, str(dtype)[6:], rate)
+                errs = [check("fused_attention " + label, out, ref, dtype,
+                              TRAIN_TOLERANCE)]
+                errs += [check("fused_attention_backward %s d%s" % (label, w),
+                               g, r, dtype, TRAIN_TOLERANCE)
+                         for w, g, r in zip("qkv", grads, rgrads)]
+                if not torch.isfinite(out).all():
+                    raise AssertionError("fused_attention %s: non-finite "
+                                         "output" % label)
+                if not timed:
+                    phase("train_kernels", kernel="fused_attention",
+                          case=label, max_abs_err=errs[0],
+                          backward_max_abs_err=max(errs[1:]))
+                    continue
+                sets = copies(inputs, fwd_bytes)
+
+                def k_fwd(q, k, v, pad, do):
+                    return fa.fused_attention(q, k, v, pad, causal=causal,
+                                              dropout_rate=rate, rng=words)
+
+                def p_fwd(q, k, v, pad, do):
+                    return fa.fused_attention_ref(q, k, v, pad, causal, rate,
+                                                  words)
+
+                def l_fwd(q, k, v, pad, do):
+                    if causal:
+                        return sdpa(q, k, v, is_causal=True)
+                    return sdpa(q, k, v, attn_mask=(pad > 0)[:, None, None])
+
+                iters = 2 * len(sets)
+                fwd = dict(ms=device_ms(k_fwd, sets, iters),
+                           plain_ms=device_ms(p_fwd, sets, iters))
+                bwd = {}
+                for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
+                    graphs = [(grad_ms(fn(*s), s[:3], s[4]),) for s in sets]
+                    bwd[key] = device_ms(lambda run: run(), graphs, iters)
+                    del graphs
+                if rate == 0.0:
+                    fwd["library_ms"] = device_ms(l_fwd, sets, iters)
+                    graphs = [(grad_ms(l_fwd(*s), s[:3], s[4]),)
+                              for s in sets]
+                    bwd["library_ms"] = device_ms(lambda run: run(), graphs,
+                                                  iters)
+                    del graphs
+                    bwd["fwd_bwd_ms"] = device_ms(fwd_bwd(k_fwd, 3), sets,
+                                                  iters)
+                    bwd["library_fwd_bwd_ms"] = device_ms(
+                        fwd_bwd(l_fwd, 3), sets, iters)
+                fb, fby = bound(fwd_bytes, 4 * pairs * dh, dtype)
+                bb, bby = bound(bwd_bytes, 10 * pairs * dh, dtype)
+                fwd.update(bound_ms=fb, bound_by=fby, max_abs_err=errs[0])
+                bwd.update(bound_ms=bb, bound_by=bby,
+                           max_abs_err=max(errs[1:]))
+                phase("train_kernels", kernel="fused_attention", case=label,
+                      **fwd)
+                phase("train_kernels", kernel="fused_attention_backward",
+                      case=label, **bwd)
+                rows[("fused_attention", name, dtype, rate)] = fwd
+                rows[("fused_attention_backward", name, dtype, rate)] = bwd
+                del sets
+                torch.cuda.empty_cache()
+    return rows
+
+
+def train_ffn_rows(ff, gen):
+    """Kernels #11/#12 against fused_ffn_ref; returns the rows."""
+    dev = "cuda"
+    rows = {}
+    for (n, d_in, f, d_out), dtype in [
+            (shape, dtype) for shape in FFN_SMALL + (FFN_SHAPE,)
+            for dtype in (torch.float32, torch.bfloat16)]:
+        timed = (n, d_in, f, d_out) == FFN_SHAPE
+
+        def inputs():
+            x = torch.randn(n, d_in, generator=gen).to(dev, dtype)
+            w1 = (torch.randn(d_in, f, generator=gen) * d_in ** -0.5).to(
+                dev, dtype)
+            b1 = (torch.randn(f, generator=gen) * 0.1).to(dev, dtype)
+            w2 = (torch.randn(f, d_out, generator=gen) * f ** -0.5).to(
+                dev, dtype)
+            b2 = (torch.randn(d_out, generator=gen) * 0.1).to(dev, dtype)
+            dy = torch.randn(n, d_out, generator=gen).to(dev, dtype)
+            return [t.requires_grad_() for t in (x, w1, b1, w2, b2)] + [dy]
+
+        eb = torch.tensor([], dtype=dtype).element_size()
+        weights = d_in * f + f + f * d_out + d_out
+        fwd_bytes = (n * d_in + weights + n * d_out) * eb
+        bwd_bytes = (n * d_in + weights + n * d_out) * eb \
+            + (n * d_in + weights) * eb
+        fwd_flops = 2 * n * (d_in * f + f * d_out)
+        bwd_flops = 2 * n * (3 * d_in * f + 2 * f * d_out)
+        for rate in (0.0, 0.1):
+            words = SEED_WORDS if rate else None
+            x, w1, b1, w2, b2, dy = inputs()
+            out = ff.fused_ffn(x, w1, b1, w2, b2, words, rate)
+            grads = torch.autograd.grad(out, (x, w1, b1, w2, b2), dy)
+            ref = ff.fused_ffn_ref(x, w1, b1, w2, b2, words, rate)
+            rgrads = torch.autograd.grad(ref, (x, w1, b1, w2, b2), dy)
+            label = "N%d[%s,p=%g]" % (n, str(dtype)[6:], rate)
+            errs = [check("fused_ffn " + label, out, ref, dtype,
+                          TRAIN_TOLERANCE)]
+            errs += [check("fused_ffn_backward %s d%s" % (label, w), g, r,
+                           dtype, TRAIN_TOLERANCE)
+                     for w, g, r in zip(("x", "W1", "b1", "W2", "b2"), grads,
+                                        rgrads)]
+            if not timed:
+                phase("train_kernels", kernel="fused_ffn", case=label,
+                      max_abs_err=errs[0], backward_max_abs_err=max(errs[1:]))
+                continue
+            sets = copies(inputs, fwd_bytes)
+
+            def k_fwd(x, w1, b1, w2, b2, dy):
+                return ff.fused_ffn(x, w1, b1, w2, b2, words, rate)
+
+            def p_fwd(x, w1, b1, w2, b2, dy):
+                return ff.fused_ffn_ref(x, w1, b1, w2, b2, words, rate)
+
+            iters = 2 * len(sets)
+            fwd = dict(ms=device_ms(k_fwd, sets, iters),
+                       plain_ms=device_ms(p_fwd, sets, iters))
+            bwd = {}
+            for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
+                graphs = [(grad_ms(fn(*s), s[:5], s[5]),) for s in sets]
+                bwd[key] = device_ms(lambda run: run(), graphs, iters)
+                del graphs
+            if rate == 0.0:
+                # yardstick: F.linear / relu / F.linear on [out, in] weights
+                lsets = [[t.detach().t().contiguous().requires_grad_()
+                          if t.dim() == 2 and i in (1, 3)
+                          else t for i, t in enumerate(s)] for s in sets]
+
+                def l_fwd(x, w1t, b1, w2t, b2, dy):
+                    lin = torch.nn.functional.linear
+                    return lin(torch.relu(lin(x, w1t, b1)), w2t, b2)
+
+                fwd["library_ms"] = device_ms(l_fwd, lsets, iters)
+                graphs = [(grad_ms(l_fwd(*s), s[:5], s[5]),) for s in lsets]
+                bwd["library_ms"] = device_ms(lambda run: run(), graphs,
+                                              iters)
+                bwd["fwd_bwd_ms"] = device_ms(fwd_bwd(k_fwd, 5), sets, iters)
+                bwd["library_fwd_bwd_ms"] = device_ms(fwd_bwd(l_fwd, 5),
+                                                      lsets, iters)
+                del graphs, lsets
+            fb, fby = bound(fwd_bytes, fwd_flops, dtype)
+            bb, bby = bound(bwd_bytes, bwd_flops, dtype)
+            fwd.update(bound_ms=fb, bound_by=fby, max_abs_err=errs[0])
+            bwd.update(bound_ms=bb, bound_by=bby, max_abs_err=max(errs[1:]))
+            phase("train_kernels", kernel="fused_ffn", case=label, **fwd)
+            phase("train_kernels", kernel="fused_ffn_backward", case=label,
+                  **bwd)
+            rows[("fused_ffn", dtype, rate)] = fwd
+            rows[("fused_ffn_backward", dtype, rate)] = bwd
+            del sets
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_kernels_phase():
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = train_attention_rows(fa, gen)
+    rows.update(train_ffn_rows(ff, gen))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def write_train_corpus(d, words, sentences=8000):
+    """Parallel training text of 10 to 100 tokens per side over the
+    synthetic vocabulary, made from SEED."""
+    rs = np.random.RandomState(SEED + 1)
+    for name in ("train.src", "train.tgt"):
+        with open(os.path.join(d, name), "w") as w:
+            for _ in range(sentences):
+                n = rs.randint(10, 101)
+                w.write(" ".join(words[i] for i in rs.randint(0, len(words),
+                                                              n)) + "\n")
+
+
+def model_flops(shapes, cfg):
+    """Matmul FLOPs of one training step: its microbatches run at the
+    step's stacked shape (the largest rows and lengths among them); forward
+    x 3 for forward + backward, plus the chunked CE's recomputed logits."""
+    d, f = cfg["hidden_size"], cfg["filter_size"]
+    v = 32768
+    b = max(s[0][0] for s in shapes)
+    ls = max(s[0][1] for s in shapes)
+    lt = max(s[1][1] for s in shapes)
+    total = 0
+    for _ in shapes:
+        ns, nt = b * ls, b * lt
+        enc = cfg["num_encoder_layer"] * (
+            2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * ls * ls * d)
+        dec = cfg["num_decoder_layer"] * (
+            2 * nt * d * 4 * d + 2 * nt * d * 2 * d + 2 * ns * d * 2 * d
+            + 4 * nt * d * f + 4 * b * lt * lt * d + 4 * b * lt * ls * d)
+        logits = 2 * nt * d * v
+        total += 3 * (enc + dec + logits) + logits
+    return total
+
+
+def expected_launches(cfg, microbatches):
+    """Per microbatch: one attention per encoder layer and two per decoder
+    layer (18 at 6+6), one FFN per layer (12); forward and backward."""
+    attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
+    ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
+    return {"fused_attention": attn * microbatches,
+            "fused_attention_backward": attn * microbatches,
+            "fused_ffn": ffn * microbatches,
+            "fused_ffn_backward": ffn * microbatches}
+
+
+def train_run(d, out, flags, counters):
+    from zero_tpu_torch import run
+
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
+            "output_dir={1},use_flash_attention={2},use_fused_ffn={2},"
+            "max_training_steps={3},disp_freq=1,save_freq=0,eval_freq=0,"
+            "sample_freq=0,epoches=100".format(d, out, flags, TRAIN_STEPS))
+    for c in counters:
+        c.clear()
+    summary = run.main(["--mode", "train", "--config", CONFIG,
+                        "--parameters", spec])
+    launches = {}
+    for c in counters:
+        launches.update({k: v for k, v in c.items() if v})
+    return summary, launches
+
+
+def train_phase(d, da):
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    cfg = load_config_file(CONFIG)
+    cycle = cfg["update_cycle"]
+    counters = (fa.launches, ff.launches, da.launches)
+    results = {}
+    for flags in ("true", "false"):
+        out = os.path.join(d, "train_" + flags)
+        summary, launches = train_run(d, out, flags, counters)
+        steps = summary["steps"]
+        if steps != TRAIN_STEPS:
+            raise AssertionError("trained %d steps, wanted %d"
+                                 % (steps, TRAIN_STEPS))
+        if not all(math.isfinite(x) for x in summary["losses"]):
+            raise AssertionError("non-finite loss: %s" % summary["losses"])
+        want = (expected_launches(cfg, cycle * steps)
+                if flags == "true" else {})
+        if launches != want:
+            raise AssertionError("train (flags %s) launches %s, expected %s "
+                                 "(no plain version)" % (flags, launches,
+                                                         want))
+        ends = summary["step_end_times"]
+        step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
+        ms = 1e3 * step_s[len(step_s) // 2]
+        tokens = summary["target_tokens"]
+        flops = [model_flops(s, cfg) for s in summary["shapes"]]
+        timed = sum(b - a for a, b in zip(ends[:-1], ends[1:]))
+        tok_s = sum(tokens[1:]) / timed
+        mfu = sum(flops[1:]) / timed / PEAK_BF16
+        results[flags] = dict(
+            kernels=flags == "true", steps=steps, ms_per_step_median=ms,
+            ms_per_step_mean=1e3 * timed / (steps - 1),
+            target_tokens_per_s=tok_s,
+            model_tflop_per_step=sum(flops) / steps / 1e12, mfu=mfu,
+            loss_first=summary["losses"][0], loss_last=summary["losses"][-1],
+            gnorm_first=summary["gnorms"][0],
+            gnorm_last=summary["gnorms"][-1], launches=launches,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        phase("train", **results[flags])
+        torch.cuda.reset_peak_memory_stats()
+    # the kernel run's checkpoint serves through --mode test
+    from zero_tpu_torch import run
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
+            "output_dir={0}/train_true,test_output={0}/trained.txt,"
+            "eval_batch_size=32".format(d))
+    served = run.main(["--mode", "test", "--parameters", spec])
+    with open(os.path.join(d, "trained.txt")) as r:
+        lines = r.read().splitlines()
+    if len(lines) != 64 or served["sentences"] != 64:
+        raise AssertionError("served %d lines of the trained model"
+                             % len(lines))
+    # and scores it through --mode score (the saved param.json keeps both
+    # kernel flags on, so the forward runs the kernels)
+    scores, ppl = run.main(["--mode", "score", "--parameters", spec.replace(
+        "trained.txt", "scores.txt")])
+    if len(scores) != 64 or not all(map(math.isfinite, scores)):
+        raise AssertionError("scored %d sentences: %s" % (len(scores),
+                                                          scores[:4]))
+    phase("train", served_sentences=len(lines), served_bleu=served["bleu"],
+          served_s=served["seconds"], scored_sentences=len(scores),
+          score_ppl=ppl)
+    return results["true"]["launches"]
+
+
+def _small_model(dropout):
+    from zero_tpu_torch.config import default_config
+    from zero_tpu_torch.vocab import Vocab
+
+    cfg = default_config()
+    for k, v in dict(model_name="transformer", hidden_size=64, embed_size=64,
+                     filter_size=128, num_heads=4, num_encoder_layer=2,
+                     num_decoder_layer=2, initializer="uniform_unit_scaling",
+                     initializer_gain=1.0, use_flash_attention=True,
+                     use_fused_ffn=True, dropout=dropout,
+                     attention_dropout=dropout, relu_dropout=dropout,
+                     residual_dropout=dropout, label_smooth=0.1,
+                     loss_chunk_tokens=16).items():
+        setattr(cfg, k, v)
+    vocab = Vocab()
+    for i in range(40):
+        vocab.insert("w%d" % i)
+    cfg.src_vocab = cfg.tgt_vocab = vocab
+    return cfg
+
+
+def _small_batch():
+    rs = np.random.RandomState(SEED)
+    src = rs.randint(3, 43, (6, 12))
+    tgt = rs.randint(3, 43, (6, 9))
+    for i, (ns, nt) in enumerate(zip(rs.randint(3, 12, 6),
+                                     rs.randint(2, 9, 6))):
+        src[i, ns:] = 0
+        tgt[i, nt:] = 0
+    src[-1] = 0   # an all-pad row
+    tgt[-1] = 0
+    return {"source": torch.as_tensor(src), "target": torch.as_tensor(tgt)}
+
+
+def train_reference_phase():
+    """train_fn on the card (kernels) against the CPU (plain versions)."""
+    import copy
+
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    model = get_model("transformer")
+    feats = _small_batch()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    cfg = _small_model(0.0)
+    cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+    gpu = copy.deepcopy(cpu).cuda()
+    fa.launches.clear()
+    ff.launches.clear()
+    lc = model.train_fn(cpu, feats, cfg, None)["loss"]
+    gc = torch.autograd.grad(lc, list(cpu.parameters()))
+    lg = model.train_fn(gpu, gfeats, cfg, None)["loss"]
+    gg = torch.autograd.grad(lg, list(gpu.parameters()))
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    # each grad relative to its max |grad|, floored at 1e-3 of the model's
+    # largest: the cross-attention key bias has an exactly zero gradient
+    # in exact arithmetic (softmax ignores a per-row constant), so both
+    # sides hold rounding noise there
+    names = [n for n, _ in cpu.named_parameters()]
+    top = max(b.abs().max().item() for b in gc)
+    scale = {n: max(b.abs().max().item(), 1e-3 * top)
+             for n, b in zip(names, gc)}
+    errs = {n: (a.cpu() - b).abs().max().item() / scale[n]
+            for n, a, b in zip(names, gg, gc)}
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4
+            and fa.launches["fused_attention_backward"] == 6
+            and ff.launches["fused_ffn_backward"] == 4):
+        raise AssertionError("train_reference: loss rel err %.3g, grad rel "
+                             "err %.3g (%s, max |grad| %.3g), launches %s %s"
+                             % (loss_err, grad_err, worst, scale[worst],
+                                dict(fa.launches), dict(ff.launches)))
+
+    # dropout on: kernels against plain versions on the card, same words
+    cfg = _small_model(0.1)
+
+    def plain_attention(q, k, v, pad_mask=None, *, causal=False,
+                        dropout_rate=0.0, rng=None):
+        pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+               if pad_mask is None else pad_mask.float())
+        rate = dropout_rate if rng is not None else 0.0
+        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng)
+
+    def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0):
+        y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
+                             rate)
+        return y.reshape(*x.shape[:-1], w2.shape[1])
+
+    losses = []
+    for plain in (False, True):
+        with mock.patch.object(fa, "fused_attention",
+                               plain_attention if plain
+                               else fa.fused_attention), \
+                mock.patch.object(ff, "fused_ffn",
+                                  plain_ffn if plain else ff.fused_ffn):
+            loss = model.train_fn(gpu, gfeats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+        losses.append(loss.item())
+    drop_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    if not drop_err <= 1e-5:
+        raise AssertionError("train_reference: dropout-on loss kernels %r "
+                             "vs plain %r" % tuple(losses))
+    phase("train_reference", loss_rel_err=loss_err, grad_rel_err=grad_err,
+          dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
+          dropout_rel_err=drop_err)
+
+
+def converge_phase(d):
+    """The copy task through --mode train on the card, both flags on."""
+    from zero_tpu_torch import run
+
+    rs = np.random.RandomState(3)
+    words = ["tok%d" % i for i in range(12)]
+    with open(os.path.join(d, "vocab.txt"), "w") as w:
+        w.write("\n".join(["<pad>", "<unk>", "<eos>"] + words) + "\n")
+    for name, n in (("train", 400), ("dev", 16), ("test", 16)):
+        lines = [" ".join(rs.choice(words, rs.randint(3, 8)))
+                 for _ in range(n)]
+        for side in ("src", "tgt"):
+            with open(os.path.join(d, "%s.%s" % (name, side)), "w") as w:
+                w.write("\n".join(lines) + "\n")
+    spec = ("model_name=transformer,hidden_size=32,embed_size=32,"
+            "filter_size=64,num_heads=2,num_encoder_layer=1,"
+            "num_decoder_layer=1,dropout=0.0,residual_dropout=0.0,"
+            "relu_dropout=0.0,attention_dropout=0.0,max_len=16,"
+            "batch_or_token=batch,batch_size=32,eval_batch_size=16,"
+            "beam_size=2,decode_length=12,decode_max_len=24,lrate=3e-3,"
+            "lrate_strategy=vanilla,max_training_steps=700,disp_freq=200,"
+            "save_freq=300,eval_freq=350,sample_freq=300,epoches=200,"
+            "pad_seq_multiple=4,pad_batch_multiple=4,"
+            "use_flash_attention=true,use_fused_ffn=true,"
+            "src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
+            "src_dev_file={0}/dev.src,tgt_dev_file={0}/dev.tgt,"
+            "output_dir={0}/out".format(d))
+    t0 = time.time()
+    summary = run.main(["--mode", "train", "--parameters", spec])
+    if not (summary["bleu"] is not None and summary["bleu"] >= 0.95):
+        raise AssertionError("copy task BLEU %s < 0.95" % summary["bleu"])
+    phase("converge", steps=summary["steps"], bleu=summary["bleu"],
+          loss_last=summary["losses"][-1], wall_s=time.time() - t0)
+
+
+PHASES = ("device", "build", "kernels", "train_kernels", "serve",
+          "reference", "train", "train_reference", "converge")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("chip_smoke")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of %s (device and "
+                        "build always run; a subset prints no summary "
+                        "lines)" % ",".join(PHASES))
+    args = parser.parse_args(argv)
+    todo = set(args.phases.split(","))
+    unknown = todo - set(PHASES)
+    if unknown:
+        parser.error("unknown phases %s" % sorted(unknown))
+    full = todo == set(PHASES)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from zero_tpu_torch.ops.kernels import cuda_build
     from zero_tpu_torch.ops.kernels import decode_attention as da
 
-    # 1. device
+    # device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -364,52 +947,86 @@ def main():
           matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_tf32=torch.backends.cudnn.allow_tf32)
 
-    # 2. build
+    # build: one nvcc per source, all at once
+    sources = ("decode_attention", "fused_attention", "fused_ffn")
     t0 = time.time()
-    lib = da.build()
-    da._library()
-    with open(lib + ".log") as r:
-        ptxas = [line.strip() for line in r if "registers" in line]
-    phase("build", seconds=time.time() - t0, library=os.path.relpath(lib, REPO),
-          ptxas=ptxas)
+    libs = cuda_build.build(*sources)
+    for name in sources:
+        cuda_build.load(name)
+    phase("build", seconds=time.time() - t0,
+          libraries=[os.path.relpath(libs[n], REPO) for n in sources],
+          ptxas={n: cuda_build.ptxas_report(n) for n in sources})
 
-    # 3. kernels
-    rows = kernels_phase(da)
+    rows, train_rows, launches = {}, {}, {}
+    if "kernels" in todo:
+        rows = kernels_phase(da)
+    if "train_kernels" in todo:
+        train_rows = train_kernels_phase()
 
-    # 4./5. serve transformer-base with random weights
     from zero_tpu_torch.config import default_config, load_config_file
     from zero_tpu_torch.models import get_model
     from zero_tpu_torch.saver import Saver
     from zero_tpu_torch.vocab import Vocab
 
     with tempfile.TemporaryDirectory() as d:
-        write_corpus(d)
-        cfg = default_config().override_from_dict(load_config_file(CONFIG))
-        cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
-        weights = get_model("transformer").init_fn(
-            torch.Generator().manual_seed(SEED), cfg)
-        Saver(output_dir=os.path.join(d, "model")).save({"params": weights},
-                                                         step=0)
-        del weights
-        pool_launches = serve_phase(da, d, 4, "decode_pool_attention")
-        dense_launches = serve_phase(da, d, 1, "decode_attention")
+        words = write_corpus(d)
+        if "serve" in todo:
+            # serve transformer-base with random weights
+            cfg = default_config().override_from_dict(
+                load_config_file(CONFIG))
+            cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d,
+                                                               "vocab.txt"))
+            weights = get_model("transformer").init_fn(
+                torch.Generator().manual_seed(SEED), cfg)
+            Saver(output_dir=os.path.join(d, "model")).save(
+                {"params": weights}, step=0)
+            del weights
+            launches["decode_pool_attention"] = serve_phase(
+                da, d, 4, "decode_pool_attention")
+            launches["decode_attention"] = serve_phase(
+                da, d, 1, "decode_attention")
+        if "reference" in todo:
+            reference_phase(da)
+        if "train" in todo:
+            write_train_corpus(d, words)
+            launches.update(train_phase(d, da))
+    if "train_reference" in todo:
+        train_reference_phase()
+    if "converge" in todo:
+        with tempfile.TemporaryDirectory() as d:
+            converge_phase(d)
+    if not full:
+        return 0
 
-    # 6. reference
-    reference_phase(da)
-
-    src = "zero_tpu_torch/csrc/decode_attention.cu"
-    replaced = "zero_tpu/ops/kernels/decode_attention.py:%d"
     kernels = []
-    for name, line, launches in (
-            ("decode_pool_attention", 288, pool_launches),
-            ("decode_attention", 366, dense_launches)):
+    decode_src = "zero_tpu_torch/csrc/decode_attention.cu"
+    for name, line in (("decode_pool_attention", 288),
+                       ("decode_attention", 366)):
         r = rows[(name, torch.bfloat16)]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaced % line, launches=launches,
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=decode_src,
+            replaces="zero_tpu/ops/kernels/decode_attention.py:%d" % line,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # training kernels: bf16 at rate 0.1, as the train phase runs them;
+    # attention at the encoder self-attention case; the library yardstick
+    # is timed with dropout off
+    for name, source, replaces, key in (
+            ("fused_attention", "fused_attention.cu", "fused_attention.py:488",
+             ("self_pad",)),
+            ("fused_attention_backward", "fused_attention.cu",
+             "fused_attention.py:525", ("self_pad",)),
+            ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", ()),
+            ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214", ())):
+        r = train_rows[(name,) + key + (torch.bfloat16, 0.1)]
+        lib = train_rows[(name,) + key + (torch.bfloat16, 0.0)]["library_ms"]
+        kernels.append(dict(
+            name=name, route="cuda", source="zero_tpu_torch/csrc/" + source,
+            replaces="zero_tpu/ops/kernels/" + replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=lib))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

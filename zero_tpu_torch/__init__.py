@@ -10,12 +10,15 @@ easy to find:
                                  hand-written CUDA kernels
   models/                        model zoo (registry by name)
   search.py                      beam search
-  saver.py                       checkpoints in the JAX npz layout
-  train.py evalu.py metric.py    eval driver, decode loop, BLEU
-  run.py                         CLI (``--mode test``)
+  train_step.py lrs.py           train step (Adam, clipping, EMA), LR
+                                 schedules
+  saver.py recorder.py           checkpoints in the JAX npz layout, resume
+                                 bookkeeping
+  train.py evalu.py metric.py    train/eval/score loops, decode loop, BLEU
+  run.py                         CLI (``--mode train|test|score``)
 
-Ported so far: the serving path of the post-LN Transformer. Importing the
-package registers its models.
+Ported so far: training, scoring and serving of the post-LN Transformer on
+one device. Importing the package registers its models.
 """
 
 from zero_tpu_torch import models  # noqa: F401  (registers the models)

@@ -24,8 +24,8 @@ class Config:
 
     Mirrors the small slice of tf.contrib HParams the reference relies on:
     attribute access, ``parse("k=v,k2=v2")`` command-line overrides with
-    type coercion against the default, ``override_from_dict``, and reading
-    a saved ``param.json`` (reference run.py:262-272, 333-340).
+    type coercion against the default, ``override_from_dict``, and JSON
+    (de)serialisation of ``param.json`` (reference run.py:262-272, 333-340).
     """
 
     def __init__(self, **kwargs: Any):
@@ -53,6 +53,9 @@ class Config:
 
     def values(self) -> Dict[str, Any]:
         return dict(self._values)
+
+    def add_param(self, name: str, value: Any) -> None:
+        self._values[name] = value
 
     # -- merging ----------------------------------------------------------
     def parse(self, spec: str) -> "Config":
@@ -104,6 +107,15 @@ class Config:
     # -- persistence --------------------------------------------------------
     def parse_json(self, s: str) -> "Config":
         return self.override_from_dict(json.loads(s))
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {k: v for k, v in self._values.items() if _is_jsonable(v)},
+            indent=2, sort_keys=True)
+
+
+def _is_jsonable(v: Any) -> bool:
+    return isinstance(v, (int, float, str, bool, type(None), list, tuple, dict))
 
 
 def _coerce(raw: str, default: Any) -> Any:
@@ -416,15 +428,16 @@ def default_config() -> Config:
         coarse_label_base=-1,      # CoLaCTC label base; -1 disables
         sinusoid_posenc=True,
         max_frame_len=2048,
-        # fused Pallas attention kernel; off by default: measured on TPU
-        # v5e, XLA's batched attention beats the per-head fused kernel at
-        # MT sequence lengths (<=256); the kernel remains available for
-        # experimentation and long-context extension work
+        # training and scoring attention through the CUDA kernels of
+        # ops/kernels/fused_attention.py (their plain PyTorch version for
+        # CPU tensors); off by default, as in the JAX package, until the
+        # kernels win on the card (PERF.md)
         use_flash_attention=False,
         flash_block_size=256,
-        # fused FFN kernel (kernels/fused_ffn.py): the [tokens, filter]
-        # hidden tile stays in VMEM and the dropout mask regenerates in
-        # the backward; opt-in pending a measured win (docs/kernels.md)
+        # training and scoring FFNs through the CUDA kernels of
+        # ops/kernels/fused_ffn.py: the [tokens, filter] hidden tile stays
+        # on chip in the forward and the dropout mask regenerates in the
+        # backward; off by default until it wins on the card (PERF.md)
         use_fused_ffn=False,
         # decode self-attention through the CUDA kernels of
         # ops/kernels/decode_attention.py (their plain PyTorch versions
@@ -441,6 +454,13 @@ def default_config() -> Config:
         # "cpu"; "cuda" without a GPU raises instead of moving to the CPU
         device="cuda",
     )
+
+
+def save_parameters(params: Config, output_dir: str) -> None:
+    """Persist params to ``output_dir/param.json``."""
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "param.json"), "w") as w:
+        w.write(params.to_json())
 
 
 def load_parameters(params: Config, output_dir: str) -> Config:

@@ -31,42 +31,19 @@
 // Interface: a plain C function, loaded with ctypes; it returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "zt_common.cuh"
 
 namespace {
+
+using zt::from_float;
+using zt::to_float;
+using zt::warp_max;
+using zt::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // head depth is at most 32 * kMaxPerLane = 256 (checked by the wrapper)
 constexpr int kMaxPerLane = 8;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // Block-wide max or sum; every thread gets the result.
 template <bool kMax>

@@ -1,10 +1,10 @@
 """Host-side decode loop and metric glue.
 
-A copy of the decoding part of ``zero_tpu/evalu.py`` (the port imports
+A copy of the decoding and scoring parts of ``zero_tpu/evalu.py`` (the port imports
 nothing of the JAX package): batch iteration with prefetching, top-1-of-beam
 extraction, id->token detok stopping at eos/pad, multi-reference file
-discovery ``path.ref0..N`` and the index-ordered translation dump. Scoring
-comes with the training slice.
+discovery ``path.ref0..N``, the index-ordered translation dump, and
+teacher-forced scoring (per-sentence scores, corpus perplexity).
 """
 
 from __future__ import annotations
@@ -72,6 +72,38 @@ def decoding(decode_fn, dataset, params):
                  time.time() - start, len(translations),
                  time.time() - very_begin)
     return translations, scores, indices
+
+
+def scoring(score_fn, dataset, params):
+    """Teacher-forced scoring; returns (index-ordered scores, corpus ppl).
+
+    score_fn(batch_dict) -> [B] per-sentence mean losses."""
+    scores, indices = [], []
+    total_entropy = 0.0
+    total_tokens = 0.0
+    queue = Prefetcher(
+        lambda: dataset.batcher(params.eval_batch_size,
+                                buffer_size=params.buffer_size,
+                                shuffle=False, train=False),
+        maxsize=params.output_queue_size)
+
+    for bidx, data in enumerate(queue):
+        start = time.time()
+        out = np.asarray(score_fn(data))
+        n_valid = len(data["raw"])
+        out = out[:n_valid]
+        tgt = data["tgt"][:n_valid]
+        total_entropy += sum(
+            s * float((d > 0).sum()) for d, s in zip(tgt, out.tolist()))
+        total_tokens += float((tgt > 0).sum())
+        scores.extend(out.tolist())
+        indices.extend(data["index"])
+        log.info("Scoring Batch %d using %.3f s, %d sentences", bidx,
+                 time.time() - start, len(scores))
+
+    scores = [s for _, s in sorted(zip(indices, scores), key=lambda x: x[0])]
+    ppl = float(np.exp(total_entropy / max(total_tokens, 1.0)))
+    return scores, ppl
 
 
 def fetch_valid_ref_files(path: str) -> Optional[List[str]]:

@@ -18,8 +18,13 @@ Counterpart of ``zero_tpu/models/base.py``. A model registers
       reorder_cache(cache, beam_indices [B, K], batch, beam_size, time,
                     span=1) -> cache
 
-``time`` is a host int. The training and scoring functions of the JAX
-contract come with the training slice.
+  train_fn(params, features, cfg, gen, step=0) -> {'loss': scalar}
+      (features: {'source', 'target'} [B, L] int; gen: a torch.Generator
+      seeding the dropout sites, or None for no dropout)
+  score_fn(params, features, cfg)          -> {'score': [B]} (no dropout,
+                                              no label smoothing)
+
+``time`` is a host int.
 """
 
 from __future__ import annotations
@@ -38,16 +43,18 @@ class Inference(NamedTuple):
 
 class ModelSpec(NamedTuple):
     init_fn: Callable
+    train_fn: Callable
+    score_fn: Callable
     infer_fn: Callable
 
 
 _REGISTRY = {}
 
 
-def model_register(name: str, init_fn, infer_fn) -> None:
+def model_register(name: str, init_fn, train_fn, score_fn, infer_fn) -> None:
     if name in _REGISTRY:
         raise ValueError("Model name %r is already registered" % name)
-    _REGISTRY[name] = ModelSpec(init_fn, infer_fn)
+    _REGISTRY[name] = ModelSpec(init_fn, train_fn, score_fn, infer_fn)
 
 
 def get_model(name: str) -> ModelSpec:

@@ -1,8 +1,8 @@
-"""Shared transformer-family skeleton: embeddings, the encoder driver and
-the static-cache inference API.
+"""Shared transformer-family skeleton: embeddings, encoder/decoder stacks,
+the loss, and the static-cache inference API.
 
-Counterpart of ``zero_tpu/models/common.py`` (inference half). Variants
-supply a ``LayerHooks`` bundle and share one skeleton. Semantics kept:
+Counterpart of ``zero_tpu/models/common.py``. Variants supply a
+``LayerHooks`` bundle and share one skeleton. Semantics kept:
   * embeddings scaled by sqrt(hidden) plus one bias shared between source
     and target sides
   * decoder-input shift-right after the bias add, so position 0's input is
@@ -10,6 +10,13 @@ supply a ``LayerHooks`` bundle and share one skeleton. Semantics kept:
   * sharing flags: shared_source_target_embedding ties all three tables;
     shared_target_softmax_embedding ties softmax to target
   * logits of the tied softmax in the compute dtype, returned as fp32
+  * label-smoothed CE minus normalizer, per-sentence mean then batch mean,
+    in fp32, over chunks of ``loss_chunk_tokens`` positions whose logits
+    are recomputed in the backward (``chunked_tied_ce``)
+  * fp32 master parameters: the loss casts them to the compute dtype with
+    a differentiable cast, so the gradients reach the fp32 parameters
+
+``scan_layers`` and ``use_remat`` are a later slice: both raise.
 """
 
 from __future__ import annotations
@@ -17,20 +24,23 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from zero_tpu_torch import dtypes
 from zero_tpu_torch.models.base import Inference
 from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
+from zero_tpu_torch.ops.common import RngGen, dropout
 
 
 class LayerHooks(NamedTuple):
-    """Per-variant layer constructors/applications (inference: no dropout)."""
+    """Per-variant layer constructors/applications. Training hooks take a
+    dropout-seed source ``rngs`` (RngGen); decode hooks are dropout-free."""
     init_enc_layer: Callable  # (gen, cfg, layer) -> module
-    enc_layer: Callable       # (p, x, src_keep, cfg) -> x
+    enc_layer: Callable       # (p, x, src_keep, cfg, rngs) -> x
     init_dec_layer: Callable  # (gen, cfg, layer) -> module
-    dec_layer_train: Callable  # (p, x, state, self_keep, mem_keep, cfg) -> x
+    dec_layer_train: Callable  # (p, x, state, self_keep, mem_keep, cfg, rngs, tgt_mask) -> x
     dec_layer_precompute: Callable  # (p, encodes, cfg) -> layer_state
     init_dec_layer_cache: Callable  # (p, batch, max_len, cfg, dtype, device) -> cache
     dec_layer_step: Callable  # (p, x_t, layer_state, state, cache, time, cfg) -> (x_t, cache)
@@ -57,6 +67,11 @@ class Seq2Seq(torch.nn.Module):
             self.register_parameter(name, torch.nn.Parameter(t))
         self.encoder = torch.nn.ModuleList(encoder)
         self.decoder = torch.nn.ModuleList(decoder)
+
+    def forward(self, fn):
+        """fn(self): lets torch.func.functional_call run a function of the
+        module on substituted (compute-dtype) parameters."""
+        return fn(self)
 
 
 def config_initializer(cfg):
@@ -124,38 +139,132 @@ def output_logits(feature, softmax_table):
     return logits.float()
 
 
+def _chunk_ce(xc, lc, table, factor):
+    return ops_common.smoothed_centropy_reduced(output_logits(xc, table), lc,
+                                                factor)
+
+
+def chunked_tied_ce(feature, soft_table, labels, factor, chunk_tokens):
+    """Per-position label-smoothed CE without keeping the full logits: the
+    [B*L, V] positions run in ``chunk_tokens``-row chunks, and under
+    autograd each chunk is checkpointed, so the backward recomputes its
+    logits instead of storing them. Per-position math is that of
+    smoothed_centropy(output_logits(...)). feature: [B, L, d]; returns
+    centropy [B, L] fp32."""
+    b, l, d = feature.shape
+    n = b * l
+    xf = feature.reshape(n, d)
+    lf = labels.reshape(n).long()
+    chunk = max(1, min(int(chunk_tokens), n))
+    pad = (-n) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))])
+        lf = torch.cat([lf, lf.new_zeros((pad,))])
+    grad = torch.is_grad_enabled()
+    cents = []
+    for c0 in range(0, n + pad, chunk):
+        args = (xf[c0:c0 + chunk], lf[c0:c0 + chunk], soft_table, factor)
+        cents.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
+                     if grad else _chunk_ce(*args))
+    return torch.cat(cents)[:n].reshape(b, l)
+
+
+def ce_from_feature(feature, soft_table, labels, mask, cfg, factor):
+    """Tied-softmax label-smoothed CE from decoder features: chunked when
+    cfg.loss_chunk_tokens > 0, full logits otherwise. Returns (scalar loss,
+    per-sentence [B])."""
+    chunk = int(getattr(cfg, "loss_chunk_tokens", 0) or 0)
+    if chunk > 0:
+        return ops_common.sentence_mean_loss(
+            chunked_tied_ce(feature, soft_table, labels, factor, chunk),
+            mask)
+    return ops_common.label_smooth_loss(output_logits(feature, soft_table),
+                                        labels, mask, factor)
+
+
+def check_ported(cfg):
+    """Raise on training options of a later slice instead of ignoring
+    them."""
+    for key in ("scan_layers", "use_remat"):
+        if bool(getattr(cfg, key, False)):
+            raise NotImplementedError(
+                "%s=true is not ported to zero_tpu_torch yet: it comes with "
+                "a later slice" % key)
+
+
 # ---------------------------------------------------------------------------
 # skeleton model
 # ---------------------------------------------------------------------------
 
 def make_transformer(hooks: LayerHooks):
-    """Build (init_fn, infer_fn) from layer hooks."""
+    """Build (init_fn, train_fn, score_fn, infer_fn) from layer hooks."""
 
     def init_fn(gen, cfg) -> Seq2Seq:
-        params = Seq2Seq(
+        return Seq2Seq(
             init_embeddings(gen, cfg),
             [hooks.init_enc_layer(gen, cfg, l)
              for l in range(cfg.num_encoder_layer)],
             [hooks.init_dec_layer(gen, cfg, l)
              for l in range(cfg.num_decoder_layer)])
-        # inference slice: no parameter takes gradients yet
-        return params.requires_grad_(False)
 
-    def _encode(params, source, cfg, dtype):
+    def _encode(params, source, cfg, rngs, dtype, training):
         mask = (source != 0).to(dtype)
         src_table, _, _ = emb_tables(params, cfg)
         x = embed_scaled(src_table, source, params.emb_bias, cfg, dtype)
         x = nn.add_timing_signal(x)
+        x = dropout(rngs(), x, cfg.dropout if training else None)
         src_keep = nn.masking_mask(mask)
         for p in params.encoder:
-            x = hooks.enc_layer(p, x, src_keep, cfg)
+            x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
         return {"encodes": x, "mask": mask}
+
+    def _decode_train(params, target, state, cfg, rngs, dtype, training):
+        mask = (target != 0).to(dtype)
+        _, tgt_table, soft_table = emb_tables(params, cfg)
+        x = embed_scaled(tgt_table, target, params.emb_bias, cfg, dtype)
+        x = shift_right(x)
+        x = nn.add_timing_signal(x)
+        x = dropout(rngs(), x, cfg.dropout if training else None)
+        self_keep = nn.causal_mask(target.shape[1], device=target.device)
+        mem_keep = nn.masking_mask(state["mask"])
+        for p in params.decoder:
+            x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep, cfg,
+                                      rngs, mask)
+        return x, soft_table, mask
+
+    def _loss(params, features, cfg, gen, training, label_smooth):
+        """Cast the fp32 parameters to the compute dtype (differentiably),
+        encode, decode, CE. Returns (scalar loss, per-sentence [B])."""
+        check_ported(cfg)
+        dtype = dtypes.compute_dtype(cfg)
+
+        def body(cparams):
+            rngs = RngGen(gen if training else None)
+            state = _encode(cparams, features["source"], cfg, rngs, dtype,
+                            training)
+            feature, soft_table, mask = _decode_train(
+                cparams, features["target"], state, cfg, rngs, dtype,
+                training)
+            return ce_from_feature(feature, soft_table, features["target"],
+                                   mask, cfg, label_smooth)
+
+        cast = {name: p.to(dtype) for name, p in params.named_parameters()}
+        return torch.func.functional_call(params, cast, (body,))
+
+    def train_fn(params, features, cfg, gen, step=0):
+        loss, _ = _loss(params, features, cfg, gen, True, cfg.label_smooth)
+        return {"loss": loss}
+
+    def score_fn(params, features, cfg):
+        # dropout off, label smoothing off
+        _, per_sample = _loss(params, features, cfg, None, False, 0.0)
+        return {"score": per_sample}
 
     def infer_fn(cfg):
         dtype = dtypes.compute_dtype(cfg)
 
         def encode(params, source):
-            state = _encode(params, source, cfg, dtype)
+            state = _encode(params, source, cfg, RngGen(None), dtype, False)
             # per-layer beam-invariant decode state (cross mk/mv)
             state["layers"] = [
                 hooks.dec_layer_precompute(p, state["encodes"], cfg)
@@ -253,13 +362,14 @@ def make_transformer(hooks: LayerHooks):
             self_keep = nn.causal_mask(tgt_buffer.shape[1],
                                        device=tgt_buffer.device)
             mem_keep = nn.masking_mask(state["mask"])
+            mask = torch.ones_like(tgt_buffer).to(dtype)
             for p in params.decoder:
                 x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep,
-                                          cfg)
+                                          cfg, RngGen(None), mask)
             return output_logits(x[:, time], soft_table)
 
         return Inference(encode=encode, init_cache=init_cache,
                          decode_step=decode_step, decode_prefix=decode_prefix,
                          reorder_cache=reorder_cache)
 
-    return init_fn, infer_fn
+    return init_fn, train_fn, score_fn, infer_fn

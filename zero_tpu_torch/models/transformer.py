@@ -2,8 +2,10 @@
 
 Counterpart of ``zero_tpu/models/transformer.py``: encoder layer =
 self-attention -> residual+LN -> FFN -> residual+LN; the decoder adds
-causal self-attention and cross attention; weight-tied softmax. Inference
-only in this slice (no dropout).
+causal self-attention and cross attention; weight-tied softmax. Training
+layers take a dropout-seed source ``rngs`` (ops/common.py:RngGen) and route
+attention and the FFN through the fused kernels when use_flash_attention /
+use_fused_ffn are set.
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ def init_enc_layer(gen, cfg, layer):
     })
 
 
-def enc_layer(p, x, src_keep, cfg):
-    y = attention.attn_train(p.self, x, None, src_keep,
-                             cfg.num_heads)["output"]
-    x = nn.layer_norm(p.ln1, x + y)
-    y = nn.ffn(p.ffn, x)
-    return nn.layer_norm(p.ln2, x + y)
+def enc_layer(p, x, src_keep, cfg, rngs):
+    # src_keep is masking_mask(mask) == [B,1,1,S]; the fused kernel takes
+    # the [B,S] pad mask
+    y = attention.attn_train(p.self, x, None, src_keep, cfg.num_heads,
+                             rng=rngs(), drop=cfg.attention_dropout,
+                             use_flash=cfg.use_flash_attention,
+                             pad_mask=src_keep[:, 0, 0, :])["output"]
+    x = nn.layer_norm(p.ln1, nn.residual_fn(x, y, rngs(),
+                                            cfg.residual_dropout))
+    y = nn.ffn(p.ffn, x, rngs(), cfg.relu_dropout, fused=cfg.use_fused_ffn)
+    return nn.layer_norm(p.ln2, nn.residual_fn(x, y, rngs(),
+                                               cfg.residual_dropout))
 
 
 def init_dec_layer(gen, cfg, layer):
@@ -48,15 +56,23 @@ def init_dec_layer(gen, cfg, layer):
     })
 
 
-def dec_layer_train(p, x, state, self_keep, mem_keep, cfg):
-    y = attention.attn_train(p.self, x, None, self_keep,
-                             cfg.num_heads)["output"]
-    x = nn.layer_norm(p.ln1, x + y)
+def dec_layer_train(p, x, state, self_keep, mem_keep, cfg, rngs, tgt_mask):
+    y = attention.attn_train(p.self, x, None, self_keep, cfg.num_heads,
+                             rng=rngs(), drop=cfg.attention_dropout,
+                             use_flash=cfg.use_flash_attention,
+                             causal=True)["output"]
+    x = nn.layer_norm(p.ln1, nn.residual_fn(x, y, rngs(),
+                                            cfg.residual_dropout))
     y = attention.attn_train(p.cross, x, state["encodes"], mem_keep,
-                             cfg.num_heads)["output"]
-    x = nn.layer_norm(p.ln2, x + y)
-    y = nn.ffn(p.ffn, x)
-    return nn.layer_norm(p.ln3, x + y)
+                             cfg.num_heads, rng=rngs(),
+                             drop=cfg.attention_dropout,
+                             use_flash=cfg.use_flash_attention,
+                             pad_mask=mem_keep[:, 0, 0, :])["output"]
+    x = nn.layer_norm(p.ln2, nn.residual_fn(x, y, rngs(),
+                                            cfg.residual_dropout))
+    y = nn.ffn(p.ffn, x, rngs(), cfg.relu_dropout, fused=cfg.use_fused_ffn)
+    return nn.layer_norm(p.ln3, nn.residual_fn(x, y, rngs(),
+                                               cfg.residual_dropout))
 
 
 def dec_layer_precompute(p, encodes, cfg):
@@ -91,6 +107,6 @@ HOOKS = common.LayerHooks(
     dec_layer_step=dec_layer_step,
 )
 
-init_fn, infer_fn = common.make_transformer(HOOKS)
+init_fn, train_fn, score_fn, infer_fn = common.make_transformer(HOOKS)
 
-model_register("transformer", init_fn, infer_fn)
+model_register("transformer", init_fn, train_fn, score_fn, infer_fn)

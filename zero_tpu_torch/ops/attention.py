@@ -1,5 +1,5 @@
-"""Multi-head attention: full-sequence (encoder, ``decode_prefix``) and
-static-cache decoding.
+"""Multi-head attention: full-sequence (training, scoring, the encoder,
+``decode_prefix``) and static-cache decoding.
 
 Counterpart of ``zero_tpu/ops/attention.py`` for the post-LN Transformer:
 the softmax path. The decode KV cache is PREALLOCATED at [B, T_max, hidden]
@@ -15,9 +15,11 @@ from typing import Optional
 
 import torch
 
+from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.kernels import decode_attention as da
+from zero_tpu_torch.ops.kernels import fused_attention as fa
 
 NEG_INF = da.NEG_INF
 
@@ -74,8 +76,9 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
-def _attn_core(q, k, v, keep_mask, num_heads):
-    """Softmax attention on [B, L, hidden] projections.
+def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None):
+    """Softmax attention on [B, L, hidden] projections, with dropout on the
+    weights (8-bit threshold masks of ops/common.py:dropout).
 
     keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block.
     Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
@@ -88,21 +91,46 @@ def _attn_core(q, k, v, keep_mask, num_heads):
     if keep_mask is not None:
         logits = torch.where(keep_mask > 0, logits, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
-    o = torch.matmul(weights.to(q.dtype), vh)
+    dweights = common.dropout(rng, weights, drop).to(q.dtype)
+    o = torch.matmul(dweights, vh)
     return combine_heads(o), weights
 
 
-def attn_train(params: Attention, query, memory, keep_mask, num_heads):
+def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
+               rng=None, drop=None, use_flash=False, causal=False,
+               pad_mask=None):
     """Full-sequence attention; memory=None -> self-attention through the
-    fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0. Returns
-    {'output', 'weights'}."""
+    fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0; the caller
+    combines causal and padding.
+
+    use_flash routes through the fused kernels of
+    ops/kernels/fused_attention.py (their plain version for CPU tensors),
+    whose mask is the causal flag plus the key-side [B, Lk] ``pad_mask``
+    the caller declares. Keys beyond the fused kernel's 8192 raise: the
+    JAX package streams them through kernels #5-#7, not ported yet.
+    Returns {'output', 'weights'} (weights None on the fused path)."""
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
     else:
         q = nn.linear(params.q, query)
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
-    o, weights = _attn_core(q, k, v, keep_mask, num_heads)
+    if use_flash:
+        if k.shape[1] > fa.MAX_LK:
+            raise NotImplementedError(
+                "attention over %d > %d keys needs the streaming-attention "
+                "kernels (#5-#7 of zero_tpu/ops/kernels/"
+                "streaming_attention.py), not ported yet"
+                % (k.shape[1], fa.MAX_LK))
+        drop_rate = float(drop) if (drop and rng is not None) else 0.0
+        o = fa.fused_attention(split_heads(q, num_heads),
+                               split_heads(k, num_heads),
+                               split_heads(v, num_heads), pad_mask,
+                               causal=causal, dropout_rate=drop_rate, rng=rng)
+        o, weights = combine_heads(o.to(q.dtype)), None
+    else:
+        o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
+                                drop=drop)
     return {"output": _out_map(params, o), "weights": weights}
 
 

@@ -38,19 +38,12 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
-NEG_INF = -1e9   # the masked-logit value of zero_tpu/ops/attention.py
+from zero_tpu_torch.ops.kernels import cuda_build
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "decode_attention.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+NEG_INF = -1e9   # the masked-logit value of zero_tpu/ops/attention.py
 
 # the kernel keeps one head slice per lane group (<= 256 elements) and the
 # (time+1) fp32 weights in shared memory (<= 40 KB of the 48 KB static
@@ -64,46 +57,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches: collections.Counter = collections.Counter()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the "
-                           "decode-attention kernels cannot be built")
-    return path
-
-
 def build() -> str:
-    """Compile ``csrc/decode_attention.cu`` for sm_90a into the build
-    directory unless a library of the same source is there; returns its
-    path. ptxas' register/shared-memory report goes to ``<lib>.log``."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, "libdecode_attention_%s.so" % tag)
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (lib, os.getpid())
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas=-v", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (res.returncode,
-                                                      res.stderr))
-    with open(lib + ".log", "w") as w:
-        w.write(res.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/decode_attention.cu`` for sm_90a unless its library
+    is built already (``cuda_build``); returns the library path."""
+    return cuda_build.build("decode_attention")["decode_attention"]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build())
-    fn = lib.zt_single_query_attention
+    fn = cuda_build.load("decode_attention").zt_single_query_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -10,11 +10,13 @@ follow the JAX param paths (``ws.0``, ``b``, ``scale``, ``offset``,
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
+from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops import initializers as inits
+from zero_tpu_torch.ops.kernels import fused_ffn as fused_ffn_mod
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +82,11 @@ def layer_norm(params: LayerNorm, x, eps: float = 1e-8):
     return out.to(x.dtype)
 
 
+def residual_fn(x, y, rng=None, drop: Optional[float] = None):
+    """Residual connection with dropout on the branch."""
+    return x + common.dropout(rng, y, drop)
+
+
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
@@ -97,10 +104,25 @@ def init_ffn(gen, d_in: int, d_hidden: int, d_out: int,
                init_linear(gen, d_hidden, d_out, weight_init=weight_init))
 
 
-def ffn(params: FFN, x):
-    """ReLU FFN, unfused (the fused kernel and dropout come with the
-    training slice)."""
-    return linear(params.output, torch.relu(linear(params.enlarge, x)))
+def ffn(params: FFN, x, rng=None, relu_dropout: Optional[float] = None,
+        fused: bool = False):
+    """ReLU FFN with dropout on the hidden activation.
+
+    fused=True routes through the fused kernels of
+    ops/kernels/fused_ffn.py (their plain version for CPU tensors). Both
+    paths draw the same dropout mask from ``rng``'s seed words."""
+    if fused:
+        if params.enlarge.b is None or params.output.b is None:
+            raise ValueError("fused FFN needs biases on both linears")
+        dtype = x.dtype
+        rate = relu_dropout if (rng is not None and relu_dropout) else 0.0
+        return fused_ffn_mod.fused_ffn(
+            x, params.enlarge.ws[0].to(dtype), params.enlarge.b.to(dtype),
+            params.output.ws[0].to(dtype), params.output.b.to(dtype), rng,
+            rate)
+    h = torch.relu(linear(params.enlarge, x))
+    h = common.dropout(rng, h, relu_dropout)
+    return linear(params.output, h)
 
 
 # ---------------------------------------------------------------------------

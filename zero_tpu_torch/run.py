@@ -1,33 +1,57 @@
 """CLI entry point of the port: config merge, vocab load, mode dispatch.
 
-  python -m zero_tpu_torch.run --mode test --config FILE --parameters k=v,...
+  python -m zero_tpu_torch.run --mode {train,test,score} --config FILE \
+      --parameters k=v,...
 
 Counterpart of ``zero_tpu/run.py``. Merge priority: command line > saved
 param.json > config file > defaults. Runs on ``device`` (default "cuda";
-``--parameters device=cpu`` for the CPU). This slice serves ``--mode
-test``; the other modes raise.
+``--parameters device=cpu`` for the CPU). ``--mode ensemble`` is a later
+slice and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import random
 import time
 
 import numpy as np
 
 from zero_tpu_torch import train as graph
-from zero_tpu_torch.config import default_config, merge_params
+from zero_tpu_torch.config import (default_config, merge_params,
+                                   save_parameters)
+from zero_tpu_torch.models.common import check_ported
+from zero_tpu_torch.recorder import Recorder
 from zero_tpu_torch.vocab import Vocab
 
 log = logging.getLogger("zero_tpu_torch")
 
 _LATER = {
-    "train": "the training slice",
-    "score": "the training slice (teacher-forced scoring)",
     "ensemble": "a later serving slice (ensemble decoding)",
 }
+
+
+def setup_recorder(params):
+    """Attach a (possibly resumed) Recorder."""
+    recorder = Recorder()
+    recorder.bad_counter = 0
+    recorder.estop = False
+    recorder.lidx = -1
+    recorder.step = 0
+    recorder.epoch = 1
+    recorder.lrate = params.lrate
+    recorder.history_scores = []
+    recorder.valid_script_scores = []
+
+    record_path = os.path.abspath(
+        os.path.join(params.output_dir, "record.json"))
+    if os.path.exists(record_path) and params.train_continue:
+        recorder.load_from_json(record_path)
+
+    params.add_param("recorder", recorder)
+    return params
 
 
 def print_parameters(params):
@@ -47,7 +71,9 @@ def load_vocabs(params):
 
 
 def main(argv=None):
-    """Run one mode; ``--mode test`` returns evaluate()'s summary dict."""
+    """Run one mode. Returns train()'s summary dict (--mode train),
+    evaluate()'s (--mode test) or scorer()'s (scores, ppl) (--mode
+    score)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -70,6 +96,8 @@ def main(argv=None):
 
     params = default_config()
     params = merge_params(params, args.config, args.parameters)
+    if args.mode in ("train", "score"):
+        check_ported(params)
     random.seed(params.random_seed)
     np.random.seed(params.random_seed)
     device = graph.device_of(params)
@@ -77,6 +105,12 @@ def main(argv=None):
 
     params = load_vocabs(params)
     print_parameters(params)
+    if args.mode == "train":
+        save_parameters(params, params.output_dir)
+        params = setup_recorder(params)
+        return graph.train(params)
+    if args.mode == "score":
+        return graph.scorer(params)
     return graph.evaluate(params)
 
 
