@@ -2,8 +2,9 @@
 """Smoke test of zero_tpu_torch on one NVIDIA card: build the CUDA kernels,
 hold them against their plain PyTorch versions, serve transformer-base
 through ``python -m zero_tpu_torch.run --mode test`` (beam 4, then beam 1),
-train it through ``python -m zero_tpu_torch.run --mode train``, and check
-both paths against the CPU on small models.
+train it through ``python -m zero_tpu_torch.run --mode train``, train, serve
+and score transformer_rpr (Shaw relative positions) the same way, and check
+these paths against the CPU on small models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -13,8 +14,8 @@ Phases (each prints one line or more; any failure raises and exits
 non-zero):
   device     card name, power limit, TF32 off
   build      nvcc builds of csrc/{decode_attention,fused_attention,
-             fused_ffn}.cu (sm_90a), one process each, all at once; the
-             ptxas register/shared-memory report
+             fused_attention_rpr,fused_ffn}.cu (sm_90a), one process each,
+             all at once; the ptxas register/shared-memory report
   kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
@@ -52,11 +53,35 @@ non-zero):
   converge   the copy task (a 12-word vocabulary, target = source;
              hidden 32, 700 steps, lr 3e-3) through --mode train with both
              flags on: final dev BLEU >= 0.95
+  rpr_kernels  fused_attention's RPR variant (#3 forward, #4 backward) at
+             the train_kernels shapes with max_relative_position 16, fp32
+             and bf16, dropout 0 and 0.1: output and the five gradients (dq,
+             dk, dv, dTk, dTv) held against fused_attention_rpr_ref; device
+             times of kernel, plain version, the composite the model runs
+             with use_flash_attention off (_attn_core's one-hot form) and,
+             as a floor, SDPA WITHOUT relative positions, beside the bound
+             (the RPR terms counted)
+  rpr_train  transformer_rpr (configs/transformer_rpr_rela.json: 6+6
+             layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
+             update_cycle 4) trained TRAIN_STEPS steps with
+             use_flash_attention (and use_fused_ffn, which RPR ignores) on,
+             then off: ms/step, tokens/s, MFU (RPR matmuls counted); RPR
+             kernel launches = those the steps' own shapes predict (an
+             attention over Lk > 2m keys), no FFN kernel, no plain version;
+             then --mode test (beam 4: the encoder runs the RPR forward
+             kernel, the decoder no decode kernel, RPR keeps both off) and
+             --mode score (the RPR forward kernel) of the checkpoint
+  rpr_reference  a small fp32 transformer_rpr: train_fn loss and grads,
+             tables included, card (kernels) against CPU (plain versions)
+             within 1e-4; dropout on, kernels against plain versions on the
+             card, loss within 1e-5; beam-4 decode card against CPU,
+             identical sequences
 Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
 as the last line {"ok": true, "device": {...}}.
 """
 
 import argparse
+import collections
 import functools
 import json
 import math
@@ -72,6 +97,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "transformer_base_wmt14.json")
+RPR_CONFIG = os.path.join(REPO, "configs", "transformer_rpr_rela.json")
 SEED = 1234
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -420,6 +446,29 @@ def fwd_bwd(fn, n_inputs):
     return run
 
 
+def attention_pairs(pad, h, lq, causal):
+    """The (row, key) pairs whose weights the output needs: the valid keys
+    of each row, all Lk for a row with no valid key; over B and H."""
+    b, lk = pad.shape
+    keep = (pad > 0)[:, None, None, :].expand(b, 1, lq, lk)
+    if causal:
+        keep = keep & torch.ones(lq, lk, dtype=torch.bool,
+                                 device=pad.device).tril()
+    return torch.where(keep.any(-1, keepdim=True), keep,
+                       True).sum().item() * h
+
+
+def attention_pad(gen, b, lk, padded):
+    """[B, Lk] key pad mask: random lengths and an all-pad row 3, or all
+    valid."""
+    if not padded:
+        return torch.ones(b, lk)
+    lens = torch.randint(lk // 4, lk + 1, (b,), generator=gen)
+    pad = (torch.arange(lk)[None] < lens[:, None]).float()
+    pad[3] = 0.0   # an all-pad batch row
+    return pad
+
+
 def train_attention_rows(fa, gen):
     """Kernels #1/#2 against fused_attention_ref; returns the JSON rows of
     the encoder self-attention case (bf16, dropout 0.1)."""
@@ -433,24 +482,14 @@ def train_attention_rows(fa, gen):
                 q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
                 k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
                 v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
-                pad = torch.ones(b, lk)
-                if padded:
-                    lens = torch.randint(lk // 4, lk + 1, (b,), generator=gen)
-                    pad = (torch.arange(lk)[None] < lens[:, None]).float()
-                    pad[3] = 0.0   # an all-pad batch row
+                pad = attention_pad(gen, b, lk, padded)
                 do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
                 return [t.requires_grad_() for t in (q, k, v)] + [
                     pad.to(dev), do]
 
             # bound: the keys each row's output needs (all Lk for a row
             # with no valid key) in the forward's two products
-            pad0 = inputs()[3]
-            keep = (pad0 > 0)[:, None, None, :].expand(b, 1, lq, lk)
-            if causal:
-                keep = keep & torch.ones(lq, lk, dtype=torch.bool,
-                                         device=dev).tril()
-            pairs = torch.where(keep.any(-1, keepdim=True), keep,
-                                True).sum().item() * h
+            pairs = attention_pairs(inputs()[3], h, lq, causal)
             eb = torch.tensor([], dtype=dtype).element_size()
             fwd_bytes = (2 * b * h * lq * dh + 2 * b * h * lk * dh) * eb \
                 + 4 * b * lk
@@ -633,6 +672,157 @@ def train_kernels_phase():
 
 
 # ---------------------------------------------------------------------------
+# RPR attention kernels (#3/#4)
+# ---------------------------------------------------------------------------
+
+RPR_MAX = 16        # max_relative_position of RPR_CONFIG, at ATTN_CASES
+RPR_SMALL_MAX = 3   # rpr_reference's model, at ATTN_SMALL: 2m < every Lk
+# the tables as the wrappers read them (.keys, .values), without the
+# parameter wrapping of ops/rpr.py:RprTables, so gradients reach tk and tv
+Tables = collections.namedtuple("Tables", "keys values")
+
+
+def rpr_attention_rows(fa, gen):
+    """Kernels #3/#4 against fused_attention_rpr_ref; returns the rows."""
+    from zero_tpu_torch.ops import attention as attn
+
+    dev = "cuda"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES + ATTN_SMALL:
+        timed = name in [c[0] for c in ATTN_CASES]
+        m = RPR_MAX if timed else RPR_SMALL_MAX
+        r = 2 * m + 1
+        for dtype in (torch.float32, torch.bfloat16):
+            def inputs():
+                q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                tk = torch.randn(r, dh, generator=gen).to(dev, dtype)
+                tv = torch.randn(r, dh, generator=gen).to(dev, dtype)
+                pad = attention_pad(gen, b, lk, padded)
+                do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                return [t.requires_grad_() for t in (q, k, v, tk, tv)] + [
+                    pad.to(dev), do]
+
+            # bound: attention's products over the pairs each row needs,
+            # plus the RPR terms per row (q.Tk and wb.Tv forward; their
+            # recompute, do.Tv, ds_b.Tk, dTk and dTv backward)
+            pairs = attention_pairs(inputs()[5], h, lq, causal)
+            eb = torch.tensor([], dtype=dtype).element_size()
+            rows_rd = b * h * lq * r * dh
+            fwd_bytes = (2 * b * h * lq * dh + 2 * b * h * lk * dh
+                         + 2 * r * dh) * eb + 4 * b * lk
+            bwd_bytes = (4 * b * h * lq * dh + 4 * b * h * lk * dh
+                         + 4 * r * dh) * eb + 4 * b * lk + 8 * b * h * lq
+            for rate in (0.0, 0.1):
+                q, k, v, tk, tv, pad, do = inputs()
+                words = SEED_WORDS if rate else None
+                out = fa.fused_attention(q, k, v, pad, causal=causal,
+                                         dropout_rate=rate, rng=words,
+                                         rpr_tables=Tables(tk, tv),
+                                         max_relative_position=m)
+                grads = torch.autograd.grad(out, (q, k, v, tk, tv), do)
+                ref = fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
+                                                 causal, rate, words)
+                rgrads = torch.autograd.grad(ref, (q, k, v, tk, tv), do)
+                label = "%s[%s,p=%g,m=%d]" % (name, str(dtype)[6:], rate, m)
+                errs = [check("fused_attention_rpr " + label, out, ref, dtype,
+                              TRAIN_TOLERANCE)]
+                errs += [check("fused_attention_rpr_backward %s d%s"
+                               % (label, w), g, rg, dtype, TRAIN_TOLERANCE)
+                         for w, g, rg in zip(("q", "k", "v", "Tk", "Tv"),
+                                             grads, rgrads)]
+                if not all(torch.isfinite(x).all() for x in (out,) + grads):
+                    raise AssertionError("fused_attention_rpr %s: non-finite "
+                                         "output or gradient" % label)
+                if not timed:
+                    phase("rpr_kernels", kernel="fused_attention_rpr",
+                          case=label, max_abs_err=errs[0],
+                          backward_max_abs_err=max(errs[1:]))
+                    continue
+                sets = copies(inputs, fwd_bytes)
+
+                def k_fwd(q, k, v, tk, tv, pad, do):
+                    return fa.fused_attention(
+                        q, k, v, pad, causal=causal, dropout_rate=rate,
+                        rng=words, rpr_tables=Tables(tk, tv),
+                        max_relative_position=m)
+
+                def p_fwd(q, k, v, tk, tv, pad, do):
+                    return fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
+                                                      causal, rate, words)
+
+                def l_fwd(q, k, v, tk, tv, pad, do):
+                    # a floor: SDPA computes attention WITHOUT the RPR terms
+                    if causal:
+                        return sdpa(q, k, v, is_causal=True)
+                    return sdpa(q, k, v, attn_mask=(pad > 0)[:, None, None])
+
+                iters = 2 * len(sets)
+                fwd = dict(ms=device_ms(k_fwd, sets, iters),
+                           plain_ms=device_ms(p_fwd, sets, iters))
+                bwd = {}
+                for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
+                    graphs = [(grad_ms(fn(*s), s[:5], s[6]),) for s in sets]
+                    bwd[key] = device_ms(lambda run: run(), graphs, iters)
+                    del graphs
+                if rate == 0.0:
+                    fwd["library_ms"] = device_ms(l_fwd, sets, iters)
+                    graphs = [(grad_ms(l_fwd(*s), s[:3], s[6]),)
+                              for s in sets]
+                    bwd["library_ms"] = device_ms(lambda run: run(), graphs,
+                                                  iters)
+                    del graphs
+                    # the composite of use_flash_attention=false on
+                    # [B, L, hidden] projections, under the same mask
+                    keep = (sets[0][5] > 0)[:, None, None, :]
+                    if causal:
+                        keep = keep & torch.ones(lq, lk, dtype=torch.bool,
+                                                 device=dev).tril()
+                    keep = keep.float()
+                    csets = [[attn.combine_heads(x.detach()).requires_grad_()
+                              for x in s[:3]]
+                             + [x.detach().requires_grad_() for x in s[3:5]]
+                             + [attn.combine_heads(s[6])] for s in sets]
+
+                    def c_fwd(q2, k2, v2, tk, tv, do2):
+                        return attn._attn_core(q2, k2, v2, keep, h,
+                                               rpr_tables=Tables(tk, tv),
+                                               rpr_max=m)[0]
+
+                    fwd["composite_ms"] = device_ms(c_fwd, csets, iters)
+                    graphs = [(grad_ms(c_fwd(*s), s[:5], s[5]),)
+                              for s in csets]
+                    bwd["composite_ms"] = device_ms(lambda run: run(), graphs,
+                                                    iters)
+                    del graphs, csets
+                    bwd["fwd_bwd_ms"] = device_ms(fwd_bwd(k_fwd, 5), sets,
+                                                  iters)
+                fb, fby = bound(fwd_bytes, 4 * pairs * dh + 4 * rows_rd, dtype)
+                bb, bby = bound(bwd_bytes, 10 * pairs * dh + 10 * rows_rd,
+                                dtype)
+                fwd.update(bound_ms=fb, bound_by=fby, max_abs_err=errs[0])
+                bwd.update(bound_ms=bb, bound_by=bby,
+                           max_abs_err=max(errs[1:]))
+                phase("rpr_kernels", kernel="fused_attention_rpr",
+                      case=label, **fwd)
+                phase("rpr_kernels", kernel="fused_attention_rpr_backward",
+                      case=label, **bwd)
+                rows[("fused_attention_rpr", name, dtype, rate)] = fwd
+                rows[("fused_attention_rpr_backward", name, dtype, rate)] = bwd
+                del sets
+                torch.cuda.empty_cache()
+    return rows
+
+
+def rpr_kernels_phase():
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
+    return rpr_attention_rows(fa, torch.Generator().manual_seed(SEED + 2))
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -648,31 +838,45 @@ def write_train_corpus(d, words, sentences=8000):
                                                               n)) + "\n")
 
 
+def stacked_shape(shapes):
+    """A step's microbatches all run at its stacked shape: the largest
+    rows, source and target lengths among them."""
+    return (max(s[0][0] for s in shapes), max(s[0][1] for s in shapes),
+            max(s[1][1] for s in shapes))
+
+
 def model_flops(shapes, cfg):
     """Matmul FLOPs of one training step: its microbatches run at the
-    step's stacked shape (the largest rows and lengths among them); forward
-    x 3 for forward + backward, plus the chunked CE's recomputed logits."""
+    step's stacked shape; forward x 3 for forward + backward, plus the
+    chunked CE's recomputed logits. transformer_rpr adds its RPR matmuls,
+    q.Tk and the bucket sums' product with Tv: 4 * rows * (2m+1) * hidden
+    per attention (the one-hot expansions are not counted)."""
     d, f = cfg["hidden_size"], cfg["filter_size"]
     v = 32768
-    b = max(s[0][0] for s in shapes)
-    ls = max(s[0][1] for s in shapes)
-    lt = max(s[1][1] for s in shapes)
+    b, ls, lt = stacked_shape(shapes)
+    rpr = 0
+    if cfg.get("model_name") == "transformer_rpr":
+        r = 2 * cfg["max_relative_position"] + 1
+        rpr = 4 * r * d
     total = 0
     for _ in shapes:
         ns, nt = b * ls, b * lt
         enc = cfg["num_encoder_layer"] * (
-            2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * ls * ls * d)
+            2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * ls * ls * d
+            + rpr * ns)
         dec = cfg["num_decoder_layer"] * (
             2 * nt * d * 4 * d + 2 * nt * d * 2 * d + 2 * ns * d * 2 * d
-            + 4 * nt * d * f + 4 * b * lt * lt * d + 4 * b * lt * ls * d)
+            + 4 * nt * d * f + 4 * b * lt * lt * d + 4 * b * lt * ls * d
+            + 2 * rpr * nt)
         logits = 2 * nt * d * v
         total += 3 * (enc + dec + logits) + logits
     return total
 
 
-def expected_launches(cfg, microbatches):
+def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
     layer (18 at 6+6), one FFN per layer (12); forward and backward."""
+    microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
     ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
     return {"fused_attention": attn * microbatches,
@@ -681,7 +885,22 @@ def expected_launches(cfg, microbatches):
             "fused_ffn_backward": ffn * microbatches}
 
 
-def train_run(d, out, flags, counters):
+def rpr_expected_launches(cfg, summary):
+    """transformer_rpr: an attention takes the RPR kernels where its keys
+    outnumber 2m (ops/attention.py:_rpr_flash_ok), at each step's stacked
+    lengths: encoder self-attention and decoder cross attention over the
+    source, decoder self-attention over the target. Its FFN never fuses."""
+    two_m = 2 * cfg["max_relative_position"]
+    n = 0
+    for shapes in summary["shapes"]:
+        _, ls, lt = stacked_shape(shapes)
+        n += len(shapes) * (cfg["num_encoder_layer"] * (ls > two_m)
+                            + cfg["num_decoder_layer"] * ((lt > two_m)
+                                                          + (ls > two_m)))
+    return {"fused_attention_rpr": n, "fused_attention_rpr_backward": n}
+
+
+def train_run(d, out, flags, counters, config=CONFIG):
     from zero_tpu_torch import run
 
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
@@ -691,38 +910,44 @@ def train_run(d, out, flags, counters):
             "sample_freq=0,epoches=100".format(d, out, flags, TRAIN_STEPS))
     for c in counters:
         c.clear()
-    summary = run.main(["--mode", "train", "--config", CONFIG,
+    summary = run.main(["--mode", "train", "--config", config,
                         "--parameters", spec])
+    return summary, collect(counters)
+
+
+def collect(counters):
     launches = {}
     for c in counters:
         launches.update({k: v for k, v in c.items() if v})
-    return summary, launches
+    return launches
 
 
-def train_phase(d, da):
+def train_phase(d, da, config=CONFIG, label="train",
+                expected=expected_launches):
+    """Train ``config`` TRAIN_STEPS steps with both kernel flags on, then
+    off; then serve (--mode test) and score the kernel run's checkpoint.
+    Returns the kernel run's launch counts."""
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
-    cfg = load_config_file(CONFIG)
-    cycle = cfg["update_cycle"]
+    cfg = load_config_file(config)
     counters = (fa.launches, ff.launches, da.launches)
     results = {}
     for flags in ("true", "false"):
-        out = os.path.join(d, "train_" + flags)
-        summary, launches = train_run(d, out, flags, counters)
+        out = os.path.join(d, "%s_%s" % (label, flags))
+        summary, launches = train_run(d, out, flags, counters, config)
         steps = summary["steps"]
         if steps != TRAIN_STEPS:
             raise AssertionError("trained %d steps, wanted %d"
                                  % (steps, TRAIN_STEPS))
         if not all(math.isfinite(x) for x in summary["losses"]):
             raise AssertionError("non-finite loss: %s" % summary["losses"])
-        want = (expected_launches(cfg, cycle * steps)
-                if flags == "true" else {})
+        want = expected(cfg, summary) if flags == "true" else {}
         if launches != want:
-            raise AssertionError("train (flags %s) launches %s, expected %s "
-                                 "(no plain version)" % (flags, launches,
-                                                         want))
+            raise AssertionError("%s (flags %s) launches %s, expected %s "
+                                 "(no plain version)" % (label, flags,
+                                                         launches, want))
         ends = summary["step_end_times"]
         step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
         ms = 1e3 * step_s[len(step_s) // 2]
@@ -740,46 +965,67 @@ def train_phase(d, da):
             gnorm_first=summary["gnorms"][0],
             gnorm_last=summary["gnorms"][-1], launches=launches,
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        phase("train", **results[flags])
+        phase(label, **results[flags])
         torch.cuda.reset_peak_memory_stats()
     # the kernel run's checkpoint serves through --mode test
     from zero_tpu_torch import run
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
-            "output_dir={0}/train_true,test_output={0}/trained.txt,"
-            "eval_batch_size=32".format(d))
+            "output_dir={0}/{1}_true,test_output={0}/{1}_trained.txt,"
+            "eval_batch_size=32".format(d, label))
+    for c in counters:
+        c.clear()
     served = run.main(["--mode", "test", "--parameters", spec])
-    with open(os.path.join(d, "trained.txt")) as r:
+    serve_launches = collect(counters)
+    with open(os.path.join(d, label + "_trained.txt")) as r:
         lines = r.read().splitlines()
     if len(lines) != 64 or served["sentences"] != 64:
         raise AssertionError("served %d lines of the trained model"
                              % len(lines))
     # and scores it through --mode score (the saved param.json keeps both
     # kernel flags on, so the forward runs the kernels)
+    for c in counters:
+        c.clear()
     scores, ppl = run.main(["--mode", "score", "--parameters", spec.replace(
-        "trained.txt", "scores.txt")])
+        "_trained.txt", "_scores.txt")])
+    score_launches = collect(counters)
     if len(scores) != 64 or not all(map(math.isfinite, scores)):
         raise AssertionError("scored %d sentences: %s" % (len(scores),
                                                           scores[:4]))
-    phase("train", served_sentences=len(lines), served_bleu=served["bleu"],
-          served_s=served["seconds"], scored_sentences=len(scores),
-          score_ppl=ppl)
+    plain = [n for n in list(serve_launches) + list(score_launches)
+             if n.endswith("_ref")]
+    if plain:
+        raise AssertionError("%s: plain versions ran while serving or "
+                             "scoring: %s %s" % (label, serve_launches,
+                                                 score_launches))
+    if cfg.get("model_name") == "transformer_rpr" and (
+            set(serve_launches) != {"fused_attention_rpr"}
+            or set(score_launches) != {"fused_attention_rpr"}):
+        # RPR decode runs no decode kernel; the encoder (serving) and the
+        # scoring forward run #3, as the saved flags say
+        raise AssertionError("%s: serving launched %s, scoring %s"
+                             % (label, serve_launches, score_launches))
+    phase(label, served_sentences=len(lines), served_bleu=served["bleu"],
+          served_s=served["seconds"], serve_launches=serve_launches,
+          scored_sentences=len(scores), score_ppl=ppl,
+          score_launches=score_launches)
     return results["true"]["launches"]
 
 
-def _small_model(dropout):
+def _small_model(dropout, model_name="transformer"):
     from zero_tpu_torch.config import default_config
     from zero_tpu_torch.vocab import Vocab
 
     cfg = default_config()
-    for k, v in dict(model_name="transformer", hidden_size=64, embed_size=64,
+    for k, v in dict(model_name=model_name, hidden_size=64, embed_size=64,
                      filter_size=128, num_heads=4, num_encoder_layer=2,
                      num_decoder_layer=2, initializer="uniform_unit_scaling",
                      initializer_gain=1.0, use_flash_attention=True,
                      use_fused_ffn=True, dropout=dropout,
                      attention_dropout=dropout, relu_dropout=dropout,
                      residual_dropout=dropout, label_smooth=0.1,
-                     loss_chunk_tokens=16).items():
+                     loss_chunk_tokens=16, decode_length=10,
+                     max_relative_position=RPR_SMALL_MAX).items():
         setattr(cfg, k, v)
     vocab = Vocab()
     for i in range(40):
@@ -799,6 +1045,24 @@ def _small_batch():
     src[-1] = 0   # an all-pad row
     tgt[-1] = 0
     return {"source": torch.as_tensor(src), "target": torch.as_tensor(tgt)}
+
+
+def plain_attention(q, k, v, pad_mask=None, *, causal=False,
+                    dropout_rate=0.0, rng=None, rpr_tables=None,
+                    max_relative_position=None):
+    """fused_attention's interface over its plain versions: from the same
+    seed words they draw the kernels' dropout masks."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
+    pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+           if pad_mask is None else pad_mask.float())
+    rate = dropout_rate if rng is not None else 0.0
+    if rpr_tables is None:
+        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng)
+    return fa.fused_attention_rpr_ref(
+        q, k, v, pad, rpr_tables.keys.to(q.dtype),
+        rpr_tables.values.to(q.dtype), max_relative_position, causal, rate,
+        rng)
 
 
 def train_reference_phase():
@@ -822,35 +1086,19 @@ def train_reference_phase():
     lg = model.train_fn(gpu, gfeats, cfg, None)["loss"]
     gg = torch.autograd.grad(lg, list(gpu.parameters()))
     loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
-    # each grad relative to its max |grad|, floored at 1e-3 of the model's
-    # largest: the cross-attention key bias has an exactly zero gradient
-    # in exact arithmetic (softmax ignores a per-row constant), so both
-    # sides hold rounding noise there
-    names = [n for n, _ in cpu.named_parameters()]
-    top = max(b.abs().max().item() for b in gc)
-    scale = {n: max(b.abs().max().item(), 1e-3 * top)
-             for n, b in zip(names, gc)}
-    errs = {n: (a.cpu() - b).abs().max().item() / scale[n]
-            for n, a, b in zip(names, gg, gc)}
+    errs = grad_errors(cpu, gc, gg)
     worst = max(errs, key=errs.get)
     grad_err = errs[worst]
     if not (loss_err <= 1e-4 and grad_err <= 1e-4
             and fa.launches["fused_attention_backward"] == 6
             and ff.launches["fused_ffn_backward"] == 4):
         raise AssertionError("train_reference: loss rel err %.3g, grad rel "
-                             "err %.3g (%s, max |grad| %.3g), launches %s %s"
-                             % (loss_err, grad_err, worst, scale[worst],
+                             "err %.3g (%s), launches %s %s"
+                             % (loss_err, grad_err, worst,
                                 dict(fa.launches), dict(ff.launches)))
 
     # dropout on: kernels against plain versions on the card, same words
     cfg = _small_model(0.1)
-
-    def plain_attention(q, k, v, pad_mask=None, *, causal=False,
-                        dropout_rate=0.0, rng=None):
-        pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
-               if pad_mask is None else pad_mask.float())
-        rate = dropout_rate if rng is not None else 0.0
-        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng)
 
     def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0):
         y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
@@ -874,6 +1122,97 @@ def train_reference_phase():
     phase("train_reference", loss_rel_err=loss_err, grad_rel_err=grad_err,
           dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
           dropout_rel_err=drop_err)
+
+
+def grad_errors(cpu, gc, gg):
+    """Each card grad's max error relative to its CPU grad's max |grad|,
+    floored at 1e-3 of the model's largest: the cross-attention key bias
+    has an exactly zero gradient in exact arithmetic (softmax ignores a
+    per-row constant), so both sides hold rounding noise there."""
+    names = [n for n, _ in cpu.named_parameters()]
+    top = max(b.abs().max().item() for b in gc)
+    scale = {n: max(b.abs().max().item(), 1e-3 * top)
+             for n, b in zip(names, gc)}
+    return {n: (a.cpu() - b).abs().max().item() / scale[n]
+            for n, a, b in zip(names, gg, gc)}
+
+
+def rpr_reference_phase(da):
+    """A small fp32 transformer_rpr (m = 3 < half of every length, so all
+    six attentions take the RPR kernels): train_fn card against CPU, with
+    dropout on kernels against plain versions, beam-4 decode card against
+    CPU."""
+    import copy
+
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.search import beam_search
+
+    model = get_model("transformer_rpr")
+    feats = _small_batch()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    cfg = _small_model(0.0, "transformer_rpr")
+    cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+    gpu = copy.deepcopy(cpu).cuda()
+    fa.launches.clear()
+    lc = model.train_fn(cpu, feats, cfg, None)["loss"]
+    gc = torch.autograd.grad(lc, list(cpu.parameters()))
+    lg = model.train_fn(gpu, gfeats, cfg, None)["loss"]
+    gg = torch.autograd.grad(lg, list(gpu.parameters()))
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    errs = grad_errors(cpu, gc, gg)
+    worst = max(errs, key=errs.get)
+    table_err = max(e for n, e in errs.items() if "_rpr." in n)
+    want = {"fused_attention_rpr": 6, "fused_attention_rpr_backward": 6,
+            "fused_attention_rpr_ref": 6}
+    if not (loss_err <= 1e-4 and errs[worst] <= 1e-4
+            and collect([fa.launches]) == want):
+        raise AssertionError("rpr_reference: loss rel err %.3g, grad rel err "
+                             "%.3g (%s), launches %s" % (
+                                 loss_err, errs[worst], worst,
+                                 dict(fa.launches)))
+
+    # dropout on: kernels against plain versions on the card, same words
+    cfg = _small_model(0.1, "transformer_rpr")
+    losses = []
+    for plain in (False, True):
+        fa.launches.clear()
+        with mock.patch.object(fa, "fused_attention",
+                               plain_attention if plain
+                               else fa.fused_attention):
+            loss = model.train_fn(gpu, gfeats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+        losses.append(loss.item())
+        key = "fused_attention_rpr" + ("_ref" if plain else "")
+        if fa.launches[key] != 6:
+            raise AssertionError("rpr_reference: dropout run launched %s"
+                                 % dict(fa.launches))
+    drop_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    if not drop_err <= 1e-5:
+        raise AssertionError("rpr_reference: dropout-on loss kernels %r vs "
+                             "plain %r" % tuple(losses))
+
+    # beam 4: the card runs the classic permuted cache (RPR has no pool
+    # kernel), the CPU the ancestry pools; no decode kernel either way
+    cfg.beam_size = 4
+    inf = model.infer_fn(cfg)
+    src = feats["source"]
+    da.launches.clear()
+    with torch.inference_mode():
+        g = beam_search(gpu, src.cuda(), inf, cfg)
+        c = beam_search(cpu, src, inf, cfg)
+    same = torch.equal(g["seq"].cpu(), c["seq"])
+    score_err = (g["score"].cpu() - c["score"]).abs().max().item()
+    if not (same and score_err <= 1e-4 and not collect([da.launches])
+            and torch.isfinite(g["score"]).all()):
+        raise AssertionError("rpr_reference beam 4: card vs CPU sequences "
+                             "equal %s, score err %.3g, decode launches %s"
+                             % (same, score_err, dict(da.launches)))
+    phase("rpr_reference", loss_rel_err=loss_err, grad_rel_err=errs[worst],
+          worst=worst, table_grad_rel_err=table_err,
+          dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
+          dropout_rel_err=drop_err, beam4_same_sequences=same,
+          beam4_max_score_err=score_err, beam4_steps=g["steps"])
 
 
 def converge_phase(d):
@@ -913,7 +1252,8 @@ def converge_phase(d):
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
-          "reference", "train", "train_reference", "converge")
+          "reference", "train", "train_reference", "converge", "rpr_kernels",
+          "rpr_train", "rpr_reference")
 
 
 def main(argv=None):
@@ -948,7 +1288,8 @@ def main(argv=None):
           cudnn_tf32=torch.backends.cudnn.allow_tf32)
 
     # build: one nvcc per source, all at once
-    sources = ("decode_attention", "fused_attention", "fused_ffn")
+    sources = ("decode_attention", "fused_attention", "fused_attention_rpr",
+               "fused_ffn")
     t0 = time.time()
     libs = cuda_build.build(*sources)
     for name in sources:
@@ -957,11 +1298,13 @@ def main(argv=None):
           libraries=[os.path.relpath(libs[n], REPO) for n in sources],
           ptxas={n: cuda_build.ptxas_report(n) for n in sources})
 
-    rows, train_rows, launches = {}, {}, {}
+    rows, train_rows, rpr_rows, launches = {}, {}, {}, {}
     if "kernels" in todo:
         rows = kernels_phase(da)
     if "train_kernels" in todo:
         train_rows = train_kernels_phase()
+    if "rpr_kernels" in todo:
+        rpr_rows = rpr_kernels_phase()
 
     from zero_tpu_torch.config import default_config, load_config_file
     from zero_tpu_torch.models import get_model
@@ -987,11 +1330,17 @@ def main(argv=None):
                 da, d, 1, "decode_attention")
         if "reference" in todo:
             reference_phase(da)
-        if "train" in todo:
+        if "train" in todo or "rpr_train" in todo:
             write_train_corpus(d, words)
+        if "train" in todo:
             launches.update(train_phase(d, da))
+        if "rpr_train" in todo:
+            launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
+                                        rpr_expected_launches))
     if "train_reference" in todo:
         train_reference_phase()
+    if "rpr_reference" in todo:
+        rpr_reference_phase(da)
     if "converge" in todo:
         with tempfile.TemporaryDirectory() as d:
             converge_phase(d)
@@ -1027,6 +1376,22 @@ def main(argv=None):
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=lib))
+    # RPR kernels: bf16 at rate 0.1, encoder self-attention at m 16; the
+    # library column is SDPA WITHOUT relative positions (a floor, not the
+    # same function), composite_ms the use_flash_attention=false path
+    for name, line in (("fused_attention_rpr", 580),
+                       ("fused_attention_rpr_backward", 624)):
+        r = rpr_rows[(name, "self_pad", torch.bfloat16, 0.1)]
+        r0 = rpr_rows[(name, "self_pad", torch.bfloat16, 0.0)]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="zero_tpu_torch/csrc/fused_attention_rpr.cu",
+            replaces="zero_tpu/ops/kernels/fused_attention.py:%d" % line,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r0["library_ms"],
+            library="scaled_dot_product_attention without RPR (floor)",
+            composite_ms=r0["composite_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,10 @@ class LayerHooks(NamedTuple):
     dec_layer_precompute: Callable  # (p, encodes, cfg) -> layer_state
     init_dec_layer_cache: Callable  # (p, batch, max_len, cfg, dtype, device) -> cache
     dec_layer_step: Callable  # (p, x_t, layer_state, state, cache, time, cfg) -> (x_t, cache)
+    # False for variants whose decode self-attention the pool kernel cannot
+    # serve (RPR's relative-position tables): on the card they keep the
+    # classic permuted cache instead of the ancestry pools
+    pool_kernel: bool = True
 
 
 class Layer(torch.nn.Module):
@@ -271,15 +275,21 @@ def make_transformer(hooks: LayerHooks):
                 for p in params.decoder]
             return state
 
-        def _use_ancestry(beams):
-            """Ancestry-indexed pools for beam decode; decode_ancestry
-            on/off overrides for A/B measurement."""
+        def _use_ancestry(beams, device):
+            """Ancestry-indexed pools for beam decode. On the card they pay
+            off only where the pool kernel runs (hooks.pool_kernel and
+            use_flash_decode); elsewhere the classic permuted cache runs.
+            The CPU takes them for every beam > 1, as the JAX package does
+            off the TPU, so the tests exercise them; decode_ancestry on/off
+            overrides for A/B measurement."""
             if beams <= 1:
                 return False
             mode = str(getattr(cfg, "decode_ancestry", "auto"))
             if mode in ("on", "off"):
                 return mode == "on"
-            return True
+            if device.type != "cuda":
+                return True
+            return bool(hooks.pool_kernel and cfg.use_flash_decode)
 
         def init_cache(params, state, batch, max_len):
             # ancestry[b, i, t] = pool row whose position-t KV belongs to
@@ -292,7 +302,7 @@ def make_transformer(hooks: LayerHooks):
                 hooks.init_dec_layer_cache(p, batch, max_len, cfg, dtype,
                                            device)
                 for p in params.decoder]}
-            if _use_ancestry(beams):
+            if _use_ancestry(beams, device):
                 cache["ancestry"] = torch.zeros(
                     (batch // beams, beams, max_len), dtype=torch.int32,
                     device=device)

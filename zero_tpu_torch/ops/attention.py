@@ -18,6 +18,7 @@ import torch
 from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
+from zero_tpu_torch.ops import rpr as rpr_mod
 from zero_tpu_torch.ops.kernels import decode_attention as da
 from zero_tpu_torch.ops.kernels import fused_attention as fa
 
@@ -56,6 +57,24 @@ def init_attention(gen, d_query: int, hidden: int, self_attention: bool,
     return Attention(proj)
 
 
+def init_rpr_tables(gen, hidden: int, num_heads: int,
+                    max_relative_position: int,
+                    weight_init=None) -> rpr_mod.RprTables:
+    """RPR tables at per-head depth, hidden / heads."""
+    weight_init = weight_init or inits.variance_scaling(1.0, "uniform")
+    return rpr_mod.init_rpr(gen, max_relative_position, hidden // num_heads,
+                            weight_init)
+
+
+def _rpr_flash_ok(lq: int, lk: int, max_rel, causal, pad_mask) -> bool:
+    """RPR rides the fused kernels where the JAX package lets it: the
+    standard clipped-distance matrix (max_relative_position given), a mask
+    that decomposes into a causal flag plus a key-side pad mask, and the
+    kernel's geometry (fa.rpr_supported: 2m < Lk <= 8192)."""
+    return (max_rel is not None and (causal or pad_mask is not None)
+            and fa.rpr_supported(lq, lk, max_rel))
+
+
 def _out_map(params: Attention, o):
     return nn.linear(params.o, o) if hasattr(params, "o") else o
 
@@ -76,45 +95,80 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
-def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None):
+def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
+               rpr_tables=None, rpr_ids=None, rpr_max=None):
     """Softmax attention on [B, L, hidden] projections, with dropout on the
     weights (8-bit threshold masks of ops/common.py:dropout).
 
     keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block.
-    Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
+    RPR: with ``rpr_max`` the relative terms run in the bucket-one-hot
+    form (ops/rpr.py); ``rpr_ids`` without ``rpr_max`` (decode rows) and
+    shapes whose one-hot constant would be oversized take the gathered
+    form. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
     vh = split_heads(v, num_heads)
     dh = qh.shape[-1]
     qh = qh * (dh ** -0.5)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)).float()
+    lq, lk = qh.shape[2], kh.shape[2]
+
+    use_onehot = (rpr_tables is not None and rpr_max is not None
+                  and rpr_mod.onehot_supported(lq, lk, rpr_max))
+    if rpr_tables is not None and not use_onehot and rpr_ids is None:
+        rpr_ids = rpr_mod.relative_positions_matrix(lq, lk, rpr_max,
+                                                    q.device)
+    if use_onehot:
+        logits = rpr_mod.logits_with_rpr_onehot(qh, kh, rpr_tables.keys,
+                                                rpr_max)
+    elif rpr_tables is not None:
+        logits = rpr_mod.logits_with_rpr(
+            qh, kh, rpr_mod.gather_embeddings(rpr_tables.keys, rpr_ids))
+    else:
+        logits = torch.matmul(qh, kh.transpose(-1, -2))
+    logits = logits.float()
     if keep_mask is not None:
         logits = torch.where(keep_mask > 0, logits, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     dweights = common.dropout(rng, weights, drop).to(q.dtype)
-    o = torch.matmul(dweights, vh)
+    if use_onehot:
+        o = rpr_mod.output_with_rpr_onehot(dweights, vh, rpr_tables.values,
+                                           rpr_max)
+    elif rpr_tables is not None:
+        o = rpr_mod.output_with_rpr(
+            dweights, vh, rpr_mod.gather_embeddings(rpr_tables.values,
+                                                    rpr_ids))
+    else:
+        o = torch.matmul(dweights, vh)
     return combine_heads(o), weights
 
 
 def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
                rng=None, drop=None, use_flash=False, causal=False,
-               pad_mask=None):
+               pad_mask=None, rpr_tables=None, max_relative_position=None):
     """Full-sequence attention; memory=None -> self-attention through the
     fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0; the caller
     combines causal and padding.
 
     use_flash routes through the fused kernels of
-    ops/kernels/fused_attention.py (their plain version for CPU tensors),
+    ops/kernels/fused_attention.py (their plain versions for CPU tensors),
     whose mask is the causal flag plus the key-side [B, Lk] ``pad_mask``
     the caller declares. Keys beyond the fused kernel's 8192 raise: the
     JAX package streams them through kernels #5-#7, not ported yet.
-    Returns {'output', 'weights'} (weights None on the fused path)."""
+
+    rpr_tables (ops/rpr.py:RprTables) adds Shaw relative positions. With
+    use_flash they ride the RPR kernels (#3/#4) only where _rpr_flash_ok
+    holds, as in the JAX package; elsewhere (e.g. Lk <= 2m) the composite
+    _attn_core runs. Returns {'output', 'weights'} (weights None on the
+    fused path)."""
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
     else:
         q = nn.linear(params.q, query)
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
+    if use_flash and rpr_tables is not None:
+        use_flash = _rpr_flash_ok(q.shape[1], k.shape[1],
+                                  max_relative_position, causal, pad_mask)
     if use_flash:
         if k.shape[1] > fa.MAX_LK:
             raise NotImplementedError(
@@ -126,11 +180,14 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         o = fa.fused_attention(split_heads(q, num_heads),
                                split_heads(k, num_heads),
                                split_heads(v, num_heads), pad_mask,
-                               causal=causal, dropout_rate=drop_rate, rng=rng)
+                               causal=causal, dropout_rate=drop_rate, rng=rng,
+                               rpr_tables=rpr_tables,
+                               max_relative_position=max_relative_position)
         o, weights = combine_heads(o.to(q.dtype)), None
     else:
         o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
-                                drop=drop)
+                                drop=drop, rpr_tables=rpr_tables,
+                                rpr_max=max_relative_position)
     return {"output": _out_map(params, o), "weights": weights}
 
 
@@ -153,12 +210,14 @@ def init_self_cache(batch: int, max_len: int, hidden: int, dtype, device):
     }
 
 
-def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1):
+def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1,
+                   rpr_tables=None, max_relative_position=None):
     """Self-attention over an UNPERMUTED beam KV pool via ancestry indices,
     in the masked flat form of the JAX package: the pool is one [K*T] key
     axis per sentence and (row j, position t) pairs that ancestry does not
     select are masked; the in-flight span [time, time+span) lives in each
-    beam's own row.
+    beam's own row. RPR adds the step's distance row, tiled over the K pool
+    rows.
 
     q: [B*K, s, hidden]; k, v: [B*K, T, hidden] pools; ancestry: [B, K, T].
     """
@@ -184,14 +243,28 @@ def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1):
         .reshape(batch, beams, beams * t_max)
     keep = keep[:, None, :, None, :]                     # [B,1,i,1,jt]
 
+    if rpr_tables is not None:
+        # the same distance row for every pool row j of a position t
+        rpr_ids = rpr_mod.relative_positions_row(time, t_max,
+                                                 max_relative_position, dev)
+        r_k = rpr_mod.gather_embeddings(rpr_tables.keys, rpr_ids)
+        r_k = r_k.repeat(1, beams, 1)                    # [1, K*T, dh]
+        logits = logits + torch.einsum("bihsd,sjd->bhisj", qh,
+                                       r_k.to(qh.dtype)).float()
+
     logits = torch.where(keep, logits, NEG_INF)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     o = torch.einsum("bhisj,bhjd->bihsd", weights, vh)
+    if rpr_tables is not None:
+        r_v = rpr_mod.gather_embeddings(rpr_tables.values, rpr_ids)
+        r_v = r_v.repeat(1, beams, 1)
+        o = o + torch.einsum("bhisj,sjd->bihsd", weights, r_v.to(q.dtype))
     return combine_heads(o.reshape(batch * beams, num_heads, s, dh))
 
 
 def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
-                   use_flash=False):
+                   use_flash=False, rpr_tables=None,
+                   max_relative_position=None):
     """One-step self-attention with a static cache.
 
     x_t: [B, 1, d]; cache: {'pool_k','pool_v': [B, T_max, hidden]}, written
@@ -202,7 +275,8 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
     decode_step) switches beam decode to the ancestry-indexed pools, which
     are never beam-permuted. use_flash routes single-position steps through
     the decode kernels of ops/kernels/decode_attention.py (their plain
-    versions for CPU tensors); otherwise the plain attention code here runs.
+    versions for CPU tensors); RPR (``rpr_tables``) keeps both kernels off,
+    as in the JAX package; otherwise the plain attention code here runs.
     """
     q, k_t, v_t = nn.linear(params.qkv, x_t).chunk(3, dim=-1)
     span = x_t.shape[1]
@@ -210,11 +284,12 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
     k[:, time:time + span] = k_t.to(k.dtype)
     v[:, time:time + span] = v_t.to(v.dtype)
     t_max, hidden = k.shape[1], k.shape[2]
+    use_kernel = use_flash and span == 1 and rpr_tables is None
 
     ancestry = cache.get("ancestry")
     if ancestry is not None and ancestry.shape[1] > 1:
         batch, beams = ancestry.shape[:2]
-        if use_flash and span == 1:
+        if use_kernel:
             # the in-flight position lives in each beam's own row: set the
             # ancestry column at ``time`` to identity for the kernel
             anc_eff = ancestry.clone()
@@ -227,14 +302,21 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
                 anc_eff, time, num_heads)
             o = o.reshape(batch * beams, 1, hidden)
         else:
-            o = _ancestry_attn(q, k, v, ancestry, time, num_heads, span=span)
-    elif use_flash and span == 1:
+            o = _ancestry_attn(q, k, v, ancestry, time, num_heads, span=span,
+                               rpr_tables=rpr_tables,
+                               max_relative_position=max_relative_position)
+    elif use_kernel:
         o = da.decode_attention(q.contiguous(), k, v, time, num_heads)
     else:
         # multi-position steps may attend across all freshly-written slots
         keep = (torch.arange(t_max, device=k.device) <= time + (span - 1)) \
             .float()[None, None, None, :]
-        o, _ = _attn_core(q, k, v, keep, num_heads)
+        rpr_ids = None
+        if rpr_tables is not None:
+            rpr_ids = rpr_mod.relative_positions_row(
+                time, t_max, max_relative_position, k.device)
+        o, _ = _attn_core(q, k, v, keep, num_heads, rpr_tables=rpr_tables,
+                          rpr_ids=rpr_ids)
     return _out_map(params, o), cache
 
 
@@ -244,19 +326,29 @@ def cross_attn_precompute(params: Attention, memory):
             "mv": nn.linear(params.v, memory)}
 
 
-def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads):
+def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
+                    time=None, rpr_tables=None, max_relative_position=None):
     """One-step cross attention over precomputed memory projections.
 
     The memory stays UNTILED at [B, S, hidden] while queries come per beam
     at [B*K, 1, hidden]: the beams fold into the query-length dimension,
     so k/v are read once per sentence instead of once per beam.
-    mem_keep: [B, S] 1/0 pad mask. Returns [B*K, 1, hidden]."""
+    mem_keep: [B, S] 1/0 pad mask. rpr_tables: relative positions between
+    decode step ``time`` and the memory positions. Returns
+    [B*K, 1, hidden]."""
     q = nn.linear(params.q, x_t)
     mem_batch = mkv["mk"].shape[0]
     q_batch = q.shape[0]
     beams = q_batch // mem_batch
     q2 = q.reshape(mem_batch, beams * q.shape[1], q.shape[2])
     keep = mem_keep.float()[:, None, None, :]
-    o, _ = _attn_core(q2, mkv["mk"], mkv["mv"], keep, num_heads)
+    rpr_ids = None
+    if rpr_tables is not None:
+        # the same decode position for every beam-query row
+        rpr_ids = rpr_mod.relative_positions_row(
+            time, mkv["mk"].shape[1], max_relative_position,
+            q.device).repeat(q2.shape[1], 1)
+    o, _ = _attn_core(q2, mkv["mk"], mkv["mv"], keep, num_heads,
+                      rpr_tables=rpr_tables, rpr_ids=rpr_ids)
     o = o.reshape(q_batch, q.shape[1], -1)
     return _out_map(params, o)

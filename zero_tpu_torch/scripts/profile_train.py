@@ -12,7 +12,9 @@ then one more under ``torch.profiler``. Prints one JSON line: wall ms of the
 step, device-busy ms (the union of CUDA kernel intervals) and the idle
 share, kernel launches, the CUDA kernels with the most device time, and the
 host-side ops with the most self time. ``--parameters
-use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels.
+use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels;
+``--config configs/transformer_rpr_rela.json`` profiles transformer_rpr
+(its attentions over more than 2m keys take the RPR kernels).
 ``--trace`` also writes the Chrome trace.
 """
 
@@ -101,6 +103,7 @@ def main(argv=None):
     print(json.dumps({
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "model_name": cfg.model_name,
         "use_flash_attention": bool(cfg.use_flash_attention),
         "use_fused_ffn": bool(cfg.use_fused_ffn),
         "update_cycle": cycle, "rows": args.rows, "src_len": args.src_len,
