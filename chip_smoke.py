@@ -3,8 +3,10 @@
 hold them against their plain PyTorch versions, serve transformer-base
 through ``python -m zero_tpu_torch.run --mode test`` (beam 4, then beam 1),
 train it through ``python -m zero_tpu_torch.run --mode train``, train, serve
-and score transformer_rpr (Shaw relative positions) the same way, and check
-these paths against the CPU on small models.
+and score transformer_rpr (Shaw relative positions) the same way, train,
+score and serve transformer-base on sequences past 8192 tokens (the
+streaming-attention kernels), and check these paths against the CPU on
+small models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -14,8 +16,9 @@ Phases (each prints one line or more; any failure raises and exits
 non-zero):
   device     card name, power limit, TF32 off
   build      nvcc builds of csrc/{decode_attention,fused_attention,
-             fused_attention_rpr,fused_ffn}.cu (sm_90a), one process each,
-             all at once; the ptxas register/shared-memory report
+             fused_attention_rpr,fused_ffn,streaming_attention}.cu (sm_90a),
+             one process each, all at once; the ptxas register/shared-memory
+             report
   kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
@@ -76,6 +79,28 @@ non-zero):
              within 1e-4; dropout on, kernels against plain versions on the
              card, loss within 1e-5; beam-4 decode card against CPU,
              identical sequences
+  long_kernels  streaming attention (#5 forward, #6 dq, #7 dk/dv) against
+             streaming_attention_ref at B*H=8, Lq=Lk=8320 causal; B=2, H=4,
+             L=8320 under a pad mask with an all-pad row; cross Lq=256,
+             Lk=16384; fp32 and bf16, dropout 0 and 0.1; device times of
+             each kernel, the plain version and SDPA (bf16) beside the
+             bound. And decode_cross_attention (#9, unwired as in the JAX
+             package) against its plain version at B=32 beam 4 S=64 and
+             B=4 beam 4 S=16384, timed beside the composite of
+             cross_attn_step and SDPA
+  long_train transformer-base (configs/transformer_base_wmt14.json with
+             use_flash_attention and max_len/token_size 16384,
+             pad_seq_multiple 128; a constant learning rate 1e-3) trained
+             LONG_STEPS steps on synthetic pairs of 8200-16000 tokens a
+             side, one pair per microbatch: ms/step, target tokens/s, MFU,
+             peak memory; launches = 18 each of #5, #6 and #7 per
+             microbatch, no plain version; then --mode score and --mode test
+             (beam 4) of the checkpoint on four long pairs at
+             eval_batch_size 2: #5 in every forward, #8 in decoding
+  long_reference  a small fp32 model with fa.MAX_LK lowered to 64 (so every
+             attention streams): train_fn loss and grads card against CPU
+             within 1e-4; dropout on, kernels against plain versions, loss
+             within 1e-5; beam 4 card against CPU, identical sequences
 Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -459,13 +484,14 @@ def attention_pairs(pad, h, lq, causal):
 
 
 def attention_pad(gen, b, lk, padded):
-    """[B, Lk] key pad mask: random lengths and an all-pad row 3, or all
-    valid."""
+    """[B, Lk] key pad mask: random lengths, the last of several rows all
+    padding; or all valid."""
     if not padded:
         return torch.ones(b, lk)
     lens = torch.randint(lk // 4, lk + 1, (b,), generator=gen)
     pad = (torch.arange(lk)[None] < lens[:, None]).float()
-    pad[3] = 0.0   # an all-pad batch row
+    if b > 1:
+        pad[-1] = 0.0   # an all-pad batch row
     return pad
 
 
@@ -1065,6 +1091,15 @@ def plain_attention(q, k, v, pad_mask=None, *, causal=False,
         rng)
 
 
+def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0):
+    """fused_ffn's interface over its plain version."""
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
+                         rate)
+    return y.reshape(*x.shape[:-1], w2.shape[1])
+
+
 def train_reference_phase():
     """train_fn on the card (kernels) against the CPU (plain versions)."""
     import copy
@@ -1099,12 +1134,6 @@ def train_reference_phase():
 
     # dropout on: kernels against plain versions on the card, same words
     cfg = _small_model(0.1)
-
-    def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0):
-        y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
-                             rate)
-        return y.reshape(*x.shape[:-1], w2.shape[1])
-
     losses = []
     for plain in (False, True):
         with mock.patch.object(fa, "fused_attention",
@@ -1251,9 +1280,439 @@ def converge_phase(d):
           loss_last=summary["losses"][-1], wall_s=time.time() - t0)
 
 
+# ---------------------------------------------------------------------------
+# long sequences: streaming attention (#5-#7), cross-attention decode (#9)
+# ---------------------------------------------------------------------------
+
+# (name, B, H, Lq, Lk, Dh, causal, pad mask with an all-pad row): decoder
+# self-attention past the fused kernels' 8192 keys; encoder self-attention
+# under a pad mask; cross attention of a short target over a 16k memory
+LONG_CASES = (("causal_8320", 1, 8, 8320, 8320, 64, True, False),
+              ("pad_8320", 2, 4, 8320, 8320, 64, False, True),
+              ("cross_256x16384", 1, 8, 256, 16384, 64, False, True))
+# (B, beams, S): transformer-base MT decode and the long-memory serving shape
+CROSS_CASES = ((32, 4, 64), (4, 4, 16384))
+LONG_STEPS = 3
+LONG_PARAMS = ("use_flash_attention=true,max_len=16384,token_size=16384,"
+               "pad_seq_multiple=128")
+
+
+def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
+                 rng=None):
+    """streaming_attention's interface over its plain version: from the
+    same seed words it draws the kernels' dropout masks."""
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+           if pad_mask is None else pad_mask.float())
+    rate = dropout_rate if rng is not None else 0.0
+    return sa.streaming_attention_ref(q, k, v, pad, causal, rate, rng)
+
+
+def streaming_rows(sa, gen):
+    """Kernels #5-#7 against streaming_attention_ref; bf16 timings."""
+    dev = "cuda"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, b, h, lq, lk, dh, causal, padded in LONG_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            def inputs():
+                q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+                pad = attention_pad(gen, b, lk, padded)
+                do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+                return [t.requires_grad_() for t in (q, k, v)] + [
+                    pad.to(dev), do]
+
+            for rate in (0.0, 0.1):
+                q, k, v, pad, do = inputs()
+                words = SEED_WORDS if rate else None
+                out = sa.streaming_attention(q, k, v, pad, causal=causal,
+                                             dropout_rate=rate, rng=words)
+                grads = torch.autograd.grad(out, (q, k, v), do)
+                ref = sa.streaming_attention_ref(q, k, v, pad, causal, rate,
+                                                 words)
+                rgrads = torch.autograd.grad(ref, (q, k, v), do)
+                label = "%s[%s,p=%g]" % (name, str(dtype)[6:], rate)
+                errs = [check("streaming_attention " + label, out, ref,
+                              dtype, TRAIN_TOLERANCE)]
+                errs += [check("streaming_attention_backward %s d%s"
+                               % (label, w), g, r, dtype, TRAIN_TOLERANCE)
+                         for w, g, r in zip("qkv", grads, rgrads)]
+                if not all(torch.isfinite(x).all() for x in (out,) + grads):
+                    raise AssertionError("streaming_attention %s: non-finite"
+                                         " output or gradient" % label)
+                del out, grads, ref, rgrads
+                if dtype != torch.bfloat16:
+                    phase("long_kernels", kernel="streaming_attention",
+                          case=label, max_abs_err=errs[0],
+                          backward_max_abs_err=max(errs[1:]))
+                    continue
+                rows.update(time_streaming(sa, sdpa, name, inputs, pad,
+                                           h, lq, lk, dh, causal, rate,
+                                           words, errs))
+                torch.cuda.empty_cache()
+    return rows
+
+
+def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
+                   rate, words, errs):
+    """Device times of #5, #6 and #7 alone, of the plain version's forward
+    and backward, and of SDPA (dropout off), beside each bound: the bytes
+    of each input once and each output once, and the products over the
+    (row, key) pairs the output needs (4 flops per pair and depth forward,
+    6 for #6: s, dP, dQ; 8 for #7: s, dP, dV, dK)."""
+    b = pad.shape[0]
+    pairs = attention_pairs(pad, h, lq, causal)
+    dtype = torch.bfloat16
+    eb = 2
+    qb, kb = b * h * lq * dh * eb, b * h * lk * dh * eb
+    rows_f32 = 4 * b * h * lq
+    sets = copies(inputs, 2 * qb + 2 * kb)
+    f_args = [(s[0].detach(), s[1].detach(), s[2].detach(), s[3], bool(causal),
+               rate, words or (0, 0)) for s in sets]
+    fwds = [sa._forward(*a) for a in f_args]
+    dq_args = [a[:4] + (o, s[4], m, l) + a[4:]
+               for a, (o, m, l), s in zip(f_args, fwds, sets)]
+    deltas = [sa._backward_dq(*a)[1] for a in dq_args]
+    kv_args = [a[:4] + (s[4], m, l, delta) + a[4:]
+               for a, (o, m, l), s, delta in zip(f_args, fwds, sets, deltas)]
+
+    def p_fwd(q, k, v, pad, do):
+        return sa.streaming_attention_ref(q, k, v, pad, causal, rate, words)
+
+    def l_fwd(q, k, v, pad, do):
+        if causal:
+            return sdpa(q, k, v, is_causal=True)
+        return sdpa(q, k, v, attn_mask=(pad > 0)[:, None, None])
+
+    iters = 2 * len(sets)
+    plain_bwd = device_ms(lambda run: run(), [(grad_ms(p_fwd(*s), s[:3],
+                                                       s[4]),)
+                                              for s in sets], iters)
+    out = {}
+    for key, fn, args, nbytes, flops in (
+            ("streaming_attention", sa._forward, f_args,
+             2 * qb + 2 * kb + rows_f32 * 2 + 4 * b * lk, 4 * pairs * dh),
+            ("streaming_attention_dq", sa._backward_dq, dq_args,
+             4 * qb + 2 * kb + rows_f32 * 3 + 4 * b * lk, 6 * pairs * dh),
+            ("streaming_attention_dkdv", sa._backward_dkdv, kv_args,
+             2 * qb + 4 * kb + rows_f32 * 3 + 4 * b * lk, 8 * pairs * dh)):
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        r = dict(ms=device_ms(fn, args, iters), bound_ms=bound_ms,
+                 bound_by=bound_by)
+        if key == "streaming_attention":
+            r.update(plain_ms=device_ms(p_fwd, sets, iters),
+                     max_abs_err=errs[0])
+        else:
+            # the plain version's backward computes dq, dk and dv at once
+            r.update(plain_ms=plain_bwd, max_abs_err=max(errs[1:]))
+        if rate == 0.0:
+            if key == "streaming_attention":
+                r["library_ms"] = device_ms(l_fwd, sets, iters)
+            else:
+                r["library_ms"] = device_ms(
+                    lambda run: run(), [(grad_ms(l_fwd(*s), s[:3], s[4]),)
+                                        for s in sets], iters)
+        phase("long_kernels", kernel=key, case="%s[bf16,p=%g]" % (name, rate),
+              **r)
+        out[(key, name, rate)] = r
+    return out
+
+
+def cross_rows(da, gen):
+    """Kernel #9 against decode_cross_attention_ref; bf16 timings beside
+    the composite cross_attn_step runs (_attn_core over the beam-folded
+    queries) and SDPA."""
+    from zero_tpu_torch.ops import attention as attn
+
+    dev = "cuda"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dh = HIDDEN // HEADS
+    rows = {}
+    for b, beams, s_len in CROSS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            def inputs():
+                q = torch.randn(b, beams, HIDDEN, generator=gen).to(dev,
+                                                                    dtype)
+                mk = torch.randn(b, s_len, HIDDEN, generator=gen).to(dev,
+                                                                     dtype)
+                mv = torch.randn(b, s_len, HIDDEN, generator=gen).to(dev,
+                                                                     dtype)
+                lens = torch.randint(s_len // 2, s_len + 1, (b,),
+                                     generator=gen)
+                mask = (torch.arange(s_len)[None] < lens[:, None]).float()
+                return q, mk, mv, mask.to(dev)
+
+            args = inputs()
+            label = "B%d_beams%d_S%d[%s]" % (b, beams, s_len, str(dtype)[6:])
+            err = check("decode_cross_attention " + label,
+                        da.decode_cross_attention(*args, HEADS),
+                        da.decode_cross_attention_ref(*args, HEADS), dtype)
+            if dtype != torch.bfloat16:
+                phase("long_kernels", kernel="decode_cross_attention",
+                      case=label, max_abs_err=err)
+                continue
+            sets = copies(inputs, 2 * b * s_len * HIDDEN * 2)
+
+            def k_cross(q, mk, mv, mask):
+                return da.decode_cross_attention(q, mk, mv, mask, HEADS)
+
+            def p_cross(q, mk, mv, mask):
+                return da.decode_cross_attention_ref(q, mk, mv, mask, HEADS)
+
+            def c_cross(q, mk, mv, mask):
+                return attn._attn_core(q, mk, mv, mask[:, None, None, :],
+                                       HEADS)[0]
+
+            def heads(x):
+                return x.view(x.shape[0], x.shape[1], HEADS,
+                              dh).transpose(1, 2)
+
+            lsets = [(heads(q), heads(mk), heads(mv),
+                      (mask > 0)[:, None, None, :])
+                     for q, mk, mv, mask in sets]
+
+            def l_cross(q, k, v, keep):
+                return sdpa(q, k, v, attn_mask=keep)
+
+            iters = 3 * len(sets)
+            nbytes = (2 * b * s_len * HIDDEN + 2 * b * beams * HIDDEN) * 2 \
+                + 4 * b * s_len
+            b_ms, b_by = bound(nbytes, 4 * b * beams * s_len * HIDDEN, dtype)
+            r = dict(max_abs_err=err, ms=device_ms(k_cross, sets, iters),
+                     plain_ms=device_ms(p_cross, sets, iters),
+                     composite_ms=device_ms(c_cross, sets, iters),
+                     library_ms=device_ms(l_cross, lsets, iters),
+                     bound_ms=b_ms, bound_by=b_by)
+            phase("long_kernels", kernel="decode_cross_attention",
+                  case=label, **r)
+            rows[("decode_cross_attention", s_len)] = r
+            del sets, lsets
+            torch.cuda.empty_cache()
+    return rows
+
+
+def long_kernels_phase(da):
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = streaming_rows(sa, gen)
+    rows.update(cross_rows(da, gen))
+    return rows
+
+
+def write_long_corpus(d, words):
+    """Training pairs (one per microbatch: LONG_STEPS steps of update_cycle
+    4) and four test pairs, 8200 to 16000 tokens a side, from SEED."""
+    rs = np.random.RandomState(SEED + 3)
+    for prefix, n in (("long_train", 4 * LONG_STEPS), ("long_test", 4)):
+        for side in ("src", "tgt"):
+            with open(os.path.join(d, "%s.%s" % (prefix, side)), "w") as w:
+                for _ in range(n):
+                    length = rs.randint(8200, 16001)
+                    w.write(" ".join(words[i] for i in rs.randint(
+                        0, len(words), length)) + "\n")
+
+
+def long_train_phase(d, da):
+    """--mode train of transformer-base on the long pairs, then --mode
+    score and --mode test of its checkpoint; returns the train run's
+    launch counts."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    cfg = load_config_file(CONFIG)
+    counters = (sa.launches, fa.launches, ff.launches, da.launches)
+    files = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+             "output_dir={0}/long_model,".format(d))
+    spec = (files + LONG_PARAMS + ",src_train_file={0}/long_train.src,"
+            "tgt_train_file={0}/long_train.tgt,lrate_strategy=vanilla,"
+            "lrate=1e-3,max_training_steps={1},disp_freq=1,save_freq=0,"
+            "eval_freq=0,sample_freq=0,epoches=100".format(d, LONG_STEPS))
+    for c in counters:
+        c.clear()
+    torch.cuda.reset_peak_memory_stats()
+    summary = run.main(["--mode", "train", "--config", CONFIG,
+                        "--parameters", spec])
+    torch.cuda.synchronize()
+    launches = collect(counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = summary["losses"]
+    if summary["steps"] != LONG_STEPS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("long_train: %d steps, losses %s (finite and "
+                             "falling wanted)" % (summary["steps"], losses))
+    shapes = summary["shapes"]
+    lengths = [stacked_shape(s)[1:] for s in shapes]
+    if min(min(x) for x in lengths) <= 8192:
+        raise AssertionError("long_train: stacked lengths %s, wanted > 8192"
+                             % lengths)
+    microbatches = cfg["update_cycle"] * summary["steps"]
+    attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
+    want = {k: attn * microbatches for k in (
+        "streaming_attention", "streaming_attention_dq",
+        "streaming_attention_dkdv")}
+    if launches != want:
+        raise AssertionError("long_train launches %s, expected %s (no plain "
+                             "version)" % (launches, want))
+    ends = summary["step_end_times"]
+    step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
+    timed = sum(step_s)
+    flops = [model_flops(s, cfg) for s in shapes]
+    phase("long_train", steps=summary["steps"], stacked_lengths=lengths,
+          ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+          ms_per_step_mean=1e3 * timed / len(step_s),
+          target_tokens_per_s=sum(summary["target_tokens"][1:]) / timed,
+          model_tflop_per_step=sum(flops) / len(flops) / 1e12,
+          mfu=sum(flops[1:]) / timed / PEAK_BF16, losses=losses,
+          gnorms=summary["gnorms"], launches=launches, peak_gib=peak)
+
+    # score and serve the checkpoint on four long pairs, two per batch
+    spec = (files + "src_test_file={0}/long_test.src,"
+            "tgt_test_file={0}/long_test.tgt,eval_batch_size=2,"
+            "eval_max_len=16384,beam_size=4".format(d))
+    for c in counters:
+        c.clear()
+    scores, ppl = run.main(["--mode", "score", "--parameters", spec
+                            + ",test_output=%s/long_scores.txt" % d])
+    score_launches = collect(counters)
+    if len(scores) != 4 or not all(map(math.isfinite, scores)) \
+            or score_launches != {"streaming_attention": attn * 2}:
+        raise AssertionError("long_train scoring: %s, launches %s"
+                             % (scores, score_launches))
+    for c in counters:
+        c.clear()
+    served = run.main(["--mode", "test", "--parameters", spec
+                       + ",test_output=%s/long_trans.txt" % d])
+    serve_launches = collect(counters)
+    with open(os.path.join(d, "long_trans.txt")) as r:
+        lines = r.read().splitlines()
+    layers = cfg["num_decoder_layer"]
+    want = {"streaming_attention": cfg["num_encoder_layer"] * 2,
+            "decode_pool_attention": layers * served["steps"]}
+    if len(lines) != 4 or served["sentences"] != 4 \
+            or serve_launches != want:
+        raise AssertionError("long_train serving: %d lines, launches %s, "
+                             "expected %s" % (len(lines), serve_launches,
+                                              want))
+    phase("long_train", scored=len(scores), score_ppl=ppl,
+          score_launches=score_launches, served_sentences=len(lines),
+          served_s=served["seconds"], decode_steps=served["steps"],
+          serve_launches=serve_launches)
+    return launches
+
+
+def _long_small_batch():
+    """Six rows of 160 source and 136 target positions (random lengths,
+    the last row all padding), from SEED."""
+    rs = np.random.RandomState(SEED + 5)
+    src = rs.randint(3, 43, (6, 160))
+    tgt = rs.randint(3, 43, (6, 136))
+    for i, (ns, nt) in enumerate(zip(rs.randint(70, 161, 6),
+                                     rs.randint(70, 137, 6))):
+        src[i, ns:] = 0
+        tgt[i, nt:] = 0
+    src[-1] = 0
+    tgt[-1] = 0
+    return {"source": torch.as_tensor(src), "target": torch.as_tensor(tgt)}
+
+
+def long_reference_phase(da):
+    """A small fp32 model whose every attention streams (fa.MAX_LK lowered
+    to 64, lengths 136-160): train_fn card (kernels) against CPU (plain
+    versions), dropout on kernels against plain versions on the card, and
+    beam 4 card against CPU."""
+    import copy
+
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+    from zero_tpu_torch.search import beam_search
+
+    model = get_model("transformer")
+    feats = _long_small_batch()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    with mock.patch.object(fa, "MAX_LK", 64):
+        cfg = _small_model(0.0)
+        cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+        gpu = copy.deepcopy(cpu).cuda()
+        sa.launches.clear()
+        fa.launches.clear()
+        lc = model.train_fn(cpu, feats, cfg, None)["loss"]
+        gc = torch.autograd.grad(lc, list(cpu.parameters()))
+        lg = model.train_fn(gpu, gfeats, cfg, None)["loss"]
+        gg = torch.autograd.grad(lg, list(gpu.parameters()))
+        loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+        errs = grad_errors(cpu, gc, gg)
+        worst = max(errs, key=errs.get)
+        want = {"streaming_attention_ref": 6, "streaming_attention": 6,
+                "streaming_attention_dq": 6, "streaming_attention_dkdv": 6}
+        if not (loss_err <= 1e-4 and errs[worst] <= 1e-4
+                and collect([sa.launches, fa.launches]) == want):
+            raise AssertionError("long_reference: loss rel err %.3g, grad "
+                                 "rel err %.3g (%s), launches %s %s" % (
+                                     loss_err, errs[worst], worst,
+                                     dict(sa.launches), dict(fa.launches)))
+
+        # dropout on: kernels against plain versions on the card, same words
+        cfg = _small_model(0.1)
+        losses = []
+        for plain in (False, True):
+            sa.launches.clear()
+            with mock.patch.object(sa, "streaming_attention",
+                                   plain_stream if plain
+                                   else sa.streaming_attention), \
+                    mock.patch.object(ff, "fused_ffn",
+                                      plain_ffn if plain else ff.fused_ffn):
+                loss = model.train_fn(gpu, gfeats, cfg,
+                                      torch.Generator().manual_seed(SEED))
+            losses.append(loss["loss"].item())
+            key = "streaming_attention" + ("_ref" if plain else "")
+            if sa.launches[key] != 6:
+                raise AssertionError("long_reference: dropout run launched "
+                                     "%s" % dict(sa.launches))
+        drop_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        if not drop_err <= 1e-5:
+            raise AssertionError("long_reference: dropout-on loss kernels %r"
+                                 " vs plain %r" % tuple(losses))
+
+        # beam 4: the encoder streams (#5), decoding runs the pool kernel
+        cfg.beam_size = 4
+        cfg.decode_max_len = 24
+        inf = model.infer_fn(cfg)
+        sa.launches.clear()
+        da.launches.clear()
+        with torch.inference_mode():
+            g = beam_search(gpu, gfeats["source"], inf, cfg)
+            c = beam_search(cpu, feats["source"], inf, cfg)
+        same = torch.equal(g["seq"].cpu(), c["seq"])
+        score_err = (g["score"].cpu() - c["score"]).abs().max().item()
+        if not (same and score_err <= 1e-4
+                and sa.launches["streaming_attention"] == 2
+                and da.launches["decode_pool_attention"] > 0
+                and torch.isfinite(g["score"]).all()):
+            raise AssertionError("long_reference beam 4: card vs CPU "
+                                 "sequences equal %s, score err %.3g, "
+                                 "launches %s %s" % (
+                                     same, score_err, dict(sa.launches),
+                                     dict(da.launches)))
+    phase("long_reference", loss_rel_err=loss_err, grad_rel_err=errs[worst],
+          worst=worst, dropout_loss_kernels=losses[0],
+          dropout_loss_plain=losses[1], dropout_rel_err=drop_err,
+          beam4_same_sequences=same, beam4_max_score_err=score_err,
+          beam4_steps=g["steps"])
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
-          "rpr_train", "rpr_reference")
+          "rpr_train", "rpr_reference", "long_kernels", "long_train",
+          "long_reference")
 
 
 def main(argv=None):
@@ -1288,8 +1747,7 @@ def main(argv=None):
           cudnn_tf32=torch.backends.cudnn.allow_tf32)
 
     # build: one nvcc per source, all at once
-    sources = ("decode_attention", "fused_attention", "fused_attention_rpr",
-               "fused_ffn")
+    sources = cuda_build.SOURCES
     t0 = time.time()
     libs = cuda_build.build(*sources)
     for name in sources:
@@ -1298,13 +1756,15 @@ def main(argv=None):
           libraries=[os.path.relpath(libs[n], REPO) for n in sources],
           ptxas={n: cuda_build.ptxas_report(n) for n in sources})
 
-    rows, train_rows, rpr_rows, launches = {}, {}, {}, {}
+    rows, train_rows, rpr_rows, long_rows, launches = {}, {}, {}, {}, {}
     if "kernels" in todo:
         rows = kernels_phase(da)
     if "train_kernels" in todo:
         train_rows = train_kernels_phase()
     if "rpr_kernels" in todo:
         rpr_rows = rpr_kernels_phase()
+    if "long_kernels" in todo:
+        long_rows = long_kernels_phase(da)
 
     from zero_tpu_torch.config import default_config, load_config_file
     from zero_tpu_torch.models import get_model
@@ -1337,10 +1797,15 @@ def main(argv=None):
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches))
+        if "long_train" in todo:
+            write_long_corpus(d, words)
+            launches.update(long_train_phase(d, da))
     if "train_reference" in todo:
         train_reference_phase()
     if "rpr_reference" in todo:
         rpr_reference_phase(da)
+    if "long_reference" in todo:
+        long_reference_phase(da)
     if "converge" in todo:
         with tempfile.TemporaryDirectory() as d:
             converge_phase(d)
@@ -1392,6 +1857,31 @@ def main(argv=None):
             bound_by=r["bound_by"], library_ms=r0["library_ms"],
             library="scaled_dot_product_attention without RPR (floor)",
             composite_ms=r0["composite_ms"]))
+    # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
+    # mask, an all-pad row), as long_train runs them; SDPA with dropout off
+    for name, line in (("streaming_attention", 308),
+                       ("streaming_attention_dq", 353),
+                       ("streaming_attention_dkdv", 371)):
+        r = long_rows[(name, "pad_8320", 0.1)]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="zero_tpu_torch/csrc/streaming_attention.cu",
+            replaces="zero_tpu/ops/kernels/streaming_attention.py:%d" % line,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"]))
+    # the cross-attention decode kernel stays unwired, as in the JAX
+    # package: no launch on the main path; long-memory shape, bf16
+    r = long_rows[("decode_cross_attention", CROSS_CASES[-1][2])]
+    kernels.append(dict(
+        name="decode_cross_attention", route="cuda", source=decode_src,
+        replaces="zero_tpu/ops/kernels/decode_attention.py:329",
+        launches=launches.get("decode_cross_attention", 0),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], composite_ms=r["composite_ms"],
+        wired=False))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

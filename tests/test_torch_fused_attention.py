@@ -1,8 +1,8 @@
 """zero_tpu_torch fused attention (kernels #1/#2): the plain version
 against the JAX package's Pallas kernel (interpret mode) and its XLA
-equivalent, forward and gradients, and the dropout mask it shares with the
-CUDA kernels. The CUDA kernels are held to the plain version on the card by
-chip_smoke.py."""
+equivalent, forward and gradients, the dropout mask it shares with the
+CUDA kernels, and the route of keys past its limit. The CUDA kernels are
+held to the plain version on the card by chip_smoke.py."""
 
 import pytest
 
@@ -135,10 +135,23 @@ def test_dropout_off_without_seed_words():
 
 
 def test_long_keys_raise_naming_the_streaming_kernels():
-    lin = attention_mod.init_attention(torch.Generator().manual_seed(0), 8,
-                                       8, self_attention=False)
-    x = torch.zeros(1, 2, 8)
-    mem = torch.zeros(1, fa.MAX_LK + 1, 8)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        attention_mod.attn_train(lin, x, mem, None, 2, use_flash=True,
-                                 pad_mask=torch.ones(1, fa.MAX_LK + 1))
+    """Keys past the fused kernels' MAX_LK go to the streaming kernels
+    (#5-#7; their plain version on the CPU), which the port once refused;
+    the result equals the composite attention."""
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    gen = torch.Generator().manual_seed(0)
+    lin = attention_mod.init_attention(gen, 8, 8, self_attention=False)
+    x = torch.randn(1, 2, 8, generator=gen)
+    mem = torch.randn(1, fa.MAX_LK + 1, 8, generator=gen)
+    pad = torch.ones(1, fa.MAX_LK + 1)
+    pad[0, -5:] = 0
+    sa.launches.clear()
+    fa.launches.clear()
+    got = attention_mod.attn_train(lin, x, mem, None, 2, use_flash=True,
+                                   pad_mask=pad)["output"]
+    assert sa.launches["streaming_attention_ref"] == 1
+    assert not any(fa.launches.values())
+    want = attention_mod.attn_train(lin, x, mem, pad[:, None, None, :],
+                                    2)["output"]
+    torch.testing.assert_close(got, want, **TOL)

@@ -42,9 +42,10 @@ NO_DROPOUT = dict(dropout=0.0, relu_dropout=0.0, residual_dropout=0.0,
 
 @pytest.fixture(scope="module")
 def model_setup():
-    # 5 x 6 target positions in chunks of 7: a padded tail; row 2 all-pad
+    # 5 x 6 target positions in chunks of 7: a padded tail; row 2 all-pad;
+    # one layer a side keeps the JAX compile of the grads short
     cfg = tiny_config(model_name="transformer", loss_chunk_tokens=7,
-                      **NO_DROPOUT)
+                      num_encoder_layer=1, num_decoder_layer=1, **NO_DROPOUT)
     rs = np.random.RandomState(0)
     src = rs.randint(3, 20, (5, 7)).astype(np.int32)
     tgt = rs.randint(3, 20, (5, 6)).astype(np.int32)
@@ -246,8 +247,10 @@ def _jax_state(d, spec):
     Adam moments, count and EMA."""
     cfg = jdefault_config().parse(spec.replace(",device=cpu", ""))
     cfg.src_vocab = cfg.tgt_vocab = JVocab(str(d / "vocab.txt"))
-    state = jinit_state(jget_model("transformer"), cfg,
-                        jax.random.PRNGKey(3))
+    # one jitted init: op-by-op dispatch of the initialisers, the Adam
+    # state and the EMA copy costs more than one compile
+    state = jax.jit(lambda key: jinit_state(jget_model("transformer"), cfg,
+                                            key))(jax.random.PRNGKey(3))
     noise = iter(range(10 ** 6))
     rand = (lambda a: jnp.asarray(np.random.RandomState(next(noise))
                                   .rand(*a.shape).astype(np.float32)))
@@ -260,9 +263,9 @@ def _jax_state(d, spec):
 def test_jax_checkpoint_resumes_in_port_cli_and_back(corpus):
     """A JAX-written training checkpoint (params/opt/ema + record.json at
     step 4) restores exactly into the port's state; ``--mode train`` resumes
-    it to step 20; the port's checkpoint then restores into the JAX
-    package's state templates, key for key; ``--mode test`` and ``--mode
-    score`` serve it."""
+    it to step 12 (a dev eval at 10); the port's checkpoint then restores
+    into the JAX package's state templates, key for key; ``--mode test``
+    and ``--mode score`` serve it."""
     d, spec = corpus
     out = d / "out"
     jstate = _jax_state(d, spec)
@@ -295,21 +298,21 @@ def test_jax_checkpoint_resumes_in_port_cli_and_back(corpus):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
     summary = run.main(["--mode", "train", "--parameters",
-                        spec + ",max_training_steps=20"])
-    assert summary["steps"] == 16
+                        spec + ",max_training_steps=12"])
+    assert summary["steps"] == 8
     assert all(np.isfinite(summary["losses"]))
     with open(out / "record.json") as r:
-        assert json.load(r)["step"] == 20
+        assert json.load(r)["step"] == 12
     jrec = JRecorder()
     jrec.load_from_json(str(out / "record.json"))
-    assert jrec.step == 20
+    assert jrec.step == 12
 
     # the port's checkpoint: JAX keys, JAX restore
     names = json.load(open(out / "checkpoint"))["all"]
-    assert names[-1] == "model-20"
-    flat = load_checkpoint_file(str(out / "model-20.npz"))
+    assert names[-1] == "model-12"
+    flat = load_checkpoint_file(str(out / "model-12.npz"))
     assert sorted(flat) == sorted(want)
-    assert int(flat["opt/.count"]) == 20
+    assert int(flat["opt/.count"]) == 12
     restored = JSaver(output_dir=str(out)).restore(trees)
     for prefix in trees:
         for k, v in _flatten(restored[prefix], prefix).items():
@@ -347,16 +350,16 @@ def test_sigterm_checkpoints_and_resume_continues(corpus, monkeypatch):
 
     monkeypatch.setattr(port_train, "_step_generator", gen_and_preempt)
     summary = run.main(["--mode", "train", "--parameters",
-                        spec + ",max_training_steps=8,eval_freq=0"])
+                        spec + ",max_training_steps=5,eval_freq=0"])
     assert summary["steps"] == 3 and summary["bleu"] is None
     assert json.load(open(d / "pre" / "record.json"))["step"] == 3
     assert json.load(open(d / "pre" / "checkpoint"))["latest"] == "model-3"
     monkeypatch.setattr(port_train, "_step_generator", make_gen)
     summary = run.main(["--mode", "train", "--parameters",
-                        spec + ",max_training_steps=8,eval_freq=0"])
-    assert summary["steps"] == 5
-    assert int(load_checkpoint_file(str(d / "pre" / "model-8.npz"))
-               ["opt/.count"]) == 8
+                        spec + ",max_training_steps=5,eval_freq=0"])
+    assert summary["steps"] == 2
+    assert int(load_checkpoint_file(str(d / "pre" / "model-5.npz"))
+               ["opt/.count"]) == 5
 
 
 @pytest.mark.parametrize("scores", [[0.1, 0.2, 0.2, 0.1, 0.05],

@@ -66,7 +66,11 @@ def test_encode_and_decode_steps_match(setup):
     b, beams = src.shape[0], cfg.beam_size
     jinf = jget_model("transformer").infer_fn(cfg)
     inf = get_model("transformer").infer_fn(pcfg)
-    jstate = jinf.encode(jparams, jnp.asarray(src))
+    # jitted once each: JAX's op-by-op dispatch of an unjitted decode step
+    # is most of this test's time otherwise
+    decode_step = jax.jit(jinf.decode_step)
+    reorder_cache = jax.jit(jinf.reorder_cache, static_argnums=(2, 3))
+    jstate = jax.jit(jinf.encode)(jparams, jnp.asarray(src))
     jcache = jinf.init_cache(jparams, jstate, b * beams, 12)
     rs = np.random.RandomState(1)
     with torch.inference_mode():
@@ -77,16 +81,15 @@ def test_encode_and_decode_steps_match(setup):
         assert "ancestry" in cache and "ancestry" in jcache
         for time in range(5):
             tok = rs.randint(3, 20, (b * beams, 1)).astype(np.int32)
-            jlogits, jcache = jinf.decode_step(jparams, jnp.asarray(tok),
-                                               jstate, jcache,
-                                               jnp.asarray(time))
+            jlogits, jcache = decode_step(jparams, jnp.asarray(tok), jstate,
+                                          jcache, jnp.asarray(time))
             logits, cache = inf.decode_step(params, t(tok), state, cache,
                                             time)
             np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                        **TOL)
             order = rs.randint(0, beams, (b, beams)).astype(np.int32)
-            jcache = jinf.reorder_cache(jcache, jnp.asarray(order), b, beams,
-                                        jnp.asarray(time))
+            jcache = reorder_cache(jcache, jnp.asarray(order), b, beams,
+                                   jnp.asarray(time))
             cache = inf.reorder_cache(cache, t(order), b, beams, time)
             np.testing.assert_array_equal(cache["ancestry"].numpy(),
                                           np.asarray(jcache["ancestry"]))

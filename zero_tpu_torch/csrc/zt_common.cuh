@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels (decode_attention.cu,
-// fused_attention.cu, fused_ffn.cu): dtype conversion, rounding to the
+// fused_attention.cu, fused_attention_rpr.cu, fused_ffn.cu,
+// streaming_attention.cu): dtype conversion, rounding to the
 // compute dtype, warp reductions, the counter-hash dropout bits of
 // zero_tpu/ops/common.py:_hash_bits, and the dynamic shared-memory cap.
 

@@ -10,7 +10,14 @@ leak buffer deferring undersized tail batches.
 ``pad_seq_multiple``/``pad_batch_multiple``/``pad_batch_to`` keep exactly
 the JAX package's padded shapes: beam search derives its step budget from
 the padded source length (search.py), so a different padding would decode
-a different number of steps.
+a different number of steps. One exception, for long sequences: the JAX
+package snaps a token batch's rows up a ladder that starts at 16 rows
+(``snap_rows_ladder``, bounding its jit shapes), so one 16k-token pair under
+``token_size=16384`` trains as 16 rows, 15 of them empty. Here a token
+batch whose longest padded side leaves the budget room for fewer than 16
+rows keeps its own row count; below that length (every length up to 256
+at ``token_size=4096``) the shapes are the JAX package's. All-pad rows
+change no loss (``sentence_mean_loss`` leaves them out), only the work.
 """
 
 from __future__ import annotations
@@ -68,13 +75,16 @@ def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
 
 
+LADDER_FIRST_RUNG = 16
+
+
 def snap_rows_ladder(n: int, multiple: int) -> int:
     """Snap a row count UP to a geometric ladder (1.25x steps on top of
     ``multiple``), bounding the number of distinct batch shapes to
     O(log rows) instead of one per row count."""
     if multiple <= 1:
         return n
-    step = max(multiple, 16)
+    step = max(multiple, LADDER_FIRST_RUNG)
     v = step
     while v < n:
         v = round_up(max(v + 1, int(v * 1.25)), step)
@@ -138,13 +148,15 @@ class Dataset:
                     continue
                 yield (src_line, tgt_line)
 
-    def to_matrix(self, batch):
+    def to_matrix(self, batch, token_size: int = 0):
         """Pad a list of (idx, src_ids, tgt_ids) into int32 matrices.
 
         Sequence dims are capped at max_len then snapped up to
         pad_seq_multiple; the batch dim is snapped up to pad_batch_multiple
         with all-pad rows (fully masked downstream -- models treat all-zero
-        rows as empty sentences).
+        rows as empty sentences). A token batch (``token_size`` its budget)
+        whose longest side leaves room for fewer than LADDER_FIRST_RUNG rows
+        keeps its own row count (the module docstring says why).
         """
         batch_size = len(batch)
         src_len = min(self.max_len, max(len(s[1]) for s in batch))
@@ -154,6 +166,8 @@ class Dataset:
         tgt_len = round_up(tgt_len, self.pad_seq_multiple)
         if self.batch_or_token == "token":
             padded_bs = snap_rows_ladder(batch_size, self.pad_batch_multiple)
+            if max(src_len, tgt_len) * LADDER_FIRST_RUNG > token_size > 0:
+                padded_bs = batch_size
         else:
             padded_bs = round_up(batch_size, self.pad_batch_multiple)
         padded_bs = max(padded_bs, self.pad_batch_to)
@@ -188,7 +202,8 @@ class Dataset:
 
             for oidx in order:
                 batch = [sorted_buf[ii] for ii in buffer_index[oidx]]
-                x, s, t = self.to_matrix(batch)
+                x, s, t = self.to_matrix(
+                    batch, size if self.batch_or_token == "token" else 0)
                 yield {"src": s, "tgt": t, "index": x, "raw": batch}
 
         def _size(data):

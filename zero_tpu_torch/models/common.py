@@ -21,6 +21,7 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -40,6 +41,7 @@ class LayerHooks(NamedTuple):
     init_enc_layer: Callable  # (gen, cfg, layer) -> module
     enc_layer: Callable       # (p, x, src_keep, cfg, rngs) -> x
     init_dec_layer: Callable  # (gen, cfg, layer) -> module
+    # self_keep: the causal keep-mask, or a callable building it
     dec_layer_train: Callable  # (p, x, state, self_keep, mem_keep, cfg, rngs, tgt_mask) -> x
     dec_layer_precompute: Callable  # (p, encodes, cfg) -> layer_state
     init_dec_layer_cache: Callable  # (p, batch, max_len, cfg, dtype, device) -> cache
@@ -229,7 +231,11 @@ def make_transformer(hooks: LayerHooks):
         x = shift_right(x)
         x = nn.add_timing_signal(x)
         x = dropout(rngs(), x, cfg.dropout if training else None)
-        self_keep = nn.causal_mask(target.shape[1], device=target.device)
+        # built on first use, by a layer on the composite path: a layer
+        # whose self-attention takes a kernel needs only the causal flag,
+        # and an [L, L] fp32 mask is 1 GiB at L = 16384
+        self_keep = functools.cache(functools.partial(
+            nn.causal_mask, target.shape[1], device=target.device))
         mem_keep = nn.masking_mask(state["mask"])
         for p in params.decoder:
             x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep, cfg,

@@ -21,8 +21,16 @@ from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops import rpr as rpr_mod
 from zero_tpu_torch.ops.kernels import decode_attention as da
 from zero_tpu_torch.ops.kernels import fused_attention as fa
+from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
 NEG_INF = da.NEG_INF
+
+
+def kernels_supported(lq: int, lk: int) -> bool:
+    """Fused-kernel eligibility: keys up to ``fa.MAX_LK`` ride the fused
+    kernels (#1/#2), longer ones stream (#5-#7). The port's kernels take
+    any lengths (no TPU tiling gate), so only an empty shape is refused."""
+    return sa.supported(lq, lk)
 
 
 class Attention(torch.nn.Module):
@@ -100,7 +108,8 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     """Softmax attention on [B, L, hidden] projections, with dropout on the
     weights (8-bit threshold masks of ops/common.py:dropout).
 
-    keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block.
+    keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block; or
+    a callable that builds it (models/common.py's lazy causal mask).
     RPR: with ``rpr_max`` the relative terms run in the bucket-one-hot
     form (ops/rpr.py); ``rpr_ids`` without ``rpr_max`` (decode rows) and
     shapes whose one-hot constant would be oversized take the gathered
@@ -126,6 +135,8 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     else:
         logits = torch.matmul(qh, kh.transpose(-1, -2))
     logits = logits.float()
+    if callable(keep_mask):
+        keep_mask = keep_mask()
     if keep_mask is not None:
         logits = torch.where(keep_mask > 0, logits, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
@@ -146,43 +157,46 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
                rng=None, drop=None, use_flash=False, causal=False,
                pad_mask=None, rpr_tables=None, max_relative_position=None):
     """Full-sequence attention; memory=None -> self-attention through the
-    fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0; the caller
-    combines causal and padding.
+    fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0, or a callable
+    that builds it (only the composite path calls it); the caller combines
+    causal and padding.
 
-    use_flash routes through the fused kernels of
-    ops/kernels/fused_attention.py (their plain versions for CPU tensors),
-    whose mask is the causal flag plus the key-side [B, Lk] ``pad_mask``
-    the caller declares. Keys beyond the fused kernel's 8192 raise: the
-    JAX package streams them through kernels #5-#7, not ported yet.
+    use_flash routes through the kernels (their plain versions for CPU
+    tensors), whose mask is the causal flag plus the key-side [B, Lk]
+    ``pad_mask`` the caller declares: up to ``fa.MAX_LK`` keys the fused
+    kernels of ops/kernels/fused_attention.py, beyond them the streaming
+    kernels of ops/kernels/streaming_attention.py, as the JAX package
+    routes them (its ops/attention.py:288-314).
 
     rpr_tables (ops/rpr.py:RprTables) adds Shaw relative positions. With
     use_flash they ride the RPR kernels (#3/#4) only where _rpr_flash_ok
     holds, as in the JAX package; elsewhere (e.g. Lk <= 2m) the composite
-    _attn_core runs. Returns {'output', 'weights'} (weights None on the
-    fused path)."""
+    _attn_core runs; RPR never streams, so past fa.MAX_LK keys it takes
+    _attn_core, as in JAX. Returns {'output', 'weights'} (weights None on
+    the kernel paths)."""
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
     else:
         q = nn.linear(params.q, query)
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
+    lq, lk = q.shape[1], k.shape[1]
     if use_flash and rpr_tables is not None:
-        use_flash = _rpr_flash_ok(q.shape[1], k.shape[1],
-                                  max_relative_position, causal, pad_mask)
+        use_flash = _rpr_flash_ok(lq, lk, max_relative_position, causal,
+                                  pad_mask)
+    elif use_flash:
+        use_flash = kernels_supported(lq, lk)
     if use_flash:
-        if k.shape[1] > fa.MAX_LK:
-            raise NotImplementedError(
-                "attention over %d > %d keys needs the streaming-attention "
-                "kernels (#5-#7 of zero_tpu/ops/kernels/"
-                "streaming_attention.py), not ported yet"
-                % (k.shape[1], fa.MAX_LK))
         drop_rate = float(drop) if (drop and rng is not None) else 0.0
-        o = fa.fused_attention(split_heads(q, num_heads),
-                               split_heads(k, num_heads),
-                               split_heads(v, num_heads), pad_mask,
-                               causal=causal, dropout_rate=drop_rate, rng=rng,
-                               rpr_tables=rpr_tables,
-                               max_relative_position=max_relative_position)
+        heads = [split_heads(x, num_heads) for x in (q, k, v)]
+        if rpr_tables is None and lk > fa.MAX_LK:
+            o = sa.streaming_attention(*heads, pad_mask, causal=causal,
+                                       dropout_rate=drop_rate, rng=rng)
+        else:
+            o = fa.fused_attention(*heads, pad_mask, causal=causal,
+                                   dropout_rate=drop_rate, rng=rng,
+                                   rpr_tables=rpr_tables,
+                                   max_relative_position=max_relative_position)
         o, weights = combine_heads(o.to(q.dtype)), None
     else:
         o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,

@@ -20,6 +20,10 @@ import shutil
 import subprocess
 from typing import Dict, List
 
+# every kernel source of the port, csrc/<name>.cu
+SOURCES = ("decode_attention", "fused_attention", "fused_attention_rpr",
+           "fused_ffn", "streaming_attention")
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")

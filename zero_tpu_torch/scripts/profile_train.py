@@ -1,7 +1,8 @@
 """Where a training step spends its time, on the card.
 
   python -m zero_tpu_torch.scripts.profile_train [--rows 64] [--src-len 64]
-      [--tgt-len 64] [--seed 1234] [--config configs/transformer_base_wmt14.json]
+      [--tgt-len 64] [--max-len N] [--seed 1234]
+      [--config configs/transformer_base_wmt14.json]
       [--parameters k=v,...] [--trace FILE]
 
 Builds the configured model (transformer-base by default) with random
@@ -14,7 +15,10 @@ share, kernel launches, the CUDA kernels with the most device time, and the
 host-side ops with the most self time. ``--parameters
 use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels;
 ``--config configs/transformer_rpr_rela.json`` profiles transformer_rpr
-(its attentions over more than 2m keys take the RPR kernels).
+(its attentions over more than 2m keys take the RPR kernels). ``--max-len
+16384 --parameters use_flash_attention=true`` profiles one long step: one
+row of that many source and target positions per microbatch (``max_len``
+set to match), so every attention streams (kernels #5-#7).
 ``--trace`` also writes the Chrome trace.
 """
 
@@ -51,12 +55,18 @@ def main(argv=None):
     parser.add_argument("--rows", type=int, default=64)
     parser.add_argument("--src-len", type=int, default=64)
     parser.add_argument("--tgt-len", type=int, default=64)
+    parser.add_argument("--max-len", type=int, default=0,
+                        help="one row of this many source and target "
+                        "positions per microbatch")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--top", type=int, default=12)
     parser.add_argument("--trace", default="")
     args = parser.parse_args(argv)
 
     cfg = merge_params(default_config(), args.config, args.parameters)
+    if args.max_len:
+        args.rows, args.src_len, args.tgt_len = 1, args.max_len, args.max_len
+        cfg.max_len = args.max_len
     cfg.src_vocab = cfg.tgt_vocab = Vocab()
     for i in range(VOCAB - 3):
         cfg.src_vocab.insert("w%d" % i)
@@ -108,6 +118,8 @@ def main(argv=None):
         "use_fused_ffn": bool(cfg.use_fused_ffn),
         "update_cycle": cycle, "rows": args.rows, "src_len": args.src_len,
         "tgt_len": args.tgt_len, "loss": loss, "wall_ms": wall_ms,
+        "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                     if device.type == "cuda" else None),
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels": [
