@@ -18,7 +18,8 @@ non-zero):
   build      nvcc builds of csrc/{decode_attention,fused_attention,
              fused_attention_rpr,fused_ffn,streaming_attention}.cu (sm_90a),
              one process each, all at once; the ptxas register/shared-memory
-             report
+             report; the count of tensor-core instructions (HGMMA, HMMA) in
+             the fused FFN library's SASS, which must not be 0
   kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
@@ -28,8 +29,11 @@ non-zero):
   train_kernels  fused_attention (forward, backward) at B=16, H=8, Dh=64:
              causal self-attention L=256, self-attention L=256 under a pad
              mask with an all-pad row, cross attention Lq=200 Lk=256; and
-             fused_ffn (forward, backward) at N=4096, 512->2048->512; fp32
-             and bf16, dropout 0 and 0.1, outputs and every gradient held
+             fused_ffn (forward, backward) at N=4096, 512->2048->512 (fp32
+             and bf16) and N=12544, the train phase's largest stacked shape
+             (bf16, the tensor-core kernels), checked also at N=54 and 72,
+             64->128->64, and N=200, 48->80->48 (widths off the 128 x 128
+             tiles); dropout 0 and 0.1, outputs and every gradient held
              against the plain versions; device times of kernel, plain
              version and a PyTorch yardstick (SDPA; F.linear/relu/F.linear)
              beside the bound
@@ -52,7 +56,10 @@ non-zero):
   train_reference  a small fp32 model: train_fn loss and grads on the card
              (kernels) against the CPU (plain versions), dropout off,
              within 1e-4; dropout on, kernels against plain versions on
-             the card from the same seed words, loss within 1e-5
+             the card from the same seed words, loss within 1e-5; the same
+             model in bf16 (the tensor-core FFN kernels) against plain_ffn
+             on the card, dropout off and on: loss within 1e-2 relative,
+             grads within 2e-2 of their scale
   converge   the copy task (a 12-word vocabulary, target = source;
              hidden 32, 700 steps, lr 3e-3) through --mode train with both
              flags on: final dev BLEU >= 0.95
@@ -111,6 +118,8 @@ import functools
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -199,6 +208,20 @@ def bound(nbytes, flops, dtype):
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def tensor_core_sass(lib):
+    """Counts of the tensor-core instructions in a built library's SASS
+    (``cuobjdump -sass``): HGMMA (wgmma) and HMMA (mma.sync); None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(r"\b%s\b" % op, sass))
+            for op in ("HGMMA", "HMMA")}
 
 
 def check(name, out, ref, dtype, tolerance=TOLERANCE):
@@ -449,7 +472,12 @@ ATTN_SMALL = (("small_causal", 6, 4, 9, 9, 16, True, False),
               ("small_pad", 6, 4, 12, 12, 16, False, True),
               ("small_cross", 6, 4, 9, 12, 16, False, True))
 FFN_SHAPE = (4096, 512, 2048, 512)
-FFN_SMALL = ((54, 64, 128, 64), (72, 64, 128, 64))
+# the train phase's largest stacked microbatch (112 x 112 tokens), timed in
+# bf16 only
+FFN_LARGE = (12544, 512, 2048, 512)
+# checked, not timed: train_reference's model shapes (ragged N), and widths
+# that are not a multiple of the tensor-core kernels' 128 x 128 tiles
+FFN_SMALL = ((54, 64, 128, 64), (72, 64, 128, 64), (200, 48, 80, 48))
 SEED_WORDS = (0x12345678, 0x9ABCDEF0)
 
 
@@ -595,13 +623,15 @@ def train_attention_rows(fa, gen):
 
 
 def train_ffn_rows(ff, gen):
-    """Kernels #11/#12 against fused_ffn_ref; returns the rows."""
+    """Kernels #11/#12 against fused_ffn_ref; returns the rows, keyed by
+    (kernel, N, dtype, rate)."""
     dev = "cuda"
     rows = {}
     for (n, d_in, f, d_out), dtype in [
             (shape, dtype) for shape in FFN_SMALL + (FFN_SHAPE,)
-            for dtype in (torch.float32, torch.bfloat16)]:
-        timed = (n, d_in, f, d_out) == FFN_SHAPE
+            for dtype in (torch.float32, torch.bfloat16)] + [
+                (FFN_LARGE, torch.bfloat16)]:
+        timed = (n, d_in, f, d_out) in (FFN_SHAPE, FFN_LARGE)
 
         def inputs():
             x = torch.randn(n, d_in, generator=gen).to(dev, dtype)
@@ -628,7 +658,8 @@ def train_ffn_rows(ff, gen):
             grads = torch.autograd.grad(out, (x, w1, b1, w2, b2), dy)
             ref = ff.fused_ffn_ref(x, w1, b1, w2, b2, words, rate)
             rgrads = torch.autograd.grad(ref, (x, w1, b1, w2, b2), dy)
-            label = "N%d[%s,p=%g]" % (n, str(dtype)[6:], rate)
+            label = "N%d_%d_%d_%d[%s,p=%g]" % (n, d_in, f, d_out,
+                                                str(dtype)[6:], rate)
             errs = [check("fused_ffn " + label, out, ref, dtype,
                           TRAIN_TOLERANCE)]
             errs += [check("fused_ffn_backward %s d%s" % (label, w), g, r,
@@ -680,8 +711,8 @@ def train_ffn_rows(ff, gen):
             phase("train_kernels", kernel="fused_ffn", case=label, **fwd)
             phase("train_kernels", kernel="fused_ffn_backward", case=label,
                   **bwd)
-            rows[("fused_ffn", dtype, rate)] = fwd
-            rows[("fused_ffn_backward", dtype, rate)] = bwd
+            rows[("fused_ffn", n, dtype, rate)] = fwd
+            rows[("fused_ffn_backward", n, dtype, rate)] = bwd
             del sets
             torch.cuda.empty_cache()
     return rows
@@ -1148,9 +1179,53 @@ def train_reference_phase():
     if not drop_err <= 1e-5:
         raise AssertionError("train_reference: dropout-on loss kernels %r "
                              "vs plain %r" % tuple(losses))
+
+    # bf16: the same model (widths 64/128) takes the tensor-core FFN kernels,
+    # held against plain_ffn on the card, dropout off and on from the same
+    # seed words (the attention kernels run on both sides). Tolerance: loss
+    # within 1e-2 relative, grads within 2e-2 of their scale (grad_errors):
+    # bf16 keeps 8 mantissa bits, the kernels sum each product in fp32 and
+    # round it once, and PyTorch's bf16 matmuls may round partial sums.
+    bf16 = {}
+    for rate in (0.0, 0.1):
+        cfg = _small_model(rate)
+        cfg.default_dtype = "bfloat16"
+        runs = []
+        for plain in (False, True):
+            ff.launches.clear()
+            with mock.patch.object(ff, "fused_ffn",
+                                   plain_ffn if plain else ff.fused_ffn):
+                loss = model.train_fn(
+                    gpu, gfeats, cfg,
+                    torch.Generator().manual_seed(SEED))["loss"]
+                grads = torch.autograd.grad(loss, list(gpu.parameters()))
+            runs.append((loss.item(), [g.cpu() for g in grads],
+                         dict(ff.launches)))
+        (lk, gk, nk), (lp, gp, np_) = runs
+        errs = grad_errors(cpu, gp, gk)
+        # the cross-attention key bias's gradient is zero in exact
+        # arithmetic (softmax ignores a per-row constant): both sides hold
+        # bf16 rounding noise there, above grad_errors' 1e-3 floor, so its
+        # error is taken on the scale of the model's largest gradient
+        top = max(g.abs().max().item() for g in gp)
+        for name, a, b in zip([n for n, _ in cpu.named_parameters()], gk,
+                              gp):
+            if name.endswith("cross.k.b"):
+                errs[name] = (a - b).abs().max().item() / top
+        worst = max(errs, key=errs.get)
+        bf16[rate] = dict(loss_kernels=lk, loss_plain=lp,
+                          loss_rel_err=abs(lk - lp) / abs(lp),
+                          grad_rel_err=errs[worst],
+                          grad_worst=sorted(errs, key=errs.get)[-3:])
+        if not (bf16[rate]["loss_rel_err"] <= 1e-2 and errs[worst] <= 2e-2
+                and nk == {"fused_ffn": 4, "fused_ffn_backward": 4}
+                and np_ == {"fused_ffn_ref": 4}):
+            raise AssertionError("train_reference bf16 p=%g: %s, launches "
+                                 "%s / %s" % (rate, bf16[rate], nk, np_))
     phase("train_reference", loss_rel_err=loss_err, grad_rel_err=grad_err,
           dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
-          dropout_rel_err=drop_err)
+          dropout_rel_err=drop_err,
+          bf16={"p=%g" % r: v for r, v in bf16.items()})
 
 
 def grad_errors(cpu, gc, gg):
@@ -1752,9 +1827,15 @@ def main(argv=None):
     libs = cuda_build.build(*sources)
     for name in sources:
         cuda_build.load(name)
+    # the bf16 FFN kernels (#11/#12) run on the tensor cores
+    ffn_sass = tensor_core_sass(libs["fused_ffn"])
+    if ffn_sass is not None and not any(ffn_sass.values()):
+        raise AssertionError("fused_ffn: no tensor-core instruction in the "
+                             "SASS: %s" % ffn_sass)
     phase("build", seconds=time.time() - t0,
           libraries=[os.path.relpath(libs[n], REPO) for n in sources],
-          ptxas={n: cuda_build.ptxas_report(n) for n in sources})
+          ptxas={n: cuda_build.ptxas_report(n) for n in sources},
+          fused_ffn_tensor_core_sass=ffn_sass)
 
     rows, train_rows, rpr_rows, long_rows, launches = {}, {}, {}, {}, {}
     if "kernels" in todo:
@@ -1824,23 +1905,31 @@ def main(argv=None):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
-    # attention at the encoder self-attention case; the library yardstick
-    # is timed with dropout off
+    # attention at the encoder self-attention case, the FFN at N=4096 and
+    # at the train phase's largest stacked shape; the library yardstick is
+    # timed with dropout off
     for name, source, replaces, key in (
             ("fused_attention", "fused_attention.cu", "fused_attention.py:488",
              ("self_pad",)),
             ("fused_attention_backward", "fused_attention.cu",
              "fused_attention.py:525", ("self_pad",)),
-            ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", ()),
-            ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214", ())):
+            ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_SHAPE[0],)),
+            ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214",
+             (FFN_SHAPE[0],)),
+            ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_LARGE[0],)),
+            ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214",
+             (FFN_LARGE[0],))):
         r = train_rows[(name,) + key + (torch.bfloat16, 0.1)]
         lib = train_rows[(name,) + key + (torch.bfloat16, 0.0)]["library_ms"]
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source="zero_tpu_torch/csrc/" + source,
             replaces="zero_tpu/ops/kernels/" + replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=lib))
+            bound_by=r["bound_by"], library_ms=lib)
+        if name.startswith("fused_ffn"):
+            row["case"] = "N%d_%d_%d_%d" % ((key[0],) + FFN_SHAPE[1:])
+        kernels.append(row)
     # RPR kernels: bf16 at rate 0.1, encoder self-attention at m 16; the
     # library column is SDPA WITHOUT relative positions (a floor, not the
     # same function), composite_ms the use_flash_attention=false path

@@ -1,9 +1,10 @@
 """zero_tpu_torch fused FFN (kernels #11/#12) and the counter-hash dropout:
 the plain version against the JAX package's Pallas kernel (interpret mode)
-with dropout off, forward and all five gradients; with dropout on, against
-the JAX composite ``ffn`` under the same key words (bit-identical masks);
-``_hash_bits`` and ``dropout`` bit-exact to ``zero_tpu/ops/common.py``. The
-CUDA kernels are held to the plain version on the card by chip_smoke.py."""
+with dropout off, forward and all five gradients, in fp32 and bf16; with
+dropout on, against the JAX composite ``ffn`` under the same key words
+(bit-identical masks); ``_hash_bits`` and ``dropout`` bit-exact to
+``zero_tpu/ops/common.py``. The CUDA kernels are held to the plain version
+on the card by chip_smoke.py."""
 
 import pytest
 
@@ -41,9 +42,10 @@ def _flat(p):
             p["output"]["b"]]
 
 
-def test_ref_matches_pallas_kernel_in_interpret_mode(monkeypatch):
-    """Dropout off: forward and dx, dW1, db1, dW2, db2 (the TPU kernel
-    takes N, widths multiples of 128)."""
+def _pallas_and_ref(monkeypatch, dtype):
+    """The Pallas kernel (interpret mode) and fused_ffn_ref in ``dtype`` on
+    the same inputs, dropout off: [y, dx, dW1, db1, dW2, db2] of each, as
+    fp32 numpy (the TPU kernel takes N, widths multiples of 128)."""
     n, d_in, f, d_out = 128, 128, 256, 128
     p = _params(0, d_in, f, d_out)
     rs = np.random.RandomState(1)
@@ -58,17 +60,43 @@ def test_ref_matches_pallas_kernel_in_interpret_mode(monkeypatch):
         assert y is not None
         return y
 
-    args = [jnp.asarray(a) for a in [x] + _flat(p)]
+    jdt = getattr(jnp, dtype)
+    args = [jnp.asarray(a, jdt) for a in [x] + _flat(p)]
     out, vjp = jax.vjp(jfn, *args)
-    want = [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    want = [np.asarray(o.astype(jnp.float32))
+            for o in [out] + list(vjp(jnp.asarray(dy, jdt)))]
 
-    targs = [torch.from_numpy(a).requires_grad_() for a in [x] + _flat(p)]
+    tdt = getattr(torch, dtype)
+    targs = [torch.from_numpy(a).to(tdt).requires_grad_()
+             for a in [x] + _flat(p)]
     y = ff.fused_ffn(*targs)
-    grads = torch.autograd.grad(y, targs, torch.from_numpy(dy))
-    got = [y.detach().numpy()] + [g.numpy() for g in grads]
+    grads = torch.autograd.grad(y, targs, torch.from_numpy(dy).to(tdt))
+    got = [t.detach().float().numpy() for t in [y] + list(grads)]
+    return got, want
+
+
+def test_ref_matches_pallas_kernel_in_interpret_mode(monkeypatch):
+    """Dropout off: forward and dx, dW1, db1, dW2, db2."""
+    got, want = _pallas_and_ref(monkeypatch, "float32")
     for name, g, w in zip(("y", "dx", "dW1", "db1", "dW2", "db2"), got,
                           want):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+def test_ref_matches_pallas_kernel_in_interpret_mode_bf16(monkeypatch):
+    """The same in bf16, the dtype of the tensor-core kernels: the chain
+    CUDA kernel -> plain version (chip_smoke.py) -> Pallas kernel. Within
+    1e-2 + 1e-2 * max|Pallas| per output: both round x @ W1, + b1, the
+    dropped hidden, @ W2 and + b2 to bf16 at the same points, so y and dx
+    agree; the plain version's autograd rounds dW and db to bf16 from
+    bf16 operands (db1 sums the rounded dh) where the Pallas kernel sums
+    in fp32 and casts once, about one bf16 ulp (2^-8) of the largest
+    value apart."""
+    got, want = _pallas_and_ref(monkeypatch, "bfloat16")
+    for name, g, w in zip(("y", "dx", "dW1", "db1", "dW2", "db2"), got,
+                          want):
+        err = np.abs(g - w).max()
+        assert err <= 1e-2 + 1e-2 * np.abs(w).max(), (name, err)
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
@@ -136,3 +164,18 @@ def test_dropout_off_cases():
     gen = common.RngGen(torch.Generator().manual_seed(0))
     a, b = gen(), gen()
     assert a != b and all(0 <= w < 2 ** 32 for w in a + b)
+
+
+def test_check_rejects_bf16_widths_off_16():
+    """The tensor-core kernels copy 16-byte chunks: a bf16 width that is
+    not a multiple of 16 is refused with the limit in the message (fp32
+    takes it)."""
+    w1, b1 = torch.zeros(24, 48), torch.zeros(48)
+    w2, b2 = torch.zeros(48, 16), torch.zeros(16)
+    x = torch.zeros(5, 24)
+    ff._check(x, w1, b1, w2, b2)
+    bf = [t.to(torch.bfloat16) for t in (x, w1, b1, w2, b2)]
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ff._check(*bf)
+    ff._check(*[t.to(torch.bfloat16) for t in (
+        torch.zeros(5, 32), torch.zeros(32, 48), b1, w2, b2)])

@@ -1,51 +1,88 @@
 // Fused FFN (linear -> ReLU -> dropout -> linear) for training on Hopper
 // (sm_90a): the CUDA counterparts of the Pallas TPU kernels in
-// zero_tpu/ops/kernels/fused_ffn.py.
+// zero_tpu/ops/kernels/fused_ffn.py. Two families, chosen by dtype:
 //
-//   zt_ffn_forward   replaces _fused_forward (_fwd_kernel):
-//                    y = drop(relu(x @ W1 + b1)) @ W2 + b2. A block owns 16
-//                    rows and walks the filter axis in chunks of 64: the
-//                    [16, 64] hidden chunk lives in shared memory and is
-//                    multiplied into the block's [16, d_out] fp32
-//                    accumulator at once, so the [N, filter] hidden tensor
-//                    is never stored.
-//   zt_ffn_backward  replaces _bwd_rule (_bwd_kernel). Kernel 1 (rows, like
-//                    the forward) regenerates the hidden chunk and its
-//                    mask, forms dh = relu'(h) * mask * scale * (dy @ W2^T),
-//                    accumulates dx = dh @ W1^T, and writes the dropped
-//                    hidden h_d and dh in the compute dtype plus per-block
-//                    partial column sums of dh (for db1). Kernel 2 gives
-//                    dW1 = x^T @ dh and dW2 = h_d^T @ dy: each block owns
-//                    one 64x64 tile of the weight gradient and reduces over
-//                    all N rows itself. Kernel 3 sums columns (db2 from dy,
-//                    db1 from the partials). No atomics, no split-K: the
-//                    sums are deterministic. This is the "second reduction
-//                    kernel" way across the grid; the TPU kernel instead
-//                    carried dW in an output block revisited by its
-//                    sequential grid, which Hopper's parallel blocks cannot
-//                    do.
+// bf16: tensor-core kernels. Each block computes a 128 x 128 output tile
+// with two warpgroups, each issuing wgmma.mma_async m64n128k16 (bf16 in,
+// fp32 accumulators in registers) on operands in 128-byte-swizzled shared
+// memory; the operands stream through a ring of 2-4 slots of 64-deep K
+// filled by cp.async (16-byte copies, zero past the edges). k-major and
+// m/n-major operands are both read as stored, the latter by wgmma's
+// transpose bit, so no transposed copy of a weight or activation is made.
+// Epilogues run on the accumulator registers, where each fragment's (row,
+// col) is known, and write through a staged tile in shared memory with
+// 16-byte stores.
+//   zt_ffn_forward   replaces _fused_forward (_fwd_kernel) with two
+//                    products and fused epilogues:
+//                    (a) tc::ffn_hidden  H_d = drop(relu(round(round(X @ W1)
+//                        + b1))) written once in bf16, [N, f];
+//                    (b) tc::ffn_out     Y = round(round(H_d @ W2) + b2).
+//   zt_ffn_backward  replaces _bwd_rule (_bwd_kernel):
+//                    (c) tc::ffn_bwd_hidden, over [N, f] tiles, recomputes
+//                        pre = round(round(X @ W1) + b1) (held in shared
+//                        memory), then dY @ W2^T (W2 read k-major as
+//                        stored), and writes h_d and dh = relu'(pre) *
+//                        keep * scale * (dY @ W2^T) in bf16, plus per-tile
+//                        fp32 column partials of dh (for db1) and of dY
+//                        (for db2);
+//                    (d) tc::ffn_bwd_weights, one launch over a combined
+//                        tile list: dW1 = X^T @ dh and dW2 = H_d^T @ dY
+//                        (K = N, A m-major) first, then dx = dh @ W1^T
+//                        (W1 read k-major as stored);
+//                    then column_sums folds the partials into db1, db2.
+//
+// Why H_d is stored (the TPU kernel kept the [rows, filter] hidden tile in
+// VMEM, which holds many MB). On Hopper a block that owns whole rows must
+// also hold their [rows, d_out] fp32 accumulator: 64 rows x 512 is half an
+// SM's register file, and at N = 4096 that leaves 64 blocks for 132 SMs,
+// each re-reading the 4 MB of weights. Storing H_d instead costs 16.8 MB
+// written and read at N = 4096, 512 -> 2048 -> 512, mostly inside the 50 MB
+// L2 and at most ~10 us at 3.35 TB/s, against the 17 GFLOP / 989 TFLOP/s =
+// 17.4 us operation bound; in exchange (a) has 512 tiles and (b) 128 tiles
+// that fill the card. The backward stores h_d and dh as before.
+//
+// What bounds them. 128 x 128 tiles read 32 KB from L2 for every 64-deep
+// step of 2 MFLOP, so the 132 SMs would need ~15 TB/s from L2 to run the
+// tensor cores at their peak. At N = 4096, (c) reads 256 MB and (d) 384 MB
+// through L2, which sets their times more than the operation bound does.
+// Sharing operand tiles between the SMs of a cluster (TMA multicast) is
+// the next step.
+//
+// fp32: the CUDA-core kernels (fp32 FMAs, exact for the fp32 path that the
+// small reference models run; tensor cores would be TF32 there).
+//   ffn_forward       a block owns 16 rows and walks the filter axis in
+//                     chunks of 64: the [16, 64] hidden chunk lives in
+//                     shared memory and is multiplied into the block's
+//                     [16, d_out] fp32 accumulator at once.
+//   ffn_backward_rows regenerates the hidden chunk and its mask, forms dh,
+//                     accumulates dx = dh @ W1^T (sub-tiles of W2 and W1
+//                     staged transposed in shared memory), and writes
+//                     h_d, dh and per-block column partials of dh; gemm_tn
+//                     gives dW1 and dW2 as 64x64 tiles, each reducing over
+//                     all N rows itself.
+// Neither family uses atomics or split-K: every sum runs in a fixed order,
+// so dW and db are the same from run to run. The TPU kernel carried dW in
+// an output block revisited by its sequential grid, which Hopper's
+// parallel blocks cannot do.
 //
 // Rounding follows the JAX kernel and the plain PyTorch version: the
 // products accumulate in fp32, x @ W1 is rounded to the compute dtype, then
 // + b1 is rounded, relu, the dropout scale multiplies in the compute dtype,
 // h_d @ W2 is rounded and + b2 rounded. dx is rounded once at the end; dW
-// and db stay fp32 (the wrapper casts to the parameter dtype).
+// and db stay fp32 (the wrapper casts to the parameter dtype); db1 sums the
+// unrounded dh, dx and dW1 take dh rounded.
 //
 // Dropout: keep bit of hidden element (row, col) is
 // (hash_bits(row * filter + col, s0, s1) & 255) < t, scale 256/t: the same
 // mask as zero_tpu/ops/common.py:dropout draws over the [N, filter] hidden
 // tensor from the same two key words. It depends on the element only, so
-// forward and backward need no shared tiling.
+// forward and backward need no shared tiling; the tensor-core epilogues
+// compute it where each accumulator fragment's (row, col) is known.
 //
-// Bound. At transformer-base (N = 4096 tokens, 512 -> 2048 -> 512) the
-// forward is 17 GFLOP against ~6 MB of inputs and outputs, so a tensor-core
-// kernel is bound by operations. This first kernel multiplies on the CUDA
-// cores in fp32 (exact for the fp32 path), reading weights through L1/L2
-// with coalesced loads; tensor cores are later work.
-//
-// Layout: row-major x [N, d_in], W1 [d_in, f], W2 [f, d_out], and for the
-// backward the transposes W1^T [f, d_in], W2^T [d_out, f] (made by the
-// wrapper). d_in, d_out <= 1024; any N and f.
+// Layout: row-major x [N, d_in], W1 [d_in, f], W2 [f, d_out], dy [N, d_out].
+// fp32: d_in, d_out <= 1024, any N and f. bf16: widths multiples of 16 (the
+// ring copies 16-byte chunks), pointers 16-byte aligned, any N.
+// Neither family makes a transposed copy of a weight.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
@@ -65,13 +102,13 @@ struct Params {
   const void* b1;
   const void* w2;
   const void* b2;
-  const void* w1t;
-  const void* w2t;
   const void* dy;
   void* y;       // forward: y; backward: dx
-  void* hd;      // backward: dropped hidden [N, f]
+  void* hd;      // dropped hidden [N, f] (bf16 forward scratch; backward)
   void* dh;      // backward: dh in the compute dtype [N, f]
-  float* db1_part;  // backward: [blocks, f]
+  float* db1_part;  // backward: column partials [row tiles, f + d_out]
+  float* dw1;
+  float* dw2;
   int n, din, f, dout, dropout, t;
   float inv;
   uint32_t s0, s1;
@@ -88,13 +125,17 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
   }
 }
 
-__device__ __forceinline__ bool ffn_keep(const Params& p, int row, int col) {
-  const uint32_t index = (uint32_t)row * (uint32_t)p.f + (uint32_t)col;
+// keep bit of hidden element `index` = row * f + col (dropout on)
+__device__ __forceinline__ bool keep_index(const Params& p, uint32_t index) {
   return (zt::hash_bits(index, p.s0, p.s1) & 255u) < (uint32_t)p.t;
 }
 
+__device__ __forceinline__ bool ffn_keep(const Params& p, int row, int col) {
+  return keep_index(p, (uint32_t)row * (uint32_t)p.f + (uint32_t)col);
+}
+
 // ---------------------------------------------------------------------------
-// forward: grid ceil(N / 16); OC = ceil(d_out / 256)
+// fp32 forward: grid ceil(N / 16); OC = ceil(d_out / 256)
 // ---------------------------------------------------------------------------
 template <typename T, int OC>
 __global__ void __launch_bounds__(kThreads) ffn_forward(Params p) {
@@ -179,8 +220,18 @@ __global__ void __launch_bounds__(kThreads) ffn_forward(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward 1 (rows): grid ceil(N / 16); IC = ceil(d_in / 256)
+// fp32 backward 1 (rows): grid ceil(N / 16); IC = ceil(d_in / 256). W2
+// and W1 are read across their rows here (W2^T, W1^T); sub-tiles of them
+// are staged transposed in shared memory (wt, rows padded by one so the
+// transposing stores spread over the banks), so the global reads stay
+// along rows and no transposed copy of a weight is made.
 // ---------------------------------------------------------------------------
+constexpr int kSubK = 16;   // W1 columns staged at a time for dx
+
+__host__ __device__ inline int staged_weights(int din) {
+  return max(kChunk * (kChunk + 1), kSubK * (din + 1));
+}
+
 template <typename T, int IC>
 __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
   extern __shared__ float smem[];
@@ -188,6 +239,7 @@ __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
   float* dys = xs + kRowsPerBlock * p.din;       // [16][d_out]
   float* hs = dys + kRowsPerBlock * p.dout;      // [16][64] dh (rounded)
   float* sums = hs + kRowsPerBlock * kChunk;     // [4][64] dh column sums
+  float* wt = sums + (kThreads / kChunk) * kChunk;   // staged_weights()
   const int r0 = blockIdx.x * kRowsPerBlock;
   const int tid = threadIdx.x;
   const int hcol = tid % kChunk;
@@ -195,8 +247,7 @@ __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
   const int hrow = group * kRowsPerThread;
   const T* w1 = (const T*)p.w1;
   const T* b1 = (const T*)p.b1;
-  const T* w1t = (const T*)p.w1t;
-  const T* w2t = (const T*)p.w2t;
+  const T* w2 = (const T*)p.w2;
   T* hd_out = (T*)p.hd;
   T* dh_out = (T*)p.dh;
   stage_rows(xs, (const T*)p.x, r0, p.n, p.din);
@@ -210,26 +261,41 @@ __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
 
   for (int f0 = 0; f0 < p.f; f0 += kChunk) {
     const int col = f0 + hcol;
-    float dh[kRowsPerThread];
-    float colsum = 0.f;
+    float h[kRowsPerThread], g[kRowsPerThread];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) dh[r] = 0.f;
+    for (int r = 0; r < kRowsPerThread; ++r) h[r] = g[r] = 0.f;
     if (col < p.f) {
-      float h[kRowsPerThread], g[kRowsPerThread];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) h[r] = g[r] = 0.f;
       for (int kk = 0; kk < p.din; ++kk) {
         const float w = zt::to_float(w1[(size_t)kk * p.f + col]);
 #pragma unroll
         for (int r = 0; r < kRowsPerThread; ++r)
           h[r] += xs[(hrow + r) * p.din + kk] * w;
       }
-      for (int cc = 0; cc < p.dout; ++cc) {
-        const float w = zt::to_float(w2t[(size_t)cc * p.f + col]);
+    }
+    // g = dy @ W2^T over d_out in steps of 64: wt[c][j] = W2[f0 + j][c0 + c]
+    for (int c0 = 0; c0 < p.dout; c0 += kChunk) {
+      __syncthreads();
+      for (int e = tid; e < kChunk * kChunk; e += kThreads) {
+        const int j = e / kChunk, c = e % kChunk;
+        wt[c * (kChunk + 1) + j] =
+            (f0 + j < p.f && c0 + c < p.dout)
+                ? zt::to_float(w2[(size_t)(f0 + j) * p.dout + c0 + c])
+                : 0.f;
+      }
+      __syncthreads();
+      const int width = min(kChunk, p.dout - c0);
+      for (int c = 0; c < width; ++c) {
+        const float w = wt[c * (kChunk + 1) + hcol];
 #pragma unroll
         for (int r = 0; r < kRowsPerThread; ++r)
-          g[r] += dys[(hrow + r) * p.dout + cc] * w;
+          g[r] += dys[(hrow + r) * p.dout + c0 + c] * w;
       }
+    }
+    float dh[kRowsPerThread];
+    float colsum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) dh[r] = 0.f;
+    if (col < p.f) {
       const float bias = zt::to_float(b1[col]);
 #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
@@ -259,23 +325,36 @@ __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
     if (tid < kChunk && f0 + tid < p.f) {
       float s = 0.f;
 #pragma unroll
-      for (int gi = 0; gi < kThreads / kChunk; ++gi) s += sums[gi * kChunk + tid];
-      p.db1_part[(size_t)blockIdx.x * p.f + f0 + tid] = s;
+      for (int gi = 0; gi < kThreads / kChunk; ++gi)
+        s += sums[gi * kChunk + tid];
+      p.db1_part[(size_t)blockIdx.x * (p.f + p.dout) + f0 + tid] = s;
     }
+    // dx += dh @ W1^T over the chunk in steps of 16 columns:
+    // wt[jj][ic] = W1[ic][f0 + j0 + jj]
     const int width = min(kChunk, p.f - f0);
-    for (int jj = 0; jj < width; ++jj) {
-      float w[IC];
-#pragma unroll
-      for (int c = 0; c < IC; ++c) {
-        const int ic = tid + kThreads * c;
-        w[c] = ic < p.din ? zt::to_float(w1t[(size_t)(f0 + jj) * p.din + ic])
-                          : 0.f;
+    for (int j0 = 0; j0 < width; j0 += kSubK) {
+      __syncthreads();
+      for (int e = tid; e < kSubK * p.din; e += kThreads) {
+        const int ic = e / kSubK, jj = e % kSubK;
+        wt[jj * (p.din + 1) + ic] =
+            j0 + jj < width
+                ? zt::to_float(w1[(size_t)ic * p.f + f0 + j0 + jj])
+                : 0.f;
       }
+      __syncthreads();
+      for (int jj = 0; jj < min(kSubK, width - j0); ++jj) {
+        float w[IC];
 #pragma unroll
-      for (int r = 0; r < kRowsPerBlock; ++r) {
-        const float dv = hs[r * kChunk + jj];
+        for (int c = 0; c < IC; ++c) {
+          const int ic = tid + kThreads * c;
+          w[c] = ic < p.din ? wt[jj * (p.din + 1) + ic] : 0.f;
+        }
 #pragma unroll
-        for (int c = 0; c < IC; ++c) acc[r][c] += dv * w[c];
+        for (int r = 0; r < kRowsPerBlock; ++r) {
+          const float dv = hs[r * kChunk + j0 + jj];
+#pragma unroll
+          for (int c = 0; c < IC; ++c) acc[r][c] += dv * w[c];
+        }
       }
     }
     __syncthreads();
@@ -295,8 +374,9 @@ __global__ void __launch_bounds__(kThreads) ffn_backward_rows(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward 2: C[P, Q] = sum_n A[n, p] * B[n, q] (fp32 out); 64x64 tiles,
-// each thread a 4x4 block, n in chunks of 16. grid (ceil(Q/64), ceil(P/64))
+// fp32 backward 2: C[P, Q] = sum_n A[n, p] * B[n, q] (fp32 out); 64x64
+// tiles, each thread a 4x4 block, n in chunks of 16. grid (ceil(Q/64),
+// ceil(P/64))
 // ---------------------------------------------------------------------------
 constexpr int kGT = 64;
 constexpr int kGN = 16;
@@ -352,17 +432,20 @@ __global__ void __launch_bounds__(kThreads) gemm_tn(const T* a, const T* b,
 }
 
 // ---------------------------------------------------------------------------
-// backward 3: out[c] = sum_r A[r, c]; blocks of 32 columns x 8 row slices
+// out[c] = sum_r A[r, c] over rows of stride ld (both families); blocks of
+// 32 columns x 8 row slices
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads) column_sums(const T* a, float* out,
-                                                        int rows, int cols) {
+                                                        int rows, int cols,
+                                                        int ld) {
   __shared__ float part[8][32];
   const int c = blockIdx.x * 32 + (threadIdx.x & 31);
   const int slice = threadIdx.x >> 5;
   float s = 0.f;
   if (c < cols)
-    for (int r = slice; r < rows; r += 8) s += zt::to_float(a[(size_t)r * cols + c]);
+    for (int r = slice; r < rows; r += 8)
+      s += zt::to_float(a[(size_t)r * ld + c]);
   part[slice][threadIdx.x & 31] = s;
   __syncthreads();
   if (slice == 0 && c < cols) {
@@ -373,58 +456,580 @@ __global__ void __launch_bounds__(kThreads) column_sums(const T* a, float* out,
   }
 }
 
-template <typename T, int OC>
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernels
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = 128, kBN = 128;   // output tile: two warpgroups of 64 rows
+constexpr int kBK = 64;               // K per stage: 128-byte swizzle rows
+constexpr int kTile = kBM * kBK;      // elements of one operand tile (16 KB)
+constexpr int kLdS = kBN + 8;         // staged output row: 272 bytes, so the
+                                      // fragment writes hit 32 banks
+constexpr int kStaged = kBM * kLdS;   // elements of one staged output tile
+
+// Ring depths, chosen on the card at N = 4096, 512 -> 2048 -> 512: (a) and
+// (d) run two blocks to an SM in 3 x 32 KB; (b), one block to an SM (128
+// tiles), takes 4; (c) holds the 32 KB of staged pre-activations besides
+// its ring, so 2 slots keep two blocks to an SM (3 slots and one block ran
+// slower).
+constexpr int kStages = 3;        // (a), (d)
+constexpr int kOutStages = 4;     // (b)
+constexpr int kBwdStages = 2;     // (c)
+
+// the ring of `stages` slots, each an A and a B tile, plus the slack that
+// aligns it to the 1024-byte swizzle pattern
+constexpr size_t ring_bytes(int stages) {
+  return sizeof(bf16) * 2 * kTile * stages + 1024;
+}
+
+__device__ __forceinline__ bf16* ring_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(((uintptr_t)raw + 1023) & ~(uintptr_t)1023);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  // src-size 0 zero-fills the chunk (rows and columns past the edge)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory layouts, both the canonical 128-byte-swizzle layouts of
+// wgmma (16-byte chunk index XOR row % 8 inside each 1024-byte group of 8
+// rows of 128 bytes):
+// k-major tile [rows][64 k]: element (r, k) at r * 64 + k, swizzled;
+// m/n-major tile [2 blocks of 64][64 k][64]: element (k, m) at
+// (m / 64) * 4096 + k * 64 + m % 64, swizzled. c a multiple of 8.
+__device__ __forceinline__ int swz_k(int r, int c) {
+  return r * kBK + (((c >> 3) ^ (r & 7)) << 3);
+}
+
+__device__ __forceinline__ int swz_mn(int k, int m) {
+  return (m >> 6) * (kBK * 64) + k * 64 + ((((m & 63) >> 3) ^ (k & 7)) << 3);
+}
+
+// Copy the tile at (r0, c0) of a row-major [rows][cols] array (row stride
+// ld) into a ring slot, zero past the edges: K_MAJOR, [128][64] with k the
+// columns; else [64 k][128] with k the rows.
+template <bool K_MAJOR>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld,
+                                          int r0, int c0, int rows,
+                                          int cols) {
+  constexpr int kChunks = (K_MAJOR ? kBK : kBM) / 8;   // per stored row
+#pragma unroll
+  for (int i = 0; i < kTile / 8 / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool ok = r0 + r < rows && c0 + c < cols;
+    cp_async16(dst + (K_MAJOR ? swz_k(r, c) : swz_mn(r, c)),
+               ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), 128-byte swizzle. k-major: LBO unused (1),
+// SBO = 1024 (the next 8 rows). m/n-major: LBO = 8192 (the next block of 64
+// m/n), SBO = 1024 (the next 8 k).
+template <bool K_MAJOR>
+__device__ __forceinline__ uint64_t descriptor(const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  const uint64_t lbo = K_MAJOR ? 1 : (kBK * 64 * sizeof(bf16)) >> 4;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (lbo << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+typedef float Acc[64];   // a thread's share of its warpgroup's 64 x 128
+
+struct bool2 {
+  bool x, y;
+};
+
+// acc += A (64 x 16, at da) @ B (16 x 128, at db); TA/TB: 1 where the
+// operand is m/n-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(Acc& d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// acc = A[m0:+128, :K] @ B[:K, n0:+128] for C [M, N], through a ring of
+// STAGES slots at smem (1024-byte aligned). A_K: A is stored [M][K] (k
+// contiguous), else [K][M]; B_K: B is stored [N][K], else [K][N]. lda/ldb
+// are the stored row strides. Warpgroup g computes rows g * 64.. of the
+// tile: a thread's acc[4 j + 2 h + e] is row frag_row(h), column
+// frag_col(j) + e.
+template <bool A_K, bool B_K, int STAGES>
+__device__ __forceinline__ void mma_tile(const bf16* a, int lda, const bf16* b,
+                                         int ldb, int M, int N, int K, int m0,
+                                         int n0, bf16* smem, Acc& acc) {
+  const int group = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int steps = (K + kBK - 1) / kBK;
+  auto load = [&](int slot, int step) {
+    bf16* sa = smem + slot * 2 * kTile;
+    const int k0 = step * kBK;
+    if (A_K) load_tile<true>(sa, a, lda, m0, k0, M, K);
+    else load_tile<false>(sa, a, lda, k0, m0, K, M);
+    if (B_K) load_tile<true>(sa + kTile, b, ldb, n0, k0, N, K);
+    else load_tile<false>(sa + kTile, b, ldb, k0, n0, K, N);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();   // the copies, visible to the tensor cores
+    __syncthreads();       // and the slot to refill has retired everywhere
+    if (step + STAGES - 1 < steps)
+      load((step + STAGES - 1) % STAGES, step + STAGES - 1);
+    cp_async_commit();
+    const bf16* sa = smem + (step % STAGES) * 2 * kTile;
+    const bf16* sb = sa + kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK; ks += 16) {
+      // warpgroup g's 64 rows (k-major) or m block (m-major) start at
+      // g * 4096; 16 k are 32 bytes along a k-major row, 16 m/n-major rows
+      const uint64_t da = descriptor<A_K>(sa + group * 64 * kBK +
+                                          (A_K ? ks : ks * 64));
+      const uint64_t db = descriptor<B_K>(B_K ? sb + ks : sb + ks * 64);
+      wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();   // the batch retires before its slot is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free for the next product
+}
+
+// tile-local row and column of a thread's acc[4 j + 2 h + e] (column + e)
+__device__ __forceinline__ int frag_row(int h) {
+  return (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+         ((threadIdx.x & 31) >> 2) + h * 8;
+}
+
+__device__ __forceinline__ int frag_col(int j) {
+  return j * 8 + (threadIdx.x & 3) * 2;
+}
+
+__device__ __forceinline__ void put2(bf16* st, int r, int c,
+                                     __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(st + r * kLdS + c) = v;
+}
+
+__device__ __forceinline__ __nv_bfloat162 get2(const bf16* st, int r, int c) {
+  return *reinterpret_cast<const __nv_bfloat162*>(st + r * kLdS + c);
+}
+
+// a column pair of a bf16 vector, as floats
+__device__ __forceinline__ float2 pair_at(const void* v, int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>((const bf16*)v + col));
+}
+
+// round(a + b) of a pair, each sum rounded to bf16 once
+__device__ __forceinline__ __nv_bfloat162 round2(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
+}
+
+// Write a staged [128][128] bf16 tile to rows m0.., columns n0.. of a
+// row-major [rows][cols] array, 16 bytes a thread, rows whole.
+__device__ __forceinline__ void store_tile(bf16* dst, int ld, int rows,
+                                           int cols, int m0, int n0,
+                                           const bf16* st) {
+#pragma unroll
+  for (int i = 0; i < kBM * (kBN / 8) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
+    if (m0 + r < rows && n0 + c < cols)
+      *reinterpret_cast<uint4*>(dst + (size_t)(m0 + r) * ld + n0 + c) =
+          *reinterpret_cast<const uint4*>(st + r * kLdS + c);
+  }
+}
+
+// pre-activations of hidden elements (row, col), (row, col + 1):
+// round(round(acc) + b1)
+__device__ __forceinline__ float2 pre_pair(const Params& p, float a0,
+                                           float a1, int col) {
+  const float2 s = __bfloat1622float2(round2(a0, a1));
+  const float2 b = pair_at(p.b1, col);
+  return __bfloat1622float2(round2(s.x + b.x, s.y + b.y));
+}
+
+// keep bits of hidden elements index, index + 1 (all kept, dropout off)
+__device__ __forceinline__ bool2 keep_pair(const Params& p, uint32_t index) {
+  if (!p.dropout) return {true, true};
+  return {keep_index(p, index), keep_index(p, index + 1)};
+}
+
+// the dropped hidden pair from its pre-activations and keep bits
+__device__ __forceinline__ __nv_bfloat162 dropped_pair(const Params& p,
+                                                       float2 pre,
+                                                       bool2 keep) {
+  const float h0 = fmaxf(pre.x, 0.f), h1 = fmaxf(pre.y, 0.f);
+  if (!p.dropout) return round2(h0, h1);   // exact
+  __nv_bfloat162 v = round2(h0 * p.inv, h1 * p.inv);
+  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
+  if (!keep.x) v.x = zero;
+  if (!keep.y) v.y = zero;
+  return v;
+}
+
+// (a) H_d = drop(relu(pre)), grid (ceil(f / 128), ceil(N / 128))
+__global__ void __launch_bounds__(kThreads, 2) ffn_hidden(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* smem = ring_base(smem_raw);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  Acc acc;
+  mma_tile<true, false, kStages>((const bf16*)p.x, p.din, (const bf16*)p.w1,
+                                 p.f, p.n, p.f, p.din, m0, n0, smem, acc);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(h), c = frag_col(j);
+      const int col = min(n0 + c, p.f - 2);   // past f: never stored
+      put2(smem, r, c,
+           dropped_pair(p, pre_pair(p, acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1], col),
+                        keep_pair(p, (uint32_t)(m0 + r) * p.f + col)));
+    }
+  __syncthreads();
+  store_tile((bf16*)p.hd, p.f, p.n, p.f, m0, n0, smem);
+}
+
+// (b) Y = round(round(H_d @ W2) + b2), grid (ceil(d_out / 128), ceil(N / 128))
+__global__ void __launch_bounds__(kThreads) ffn_out(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* smem = ring_base(smem_raw);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  Acc acc;
+  mma_tile<true, false, kOutStages>((const bf16*)p.hd, p.f, (const bf16*)p.w2,
+                                    p.dout, p.n, p.dout, p.f, m0, n0, smem,
+                                    acc);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(h), c = frag_col(j);
+      const float2 s = __bfloat1622float2(
+          round2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      const float2 b = pair_at(p.b2, min(n0 + c, p.dout - 2));
+      put2(smem, r, c, round2(s.x + b.x, s.y + b.y));
+    }
+  __syncthreads();
+  store_tile((bf16*)p.y, p.dout, p.n, p.dout, m0, n0, smem);
+}
+
+// (c) h_d, dh and the column partials over [N, f] tiles, grid
+// (ceil(f / 128), ceil(N / 128)). Row blockIdx.y of db1_part [row tiles,
+// f + d_out] gets the tile's column sums of dh (columns n0..) and, from the
+// blocks whose blockIdx.x steps over d_out in 128s, those of dY's rows
+// (columns f + ..). The pre-activations wait in shared memory while
+// dY @ W2^T runs.
+__global__ void __launch_bounds__(kThreads, 2) ffn_bwd_hidden(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float colpart[kThreads / 32][kBN];
+  bf16* ring = ring_base(smem_raw);
+  bf16* pre = ring + 2 * kTile * kBwdStages;   // [128][kLdS], then h_d
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int ld_part = p.f + p.dout;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Acc acc;
+  mma_tile<true, false, kBwdStages>((const bf16*)p.x, p.din,
+                                    (const bf16*)p.w1, p.f, p.n, p.f, p.din,
+                                    m0, n0, ring, acc);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(h), c = frag_col(j);
+      const float2 v = pre_pair(p, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                                min(n0 + c, p.f - 2));
+      put2(pre, r, c, round2(v.x, v.y));   // exact
+    }
+  // dY @ W2^T: W2 [f, d_out] is B stored [N = f][K = d_out]
+  mma_tile<true, true, kBwdStages>((const bf16*)p.dy, p.dout,
+                                   (const bf16*)p.w2, p.dout, p.n, p.f,
+                                   p.dout, m0, n0, ring, acc);
+  bf16* dh = ring;   // staged dh; h_d overwrites pre in place
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(h), c = frag_col(j);
+      const float2 pv = __bfloat1622float2(get2(pre, r, c));
+      const bool2 keep = keep_pair(p, (uint32_t)(m0 + r) * p.f + n0 + c);
+      const bool valid = m0 + r < p.n;
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float g = p.dropout ? acc[4 * j + 2 * h + e] * p.inv
+                                  : acc[4 * j + 2 * h + e];
+        d[e] = ((e ? pv.y : pv.x) > 0.f && (e ? keep.y : keep.x) && valid)
+                   ? g : 0.f;
+        cs[e] += d[e];
+      }
+      put2(pre, r, c, dropped_pair(p, pv, keep));
+      put2(dh, r, c, round2(d[0], d[1]));
+    }
+    // this warp's 16 rows of the two columns, in a fixed order
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = cs[e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) colpart[warp][frag_col(j) + e] = s;
+    }
+  }
+  __syncthreads();
+  if (tid < kBN && n0 + tid < p.f) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += colpart[w][tid];
+    p.db1_part[(size_t)blockIdx.y * ld_part + n0 + tid] = s;
+  }
+  store_tile((bf16*)p.hd, p.f, p.n, p.f, m0, n0, pre);
+  store_tile((bf16*)p.dh, p.f, p.n, p.f, m0, n0, dh);
+  // dY's column partials over this tile's rows: 64 column pairs x 4 row
+  // groups of 32 rows, summed in a fixed order
+  const bf16* dy = (const bf16*)p.dy;
+  const int pair = tid & 63, rows = tid >> 6;
+  for (int c0 = blockIdx.x * kBN; c0 < p.dout; c0 += gridDim.x * kBN) {
+    const int col = c0 + pair * 2;
+    float s0 = 0.f, s1 = 0.f;
+    if (col < p.dout) {
+      const int r_end = min(m0 + (rows + 1) * 32, p.n);
+#pragma unroll 8
+      for (int row = m0 + rows * 32; row < r_end; ++row) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            dy + (size_t)row * p.dout + col);
+        s0 += __low2float(v);
+        s1 += __high2float(v);
+      }
+    }
+    __syncthreads();
+    colpart[rows][pair * 2] = s0;
+    colpart[rows][pair * 2 + 1] = s1;
+    __syncthreads();
+    if (tid < kBN && c0 + tid < p.dout)
+      p.db1_part[(size_t)blockIdx.y * ld_part + p.f + c0 + tid] =
+          colpart[0][tid] + colpart[1][tid] + colpart[2][tid] +
+          colpart[3][tid];
+  }
+}
+
+__host__ __device__ __forceinline__ int tiles(int rows, int cols) {
+  return ((rows + kBM - 1) / kBM) * ((cols + kBN - 1) / kBN);
+}
+
+// (d) one launch over dW1 [d_in, f] tiles, dW2 [f, d_out] tiles (K = N,
+// the longest, first), then dx [N, d_in] tiles (K = f)
+__global__ void __launch_bounds__(kThreads, 2)
+    ffn_bwd_weights(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* smem = ring_base(smem_raw);
+  int t = blockIdx.x;
+  const int t1 = tiles(p.din, p.f), t2 = tiles(p.f, p.dout);
+  Acc acc;
+  if (t < t1 + t2) {
+    const bool first = t < t1;
+    if (!first) t -= t1;
+    const int cols = first ? p.f : p.dout;
+    const int rows = first ? p.din : p.f;
+    const int per_row = (cols + kBN - 1) / kBN;
+    const int m0 = (t / per_row) * kBM, n0 = (t % per_row) * kBN;
+    // dW1 = X^T @ dh, dW2 = H_d^T @ dY: A stored [K = N][M], B [K = N][N]
+    const bf16* a = (const bf16*)(first ? p.x : p.hd);
+    const bf16* b = (const bf16*)(first ? p.dh : p.dy);
+    mma_tile<false, false, kStages>(a, rows, b, cols, rows, cols, p.n, m0,
+                                    n0, smem, acc);
+    float* out = first ? p.dw1 : p.dw2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + frag_row(h), col = n0 + frag_col(j);
+        if (row < rows && col < cols)
+          *reinterpret_cast<float2*>(out + (size_t)row * cols + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    return;
+  }
+  t -= t1 + t2;
+  const int per_row = (p.din + kBN - 1) / kBN;
+  const int m0 = (t / per_row) * kBM, n0 = (t % per_row) * kBN;
+  // dx = dh @ W1^T: W1 [d_in, f] is B stored [N = d_in][K = f]
+  mma_tile<true, true, kStages>((const bf16*)p.dh, p.f, (const bf16*)p.w1,
+                                p.f, p.n, p.din, p.f, m0, n0, smem, acc);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      put2(smem, frag_row(h), frag_col(j),
+           round2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+  __syncthreads();
+  store_tile((bf16*)p.y, p.din, p.n, p.din, m0, n0, smem);
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, size_t smem, const Params& p,
+                   cudaStream_t s) {
+  cudaError_t err = zt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t forward(const Params& p, cudaStream_t s) {
+  const int row_tiles = (p.n + kBM - 1) / kBM;
+  cudaError_t err = launch(ffn_hidden, dim3((p.f + kBN - 1) / kBN, row_tiles),
+                           ring_bytes(kStages), p, s);
+  if (err != cudaSuccess) return err;
+  return launch(ffn_out, dim3((p.dout + kBN - 1) / kBN, row_tiles),
+                ring_bytes(kOutStages), p, s);
+}
+
+cudaError_t backward(const Params& p, float* db1, float* db2,
+                     cudaStream_t s) {
+  const int row_tiles = (p.n + kBM - 1) / kBM;
+  cudaError_t err = launch(
+      ffn_bwd_hidden, dim3((p.f + kBN - 1) / kBN, row_tiles),
+      ring_bytes(kBwdStages) + sizeof(bf16) * kStaged, p, s);
+  if (err != cudaSuccess) return err;
+  err = launch(ffn_bwd_weights,
+               dim3(tiles(p.din, p.f) + tiles(p.f, p.dout) +
+                    tiles(p.n, p.din)),
+               ring_bytes(kStages), p, s);
+  if (err != cudaSuccess) return err;
+  const int ld = p.f + p.dout;
+  column_sums<float><<<(p.f + 31) / 32, kThreads, 0, s>>>(p.db1_part, db1,
+                                                          row_tiles, p.f, ld);
+  column_sums<float><<<(p.dout + 31) / 32, kThreads, 0, s>>>(
+      p.db1_part + p.f, db2, row_tiles, p.dout, ld);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// fp32 launches
+// ---------------------------------------------------------------------------
+template <int OC>
 cudaError_t forward_oc(const Params& p, cudaStream_t s) {
   const size_t bytes =
       sizeof(float) * (size_t)(kRowsPerBlock * (p.din + kChunk));
-  cudaError_t err = zt::allow_smem(ffn_forward<T, OC>, bytes);
+  cudaError_t err = zt::allow_smem(ffn_forward<float, OC>, bytes);
   if (err != cudaSuccess) return err;
-  ffn_forward<T, OC><<<(p.n + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
-                       bytes, s>>>(p);
+  ffn_forward<float, OC><<<(p.n + kRowsPerBlock - 1) / kRowsPerBlock,
+                           kThreads, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t forward(const Params& p, cudaStream_t s) {
-  if (p.dout <= 256) return forward_oc<T, 1>(p, s);
-  if (p.dout <= 512) return forward_oc<T, 2>(p, s);
-  if (p.dout <= 1024) return forward_oc<T, 4>(p, s);
+cudaError_t forward_f32(const Params& p, cudaStream_t s) {
+  if (p.dout <= 256) return forward_oc<1>(p, s);
+  if (p.dout <= 512) return forward_oc<2>(p, s);
+  if (p.dout <= 1024) return forward_oc<4>(p, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int IC>
+template <int IC>
 cudaError_t backward_rows_ic(const Params& p, cudaStream_t s) {
   const size_t bytes = sizeof(float) *
       (size_t)(kRowsPerBlock * (p.din + p.dout + kChunk) +
-               (kThreads / kChunk) * kChunk);
-  cudaError_t err = zt::allow_smem(ffn_backward_rows<T, IC>, bytes);
+               (kThreads / kChunk) * kChunk + staged_weights(p.din));
+  cudaError_t err = zt::allow_smem(ffn_backward_rows<float, IC>, bytes);
   if (err != cudaSuccess) return err;
-  ffn_backward_rows<T, IC><<<(p.n + kRowsPerBlock - 1) / kRowsPerBlock,
-                             kThreads, bytes, s>>>(p);
+  ffn_backward_rows<float, IC><<<(p.n + kRowsPerBlock - 1) / kRowsPerBlock,
+                                 kThreads, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t backward(const Params& p, float* dw1, float* dw2, float* db1,
-                     float* db2, cudaStream_t s) {
+cudaError_t backward_f32(const Params& p, float* db1, float* db2,
+                         cudaStream_t s) {
   cudaError_t err;
-  if (p.din <= 256) err = backward_rows_ic<T, 1>(p, s);
-  else if (p.din <= 512) err = backward_rows_ic<T, 2>(p, s);
-  else if (p.din <= 1024) err = backward_rows_ic<T, 4>(p, s);
+  if (p.din <= 256) err = backward_rows_ic<1>(p, s);
+  else if (p.din <= 512) err = backward_rows_ic<2>(p, s);
+  else if (p.din <= 1024) err = backward_rows_ic<4>(p, s);
   else return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
   // dW1 [d_in, f] = x^T @ dh ; dW2 [f, d_out] = h_d^T @ dy
   dim3 g1((p.f + kGT - 1) / kGT, (p.din + kGT - 1) / kGT);
-  gemm_tn<T><<<g1, kThreads, 0, s>>>((const T*)p.x, (const T*)p.dh, dw1, p.n,
-                                     p.din, p.f);
+  gemm_tn<float><<<g1, kThreads, 0, s>>>((const float*)p.x,
+                                         (const float*)p.dh, p.dw1, p.n,
+                                         p.din, p.f);
   dim3 g2((p.dout + kGT - 1) / kGT, (p.f + kGT - 1) / kGT);
-  gemm_tn<T><<<g2, kThreads, 0, s>>>((const T*)p.hd, (const T*)p.dy, dw2,
-                                     p.n, p.f, p.dout);
+  gemm_tn<float><<<g2, kThreads, 0, s>>>((const float*)p.hd,
+                                         (const float*)p.dy, p.dw2, p.n, p.f,
+                                         p.dout);
   const int blocks = (p.n + kRowsPerBlock - 1) / kRowsPerBlock;
-  column_sums<float><<<(p.f + 31) / 32, kThreads, 0, s>>>(p.db1_part, db1,
-                                                          blocks, p.f);
-  column_sums<T><<<(p.dout + 31) / 32, kThreads, 0, s>>>((const T*)p.dy, db2,
-                                                         p.n, p.dout);
+  column_sums<float><<<(p.f + 31) / 32, kThreads, 0, s>>>(
+      p.db1_part, db1, blocks, p.f, p.f + p.dout);
+  column_sums<float><<<(p.dout + 31) / 32, kThreads, 0, s>>>(
+      (const float*)p.dy, db2, p.n, p.dout, p.dout);
   return cudaGetLastError();
 }
 
@@ -451,42 +1056,43 @@ Params make_params(const void* x, const void* w1, const void* b1,
 
 }  // namespace
 
+// dtype 0: fp32 (hd unused); 1: bf16 (hd: [N, f] scratch for H_d)
 extern "C" int zt_ffn_forward(const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* y,
-                              int dtype, int n, int din, int f, int dout,
-                              int dropout, int t, float inv, unsigned int s0,
-                              unsigned int s1, void* stream) {
+                              void* hd, int dtype, int n, int din, int f,
+                              int dout, int dropout, int t, float inv,
+                              unsigned int s0, unsigned int s1,
+                              void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
                          s1);
   p.b2 = b2;
   p.y = y;
+  p.hd = hd;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)forward<float>(p, s);
-  if (dtype == 1) return (int)forward<__nv_bfloat16>(p, s);
+  if (dtype == 0) return (int)forward_f32(p, s);
+  if (dtype == 1) return (int)tc::forward(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// db1_part: [ceil(N / 16), f + d_out] (fp32) or [ceil(N / 128), f + d_out]
+// (bf16) scratch
 extern "C" int zt_ffn_backward(
     const void* x, const void* w1, const void* b1, const void* w2,
-    const void* w1t, const void* w2t, const void* dy, void* dx, void* hd,
-    void* dh, void* db1_part, void* dw1, void* db1, void* dw2, void* db2,
-    int dtype, int n, int din, int f, int dout, int dropout, int t,
-    float inv, unsigned int s0, unsigned int s1, void* stream) {
+    const void* dy, void* dx, void* hd, void* dh, void* db1_part, void* dw1,
+    void* db1, void* dw2, void* db2, int dtype, int n, int din, int f,
+    int dout, int dropout, int t, float inv, unsigned int s0,
+    unsigned int s1, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
                          s1);
-  p.w1t = w1t;
-  p.w2t = w2t;
   p.dy = dy;
   p.y = dx;
   p.hd = hd;
   p.dh = dh;
   p.db1_part = (float*)db1_part;
+  p.dw1 = (float*)dw1;
+  p.dw2 = (float*)dw2;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)backward<float>(p, (float*)dw1, (float*)dw2, (float*)db1,
-                                (float*)db2, s);
-  if (dtype == 1)
-    return (int)backward<__nv_bfloat16>(p, (float*)dw1, (float*)dw2,
-                                        (float*)db1, (float*)db2, s);
+  if (dtype == 0) return (int)backward_f32(p, (float*)db1, (float*)db2, s);
+  if (dtype == 1) return (int)tc::backward(p, (float*)db1, (float*)db2, s);
   return (int)cudaErrorInvalidValue;
 }

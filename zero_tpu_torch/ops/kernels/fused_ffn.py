@@ -6,14 +6,17 @@ Replaces the Pallas TPU kernels of ``zero_tpu/ops/kernels/fused_ffn.py``:
 * forward -- ``_fused_forward`` (``pallas_call`` at :186, ``_fwd_kernel``):
   relu(x @ W1 + b1) rounded to the compute dtype after the product and
   after the bias, 8-bit threshold dropout (keep = low8(bits) < t, scale
-  256/t), then @ W2 + b2; the [rows, filter] hidden tile is never stored.
+  256/t), then @ W2 + b2.
 * backward -- ``_bwd_rule`` (``pallas_call`` at :214, ``_bwd_kernel``):
   the hidden tile and its mask regenerated, then dx, dW1, db1, dW2, db2
   with fp32 accumulation.
 
 Both run ``csrc/fused_ffn.cu`` (its header gives the design and the bound),
 wrapped in one ``torch.autograd.Function`` whose backward is the backward
-kernel.
+kernel. The dtype picks the kernels: bf16 runs tensor-core kernels
+(``wgmma``; the forward stores the dropped hidden [N, filter] once in bf16
+between its two products), fp32 the CUDA-core kernels, exact in fp32
+(tensor cores would be TF32 there). Neither transposes a weight.
 
 Dropout. The TPU kernels seed the TPU's hardware PRNG per row block, which
 ties the forward and backward to one tiling. The port draws hidden element
@@ -40,8 +43,11 @@ import torch
 from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops.kernels import cuda_build
 
-MAX_WIDTH = 1024     # d_in, d_out: the kernels' register and shared tiles
+MAX_WIDTH = 1024     # d_in, d_out: the fp32 kernels' register and shared tiles
+BF16_MULTIPLE = 16   # bf16 widths: the tensor-core kernels copy 16-byte chunks
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# token rows behind one partial column sum (the kernels' row tiles)
+_PART_ROWS = {torch.float32: 16, torch.bfloat16: 128}
 
 launches: collections.Counter = collections.Counter()
 
@@ -78,12 +84,12 @@ def fused_ffn_ref(x, w1, b1, w2, b2, rng=None, rate: float = 0.0):
 def _library():
     lib = cuda_build.load("fused_ffn")
     fwd = lib.zt_ffn_forward
-    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
                        ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.zt_ffn_backward
-    bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+    bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
                        ctypes.c_void_p])
     bwd.restype = ctypes.c_int
@@ -102,6 +108,13 @@ def _raise_on(err: int, what: str):
                            % (what, err))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (the tensor-core kernels copy
+    16-byte chunks); a misaligned view is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _FusedFFN(torch.autograd.Function):
 
     @staticmethod
@@ -109,11 +122,15 @@ class _FusedFFN(torch.autograd.Function):
         n, d_in = x.shape
         f, d_out = w2.shape
         y = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
+        # bf16: the dropped hidden between the two products
+        hd = (torch.empty((n, f), dtype=x.dtype, device=x.device)
+              if x.dtype == torch.bfloat16 else None)
         with torch.cuda.device(x.device):
             err = _library()[0](
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], n, d_in, f,
-                d_out, int(t < 256), t, inv, *_seeds(words),
+                b2.data_ptr(), y.data_ptr(),
+                None if hd is None else hd.data_ptr(), _DTYPES[x.dtype], n,
+                d_in, f, d_out, int(t < 256), t, inv, *_seeds(words),
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, "forward")
         launches["fused_ffn"] += 1
@@ -125,25 +142,24 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, dy):
         x, w1, b1, w2 = ctx.saved_tensors
         t, inv, words = ctx.args
-        dy = dy.contiguous()
+        dy = _aligned(dy)
         n, d_in = x.shape
         f, d_out = w2.shape
         dev = x.device
-        rows = (n + 15) // 16
+        rows = -(-n // _PART_ROWS[x.dtype])
         dx = torch.empty_like(x)
         hd = torch.empty((n, f), dtype=x.dtype, device=dev)
         dh = torch.empty_like(hd)
-        part = torch.empty((rows, f), dtype=torch.float32, device=dev)
+        part = torch.empty((rows, f + d_out), dtype=torch.float32,
+                           device=dev)
         dw1 = torch.empty((d_in, f), dtype=torch.float32, device=dev)
         dw2 = torch.empty((f, d_out), dtype=torch.float32, device=dev)
         db1 = torch.empty((f,), dtype=torch.float32, device=dev)
         db2 = torch.empty((d_out,), dtype=torch.float32, device=dev)
-        w1t = w1.t().contiguous()
-        w2t = w2.t().contiguous()
         with torch.cuda.device(dev):
             err = _library()[1](
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                w1t.data_ptr(), w2t.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                dy.data_ptr(), dx.data_ptr(),
                 hd.data_ptr(), dh.data_ptr(), part.data_ptr(),
                 dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
                 db2.data_ptr(), _DTYPES[x.dtype], n, d_in, f, d_out,
@@ -171,6 +187,11 @@ def _check(x, w1, b1, w2, b2):
     if max(d_in, w2.shape[1]) > MAX_WIDTH:
         raise ValueError("fused_ffn: widths %d, %d exceed %d"
                          % (d_in, w2.shape[1], MAX_WIDTH))
+    if x.dtype == torch.bfloat16 and any(
+            w % BF16_MULTIPLE for w in (d_in, f, w2.shape[1])):
+        raise ValueError("fused_ffn: bf16 widths d_in, f, d_out must be "
+                         "multiples of %d, got %d, %d, %d"
+                         % (BF16_MULTIPLE, d_in, f, w2.shape[1]))
 
 
 def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
@@ -187,7 +208,7 @@ def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
     else:
         _check(x2, w1, b1, w2, b2)
         t, inv = _drop_args(rate, rng, x.dtype)
-        y = _FusedFFN.apply(x2.contiguous(), w1.contiguous(), b1.contiguous(),
-                            w2.contiguous(), b2.contiguous(), t, inv,
+        y = _FusedFFN.apply(_aligned(x2), _aligned(w1), b1.contiguous(),
+                            _aligned(w2), b2.contiguous(), t, inv,
                             tuple(rng) if t < 256 else None)
     return y.reshape(*lead, w2.shape[1])
