@@ -18,8 +18,10 @@ non-zero):
   build      nvcc builds of csrc/{decode_attention,fused_attention,
              fused_attention_rpr,fused_ffn,streaming_attention}.cu (sm_90a),
              one process each, all at once; the ptxas register/shared-memory
-             report; the count of tensor-core instructions (HGMMA, HMMA) in
-             the fused FFN library's SASS, which must not be 0
+             report and every kernel that spills registers; the count of
+             tensor-core instructions (HGMMA, HMMA) in the SASS of the fused
+             FFN and streaming libraries, whose wgmma (HGMMA) count must not
+             be 0
   kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
@@ -88,26 +90,37 @@ non-zero):
              identical sequences
   long_kernels  streaming attention (#5 forward, #6 dq, #7 dk/dv) against
              streaming_attention_ref at B*H=8, Lq=Lk=8320 causal; B=2, H=4,
-             L=8320 under a pad mask with an all-pad row; cross Lq=256,
-             Lk=16384; fp32 and bf16, dropout 0 and 0.1; device times of
-             each kernel, the plain version and SDPA (bf16) beside the
-             bound. And decode_cross_attention (#9, unwired as in the JAX
-             package) against its plain version at B=32 beam 4 S=64 and
-             B=4 beam 4 S=16384, timed beside the composite of
-             cross_attn_step and SDPA
+             L=8320 under a pad mask with an all-pad row (whose dq and dk
+             must be 0); cross Lq=256, Lk=16384; fp32 (the CUDA-core
+             backward) and bf16 (the tensor-core backward; launch counts
+             show which ran), dropout 0 and 0.1; in bf16 also lengths off
+             the tensor-core tiles (causal 8259, cross 333 x 8259) and head
+             depths 128, 32 and 80; device times of each kernel, of the
+             CUDA-core #6/#7 on the same inputs (what ran before), the plain
+             version and SDPA (bf16) beside the bound. And
+             decode_cross_attention (#9, unwired as in the JAX package)
+             against its plain version at B=32 beam 4 S=64 and B=4 beam 4
+             S=16384, timed beside the composite of cross_attn_step and
+             SDPA
   long_train transformer-base (configs/transformer_base_wmt14.json with
              use_flash_attention and max_len/token_size 16384,
              pad_seq_multiple 128; a constant learning rate 1e-3) trained
              LONG_STEPS steps on synthetic pairs of 8200-16000 tokens a
              side, one pair per microbatch: ms/step, target tokens/s, MFU,
-             peak memory; launches = 18 each of #5, #6 and #7 per
-             microbatch, no plain version; then --mode score and --mode test
+             peak memory; launches = 18 each of #5 and the tensor-core #6
+             and #7 per microbatch, no CUDA-core backward, no plain version;
+             then --mode score and --mode test
              (beam 4) of the checkpoint on four long pairs at
              eval_batch_size 2: #5 in every forward, #8 in decoding
   long_reference  a small fp32 model with fa.MAX_LK lowered to 64 (so every
              attention streams): train_fn loss and grads card against CPU
              within 1e-4; dropout on, kernels against plain versions, loss
-             within 1e-5; beam 4 card against CPU, identical sequences
+             within 1e-5; beam 4 card against CPU, identical sequences; then
+             the model at head depth 64 (hidden 128, 2 heads) in bf16, the
+             tensor-core #6/#7 against the plain version's backward on the
+             card (the forward kernel #5 on both sides), dropout off and
+             on: loss within 1e-2 relative, grads within 2e-2 of their
+             scale
 Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -1365,6 +1378,20 @@ def converge_phase(d):
 LONG_CASES = (("causal_8320", 1, 8, 8320, 8320, 64, True, False),
               ("pad_8320", 2, 4, 8320, 8320, 64, False, True),
               ("cross_256x16384", 1, 8, 256, 16384, 64, False, True))
+# bf16 only, checked and not timed: lengths off the tensor-core backward's
+# 64- and 128-row tiles (the cross case has B=2 so that its pad mask holds
+# an all-pad row beside a ragged one), the other head depths that backward
+# takes (16-column steps, padded to 64 or 128 in shared memory), and depths
+# it does not take, where bf16 keeps the CUDA-core #6/#7 (backward_route)
+BF16_CHECK_CASES = (("ragged_causal_8259", 1, 2, 8259, 8259, 64, True,
+                     False),
+                    ("ragged_cross_333x8259", 2, 2, 333, 8259, 64, False,
+                     True),
+                    ("dh128_causal_300", 1, 2, 300, 300, 128, True, False),
+                    ("dh32_pad_200x333", 2, 2, 200, 333, 32, False, True),
+                    ("dh80_pad_136", 2, 1, 136, 136, 80, False, True),
+                    ("dh40_pad_136", 2, 1, 136, 136, 40, False, True),
+                    ("dh256_causal_200", 1, 2, 200, 200, 256, True, False))
 # (B, beams, S): transformer-base MT decode and the long-memory serving shape
 CROSS_CASES = ((32, 4, 64), (4, 4, 16384))
 LONG_STEPS = 3
@@ -1385,59 +1412,83 @@ def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
 
 
 def streaming_rows(sa, gen):
-    """Kernels #5-#7 against streaming_attention_ref; bf16 timings."""
+    """Kernels #5-#7 against streaming_attention_ref, #6/#7 on the route
+    backward_route picks (bf16 at Dh 64: the tensor-core ones; fp32: the
+    CUDA-core ones); bf16 timings."""
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, b, h, lq, lk, dh, causal, padded in LONG_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            def inputs():
-                q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
-                k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
-                v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
-                pad = attention_pad(gen, b, lk, padded)
-                do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
-                return [t.requires_grad_() for t in (q, k, v)] + [
-                    pad.to(dev), do]
+    cases = [(c, dt) for c in LONG_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(c, torch.bfloat16) for c in BF16_CHECK_CASES]
+    for (name, b, h, lq, lk, dh, causal, padded), dtype in cases:
+        def inputs():
+            q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+            k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+            v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+            pad = attention_pad(gen, b, lk, padded)
+            do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+            return [t.requires_grad_() for t in (q, k, v)] + [
+                pad.to(dev), do]
 
-            for rate in (0.0, 0.1):
-                q, k, v, pad, do = inputs()
-                words = SEED_WORDS if rate else None
-                out = sa.streaming_attention(q, k, v, pad, causal=causal,
-                                             dropout_rate=rate, rng=words)
-                grads = torch.autograd.grad(out, (q, k, v), do)
-                ref = sa.streaming_attention_ref(q, k, v, pad, causal, rate,
-                                                 words)
-                rgrads = torch.autograd.grad(ref, (q, k, v), do)
-                label = "%s[%s,p=%g]" % (name, str(dtype)[6:], rate)
-                errs = [check("streaming_attention " + label, out, ref,
-                              dtype, TRAIN_TOLERANCE)]
-                errs += [check("streaming_attention_backward %s d%s"
-                               % (label, w), g, r, dtype, TRAIN_TOLERANCE)
-                         for w, g, r in zip("qkv", grads, rgrads)]
-                if not all(torch.isfinite(x).all() for x in (out,) + grads):
-                    raise AssertionError("streaming_attention %s: non-finite"
-                                         " output or gradient" % label)
-                del out, grads, ref, rgrads
-                if dtype != torch.bfloat16:
-                    phase("long_kernels", kernel="streaming_attention",
-                          case=label, max_abs_err=errs[0],
-                          backward_max_abs_err=max(errs[1:]))
-                    continue
-                rows.update(time_streaming(sa, sdpa, name, inputs, pad,
-                                           h, lq, lk, dh, causal, rate,
-                                           words, errs))
-                torch.cuda.empty_cache()
+        for rate in (0.0, 0.1):
+            q, k, v, pad, do = inputs()
+            words = SEED_WORDS if rate else None
+            sa.launches.clear()
+            out = sa.streaming_attention(q, k, v, pad, causal=causal,
+                                         dropout_rate=rate, rng=words)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            suffix = {"tensor_cores": "_tc", "cuda_cores": ""}[
+                sa.backward_route("cuda", dtype, dh)]
+            want = {"streaming_attention": 1,
+                    "streaming_attention_dq" + suffix: 1,
+                    "streaming_attention_dkdv" + suffix: 1}
+            if dict(sa.launches) != want:
+                raise AssertionError("streaming_attention %s %s: "
+                                     "launches %s, expected %s" % (
+                                         name, dtype, dict(sa.launches),
+                                         want))
+            ref = sa.streaming_attention_ref(q, k, v, pad, causal, rate,
+                                             words)
+            rgrads = torch.autograd.grad(ref, (q, k, v), do)
+            label = "%s[%s,p=%g]" % (name, str(dtype)[6:], rate)
+            errs = [check("streaming_attention " + label, out, ref,
+                          dtype, TRAIN_TOLERANCE)]
+            errs += [check("streaming_attention_backward %s d%s"
+                           % (label, w), g, r, dtype, TRAIN_TOLERANCE)
+                     for w, g, r in zip("qkv", grads, rgrads)]
+            if not all(torch.isfinite(x).all() for x in (out,) + grads):
+                raise AssertionError("streaming_attention %s: non-finite"
+                                     " output or gradient" % label)
+            if padded and b > 1 and (grads[0][-1].any()
+                                     or grads[1][-1].any()):
+                raise AssertionError("streaming_attention %s: the all-pad "
+                                     "batch row has nonzero dq or dk" % label)
+            del out, grads, ref, rgrads
+            if dtype != torch.bfloat16 or (name, b, h, lq, lk, dh,
+                                           causal, padded) \
+                    in BF16_CHECK_CASES:
+                phase("long_kernels", kernel="streaming_attention",
+                      case=label, max_abs_err=errs[0],
+                      backward_max_abs_err=max(errs[1:]),
+                      backward=sorted(want)[1:])
+                continue
+            rows.update(time_streaming(sa, sdpa, name, inputs, pad,
+                                       h, lq, lk, dh, causal, rate,
+                                       words, errs))
+            torch.cuda.empty_cache()
     return rows
 
 
 def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
                    rate, words, errs):
-    """Device times of #5, #6 and #7 alone, of the plain version's forward
-    and backward, and of SDPA (dropout off), beside each bound: the bytes
-    of each input once and each output once, and the products over the
-    (row, key) pairs the output needs (4 flops per pair and depth forward,
-    6 for #6: s, dP, dQ; 8 for #7: s, dP, dV, dK)."""
+    """Device times of #5 and the tensor-core #6 and #7 alone, of the
+    CUDA-core #6 and #7 on the same inputs (``parent_ms``: what ran before
+    the tensor-core kernels), of the plain version's forward and backward,
+    and of SDPA (dropout off), beside each bound: the bytes of each input
+    once and each output once, and the products over the (row, key) pairs
+    the output needs (4 flops per pair and depth forward, 6 for #6: s, dP,
+    dQ; 8 for #7: s, dP, dV, dK)."""
     b = pad.shape[0]
     pairs = attention_pairs(pad, h, lq, causal)
     dtype = torch.bfloat16
@@ -1450,7 +1501,7 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
     fwds = [sa._forward(*a) for a in f_args]
     dq_args = [a[:4] + (o, s[4], m, l) + a[4:]
                for a, (o, m, l), s in zip(f_args, fwds, sets)]
-    deltas = [sa._backward_dq(*a)[1] for a in dq_args]
+    deltas = [sa._backward_dq_tc(*a)[1] for a in dq_args]
     kv_args = [a[:4] + (s[4], m, l, delta) + a[4:]
                for a, (o, m, l), s, delta in zip(f_args, fwds, sets, deltas)]
 
@@ -1467,16 +1518,20 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
                                                        s[4]),)
                                               for s in sets], iters)
     out = {}
-    for key, fn, args, nbytes, flops in (
-            ("streaming_attention", sa._forward, f_args,
+    for key, fn, parent, args, nbytes, flops in (
+            ("streaming_attention", sa._forward, None, f_args,
              2 * qb + 2 * kb + rows_f32 * 2 + 4 * b * lk, 4 * pairs * dh),
-            ("streaming_attention_dq", sa._backward_dq, dq_args,
+            ("streaming_attention_dq_tc", sa._backward_dq_tc,
+             sa._backward_dq, dq_args,
              4 * qb + 2 * kb + rows_f32 * 3 + 4 * b * lk, 6 * pairs * dh),
-            ("streaming_attention_dkdv", sa._backward_dkdv, kv_args,
+            ("streaming_attention_dkdv_tc", sa._backward_dkdv_tc,
+             sa._backward_dkdv, kv_args,
              2 * qb + 4 * kb + rows_f32 * 3 + 4 * b * lk, 8 * pairs * dh)):
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         r = dict(ms=device_ms(fn, args, iters), bound_ms=bound_ms,
                  bound_by=bound_by)
+        if parent is not None:
+            r["parent_ms"] = device_ms(parent, args, iters)
         if key == "streaming_attention":
             r.update(plain_ms=device_ms(p_fwd, sets, iters),
                      max_abs_err=errs[0])
@@ -1629,12 +1684,14 @@ def long_train_phase(d, da):
                              % lengths)
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
+    # bf16 at Dh 64: the tensor-core #6/#7, no CUDA-core backward
     want = {k: attn * microbatches for k in (
-        "streaming_attention", "streaming_attention_dq",
-        "streaming_attention_dkdv")}
+        "streaming_attention", "streaming_attention_dq_tc",
+        "streaming_attention_dkdv_tc")}
     if launches != want:
         raise AssertionError("long_train launches %s, expected %s (no plain "
-                             "version)" % (launches, want))
+                             "version, no CUDA-core backward)"
+                             % (launches, want))
     ends = summary["step_end_times"]
     step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
     timed = sum(step_s)
@@ -1777,11 +1834,116 @@ def long_reference_phase(da):
                                  "launches %s %s" % (
                                      same, score_err, dict(sa.launches),
                                      dict(da.launches)))
+        bf16 = long_reference_bf16(model, gfeats, sa)
     phase("long_reference", loss_rel_err=loss_err, grad_rel_err=errs[worst],
           worst=worst, dropout_loss_kernels=losses[0],
           dropout_loss_plain=losses[1], dropout_rel_err=drop_err,
           beam4_same_sequences=same, beam4_max_score_err=score_err,
-          beam4_steps=g["steps"])
+          beam4_steps=g["steps"], bf16=bf16)
+
+
+class _PlainBackwardStream(torch.autograd.Function):
+    """The streaming forward kernel (#5), and the plain version's backward
+    (streaming_attention_ref's autograd, recomputed) in place of #6/#7."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad, causal, rate, words):
+        from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+        o = sa._forward(q, k, v, pad, causal, rate, words)[0]
+        ctx.save_for_backward(q, k, v, pad)
+        ctx.args = (causal, rate, words if rate else None)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+        q, k, v, pad = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            ref = sa.streaming_attention_ref(*leaves, pad, *ctx.args)
+            grads = torch.autograd.grad(ref, leaves, do)
+        return tuple(grads) + (None,) * 4
+
+
+def plain_backward_stream(q, k, v, pad_mask=None, *, causal=False,
+                          dropout_rate=0.0, rng=None):
+    """streaming_attention's interface: the forward kernel, the plain
+    version's backward (the same dropout masks from the same words)."""
+    pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+           if pad_mask is None else pad_mask.float()).contiguous()
+    rate = float(dropout_rate) if (rng is not None
+                                   and 0.0 < dropout_rate < 1.0) else 0.0
+    words = tuple(rng) if rate else (0, 0)
+    return _PlainBackwardStream.apply(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), pad, bool(causal),
+                                      rate, words)
+
+
+def long_reference_bf16(model, gfeats, sa):
+    """bf16 at head depth 64 (hidden 128, 2 heads), every attention
+    streaming: train_fn with the tensor-core #6/#7 against the plain
+    version's backward on the card, dropout off and on from the same seed
+    words. The forward kernel #5 (unchanged by the tensor-core backward)
+    and the FFN kernels run on both sides, as train_reference's bf16 check
+    keeps the attention kernels on both sides: with the forward switched
+    to the plain version too, its one-ulp bf16 rounding differences alone
+    move the decoder FFN's grads by ~4% of their scale, as much as the
+    plain version's bf16 run differs from its fp32 run (``full_path``
+    reports that comparison, the whole kernel path against the whole plain
+    version). Bounds of train_reference's bf16 FFN check: loss within 1e-2
+    relative, grads within 2e-2 of their scale (grad_errors; the
+    cross-attention key bias on the model's largest)."""
+    small, out = None, {}
+    for rate in (0.0, 0.1):
+        cfg = _small_model(rate)
+        for key, val in dict(hidden_size=128, embed_size=128, filter_size=256,
+                             num_heads=2).items():
+            setattr(cfg, key, val)
+        if small is None:
+            small = model.init_fn(torch.Generator().manual_seed(SEED),
+                                  cfg).cuda()
+        cfg.default_dtype = "bfloat16"
+        runs = []
+        for fn in (sa.streaming_attention, plain_backward_stream,
+                   plain_stream):
+            sa.launches.clear()
+            with mock.patch.object(sa, "streaming_attention", fn):
+                loss = model.train_fn(
+                    small, gfeats, cfg,
+                    torch.Generator().manual_seed(SEED))["loss"]
+                grads = torch.autograd.grad(loss, list(small.parameters()))
+            runs.append((loss.item(), [g.cpu() for g in grads],
+                         collect([sa.launches])))
+
+        def errors(test, ref):
+            (lt, gt, _), (lr, gr, _) = test, ref
+            errs = grad_errors(small, gr, gt)
+            top = max(g.abs().max().item() for g in gr)
+            for name, a, b in zip([n for n, _ in small.named_parameters()],
+                                  gt, gr):
+                if name.endswith("cross.k.b"):
+                    errs[name] = (a - b).abs().max().item() / top
+            worst = max(errs, key=errs.get)
+            return dict(loss_rel_err=abs(lt - lr) / abs(lr),
+                        grad_rel_err=errs[worst],
+                        grad_worst=sorted(errs, key=errs.get)[-3:])
+
+        kern, plain_bwd, plain = runs
+        out["p=%g" % rate] = r = dict(
+            loss_kernels=kern[0], loss_plain=plain_bwd[0],
+            **errors(kern, plain_bwd), full_path=errors(kern, plain))
+        want = {"streaming_attention": 6, "streaming_attention_dq_tc": 6,
+                "streaming_attention_dkdv_tc": 6}
+        if not (r["loss_rel_err"] <= 1e-2 and r["grad_rel_err"] <= 2e-2
+                and kern[2] == want
+                and plain_bwd[2] == {"streaming_attention": 6,
+                                     "streaming_attention_ref": 6}):
+            raise AssertionError("long_reference bf16 p=%g: %s, launches "
+                                 "%s / %s" % (rate, r, kern[2],
+                                              plain_bwd[2]))
+    return out
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
@@ -1827,15 +1989,20 @@ def main(argv=None):
     libs = cuda_build.build(*sources)
     for name in sources:
         cuda_build.load(name)
-    # the bf16 FFN kernels (#11/#12) run on the tensor cores
-    ffn_sass = tensor_core_sass(libs["fused_ffn"])
-    if ffn_sass is not None and not any(ffn_sass.values()):
-        raise AssertionError("fused_ffn: no tensor-core instruction in the "
-                             "SASS: %s" % ffn_sass)
+    # the bf16 FFN kernels (#11/#12) and the bf16 streaming backward (#6,
+    # #7) run on the tensor cores: wgmma (HGMMA) in their libraries' SASS
+    sass = {n: tensor_core_sass(libs[n])
+            for n in ("fused_ffn", "streaming_attention")}
+    for n, counts in sass.items():
+        if counts is not None and not counts["HGMMA"]:
+            raise AssertionError("%s: no wgmma (HGMMA) in the SASS: %s"
+                                 % (n, counts))
     phase("build", seconds=time.time() - t0,
           libraries=[os.path.relpath(libs[n], REPO) for n in sources],
           ptxas={n: cuda_build.ptxas_report(n) for n in sources},
-          fused_ffn_tensor_core_sass=ffn_sass)
+          ptxas_spills={n: cuda_build.ptxas_spills(n) for n in sources},
+          fused_ffn_tensor_core_sass=sass["fused_ffn"],
+          streaming_tensor_core_sass=sass["streaming_attention"])
 
     rows, train_rows, rpr_rows, long_rows, launches = {}, {}, {}, {}, {}
     if "kernels" in todo:
@@ -1947,19 +2114,24 @@ def main(argv=None):
             library="scaled_dot_product_attention without RPR (floor)",
             composite_ms=r0["composite_ms"]))
     # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
-    # mask, an all-pad row), as long_train runs them; SDPA with dropout off
+    # mask, an all-pad row), as long_train runs them; SDPA with dropout off.
+    # #6/#7 are the tensor-core kernels, parent_ms the CUDA-core ones that
+    # ran before them, on the same inputs in this run
     for name, line in (("streaming_attention", 308),
-                       ("streaming_attention_dq", 353),
-                       ("streaming_attention_dkdv", 371)):
+                       ("streaming_attention_dq_tc", 353),
+                       ("streaming_attention_dkdv_tc", 371)):
         r = long_rows[(name, "pad_8320", 0.1)]
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda",
             source="zero_tpu_torch/csrc/streaming_attention.cu",
             replaces="zero_tpu/ops/kernels/streaming_attention.py:%d" % line,
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],
-            library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"]))
+            library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"])
+        if "parent_ms" in r:
+            row.update(tensor_cores=True, parent_ms=r["parent_ms"])
+        kernels.append(row)
     # the cross-attention decode kernel stays unwired, as in the JAX
     # package: no launch on the main path; long-memory shape, bf16
     r = long_rows[("decode_cross_attention", CROSS_CASES[-1][2])]

@@ -2,8 +2,10 @@
 against the JAX package's Pallas kernels (interpret mode), forward and
 gradients; rows whose keys are all padded, where the port follows softmax
 and the TPU kernel does not; the dropout mask the plain version shares with
-the CUDA kernels; and the route of ``attn_train`` past ``fa.MAX_LK``. The
-CUDA kernels are held to the plain version on the card by chip_smoke.py."""
+the CUDA kernels; the route of ``attn_train`` past ``fa.MAX_LK``; and the
+rule that picks the backward (tensor cores, CUDA cores or the plain
+version). The CUDA kernels are held to the plain version on the card by
+chip_smoke.py."""
 
 import pytest
 
@@ -30,6 +32,13 @@ CASES = {"causal_384": (1, 1, 384, 384, True),
          "cross_16x384": (2, 2, 16, 384, False)}
 
 
+# bf16 on both sides: the Pallas kernel rounds its weights and products to
+# bf16 where the plain version keeps fp32 until the output (8 mantissa bits),
+# so outputs and grads agree within 1e-2 + 1e-2 * max, as the fused FFN's
+# bf16 parity test allows
+BF16_TOL = 1e-2
+
+
 def _inputs(b, h, lq, lk, seed):
     rs = np.random.RandomState(seed)
     q = rs.randn(b, h, lq, 8).astype(np.float32)
@@ -46,12 +55,14 @@ def _jax_out_and_grads(fn, q, k, v, do):
     return [np.asarray(x) for x in (out,) + vjp(jnp.asarray(do))]
 
 
-def _port_out_and_grads(q, k, v, pad, do, causal):
-    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+def _port_out_and_grads(q, k, v, pad, do, causal, dtype=torch.float32):
+    qt, kt, vt = (torch.from_numpy(x).to(dtype).requires_grad_()
+                  for x in (q, k, v))
     out = sa.streaming_attention(qt, kt, vt, torch.from_numpy(pad),
                                  causal=causal)
-    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
-    return [x.detach().numpy() for x in (out,) + grads]
+    grads = torch.autograd.grad(out, (qt, kt, vt),
+                                torch.from_numpy(do).to(dtype))
+    return [x.detach().float().numpy() for x in (out,) + grads]
 
 
 def _close(name, got, want, tol):
@@ -80,6 +91,45 @@ def test_ref_matches_pallas_kernel_in_interpret_mode(case, monkeypatch):
     got = _port_out_and_grads(q, k, v, pad, do, causal)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         _close(name, g, w, OUT_TOL if name == "out" else GRAD_TOL)
+
+
+def test_bf16_ref_matches_pallas_kernel_in_interpret_mode(monkeypatch):
+    """The bf16 inputs the tensor-core backward takes: the cross case (its
+    batch row 1 all padding, with a zero upstream gradient there, as
+    above) through the Pallas kernel in bf16 and through the plain version
+    (fp32 inside, bf16 out), outputs and grads within 1e-2 + 1e-2 * max."""
+    b, h, lq, lk, causal = CASES["cross_16x384"]
+    q, k, v, pad, do = _inputs(b, h, lq, lk, seed=4)
+    pad[1] = 0
+    do[1] = 0
+    monkeypatch.setattr(jsa, "INTERPRET", True)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)]
+    out, vjp = jax.vjp(
+        lambda q, k, v: jsa.streaming_attention(q, k, v, jnp.asarray(pad),
+                                                causal=causal), *bf[:3])
+    want = [np.asarray(x.astype(jnp.float32))
+            for x in (out,) + vjp(bf[3])]
+    got = _port_out_and_grads(q, k, v, pad, do, causal, torch.bfloat16)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert np.isfinite(g).all(), name
+        err = np.abs(g - w).max()
+        assert err <= BF16_TOL + BF16_TOL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("device,dtype,dh,route", [
+    ("cpu", torch.bfloat16, 64, "plain"),
+    ("cpu", torch.float32, 64, "plain"),
+    ("cuda", torch.bfloat16, 64, "tensor_cores"),
+    ("cuda", torch.bfloat16, 16, "tensor_cores"),
+    ("cuda", torch.bfloat16, 128, "tensor_cores"),
+    ("cuda", torch.bfloat16, 40, "cuda_cores"),
+    ("cuda", torch.bfloat16, 256, "cuda_cores"),
+    ("cuda", torch.float32, 64, "cuda_cores")])
+def test_backward_route(device, dtype, dh, route):
+    """bf16 at a head depth the tensor-core kernels take (a multiple of 16
+    up to 128) runs them; fp32, which must stay exact, and other depths
+    keep the CUDA-core kernels; the CPU takes the plain version."""
+    assert sa.backward_route(device, dtype, dh) == route
 
 
 def test_fully_masked_row_follows_softmax_not_the_tpu_kernel(monkeypatch):

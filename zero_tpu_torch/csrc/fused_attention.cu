@@ -31,9 +31,11 @@
 //     dropout on too. Kernel 1 writes delta and dq; kernel 2 gives each
 //     block its own keys' dk/dv, reducing over every query row inside the
 //     block: no atomics, no split partial sums, deterministic.
-//   * Dropout: keep bit of element (row i, key j) of head bh is
-//     hash_bits(((bh * Lq + i) * Lk + j), s0, s1) < threshold, the 32-bit
-//     test of _dropout_keep, with scale 1/(1 - rate). The bit depends on
+//   * Dropout: element (row r = bh * Lq + i, key j) keeps iff
+//     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (zt::row_seed,
+//     zt::keep_key), the 32-bit test of _dropout_keep, with scale
+//     1/(1 - rate): the streaming kernels' rule, a per-row seed word hashed
+//     once per row, so no B*H*Lq*Lk index wraps at 2^32. The bit depends on
 //     the element only, so the forward and backward tile differently and
 //     still agree, and the plain PyTorch version reproduces the mask.
 //
@@ -75,12 +77,16 @@ struct Params {
   uint32_t threshold, s0, s1;
 };
 
-__device__ __forceinline__ bool keep_bit(const Params& p, int bh, int i,
+// The seed word of query row i of head bh (0 when dropout is off).
+__device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
+  if (!p.dropout) return 0u;
+  return zt::row_seed((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0,
+                      p.s1);
+}
+
+__device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed,
                                          int j) {
-  const uint32_t index =
-      ((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i) * (uint32_t)p.lk +
-      (uint32_t)j;
-  return zt::hash_bits(index, p.s0, p.s1) < p.threshold;
+  return zt::keep_key(seed, j, p.s1, p.threshold);
 }
 
 // Stage rows [r0, r0 + kTile) of a [rows, dh] matrix as fp32 in shared
@@ -118,10 +124,12 @@ __global__ void __launch_bounds__(kThreads) attn_forward(Params p) {
 
   stage(qs, q, q0, p.lq, dh, dh);
   float m[kRows], l[kRows], acc[kRows][NC];
+  uint32_t seed[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
+    seed[r] = row_seed(p, bh, q0 + warp * kRows + r);
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
@@ -157,8 +165,8 @@ __global__ void __launch_bounds__(kThreads) attn_forward(Params p) {
       m[r] = m_new;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      if (p.dropout) e = (exists && keep_bit(p, bh, i, j)) ? e * p.drop_scale
-                                                          : 0.f;
+      if (p.dropout) e = (exists && keep_bit(p, seed[r], j)) ? e * p.drop_scale
+                                                            : 0.f;
       ps[(warp * kRows + r) * kTile + lane] = e;
     }
     __syncwarp();
@@ -208,6 +216,7 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dq(Params p) {
   float* ks = dos + kTile * dh;            // [32][dh + 1]
   float* vs = ks + kTile * (dh + 1);       // [32][dh + 1]
   float* ps = vs + kTile * (dh + 1);       // [32][32]
+  uint32_t* seeds = (uint32_t*)(ps + kTile * kTile);   // [32]
   const int bh = blockIdx.y;
   const int b = bh / p.heads;
   const int q0 = blockIdx.x * kTile;
@@ -222,6 +231,8 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dq(Params p) {
 
   stage(qs, q, q0, p.lq, dh, dh);
   stage(dos, dout, q0, p.lq, dh, dh);
+  if (threadIdx.x < kTile)
+    seeds[threadIdx.x] = row_seed(p, bh, q0 + threadIdx.x);
   __syncthreads();
   float m[kRows], l[kRows], delta[kRows], acc[kRows][NC];
 #pragma unroll
@@ -272,8 +283,9 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dq(Params p) {
       const float x = valid ? s[r] * p.scale : kMasked;
       const float w = exists ? expf(x - m[r]) / l[r] : 0.f;
       float dw = dp[r];
-      if (p.dropout) dw = (exists && keep_bit(p, bh, i, j)) ? dw * p.drop_scale
-                                                           : 0.f;
+      if (p.dropout)
+        dw = (exists && keep_bit(p, seeds[warp * kRows + r], j))
+                 ? dw * p.drop_scale : 0.f;
       ps[(warp * kRows + r) * kTile + lane] =
           valid ? w * (dw - delta[r]) : 0.f;
     }
@@ -322,6 +334,7 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dkdv(Params p) {
   float* ps = dos + kTile * dh;            // [32][32] dropped weights
   float* dss = ps + kTile * kTile;         // [32][32] ds
   float* stats = dss + kTile * kTile;      // [3][32] m, l, delta
+  uint32_t* seeds = (uint32_t*)(stats + 3 * kTile);   // [32]
   const int bh = blockIdx.y;
   const int b = bh / p.heads;
   const int k0 = blockIdx.x * kTile;
@@ -358,6 +371,7 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dkdv(Params p) {
       stats[kTile + threadIdx.x] = in ? p.l[(size_t)bh * p.lq + i] : 1.f;
       stats[2 * kTile + threadIdx.x] =
           in ? p.delta[(size_t)bh * p.lq + i] : 0.f;
+      seeds[threadIdx.x] = row_seed(p, bh, i);
     }
     __syncthreads();
     float s[kRows], dp[kRows];
@@ -386,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) attn_backward_dkdv(Params p) {
                           ? expf(x - stats[rr]) / stats[kTile + rr] : 0.f;
       float wd = w, dw = dp[r];
       if (p.dropout) {
-        const bool keep = exists && row_in && keep_bit(p, bh, i, j);
+        const bool keep = exists && row_in && keep_bit(p, seeds[rr], j);
         wd = keep ? w * p.drop_scale : 0.f;
         dw = keep ? dw * p.drop_scale : 0.f;
       }
@@ -446,7 +460,8 @@ cudaError_t forward_nc(const Params& p, int bh, cudaStream_t stream) {
 template <typename T, int NC>
 cudaError_t backward_nc(const Params& p, int bh, cudaStream_t stream) {
   const size_t dq_bytes = sizeof(float) *
-      (size_t)(kTile * p.dh * 2 + kTile * (p.dh + 1) * 2 + kTile * kTile);
+      (size_t)(kTile * p.dh * 2 + kTile * (p.dh + 1) * 2 + kTile * kTile +
+               kTile);
   const size_t kv_bytes = dq_bytes + sizeof(float) *
       (size_t)(kTile * kTile + 3 * kTile);
   cudaError_t err = zt::allow_smem(attn_backward_dq<T, NC>, dq_bytes);

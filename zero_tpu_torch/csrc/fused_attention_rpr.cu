@@ -50,10 +50,11 @@
 //   * An all-pad row has uniform weights, so its bucket sums and Tv term are
 //     not zero and dTv gets its share; ds is zero there, so dq, dk and dTk
 //     get nothing from it.
-//   * Dropout: the keep bit of element (row i, key j) of head bh is
-//     hash_bits(((bh * Lq + i) * Lk + j), s0, s1) < threshold, scale
-//     1/(1 - rate), as in kernels #1/#2; bucket sums are taken over the
-//     dropped weights.
+//   * Dropout: element (row r = bh * Lq + i, key j) keeps iff
+//     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (a per-row seed
+//     word hashed once per row, zt::row_seed / zt::keep_key), scale
+//     1/(1 - rate), as in kernels #1/#2 and #5-#7; bucket sums are taken
+//     over the dropped weights.
 //
 // Bound. At transformer-base shapes (L <= 256, Dh = 64, m = 16) the RPR
 // terms add ~4*R*Dh flops per query row (q . Tk, wb . Tv) to the ~4*Lk*Dh
@@ -101,12 +102,16 @@ struct Params {
   uint32_t threshold, s0, s1;
 };
 
-__device__ __forceinline__ bool keep_bit(const Params& p, int bh, int i,
+// The seed word of query row i of head bh (0 when dropout is off).
+__device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
+  if (!p.dropout) return 0u;
+  return zt::row_seed((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0,
+                      p.s1);
+}
+
+__device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed,
                                          int j) {
-  const uint32_t index =
-      ((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i) * (uint32_t)p.lk +
-      (uint32_t)j;
-  return zt::hash_bits(index, p.s0, p.s1) < p.threshold;
+  return zt::keep_key(seed, j, p.s1, p.threshold);
 }
 
 __device__ __forceinline__ int bucket(int i, int j, int rel) {
@@ -225,10 +230,12 @@ __global__ void __launch_bounds__(kThreads) rpr_forward(Params p) {
   }
 
   float m[kRows], l[kRows], acc[kRows][NC];
+  uint32_t seed[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
+    seed[r] = row_seed(p, bh, q0 + warp * kRows + r);
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
@@ -258,8 +265,8 @@ __global__ void __launch_bounds__(kThreads) rpr_forward(Params p) {
       m[r] = m_new;
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2) acc[r][c2] *= alpha;
-      if (p.dropout) e = (exists && keep_bit(p, bh, i, j)) ? e * p.drop_scale
-                                                          : 0.f;
+      if (p.dropout) e = (exists && keep_bit(p, seed[r], j)) ? e * p.drop_scale
+                                                            : 0.f;
       ps[rr * kTile + lane] = e;
       float* wr = wb + rr * nb;
       if (alpha != 1.f) {   // warp-uniform
@@ -357,9 +364,11 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dq(Params p) {
   }
 
   float m[kRows], l[kRows], delta[kRows], acc[kRows][NC];
+  uint32_t seed[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + warp * kRows + r;
+    seed[r] = row_seed(p, bh, i);
     float part = 0.f;
     if (i < p.lq) {
       for (int d = lane; d < dh; d += 32)
@@ -397,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dq(Params p) {
       const float w = (exists && row_in) ? expf(x - m[r]) / l[r] : 0.f;
       float wd = w, dw = dp[r] + dwb[rr * nb + c];
       if (p.dropout) {
-        const bool keep = exists && row_in && keep_bit(p, bh, i, j);
+        const bool keep = exists && row_in && keep_bit(p, seed[r], j);
         wd = keep ? w * p.drop_scale : 0.f;
         dw = keep ? dw * p.drop_scale : 0.f;
       }
@@ -466,6 +475,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dkdv(Params p) {
   float* ps = dos + kTile * dh;            // [32][32] dropped weights
   float* dss = ps + kTile * kTile;         // [32][32] ds
   float* stats = dss + kTile * kTile;      // [3][32] m, l, delta
+  uint32_t* seeds = (uint32_t*)(stats + 3 * kTile);   // [32]
   const int bh = blockIdx.y;
   const int b = bh / p.heads;
   const int k0 = blockIdx.x * kTile;
@@ -502,6 +512,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dkdv(Params p) {
       stats[kTile + threadIdx.x] = in ? p.l[(size_t)bh * p.lq + i] : 1.f;
       stats[2 * kTile + threadIdx.x] =
           in ? p.delta[(size_t)bh * p.lq + i] : 0.f;
+      seeds[threadIdx.x] = row_seed(p, bh, i);
     }
     __syncthreads();
     float s[kRows], dp[kRows];
@@ -520,7 +531,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dkdv(Params p) {
                           ? expf(x - stats[rr]) / stats[kTile + rr] : 0.f;
       float wd = w, dw = dp[r] + (row_in ? p.dwb[g] : 0.f);
       if (p.dropout) {
-        const bool keep = exists && row_in && keep_bit(p, bh, i, j);
+        const bool keep = exists && row_in && keep_bit(p, seeds[rr], j);
         wd = keep ? w * p.drop_scale : 0.f;
         dw = keep ? dw * p.drop_scale : 0.f;
       }
@@ -607,7 +618,7 @@ size_t dq_bytes(const Params& p) {
 
 size_t dkdv_bytes(const Params& p) {
   return sizeof(float) * (size_t)(kTile * (p.dh + 1) * 2 + kTile * p.dh * 2 +
-                                  2 * kTile * kTile + 3 * kTile);
+                                  2 * kTile * kTile + 4 * kTile);
 }
 
 template <typename T, int NC>

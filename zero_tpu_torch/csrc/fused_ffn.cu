@@ -88,6 +88,7 @@
 // cudaGetLastError() after its launches.
 
 #include "zt_common.cuh"
+#include "zt_wgmma.cuh"
 
 namespace {
 
@@ -461,6 +462,7 @@ __global__ void __launch_bounds__(kThreads) column_sums(const T* a, float* out,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace zt::wg;   // cp.async ring, swizzle, descriptors, wgmma
 using bf16 = __nv_bfloat16;
 constexpr int kBM = 128, kBN = 128;   // output tile: two warpgroups of 64 rows
 constexpr int kBK = 64;               // K per stage: 128-byte swizzle rows
@@ -468,6 +470,8 @@ constexpr int kTile = kBM * kBK;      // elements of one operand tile (16 KB)
 constexpr int kLdS = kBN + 8;         // staged output row: 272 bytes, so the
                                       // fragment writes hit 32 banks
 constexpr int kStaged = kBM * kLdS;   // elements of one staged output tile
+// an m/n-major operand's column block: 64 k rows of 64 m/n
+constexpr uint32_t kMnLbo = kBK * 64 * sizeof(__nv_bfloat16);
 
 // Ring depths, chosen on the card at N = 4096, 512 -> 2048 -> 512: (a) and
 // (d) run two blocks to an SM in 3 x 32 KB; (b), one block to an SM (128
@@ -488,127 +492,11 @@ __device__ __forceinline__ bf16* ring_base(unsigned char* raw) {
   return reinterpret_cast<bf16*>(((uintptr_t)raw + 1023) & ~(uintptr_t)1023);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  // src-size 0 zero-fills the chunk (rows and columns past the edge)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Shared-memory layouts, both the canonical 128-byte-swizzle layouts of
-// wgmma (16-byte chunk index XOR row % 8 inside each 1024-byte group of 8
-// rows of 128 bytes):
-// k-major tile [rows][64 k]: element (r, k) at r * 64 + k, swizzled;
-// m/n-major tile [2 blocks of 64][64 k][64]: element (k, m) at
-// (m / 64) * 4096 + k * 64 + m % 64, swizzled. c a multiple of 8.
-__device__ __forceinline__ int swz_k(int r, int c) {
-  return r * kBK + (((c >> 3) ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ int swz_mn(int k, int m) {
-  return (m >> 6) * (kBK * 64) + k * 64 + ((((m & 63) >> 3) ^ (k & 7)) << 3);
-}
-
-// Copy the tile at (r0, c0) of a row-major [rows][cols] array (row stride
-// ld) into a ring slot, zero past the edges: K_MAJOR, [128][64] with k the
-// columns; else [64 k][128] with k the rows.
-template <bool K_MAJOR>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld,
-                                          int r0, int c0, int rows,
-                                          int cols) {
-  constexpr int kChunks = (K_MAJOR ? kBK : kBM) / 8;   // per stored row
-#pragma unroll
-  for (int i = 0; i < kTile / 8 / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const bool ok = r0 + r < rows && c0 + c < cols;
-    cp_async16(dst + (K_MAJOR ? swz_k(r, c) : swz_mn(r, c)),
-               ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
-  }
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), 128-byte swizzle. k-major: LBO unused (1),
-// SBO = 1024 (the next 8 rows). m/n-major: LBO = 8192 (the next block of 64
-// m/n), SBO = 1024 (the next 8 k).
-template <bool K_MAJOR>
-__device__ __forceinline__ uint64_t descriptor(const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  const uint64_t lbo = K_MAJOR ? 1 : (kBK * 64 * sizeof(bf16)) >> 4;
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (lbo << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 typedef float Acc[64];   // a thread's share of its warpgroup's 64 x 128
 
 struct bool2 {
   bool x, y;
 };
-
-// acc += A (64 x 16, at da) @ B (16 x 128, at db); TA/TB: 1 where the
-// operand is m/n-major
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(Acc& d, uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
 
 // acc = A[m0:+128, :K] @ B[:K, n0:+128] for C [M, N], through a ring of
 // STAGES slots at smem (1024-byte aligned). A_K: A is stored [M][K] (k
@@ -627,10 +515,11 @@ __device__ __forceinline__ void mma_tile(const bf16* a, int lda, const bf16* b,
   auto load = [&](int slot, int step) {
     bf16* sa = smem + slot * 2 * kTile;
     const int k0 = step * kBK;
-    if (A_K) load_tile<true>(sa, a, lda, m0, k0, M, K);
-    else load_tile<false>(sa, a, lda, k0, m0, K, M);
-    if (B_K) load_tile<true>(sa + kTile, b, ldb, n0, k0, N, K);
-    else load_tile<false>(sa + kTile, b, ldb, k0, n0, K, N);
+    // k-major operands as [128][64 k], m/n-major as [64 k][128]
+    if (A_K) load_tile<kBM, kBK, kThreads>(sa, a, lda, m0, k0, M, K);
+    else load_tile<kBK, kBM, kThreads>(sa, a, lda, k0, m0, K, M);
+    if (B_K) load_tile<kBN, kBK, kThreads>(sa + kTile, b, ldb, n0, k0, N, K);
+    else load_tile<kBK, kBN, kThreads>(sa + kTile, b, ldb, k0, n0, K, N);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -651,9 +540,10 @@ __device__ __forceinline__ void mma_tile(const bf16* a, int lda, const bf16* b,
     for (int ks = 0; ks < kBK; ks += 16) {
       // warpgroup g's 64 rows (k-major) or m block (m-major) start at
       // g * 4096; 16 k are 32 bytes along a k-major row, 16 m/n-major rows
-      const uint64_t da = descriptor<A_K>(sa + group * 64 * kBK +
-                                          (A_K ? ks : ks * 64));
-      const uint64_t db = descriptor<B_K>(B_K ? sb + ks : sb + ks * 64);
+      const uint64_t da = descriptor(
+          sa + group * 64 * kBK + (A_K ? ks : ks * 64), A_K ? 16 : kMnLbo);
+      const uint64_t db =
+          descriptor(B_K ? sb + ks : sb + ks * 64, B_K ? 16 : kMnLbo);
       wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db);
     }
     wgmma_commit();
@@ -661,16 +551,6 @@ __device__ __forceinline__ void mma_tile(const bf16* a, int lda, const bf16* b,
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is free for the next product
-}
-
-// tile-local row and column of a thread's acc[4 j + 2 h + e] (column + e)
-__device__ __forceinline__ int frag_row(int h) {
-  return (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 +
-         ((threadIdx.x & 31) >> 2) + h * 8;
-}
-
-__device__ __forceinline__ int frag_col(int j) {
-  return j * 8 + (threadIdx.x & 3) * 2;
 }
 
 __device__ __forceinline__ void put2(bf16* st, int r, int c,

@@ -2,7 +2,8 @@
 // fused_attention.cu, fused_attention_rpr.cu, fused_ffn.cu,
 // streaming_attention.cu): dtype conversion, rounding to the
 // compute dtype, warp reductions, the counter-hash dropout bits of
-// zero_tpu/ops/common.py:_hash_bits, and the dynamic shared-memory cap.
+// zero_tpu/ops/common.py:_hash_bits and the row-seeded attention keep bit
+// built on them, and the dynamic shared-memory cap.
 
 #pragma once
 
@@ -57,6 +58,21 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t index, uint32_t s0,
   x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
   x = (x ^ (x >> 16)) * 0xC2B2AE35u;
   return x ^ (x >> 16) ^ s1;
+}
+
+// Attention dropout, shared by every attention kernel (#1-#7): element (row
+// r = bh * Lq + i, key j) keeps iff hash_bits(j, row_seed(r), s1) <
+// threshold. A per-row seed word, then the key index: no B*H*Lq*Lk linear
+// index that wraps at 2^32. A kernel hashes each row's seed once and keeps
+// it beside the row.
+__device__ __forceinline__ uint32_t row_seed(uint32_t row, uint32_t s0,
+                                             uint32_t s1) {
+  return hash_bits(row, s0, s1);
+}
+
+__device__ __forceinline__ bool keep_key(uint32_t seed, int j, uint32_t s1,
+                                         uint32_t threshold) {
+  return hash_bits((uint32_t)j, seed, s1) < threshold;
 }
 
 // Raise the dynamic shared-memory cap of a kernel when it needs more than

@@ -16,6 +16,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, List
@@ -94,7 +95,28 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> List[str]:
-    """The register/shared-memory lines of the library's ptxas log."""
+    """The register/shared-memory lines of the library's ptxas log, each
+    after its kernel's (mangled) name."""
+    lines, kernel = [], ""
     with open(library_path(name) + ".log") as r:
-        return [line.strip() for line in r
-                if "registers" in line or "smem" in line]
+        for line in r:
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for")[-1].strip()
+            elif "registers" in line or "smem" in line:
+                lines.append("%s: %s" % (kernel, line.split(":", 1)[-1]
+                                         .strip()))
+    return lines
+
+
+def ptxas_spills(name: str) -> Dict[str, str]:
+    """{kernel (mangled name): its ptxas stack/spill line} for every kernel
+    of the library that spills registers."""
+    spills, kernel = {}, None
+    with open(library_path(name) + ".log") as r:
+        for line in r:
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for")[-1].strip()
+            elif "spill stores" in line and kernel is not None:
+                if re.search(r"[1-9]\d* bytes spill", line):
+                    spills[kernel] = line.strip()
+    return spills

@@ -28,11 +28,13 @@ the order given and return their gradients in that order. The plain
 version is ``fused_attention_rpr_ref``.
 
 Dropout. The TPU kernels seed the TPU's hardware PRNG per grid block; the
-port draws element (b, h, i, j)'s keep bit from ``ops/common.py:_hash_bits``
-over the linear index ((b*H + h)*Lq + i)*Lk + j with the site's two seed
-words, against the 32-bit threshold of ``_dropout_keep``, scale
-1/(1 - rate). The plain version draws the same mask, so the kernels are held
-to it with dropout on.
+port draws the streaming kernels' row-seeded mask
+(``streaming_attention.keep_mask``): element (row r = (b*H + h)*Lq + i,
+key j) keeps iff ``hash(j, hash(r, s0, s1), s1)`` is below the 32-bit
+threshold of ``_dropout_keep``, scale 1/(1 - rate). No linear index over
+B*H*Lq*Lk, which would wrap at 2^32 and repeat masks across head slabs.
+The plain version draws the same mask, so the kernels are held to it with
+dropout on.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``fused_attention_ref`` (``fused_attention_rpr_ref`` with tables).
@@ -51,9 +53,9 @@ from typing import Optional
 
 import torch
 
-from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops import rpr as rpr_mod
 from zero_tpu_torch.ops.kernels import cuda_build
+from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
 NEG_INF = -1e30          # masked scores, as in the TPU kernel
 MAX_LK = 8192            # the TPU kernel's limit; longer keys stream (#5-#7)
@@ -73,14 +75,13 @@ def rpr_supported(lq: int, lk: int, max_rel: int) -> bool:
     return 2 * max_rel < lk <= MAX_LK
 
 
-def dropout_threshold(rate: float) -> int:
-    """The 32-bit keep threshold of ``_dropout_keep``."""
-    return int((1.0 - rate) * 4294967295.0)
-
-
 def keep_mask(words, shape, rate: float, device=None) -> torch.Tensor:
-    """The attention dropout keep mask over [B, H, Lq, Lk]."""
-    return common._hash_bits(words, shape, device) < dropout_threshold(rate)
+    """The attention dropout keep mask over [B, H, Lq, Lk]: every query row
+    of ``streaming_attention.keep_mask``, the one mask family of the four
+    attention routes."""
+    b, h, lq, lk = shape
+    return sa.keep_mask(words, b * h, lq, range(lq), lk, rate,
+                        device).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +168,7 @@ def _rpr_library():
 
 def _dropout_args(rate: float, words):
     if rate > 0.0:
-        return (1, dropout_threshold(rate), 1.0 / (1.0 - rate),
+        return (1, sa.dropout_threshold(rate), 1.0 / (1.0 - rate),
                 int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF)
     return 0, 0, 1.0, 0, 0
 

@@ -19,6 +19,15 @@ the bound), in one ``torch.autograd.Function`` whose backward launches #6
 and then #7. The contract is the JAX one: q [B, H, Lq, Dh], k/v
 [B, H, Lk, Dh] in, [B, H, Lq, Dh] out in the query dtype.
 
+Which version runs is ``backward_route(device, dtype, Dh)``, a pure
+function that ``streaming_attention`` calls once: on the CPU the plain
+version, forward and backward; on the card #5 and then the tensor-core #6/#7
+(``wgmma``, bf16 in, fp32 accumulation) for bf16 with a head depth that is
+a multiple of 16 up to 128; the CUDA-core #6/#7 for fp32 (which must stay
+exact: TF32 would give ~1e-3 against the fp32 models' 1e-4 tolerance) and
+for bf16 at any other depth up to 256. The forward #5 runs on the CUDA
+cores. A launch that fails raises; nothing falls back.
+
 Where the port differs from the TPU kernel (ROADMAP.md section 3):
 * the kernels take any Lq and Lk; JAX streams only where Lq % 8 == 0 and
   Lk % 128 == 0 (``_blocks``) and falls back to the dense XLA form
@@ -40,9 +49,10 @@ nor its backward holds more than [B*H, chunk, Lk] at a time.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``streaming_attention_ref``. ``launches`` counts the kernel launches by
-wrapper ("streaming_attention", "streaming_attention_dq",
-"streaming_attention_dkdv") and the plain version's calls
-("streaming_attention_ref").
+wrapper ("streaming_attention"; "streaming_attention_dq",
+"streaming_attention_dkdv" on the CUDA cores; "streaming_attention_dq_tc",
+"streaming_attention_dkdv_tc" on the tensor cores) and the plain version's
+calls ("streaming_attention_ref").
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from zero_tpu_torch.ops.kernels import cuda_build
 
 NEG_INF = -1e30          # masked scores, as in the TPU kernel
 MAX_HEAD_DIM = 256       # the CUDA kernels' register tiles
+TC_MAX_HEAD_DIM = 128    # the tensor-core backward: depth padded to 64, 128
 # the plain version's query chunk holds at most this many fp32 scores
 REF_CHUNK_ELEMS = 1 << 24
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +82,19 @@ def supported(lq: int, lk: int) -> bool:
     """Where the streaming kernels run: any positive lengths. The TPU
     kernel's tiling gate (Lq % 8, Lk % 128) is not copied."""
     return lq > 0 and lk > 0
+
+
+def backward_route(device: str, dtype: torch.dtype, dh: int) -> str:
+    """Which version of the attention runs on ``device`` ("cpu" or "cuda")
+    in ``dtype`` at head depth ``dh``: "plain" (the CPU: the plain version,
+    forward and backward), or on the card #5 and then #6/#7 on the
+    "tensor_cores" (bf16, dh a multiple of 16 up to 128) or the
+    "cuda_cores" (the rest)."""
+    if device == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 and dh % 16 == 0 and dh <= TC_MAX_HEAD_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def dropout_threshold(rate: float) -> int:
@@ -166,7 +190,9 @@ def _library():
     fns = []
     for name, pointers in (("zt_streaming_forward", 7),
                            ("zt_streaming_backward_dq", 10),
-                           ("zt_streaming_backward_dkdv", 10)):
+                           ("zt_streaming_backward_dkdv", 10),
+                           ("zt_streaming_backward_dq_tc", 10),
+                           ("zt_streaming_backward_dkdv_tc", 10)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + _TAIL
         fn.restype = ctypes.c_int
@@ -207,49 +233,90 @@ def _forward(q, k, v, pad, causal, rate, words):
     return o, m, l
 
 
-def _backward_dq(q, k, v, pad, o, do, m, l, causal, rate, words):
+def _dq(which, key, q, k, v, pad, o, do, m, l, causal, rate, words):
     dq = torch.empty_like(q)
     delta = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        err = _library()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            pad.data_ptr(), o.data_ptr(), do.data_ptr(),
-                            m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-                            dq.data_ptr(), *_args(q, k, causal, rate, words))
-    _raise_on(err, "dq")
-    launches["streaming_attention_dq"] += 1
+        err = _library()[which](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                pad.data_ptr(), o.data_ptr(), do.data_ptr(),
+                                m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+                                dq.data_ptr(),
+                                *_args(q, k, causal, rate, words))
+    _raise_on(err, key)
+    launches[key] += 1
     return dq, delta
 
 
-def _backward_dkdv(q, k, v, pad, do, m, l, delta, causal, rate, words):
+def _dkdv(which, key, q, k, v, pad, do, m, l, delta, causal, rate, words):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _library()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            pad.data_ptr(), do.data_ptr(), m.data_ptr(),
-                            l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), *_args(q, k, causal, rate, words))
-    _raise_on(err, "dk/dv")
-    launches["streaming_attention_dkdv"] += 1
+        err = _library()[which](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                pad.data_ptr(), do.data_ptr(), m.data_ptr(),
+                                l.data_ptr(), delta.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(),
+                                *_args(q, k, causal, rate, words))
+    _raise_on(err, key)
+    launches[key] += 1
     return dk, dv
 
 
+def _backward_dq(q, k, v, pad, o, do, m, l, causal, rate, words):
+    """#6 on the CUDA cores: (dq, delta)."""
+    return _dq(1, "streaming_attention_dq", q, k, v, pad, o, do, m, l,
+               causal, rate, words)
+
+
+def _backward_dkdv(q, k, v, pad, do, m, l, delta, causal, rate, words):
+    """#7 on the CUDA cores: (dk, dv)."""
+    return _dkdv(2, "streaming_attention_dkdv", q, k, v, pad, do, m, l,
+                 delta, causal, rate, words)
+
+
+def _backward_dq_tc(q, k, v, pad, o, do, m, l, causal, rate, words):
+    """#6 on the tensor cores (bf16; 16-byte aligned q, k, v, o, do)."""
+    return _dq(3, "streaming_attention_dq_tc", q, k, v, pad, o, do, m, l,
+               causal, rate, words)
+
+
+def _backward_dkdv_tc(q, k, v, pad, do, m, l, delta, causal, rate, words):
+    """#7 on the tensor cores (bf16; 16-byte aligned q, k, v, do)."""
+    return _dkdv(4, "streaming_attention_dkdv_tc", q, k, v, pad, do, m, l,
+                 delta, causal, rate, words)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where it does not start on 16 bytes (the
+    tensor-core kernels copy 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _StreamingAttention(torch.autograd.Function):
-    """Forward kernel #5; backward #6 (delta, dq) then #7 (dk, dv)."""
+    """Forward kernel #5; backward #6 (delta, dq) then #7 (dk, dv), on the
+    ``route`` that ``backward_route`` picked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad, causal, rate, words):
+    def forward(ctx, q, k, v, pad, causal, rate, words, route):
         o, m, l = _forward(q, k, v, pad, causal, rate, words)
         ctx.save_for_backward(q, k, v, pad, o, m, l)
         ctx.args = (causal, rate, words)
+        ctx.route = route
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, pad, o, m, l = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        dq, delta = _backward_dq(q, k, v, pad, o, do, m, l, *ctx.args)
-        dk, dv = _backward_dkdv(q, k, v, pad, do, m, l, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        if ctx.route == "tensor_cores":
+            q, k, v, o, do = map(_aligned, (q, k, v, o, do))
+            dq, delta = _backward_dq_tc(q, k, v, pad, o, do, m, l, *ctx.args)
+            dk, dv = _backward_dkdv_tc(q, k, v, pad, do, m, l, delta,
+                                       *ctx.args)
+        else:
+            dq, delta = _backward_dq(q, k, v, pad, o, do, m, l, *ctx.args)
+            dk, dv = _backward_dkdv(q, k, v, pad, do, m, l, delta,
+                                    *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _check(q, k, v, pad):
@@ -293,11 +360,13 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
     words = tuple(rng) if rate else (0, 0)
-    if q.device.type == "cpu":
+    route = backward_route(q.device.type, q.dtype, q.shape[-1])
+    if route == "plain":
         return streaming_attention_ref(q, k, v, pad, causal, rate, rng)
     if not q.is_cuda:
         raise ValueError("streaming_attention: unsupported device %s"
                          % q.device)
     _check(q, k, v, pad)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return _StreamingAttention.apply(q, k, v, pad, bool(causal), rate, words)
+    return _StreamingAttention.apply(q, k, v, pad, bool(causal), rate, words,
+                                     route)
