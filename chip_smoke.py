@@ -20,8 +20,8 @@ non-zero):
              one process each, all at once; the ptxas register/shared-memory
              report and every kernel that spills registers; the count of
              tensor-core instructions (HGMMA, HMMA) in the SASS of the fused
-             FFN and streaming libraries, whose wgmma (HGMMA) count must not
-             be 0
+             FFN, streaming and fused-attention libraries, whose wgmma
+             (HGMMA) count must not be 0
   kernels    decode_attention and decode_pool_attention (softmax, relu) at
              transformer-base beam-4 decode shapes (B=32 sentences x beam
              4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
@@ -30,7 +30,13 @@ non-zero):
              memory/compute bound
   train_kernels  fused_attention (forward, backward) at B=16, H=8, Dh=64:
              causal self-attention L=256, self-attention L=256 under a pad
-             mask with an all-pad row, cross attention Lq=200 Lk=256; and
+             mask with an all-pad row, cross attention Lq=200 Lk=256 (the
+             backward on the route backward_route picks: bf16 at Dh 64 the
+             tensor-core #2, whose CUDA-core parent is timed on the same
+             inputs as parent_ms; launch counts show which ran), checked
+             also under the causal flag with an all-pad row (the fused mask
+             rule), at head depths 128, 32 and 80 on the tensor cores and
+             40 on the CUDA cores; and
              fused_ffn (forward, backward) at N=4096, 512->2048->512 (fp32
              and bf16) and N=12544, the train phase's largest stacked shape
              (bf16, the tensor-core kernels), checked also at N=54 and 72,
@@ -51,7 +57,8 @@ non-zero):
              TRAIN_STEPS steps on a synthetic corpus with both kernel flags
              on: ms/step, target tokens/s, loss and gnorm, model FLOPs and
              MFU; launch counts = 18 attention and 12 FFN forwards and
-             backwards per microbatch, no plain version; then the same
+             backwards per microbatch (the attention backward the
+             tensor-core #2), no plain version; then the same
              steps with both flags off (the PyTorch composite), and
              --mode test and --mode score on the checkpoint the kernel run
              saved
@@ -92,12 +99,13 @@ non-zero):
              streaming_attention_ref at B*H=8, Lq=Lk=8320 causal; B=2, H=4,
              L=8320 under a pad mask with an all-pad row (whose dq and dk
              must be 0); cross Lq=256, Lk=16384; fp32 (the CUDA-core
-             backward) and bf16 (the tensor-core backward; launch counts
-             show which ran), dropout 0 and 0.1; in bf16 also lengths off
-             the tensor-core tiles (causal 8259, cross 333 x 8259) and head
-             depths 128, 32 and 80; device times of each kernel, of the
-             CUDA-core #6/#7 on the same inputs (what ran before), the plain
-             version and SDPA (bf16) beside the bound. And
+             kernels) and bf16 (the tensor-core kernels; launch counts show
+             which ran), dropout 0 and 0.1; in bf16 also lengths off the
+             tensor-core tiles (causal 8259, cross 333 x 8259), head depths
+             128, 32 and 80 (tensor cores) and 40, 256 (CUDA cores); device
+             times of each kernel, of the CUDA-core #5, #6, #7 on the same
+             inputs (what ran before, parent_ms), the plain version and
+             SDPA (bf16) beside the bound. And
              decode_cross_attention (#9, unwired as in the JAX package)
              against its plain version at B=32 beam 4 S=64 and B=4 beam 4
              S=16384, timed beside the composite of cross_attn_step and
@@ -107,19 +115,19 @@ non-zero):
              pad_seq_multiple 128; a constant learning rate 1e-3) trained
              LONG_STEPS steps on synthetic pairs of 8200-16000 tokens a
              side, one pair per microbatch: ms/step, target tokens/s, MFU,
-             peak memory; launches = 18 each of #5 and the tensor-core #6
-             and #7 per microbatch, no CUDA-core backward, no plain version;
-             then --mode score and --mode test
-             (beam 4) of the checkpoint on four long pairs at
-             eval_batch_size 2: #5 in every forward, #8 in decoding
+             peak memory; launches = 18 each of the tensor-core #5, #6 and
+             #7 per microbatch, no CUDA-core kernel, no plain version; then
+             --mode score and --mode test (beam 4) of the checkpoint on four
+             long pairs at eval_batch_size 2: the tensor-core #5 in every
+             forward, #8 in decoding
   long_reference  a small fp32 model with fa.MAX_LK lowered to 64 (so every
              attention streams): train_fn loss and grads card against CPU
              within 1e-4; dropout on, kernels against plain versions, loss
              within 1e-5; beam 4 card against CPU, identical sequences; then
              the model at head depth 64 (hidden 128, 2 heads) in bf16, the
              tensor-core #6/#7 against the plain version's backward on the
-             card (the forward kernel #5 on both sides), dropout off and
-             on: loss within 1e-2 relative, grads within 2e-2 of their
+             card (the tensor-core forward #5 on both sides), dropout off
+             and on: loss within 1e-2 relative, grads within 2e-2 of their
              scale
 Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
 as the last line {"ok": true, "device": {...}}.
@@ -484,6 +492,18 @@ ATTN_CASES = (("self_causal", 16, 8, 256, 256, 64, True, False),
 ATTN_SMALL = (("small_causal", 6, 4, 9, 9, 16, True, False),
               ("small_pad", 6, 4, 12, 12, 16, False, True),
               ("small_cross", 6, 4, 9, 12, 16, False, True))
+# checked, not timed: the causal flag with an all-pad row, where the fused
+# mask rule gives that row uniform weights over all Lk keys (the tensor-core
+# dk/dv must reach the query tiles above the diagonal), on 64-row tiles
+# that end ragged; the other head depths the tensor-core backward takes;
+# and a depth it does not take, where bf16 keeps the CUDA-core #2
+# (backward_route)
+ATTN_CHECK_CASES = (("causal_pad_200", 4, 2, 200, 200, 64, True, True),
+                    ("dh128_causal_pad_136", 2, 2, 136, 136, 128, True,
+                     True),
+                    ("dh32_cross_72x200", 2, 2, 72, 200, 32, False, True),
+                    ("dh80_causal_pad_136", 2, 2, 136, 136, 80, True, True),
+                    ("dh40_pad_136", 2, 1, 136, 136, 40, False, True))
 FFN_SHAPE = (4096, 512, 2048, 512)
 # the train phase's largest stacked microbatch (112 x 112 tokens), timed in
 # bf16 only
@@ -537,12 +557,13 @@ def attention_pad(gen, b, lk, padded):
 
 
 def train_attention_rows(fa, gen):
-    """Kernels #1/#2 against fused_attention_ref; returns the JSON rows of
-    the encoder self-attention case (bf16, dropout 0.1)."""
+    """Kernels #1/#2 against fused_attention_ref, #2 on the route
+    backward_route picks; returns the JSON rows of the timed cases."""
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES + ATTN_SMALL:
+    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES + ATTN_SMALL \
+            + ATTN_CHECK_CASES:
         timed = name in [c[0] for c in ATTN_CASES]
         for dtype in (torch.float32, torch.bfloat16):
             def inputs():
@@ -565,9 +586,18 @@ def train_attention_rows(fa, gen):
             for rate in (0.0, 0.1):
                 q, k, v, pad, do = inputs()
                 words = SEED_WORDS if rate else None
+                fa.launches.clear()
                 out = fa.fused_attention(q, k, v, pad, causal=causal,
                                          dropout_rate=rate, rng=words)
                 grads = torch.autograd.grad(out, (q, k, v), do)
+                tc = fa.backward_route(dtype, dh) == "tensor_cores"
+                want = {"fused_attention": 1,
+                        "fused_attention_backward" + ("_tc" if tc else ""): 1}
+                if dict(fa.launches) != want:
+                    raise AssertionError("fused_attention %s %s: launches "
+                                         "%s, expected %s" % (
+                                             name, dtype, dict(fa.launches),
+                                             want))
                 ref = fa.fused_attention_ref(q, k, v, pad, causal, rate,
                                              words)
                 rgrads = torch.autograd.grad(ref, (q, k, v), do)
@@ -580,10 +610,16 @@ def train_attention_rows(fa, gen):
                 if not torch.isfinite(out).all():
                     raise AssertionError("fused_attention %s: non-finite "
                                          "output" % label)
+                if padded and b > 1 and (grads[0][-1].any()
+                                         or grads[1][-1].any()):
+                    raise AssertionError("fused_attention %s: the all-pad "
+                                         "batch row has nonzero dq or dk"
+                                         % label)
                 if not timed:
                     phase("train_kernels", kernel="fused_attention",
                           case=label, max_abs_err=errs[0],
-                          backward_max_abs_err=max(errs[1:]))
+                          backward_max_abs_err=max(errs[1:]),
+                          kernels=sorted(want))
                     continue
                 sets = copies(inputs, fwd_bytes)
 
@@ -608,6 +644,18 @@ def train_attention_rows(fa, gen):
                     graphs = [(grad_ms(fn(*s), s[:3], s[4]),) for s in sets]
                     bwd[key] = device_ms(lambda run: run(), graphs, iters)
                     del graphs
+                if tc:
+                    # the CUDA-core #2 that ran before the tensor-core one,
+                    # on the same inputs (called directly: the tensor-core
+                    # kernels' device time is the same either way)
+                    drop = (causal, rate, words or (0, 0))
+                    args = []
+                    for s in sets:
+                        qkv = tuple(t.detach() for t in s[:3])
+                        o, m, l = fa._forward(*qkv, s[3], *drop)
+                        args.append(qkv + (s[3], o, s[4], m, l) + drop)
+                    bwd["parent_ms"] = device_ms(fa._backward, args, iters)
+                    del args
                 if rate == 0.0:
                     fwd["library_ms"] = device_ms(l_fwd, sets, iters)
                     graphs = [(grad_ms(l_fwd(*s), s[:3], s[4]),)
@@ -945,12 +993,19 @@ def model_flops(shapes, cfg):
 
 def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
-    layer (18 at 6+6), one FFN per layer (12); forward and backward."""
+    layer (18 at 6+6), one FFN per layer (12); forward and backward, the
+    attention backward on the route backward_route picks."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
     ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
+    tc = fa.backward_route(getattr(torch, cfg["default_dtype"]),
+                           cfg["hidden_size"] // cfg["num_heads"]) \
+        == "tensor_cores"
     return {"fused_attention": attn * microbatches,
-            "fused_attention_backward": attn * microbatches,
+            "fused_attention_backward" + ("_tc" if tc else ""):
+                attn * microbatches,
             "fused_ffn": ffn * microbatches,
             "fused_ffn_backward": ffn * microbatches}
 
@@ -1378,11 +1433,11 @@ def converge_phase(d):
 LONG_CASES = (("causal_8320", 1, 8, 8320, 8320, 64, True, False),
               ("pad_8320", 2, 4, 8320, 8320, 64, False, True),
               ("cross_256x16384", 1, 8, 256, 16384, 64, False, True))
-# bf16 only, checked and not timed: lengths off the tensor-core backward's
+# bf16 only, checked and not timed: lengths off the tensor-core kernels'
 # 64- and 128-row tiles (the cross case has B=2 so that its pad mask holds
-# an all-pad row beside a ragged one), the other head depths that backward
-# takes (16-column steps, padded to 64 or 128 in shared memory), and depths
-# it does not take, where bf16 keeps the CUDA-core #6/#7 (backward_route)
+# an all-pad row beside a ragged one), the other head depths they take
+# (16-column steps, padded to 64 or 128 in shared memory), and depths they
+# do not take, where bf16 keeps the CUDA-core #5-#7 (route)
 BF16_CHECK_CASES = (("ragged_causal_8259", 1, 2, 8259, 8259, 64, True,
                      False),
                     ("ragged_cross_333x8259", 2, 2, 333, 8259, 64, False,
@@ -1412,9 +1467,9 @@ def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
 
 
 def streaming_rows(sa, gen):
-    """Kernels #5-#7 against streaming_attention_ref, #6/#7 on the route
-    backward_route picks (bf16 at Dh 64: the tensor-core ones; fp32: the
-    CUDA-core ones); bf16 timings."""
+    """Kernels #5-#7 against streaming_attention_ref on the route ``route``
+    picks (bf16 at Dh 64: the tensor-core ones; fp32: the CUDA-core ones);
+    bf16 timings."""
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -1439,8 +1494,8 @@ def streaming_rows(sa, gen):
                                          dropout_rate=rate, rng=words)
             grads = torch.autograd.grad(out, (q, k, v), do)
             suffix = {"tensor_cores": "_tc", "cuda_cores": ""}[
-                sa.backward_route("cuda", dtype, dh)]
-            want = {"streaming_attention": 1,
+                sa.route("cuda", dtype, dh)]
+            want = {"streaming_attention" + suffix: 1,
                     "streaming_attention_dq" + suffix: 1,
                     "streaming_attention_dkdv" + suffix: 1}
             if dict(sa.launches) != want:
@@ -1471,7 +1526,7 @@ def streaming_rows(sa, gen):
                 phase("long_kernels", kernel="streaming_attention",
                       case=label, max_abs_err=errs[0],
                       backward_max_abs_err=max(errs[1:]),
-                      backward=sorted(want)[1:])
+                      kernels=sorted(want))
                 continue
             rows.update(time_streaming(sa, sdpa, name, inputs, pad,
                                        h, lq, lk, dh, causal, rate,
@@ -1482,9 +1537,10 @@ def streaming_rows(sa, gen):
 
 def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
                    rate, words, errs):
-    """Device times of #5 and the tensor-core #6 and #7 alone, of the
-    CUDA-core #6 and #7 on the same inputs (``parent_ms``: what ran before
-    the tensor-core kernels), of the plain version's forward and backward,
+    """Device times of the tensor-core #5, #6 and #7 alone, of the
+    CUDA-core #5, #6 and #7 on the same inputs (``parent_ms``: what ran
+    before the tensor-core kernels), of the plain version's forward and
+    backward,
     and of SDPA (dropout off), beside each bound: the bytes of each input
     once and each output once, and the products over the (row, key) pairs
     the output needs (4 flops per pair and depth forward, 6 for #6: s, dP,
@@ -1498,7 +1554,7 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
     sets = copies(inputs, 2 * qb + 2 * kb)
     f_args = [(s[0].detach(), s[1].detach(), s[2].detach(), s[3], bool(causal),
                rate, words or (0, 0)) for s in sets]
-    fwds = [sa._forward(*a) for a in f_args]
+    fwds = [sa._forward_tc(*a) for a in f_args]
     dq_args = [a[:4] + (o, s[4], m, l) + a[4:]
                for a, (o, m, l), s in zip(f_args, fwds, sets)]
     deltas = [sa._backward_dq_tc(*a)[1] for a in dq_args]
@@ -1519,7 +1575,7 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
                                               for s in sets], iters)
     out = {}
     for key, fn, parent, args, nbytes, flops in (
-            ("streaming_attention", sa._forward, None, f_args,
+            ("streaming_attention_tc", sa._forward_tc, sa._forward, f_args,
              2 * qb + 2 * kb + rows_f32 * 2 + 4 * b * lk, 4 * pairs * dh),
             ("streaming_attention_dq_tc", sa._backward_dq_tc,
              sa._backward_dq, dq_args,
@@ -1530,16 +1586,15 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         r = dict(ms=device_ms(fn, args, iters), bound_ms=bound_ms,
                  bound_by=bound_by)
-        if parent is not None:
-            r["parent_ms"] = device_ms(parent, args, iters)
-        if key == "streaming_attention":
+        r["parent_ms"] = device_ms(parent, args, iters)
+        if key == "streaming_attention_tc":
             r.update(plain_ms=device_ms(p_fwd, sets, iters),
                      max_abs_err=errs[0])
         else:
             # the plain version's backward computes dq, dk and dv at once
             r.update(plain_ms=plain_bwd, max_abs_err=max(errs[1:]))
         if rate == 0.0:
-            if key == "streaming_attention":
+            if key == "streaming_attention_tc":
                 r["library_ms"] = device_ms(l_fwd, sets, iters)
             else:
                 r["library_ms"] = device_ms(
@@ -1684,13 +1739,17 @@ def long_train_phase(d, da):
                              % lengths)
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
-    # bf16 at Dh 64: the tensor-core #6/#7, no CUDA-core backward
-    want = {k: attn * microbatches for k in (
-        "streaming_attention", "streaming_attention_dq_tc",
-        "streaming_attention_dkdv_tc")}
+    # bf16 at Dh 64: the tensor-core #5-#7, no CUDA-core kernel
+    suffix = {"tensor_cores": "_tc", "cuda_cores": ""}[sa.route(
+        "cuda", getattr(torch, cfg["default_dtype"]),
+        cfg["hidden_size"] // cfg["num_heads"])]
+    fwd_key = "streaming_attention" + suffix
+    want = {k + suffix: attn * microbatches for k in (
+        "streaming_attention", "streaming_attention_dq",
+        "streaming_attention_dkdv")}
     if launches != want:
         raise AssertionError("long_train launches %s, expected %s (no plain "
-                             "version, no CUDA-core backward)"
+                             "version, no CUDA-core kernel)"
                              % (launches, want))
     ends = summary["step_end_times"]
     step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
@@ -1714,7 +1773,7 @@ def long_train_phase(d, da):
                             + ",test_output=%s/long_scores.txt" % d])
     score_launches = collect(counters)
     if len(scores) != 4 or not all(map(math.isfinite, scores)) \
-            or score_launches != {"streaming_attention": attn * 2}:
+            or score_launches != {fwd_key: attn * 2}:
         raise AssertionError("long_train scoring: %s, launches %s"
                              % (scores, score_launches))
     for c in counters:
@@ -1725,7 +1784,7 @@ def long_train_phase(d, da):
     with open(os.path.join(d, "long_trans.txt")) as r:
         lines = r.read().splitlines()
     layers = cfg["num_decoder_layer"]
-    want = {"streaming_attention": cfg["num_encoder_layer"] * 2,
+    want = {fwd_key: cfg["num_encoder_layer"] * 2,
             "decode_pool_attention": layers * served["steps"]}
     if len(lines) != 4 or served["sentences"] != 4 \
             or serve_launches != want:
@@ -1843,14 +1902,17 @@ def long_reference_phase(da):
 
 
 class _PlainBackwardStream(torch.autograd.Function):
-    """The streaming forward kernel (#5), and the plain version's backward
-    (streaming_attention_ref's autograd, recomputed) in place of #6/#7."""
+    """The streaming forward kernel (#5, on the route ``route`` picks), and
+    the plain version's backward (streaming_attention_ref's autograd,
+    recomputed) in place of #6/#7."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad, causal, rate, words):
         from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
-        o = sa._forward(q, k, v, pad, causal, rate, words)[0]
+        tc = sa.route("cuda", q.dtype, q.shape[-1]) == "tensor_cores"
+        fwd = sa._forward_tc if tc else sa._forward
+        o = fwd(*map(sa._aligned, (q, k, v)), pad, causal, rate, words)[0]
         ctx.save_for_backward(q, k, v, pad)
         ctx.args = (causal, rate, words if rate else None)
         return o
@@ -1885,8 +1947,8 @@ def long_reference_bf16(model, gfeats, sa):
     """bf16 at head depth 64 (hidden 128, 2 heads), every attention
     streaming: train_fn with the tensor-core #6/#7 against the plain
     version's backward on the card, dropout off and on from the same seed
-    words. The forward kernel #5 (unchanged by the tensor-core backward)
-    and the FFN kernels run on both sides, as train_reference's bf16 check
+    words. The tensor-core forward kernel #5 and the FFN kernels run on
+    both sides, as train_reference's bf16 check
     keeps the attention kernels on both sides: with the forward switched
     to the plain version too, its one-ulp bf16 rounding differences alone
     move the decoder FFN's grads by ~4% of their scale, as much as the
@@ -1934,11 +1996,11 @@ def long_reference_bf16(model, gfeats, sa):
         out["p=%g" % rate] = r = dict(
             loss_kernels=kern[0], loss_plain=plain_bwd[0],
             **errors(kern, plain_bwd), full_path=errors(kern, plain))
-        want = {"streaming_attention": 6, "streaming_attention_dq_tc": 6,
+        want = {"streaming_attention_tc": 6, "streaming_attention_dq_tc": 6,
                 "streaming_attention_dkdv_tc": 6}
         if not (r["loss_rel_err"] <= 1e-2 and r["grad_rel_err"] <= 2e-2
                 and kern[2] == want
-                and plain_bwd[2] == {"streaming_attention": 6,
+                and plain_bwd[2] == {"streaming_attention_tc": 6,
                                      "streaming_attention_ref": 6}):
             raise AssertionError("long_reference bf16 p=%g: %s, launches "
                                  "%s / %s" % (rate, r, kern[2],
@@ -1989,10 +2051,11 @@ def main(argv=None):
     libs = cuda_build.build(*sources)
     for name in sources:
         cuda_build.load(name)
-    # the bf16 FFN kernels (#11/#12) and the bf16 streaming backward (#6,
-    # #7) run on the tensor cores: wgmma (HGMMA) in their libraries' SASS
+    # the bf16 FFN kernels (#11/#12), the bf16 streaming kernels (#5-#7)
+    # and the bf16 fused backward (#2) run on the tensor cores: wgmma
+    # (HGMMA) in their libraries' SASS
     sass = {n: tensor_core_sass(libs[n])
-            for n in ("fused_ffn", "streaming_attention")}
+            for n in ("fused_ffn", "streaming_attention", "fused_attention")}
     for n, counts in sass.items():
         if counts is not None and not counts["HGMMA"]:
             raise AssertionError("%s: no wgmma (HGMMA) in the SASS: %s"
@@ -2002,7 +2065,8 @@ def main(argv=None):
           ptxas={n: cuda_build.ptxas_report(n) for n in sources},
           ptxas_spills={n: cuda_build.ptxas_spills(n) for n in sources},
           fused_ffn_tensor_core_sass=sass["fused_ffn"],
-          streaming_tensor_core_sass=sass["streaming_attention"])
+          streaming_tensor_core_sass=sass["streaming_attention"],
+          fused_attention_tensor_core_sass=sass["fused_attention"])
 
     rows, train_rows, rpr_rows, long_rows, launches = {}, {}, {}, {}, {}
     if "kernels" in todo:
@@ -2078,7 +2142,7 @@ def main(argv=None):
     for name, source, replaces, key in (
             ("fused_attention", "fused_attention.cu", "fused_attention.py:488",
              ("self_pad",)),
-            ("fused_attention_backward", "fused_attention.cu",
+            ("fused_attention_backward_tc", "fused_attention.cu",
              "fused_attention.py:525", ("self_pad",)),
             ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_SHAPE[0],)),
             ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214",
@@ -2086,8 +2150,11 @@ def main(argv=None):
             ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_LARGE[0],)),
             ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214",
              (FFN_LARGE[0],))):
-        r = train_rows[(name,) + key + (torch.bfloat16, 0.1)]
-        lib = train_rows[(name,) + key + (torch.bfloat16, 0.0)]["library_ms"]
+        # #2's rows are keyed by kernel, its JSON row by its launch key
+        kernel = name[:-3] if name.endswith("_tc") else name
+        r = train_rows[(kernel,) + key + (torch.bfloat16, 0.1)]
+        lib = train_rows[(kernel,) + key + (torch.bfloat16, 0.0)][
+            "library_ms"]
         row = dict(
             name=name, route="cuda", source="zero_tpu_torch/csrc/" + source,
             replaces="zero_tpu/ops/kernels/" + replaces,
@@ -2096,6 +2163,8 @@ def main(argv=None):
             bound_by=r["bound_by"], library_ms=lib)
         if name.startswith("fused_ffn"):
             row["case"] = "N%d_%d_%d_%d" % ((key[0],) + FFN_SHAPE[1:])
+        if "parent_ms" in r:
+            row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)
     # RPR kernels: bf16 at rate 0.1, encoder self-attention at m 16; the
     # library column is SDPA WITHOUT relative positions (a floor, not the
@@ -2115,9 +2184,9 @@ def main(argv=None):
             composite_ms=r0["composite_ms"]))
     # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
     # mask, an all-pad row), as long_train runs them; SDPA with dropout off.
-    # #6/#7 are the tensor-core kernels, parent_ms the CUDA-core ones that
+    # #5-#7 are the tensor-core kernels, parent_ms the CUDA-core ones that
     # ran before them, on the same inputs in this run
-    for name, line in (("streaming_attention", 308),
+    for name, line in (("streaming_attention_tc", 308),
                        ("streaming_attention_dq_tc", 353),
                        ("streaming_attention_dkdv_tc", 371)):
         r = long_rows[(name, "pad_8320", 0.1)]
@@ -2128,9 +2197,8 @@ def main(argv=None):
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],
-            library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"])
-        if "parent_ms" in r:
-            row.update(tensor_cores=True, parent_ms=r["parent_ms"])
+            library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"],
+            tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)
     # the cross-attention decode kernel stays unwired, as in the JAX
     # package: no launch on the main path; long-memory shape, bf16

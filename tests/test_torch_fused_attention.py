@@ -1,8 +1,10 @@
 """zero_tpu_torch fused attention (kernels #1/#2): the plain version
 against the JAX package's Pallas kernel (interpret mode) and its XLA
 equivalent, forward and gradients, the dropout mask it shares with the
-CUDA kernels, and the route of keys past its limit. The CUDA kernels are
-held to the plain version on the card by chip_smoke.py."""
+CUDA kernels, the rule that picks the backward kernel, the causal mask
+rule it keeps where the streaming route differs, and the route of keys past
+its limit. The CUDA kernels are held to the plain version on the card by
+chip_smoke.py."""
 
 import pytest
 
@@ -15,6 +17,7 @@ import numpy as np  # noqa: E402
 from zero_tpu.ops.kernels import fused_attention as jfa  # noqa: E402
 from zero_tpu_torch.ops import attention as attention_mod  # noqa: E402
 from zero_tpu_torch.ops.kernels import fused_attention as fa  # noqa: E402
+from zero_tpu_torch.ops.kernels import streaming_attention as sa  # noqa: E402
 
 # fp32 on both sides; only the summation order differs
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -89,6 +92,50 @@ def test_all_pad_row_gets_uniform_weights_and_no_dq_dk():
     assert not dq[1].any() and not dk[1].any()
     np.testing.assert_allclose(dv[1], np.broadcast_to(
         do[1].sum(axis=1, keepdims=True) / 8, dv[1].shape), **TOL)
+
+
+def test_causal_all_pad_row_keeps_the_fused_rule(monkeypatch):
+    """Causal, Lq = Lk = 8, batch row 1 all padding. In the fused kernels
+    (and the JAX kernel's _scores) keys past a row exist, masked at -1e30,
+    so that row's weights are uniform over all 8 keys: its output is the
+    mean of V over every key and its dv is dO summed over the rows / 8,
+    with zero dq and dk; the plain version matches the Pallas kernel. The
+    streaming route drops keys past a row, so there row i averages keys
+    0..i instead: the tensor-core backward takes the rule as an argument."""
+    q, k, v, pad, do = _inputs(8, 8, True, seed=4)
+    monkeypatch.setattr(jfa, "INTERPRET", True)
+    want = _jax_out_and_grads(
+        lambda q, k, v: jfa.fused_attention(q, k, v, jnp.asarray(pad),
+                                            causal=True), q, k, v, do)
+    got = _port_out_and_grads(q, k, v, pad, do, True)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+    out, dq, dk, dv = got
+    np.testing.assert_allclose(out[1], np.broadcast_to(
+        v[1].mean(axis=1, keepdims=True), out[1].shape), **TOL)
+    np.testing.assert_allclose(dv[1], np.broadcast_to(
+        do[1].sum(axis=1, keepdims=True) / 8, dv[1].shape), **TOL)
+    assert not dq[1].any() and not dk[1].any()
+    stream = sa.streaming_attention_ref(
+        *(torch.from_numpy(x) for x in (q, k, v, pad)), causal=True).numpy()
+    np.testing.assert_allclose(stream[1], np.cumsum(v[1], axis=1) / np.arange(
+        1, 9)[None, :, None], **TOL)
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 16, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 40, "cuda_cores"),
+    (torch.bfloat16, 256, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores")])
+def test_backward_route(dtype, dh, route):
+    """The streaming route's rule for the backward on the card: bf16 at a
+    head depth the tensor-core kernels take (a multiple of 16 up to 128)
+    runs them; fp32, which must stay exact, and other depths keep the
+    CUDA-core kernel. (The CPU takes the plain version before a route is
+    asked.)"""
+    assert fa.backward_route(dtype, dh) == route
 
 
 WORDS = (0x243F6A88, 0x85A308D3)

@@ -3,7 +3,7 @@ against the JAX package's Pallas kernels (interpret mode), forward and
 gradients; rows whose keys are all padded, where the port follows softmax
 and the TPU kernel does not; the dropout mask the plain version shares with
 the CUDA kernels; the route of ``attn_train`` past ``fa.MAX_LK``; and the
-rule that picks the backward (tensor cores, CUDA cores or the plain
+rule that picks the kernels (tensor cores, CUDA cores or the plain
 version). The CUDA kernels are held to the plain version on the card by
 chip_smoke.py."""
 
@@ -126,10 +126,11 @@ def test_bf16_ref_matches_pallas_kernel_in_interpret_mode(monkeypatch):
     ("cuda", torch.bfloat16, 256, "cuda_cores"),
     ("cuda", torch.float32, 64, "cuda_cores")])
 def test_backward_route(device, dtype, dh, route):
-    """bf16 at a head depth the tensor-core kernels take (a multiple of 16
-    up to 128) runs them; fp32, which must stay exact, and other depths
-    keep the CUDA-core kernels; the CPU takes the plain version."""
-    assert sa.backward_route(device, dtype, dh) == route
+    """``route`` picks the forward and the backward together: bf16 at a
+    head depth the tensor-core kernels take (a multiple of 16 up to 128)
+    runs them; fp32, which must stay exact, and other depths keep the
+    CUDA-core kernels; the CPU takes the plain version."""
+    assert sa.route(device, dtype, dh) == route
 
 
 def test_fully_masked_row_follows_softmax_not_the_tpu_kernel(monkeypatch):

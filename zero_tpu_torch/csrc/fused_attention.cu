@@ -10,6 +10,11 @@
 //   zt_attention_backward  replaces _fused_bwd_rule (_bwd_kernel): rebuilds
 //                          the weights from (m, l), gives dq per q-tile and
 //                          dk/dv per k-tile; ds is zero at masked entries.
+//   zt_attention_backward_tc  the same on the tensor cores (bf16, head depth
+//                          a multiple of 16 up to 128): zt::tc::dq_tc, then
+//                          zt::tc::dkdv_tc under the fused rule
+//                          (zt_attention_tc.cuh). The wrapper picks
+//                          (ops/kernels/fused_attention.py:backward_route).
 //
 // Layout: q [B*H, Lq, Dh], k/v [B*H, Lk, Dh] contiguous, fp32 or bf16; pad
 // [B, Lk] fp32 (1 = attend). Any Lq, Lk; Dh <= 256.
@@ -41,48 +46,35 @@
 //
 // Bound. At transformer-base training shapes (L <= 256, Dh = 64) a head's
 // q/k/v are a few tens of KB and the products are ~4*Lq*Lk*Dh flops against
-// ~4*L*Dh elements: ~L/2 flops per byte, so a tensor-core kernel would be
-// bound by operations. This first kernel multiplies on the CUDA cores in
-// fp32 (the fp32 inputs need it for exact agreement), one fused
-// multiply-add per shared-memory read; tensor cores (wgmma/mma.sync on
-// bf16) are later work.
+// ~4*L*Dh elements: ~L/2 flops per byte, so the kernels are bound by
+// operations. The CUDA-core kernels multiply in fp32 (the fp32 inputs need
+// it for exact agreement), one fused multiply-add per shared-memory read.
+// The tensor-core backward multiplies bf16 tiles by wgmma with fp32
+// accumulation; at these lengths a block walks at most four 64-wide tiles,
+// so its time goes to staging, the per-pair softmax and keep bit between
+// the products, and a grid of B*H*ceil(L/64) blocks (512 at B=16, H=8,
+// L=256, about four to an SM).
+//
+// The fused rule. Under the causal flag keys past a row exist, masked at
+// -1e30, as in the JAX kernel's _scores: a row whose visible keys are all
+// padded (an all-pad batch row of decoder self-attention) gets uniform
+// weights over all Lk keys, where the streaming kernels give them over the
+// keys up to the row. dq and dk agree under both rules; dv does not, so
+// dkdv_tc takes the rule as a template argument.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
 
-#include "zt_common.cuh"
+#include "zt_attention_tc.cuh"
 
 namespace {
 
 constexpr int kTile = 32;              // query rows or keys per block
 constexpr int kRows = 8;               // rows per warp (4 warps)
 constexpr int kThreads = 128;
-constexpr float kMasked = -1e30f;      // NEG_INF of the JAX kernel
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* pad;
-  const void* o;
-  const void* dout;
-  void* out;        // forward: o; backward: dq
-  void* dk;
-  void* dv;
-  float* m;
-  float* l;
-  float* delta;
-  int heads, lq, lk, dh, causal, dropout;
-  float scale, drop_scale;
-  uint32_t threshold, s0, s1;
-};
-
-// The seed word of query row i of head bh (0 when dropout is off).
-__device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
-  if (!p.dropout) return 0u;
-  return zt::row_seed((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0,
-                      p.s1);
-}
+using Params = zt::AttnParams;
+using zt::kMasked;
+using zt::row_seed;
 
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed,
                                          int j) {
@@ -556,4 +548,30 @@ extern "C" int zt_attention_backward(
   p.dk = dk;
   p.dv = dv;
   return (int)run(p, dtype, batch * heads, true, stream);
+}
+
+// The bf16 tensor-core backward: the same arguments; dtype must be 1 and dh
+// a multiple of 16 up to 128 (else cudaErrorInvalidValue). Two launches:
+// delta and dq, then dk and dv.
+extern "C" int zt_attention_backward_tc(
+    const void* q, const void* k, const void* v, const void* pad,
+    const void* o, const void* dout, const void* m, const void* l,
+    void* delta, void* dq, void* dk, void* dv, int dtype, int batch,
+    int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
+    unsigned int threshold, float drop_scale, unsigned int s0,
+    unsigned int s1, void* stream) {
+  Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
+                         dropout, threshold, drop_scale, s0, s1);
+  p.o = o;
+  p.dout = dout;
+  p.m = (float*)m;
+  p.l = (float*)l;
+  p.delta = (float*)delta;
+  p.out = dq;
+  p.dk = dk;
+  p.dv = dv;
+  const int err = zt::tc::run_backward<true>(p, dtype, batch * heads, false,
+                                             stream);
+  if (err != 0) return err;
+  return zt::tc::run_backward<true>(p, dtype, batch * heads, true, stream);
 }

@@ -1,5 +1,6 @@
 // Hopper tensor-core helpers shared by the port's wgmma kernels
-// (fused_ffn.cu, streaming_attention.cu): 16-byte cp.async copies into
+// (fused_ffn.cu, and through zt_attention_tc.cuh streaming_attention.cu and
+// fused_attention.cu): 16-byte cp.async copies into
 // 128-byte-swizzled shared memory, the swizzled tile layout, the wgmma
 // shared-memory matrix descriptor, the wgmma fences, the instructions (bf16
 // in, fp32 accumulators in registers) and the accumulator fragment map.

@@ -12,7 +12,16 @@ Replaces the Pallas TPU kernels of ``zero_tpu/ops/kernels/fused_attention.py``:
 
 Both run ``csrc/fused_attention.cu`` (its header gives the design and the
 bound), wrapped in one ``torch.autograd.Function`` whose backward is the
-backward kernel.
+backward kernel. The forward runs on the CUDA cores. Which backward runs
+on the card is ``backward_route(dtype, Dh)``: the tensor-core one
+(``wgmma``, bf16 in, fp32 accumulation; the streaming backward's #6/#7
+kernels of ``csrc/zt_attention_tc.cuh`` under the fused mask rule) for
+bf16 with a head depth that is a multiple of 16 up to 128, the CUDA-core
+one for fp32 (which must stay exact) and for bf16 at other depths. Under
+the causal flag the fused rule keeps keys past a row, masked at -1e30 (the
+JAX kernel's ``_scores``): a row whose visible keys are all padded gets
+uniform weights over all Lk keys, where the streaming route gives them
+over the keys up to the row.
 
 The Shaw RPR variant (``rpr_tables`` + ``max_relative_position``) replaces
 
@@ -39,9 +48,10 @@ dropout on.
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``fused_attention_ref`` (``fused_attention_rpr_ref`` with tables).
 ``launches`` counts the kernel launches by wrapper ("fused_attention",
-"fused_attention_backward", "fused_attention_rpr",
-"fused_attention_rpr_backward") and the plain versions' calls
-("fused_attention_ref", "fused_attention_rpr_ref").
+"fused_attention_backward" on the CUDA cores, "fused_attention_backward_tc"
+on the tensor cores, "fused_attention_rpr", "fused_attention_rpr_backward")
+and the plain versions' calls ("fused_attention_ref",
+"fused_attention_rpr_ref").
 """
 
 from __future__ import annotations
@@ -73,6 +83,13 @@ def rpr_supported(lq: int, lk: int, max_rel: int) -> bool:
     (a block dividing Lq, or Lq*Lk <= 2^20) is not copied: it never binds
     at the configurations' lengths, and the CUDA kernel takes any Lq."""
     return 2 * max_rel < lk <= MAX_LK
+
+
+def backward_route(dtype: torch.dtype, dh: int) -> str:
+    """Which backward runs on the card in ``dtype`` at head depth ``dh``:
+    "tensor_cores" (bf16, dh a multiple of 16 up to 128) or "cuda_cores"
+    (the rest); the streaming route's rule."""
+    return sa.route("cuda", dtype, dh)
 
 
 def keep_mask(words, shape, rate: float, device=None) -> torch.Tensor:
@@ -143,13 +160,16 @@ def _library():
                        ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
                        ctypes.c_void_p])
     fwd.restype = ctypes.c_int
-    bwd = lib.zt_attention_backward
-    bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                       ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    return fwd, bwd
+    bwds = []
+    for name in ("zt_attention_backward", "zt_attention_backward_tc"):
+        bwd = getattr(lib, name)
+        bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                           ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
+                           ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
+        bwds.append(bwd)
+    return (fwd,) + tuple(bwds)
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,7 +217,7 @@ def _forward(q, k, v, pad, causal, rate, words):
     return o, m, l
 
 
-def _backward(q, k, v, pad, o, do, m, l, causal, rate, words):
+def _bwd(which, key, q, k, v, pad, o, do, m, l, causal, rate, words):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     dq = torch.empty_like(q)
@@ -205,35 +225,52 @@ def _backward(q, k, v, pad, o, do, m, l, causal, rate, words):
     dv = torch.empty_like(v)
     delta = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        err = _library()[1](
+        err = _library()[which](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPES[q.dtype], b, h, lq, lk, dh, int(causal),
             float(dh) ** -0.5, *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "backward")
-    launches["fused_attention_backward"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return dq, dk, dv
+
+
+def _backward(q, k, v, pad, o, do, m, l, causal, rate, words):
+    """#2 on the CUDA cores: (dq, dk, dv)."""
+    return _bwd(1, "fused_attention_backward", q, k, v, pad, o, do, m, l,
+                causal, rate, words)
+
+
+def _backward_tc(q, k, v, pad, o, do, m, l, causal, rate, words):
+    """#2 on the tensor cores (bf16; 16-byte aligned q, k, v, o, do)."""
+    return _bwd(2, "fused_attention_backward_tc", q, k, v, pad, o, do, m, l,
+                causal, rate, words)
 
 
 class _FusedAttention(torch.autograd.Function):
     """Forward kernel; backward kernels for dq, dk, dv (no grad for the
-    pad mask)."""
+    pad mask) on the ``route`` that ``backward_route`` picked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad, causal, rate, words):
+    def forward(ctx, q, k, v, pad, causal, rate, words, route):
         o, m, l = _forward(q, k, v, pad, causal, rate, words)
         ctx.save_for_backward(q, k, v, pad, o, m, l)
         ctx.args = (causal, rate, words)
+        ctx.route = route
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, pad, o, m, l = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, pad, o, do.contiguous(), m, l,
-                               *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        do = do.contiguous()
+        if ctx.route == "tensor_cores":
+            q, k, v, o, do = map(sa._aligned, (q, k, v, o, do))
+            dq, dk, dv = _backward_tc(q, k, v, pad, o, do, m, l, *ctx.args)
+        else:
+            dq, dk, dv = _backward(q, k, v, pad, o, do, m, l, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words):
@@ -380,4 +417,5 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rpr(q, *tables, max_rel)
         return _FusedAttentionRpr.apply(q, k, v, pad, *tables, max_rel,
                                         bool(causal), rate, words)
-    return _FusedAttention.apply(q, k, v, pad, bool(causal), rate, words)
+    return _FusedAttention.apply(q, k, v, pad, bool(causal), rate, words,
+                                 backward_route(q.dtype, q.shape[-1]))

@@ -19,14 +19,14 @@ the bound), in one ``torch.autograd.Function`` whose backward launches #6
 and then #7. The contract is the JAX one: q [B, H, Lq, Dh], k/v
 [B, H, Lk, Dh] in, [B, H, Lq, Dh] out in the query dtype.
 
-Which version runs is ``backward_route(device, dtype, Dh)``, a pure
-function that ``streaming_attention`` calls once: on the CPU the plain
-version, forward and backward; on the card #5 and then the tensor-core #6/#7
-(``wgmma``, bf16 in, fp32 accumulation) for bf16 with a head depth that is
-a multiple of 16 up to 128; the CUDA-core #6/#7 for fp32 (which must stay
-exact: TF32 would give ~1e-3 against the fp32 models' 1e-4 tolerance) and
-for bf16 at any other depth up to 256. The forward #5 runs on the CUDA
-cores. A launch that fails raises; nothing falls back.
+Which version runs is ``route(device, dtype, Dh)``, a pure function that
+``streaming_attention`` calls once: on the CPU the plain version, forward
+and backward; on the card the tensor-core #5, #6 and #7 (``wgmma``, bf16
+in, fp32 accumulation) for bf16 with a head depth that is a multiple of 16
+up to 128; the CUDA-core #5, #6 and #7 for fp32 (which must stay exact:
+TF32 would give ~1e-3 against the fp32 models' 1e-4 tolerance) and for
+bf16 at any other depth up to 256. A launch that fails raises; nothing
+falls back.
 
 Where the port differs from the TPU kernel (ROADMAP.md section 3):
 * the kernels take any Lq and Lk; JAX streams only where Lq % 8 == 0 and
@@ -37,6 +37,8 @@ Where the port differs from the TPU kernel (ROADMAP.md section 3):
   row with no valid key normalises over the keys up to it;
 * m and l are kept apart (no lse), so a row whose keys are all padded gets
   softmax's gradients: zero dq and dk, a 1/Lk share of dO in dv;
+* the tensor-core #5 rounds the weights P to bf16 before the product with
+  V, where the TPU kernel multiplies in fp32;
 * dropout: element (row r = (b*H + h)*Lq + i, key j) keeps iff
   ``hash(j, hash(r, s0, s1), s1) < threshold`` (the murmur3 finalizer of
   ``ops/common.py:_hash_bits``), the 32-bit threshold and 1/(1 - rate)
@@ -49,10 +51,10 @@ nor its backward holds more than [B*H, chunk, Lk] at a time.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``streaming_attention_ref``. ``launches`` counts the kernel launches by
-wrapper ("streaming_attention"; "streaming_attention_dq",
-"streaming_attention_dkdv" on the CUDA cores; "streaming_attention_dq_tc",
-"streaming_attention_dkdv_tc" on the tensor cores) and the plain version's
-calls ("streaming_attention_ref").
+wrapper ("streaming_attention", "streaming_attention_dq",
+"streaming_attention_dkdv" on the CUDA cores; "streaming_attention_tc",
+"streaming_attention_dq_tc", "streaming_attention_dkdv_tc" on the tensor
+cores) and the plain version's calls ("streaming_attention_ref").
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from zero_tpu_torch.ops.kernels import cuda_build
 
 NEG_INF = -1e30          # masked scores, as in the TPU kernel
 MAX_HEAD_DIM = 256       # the CUDA kernels' register tiles
-TC_MAX_HEAD_DIM = 128    # the tensor-core backward: depth padded to 64, 128
+TC_MAX_HEAD_DIM = 128    # the tensor-core kernels: depth padded to 64, 128
 # the plain version's query chunk holds at most this many fp32 scores
 REF_CHUNK_ELEMS = 1 << 24
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,10 +86,10 @@ def supported(lq: int, lk: int) -> bool:
     return lq > 0 and lk > 0
 
 
-def backward_route(device: str, dtype: torch.dtype, dh: int) -> str:
+def route(device: str, dtype: torch.dtype, dh: int) -> str:
     """Which version of the attention runs on ``device`` ("cpu" or "cuda")
     in ``dtype`` at head depth ``dh``: "plain" (the CPU: the plain version,
-    forward and backward), or on the card #5 and then #6/#7 on the
+    forward and backward), or on the card #5, #6 and #7 on the
     "tensor_cores" (bf16, dh a multiple of 16 up to 128) or the
     "cuda_cores" (the rest)."""
     if device == "cpu":
@@ -192,7 +194,8 @@ def _library():
                            ("zt_streaming_backward_dq", 10),
                            ("zt_streaming_backward_dkdv", 10),
                            ("zt_streaming_backward_dq_tc", 10),
-                           ("zt_streaming_backward_dkdv_tc", 10)):
+                           ("zt_streaming_backward_dkdv_tc", 10),
+                           ("zt_streaming_forward_tc", 7)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + _TAIL
         fn.restype = ctypes.c_int
@@ -220,17 +223,29 @@ def _raise_on(err: int, what: str):
                            "CUDA error %d" % (what, err))
 
 
-def _forward(q, k, v, pad, causal, rate, words):
+def _fwd(which, key, q, k, v, pad, causal, rate, words):
     o = torch.empty_like(q)
     m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        err = _library()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            pad.data_ptr(), o.data_ptr(), m.data_ptr(),
-                            l.data_ptr(), *_args(q, k, causal, rate, words))
-    _raise_on(err, "forward")
-    launches["streaming_attention"] += 1
+        err = _library()[which](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                pad.data_ptr(), o.data_ptr(), m.data_ptr(),
+                                l.data_ptr(),
+                                *_args(q, k, causal, rate, words))
+    _raise_on(err, key)
+    launches[key] += 1
     return o, m, l
+
+
+def _forward(q, k, v, pad, causal, rate, words):
+    """#5 on the CUDA cores: (o, m, l)."""
+    return _fwd(0, "streaming_attention", q, k, v, pad, causal, rate, words)
+
+
+def _forward_tc(q, k, v, pad, causal, rate, words):
+    """#5 on the tensor cores (bf16; 16-byte aligned q, k, v)."""
+    return _fwd(5, "streaming_attention_tc", q, k, v, pad, causal, rate,
+                words)
 
 
 def _dq(which, key, q, k, v, pad, o, do, m, l, causal, rate, words):
@@ -292,12 +307,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 class _StreamingAttention(torch.autograd.Function):
-    """Forward kernel #5; backward #6 (delta, dq) then #7 (dk, dv), on the
-    ``route`` that ``backward_route`` picked."""
+    """Forward kernel #5; backward #6 (delta, dq) then #7 (dk, dv), all on
+    the route that ``route`` picked."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad, causal, rate, words, route):
-        o, m, l = _forward(q, k, v, pad, causal, rate, words)
+        if route == "tensor_cores":
+            q, k, v = map(_aligned, (q, k, v))
+            o, m, l = _forward_tc(q, k, v, pad, causal, rate, words)
+        else:
+            o, m, l = _forward(q, k, v, pad, causal, rate, words)
         ctx.save_for_backward(q, k, v, pad, o, m, l)
         ctx.args = (causal, rate, words)
         ctx.route = route
@@ -308,7 +327,7 @@ class _StreamingAttention(torch.autograd.Function):
         q, k, v, pad, o, m, l = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         if ctx.route == "tensor_cores":
-            q, k, v, o, do = map(_aligned, (q, k, v, o, do))
+            do = _aligned(do)
             dq, delta = _backward_dq_tc(q, k, v, pad, o, do, m, l, *ctx.args)
             dk, dv = _backward_dkdv_tc(q, k, v, pad, do, m, l, delta,
                                        *ctx.args)
@@ -360,8 +379,8 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
     words = tuple(rng) if rate else (0, 0)
-    route = backward_route(q.device.type, q.dtype, q.shape[-1])
-    if route == "plain":
+    which = route(q.device.type, q.dtype, q.shape[-1])
+    if which == "plain":
         return streaming_attention_ref(q, k, v, pad, causal, rate, rng)
     if not q.is_cuda:
         raise ValueError("streaming_attention: unsupported device %s"
@@ -369,4 +388,4 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, pad)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _StreamingAttention.apply(q, k, v, pad, bool(causal), rate, words,
-                                     route)
+                                     which)
