@@ -11,6 +11,9 @@ small models.
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
                                         # summary lines
+  python3 chip_smoke.py --phases build,kernels --package DIR   # another
+                                        # checkout's decode kernels, on the
+                                        # same inputs
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -22,21 +25,26 @@ non-zero):
              tensor-core instructions (HGMMA, HMMA) in the SASS of the fused
              FFN, streaming and fused-attention libraries, whose wgmma
              (HGMMA) count must not be 0
-  kernels    decode_attention and decode_pool_attention (softmax, relu) at
-             transformer-base beam-4 decode shapes (B=32 sentences x beam
-             4, hidden 512, 8 heads, T = 64 + 50), fp32 and bf16, against
-             their plain versions; device times of kernel, plain version,
-             and scaled_dot_product_attention as a yardstick, beside the
-             memory/compute bound
+  kernels    decode_attention (#10) and decode_pool_attention (#8, softmax
+             and relu) at transformer-base beam-4 decode shapes (B=32
+             sentences x beam 4, hidden 512, 8 heads, T = 64 + 50, every
+             TIMES position), at long_train's serving shape (B=2, beam 4
+             and beam 1, a full T=8192 cache: the split over positions) and
+             at DECODE_CHECK_CASES (head depths 256, 12 and 40), fp32 and
+             bf16, against their plain versions; device times (bf16 at
+             both shapes, fp32 at the first) of kernel, plain version, and
+             scaled_dot_product_attention as a yardstick, beside the
+             memory bound and the splits taken
   train_kernels  fused_attention (forward, backward) at B=16, H=8, Dh=64:
              causal self-attention L=256, self-attention L=256 under a pad
-             mask with an all-pad row, cross attention Lq=200 Lk=256 (the
-             backward on the route backward_route picks: bf16 at Dh 64 the
-             tensor-core #2, whose CUDA-core parent is timed on the same
-             inputs as parent_ms; launch counts show which ran), checked
-             also under the causal flag with an all-pad row (the fused mask
-             rule), at head depths 128, 32 and 80 on the tensor cores and
-             40 on the CUDA cores; and
+             mask with an all-pad row, cross attention Lq=200 Lk=256 (both
+             directions on the route forward_route picks: bf16 at Dh 64 the
+             tensor-core #1 and #2, whose CUDA-core parents are timed on
+             the same inputs as parent_ms; launch counts show which ran),
+             checked also under the causal flag with an all-pad row (the
+             fused mask rule: that row averages all Lk keys), at head
+             depths 128, 32 and 80 on the tensor cores and 40 on the CUDA
+             cores; and
              fused_ffn (forward, backward) at N=4096, 512->2048->512 (fp32
              and bf16) and N=12544, the train phase's largest stacked shape
              (bf16, the tensor-core kernels), checked also at N=54 and 72,
@@ -57,8 +65,8 @@ non-zero):
              TRAIN_STEPS steps on a synthetic corpus with both kernel flags
              on: ms/step, target tokens/s, loss and gnorm, model FLOPs and
              MFU; launch counts = 18 attention and 12 FFN forwards and
-             backwards per microbatch (the attention backward the
-             tensor-core #2), no plain version; then the same
+             backwards per microbatch (the attention the tensor-core #1
+             and #2), no plain version; then the same
              steps with both flags off (the PyTorch composite), and
              --mode test and --mode score on the checkpoint the kernel run
              saved
@@ -67,8 +75,9 @@ non-zero):
              within 1e-4; dropout on, kernels against plain versions on
              the card from the same seed words, loss within 1e-5; the same
              model in bf16 (the tensor-core FFN kernels) against plain_ffn
-             on the card, dropout off and on: loss within 1e-2 relative,
-             grads within 2e-2 of their scale
+             on the card, and (head depth 16: the tensor-core #1 and #2)
+             against the plain attention on the card, dropout off and on:
+             loss within 1e-2 relative, grads within 2e-2 of their scale
   converge   the copy task (a 12-word vocabulary, target = source;
              hidden 32, 700 steps, lr 3e-3) through --mode train with both
              flags on: final dev BLEU >= 0.95
@@ -162,6 +171,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # transformer-base beam-4 decode shapes of the serve phase's longest batch
 B, K, HIDDEN, HEADS, T = 32, 4, 512, 8, 64 + 50
 TIMES = (0, 1, 57, T - 1)
+# long_train's serving shape (--mode test at eval_batch_size 2; beam 4 for
+# #8, beam 1 for #10) at a full 8192-position cache, where the split over
+# positions takes effect; checked in fp32 and bf16, timed in bf16
+LONG_DECODE_B, LONG_DECODE_T = 2, 8192
+# checked, not timed: (B, beams, T, hidden, heads, time): Dh 256 (32 lanes
+# of 16 bytes in bf16, two 16-byte loads a lane in fp32) and Dh 12 (24-byte
+# bf16 slices take one element a load, 48-byte fp32 ones 16-byte loads),
+# both split; Dh 40 (lane groups with idle lanes) at its last and first
+# position
+DECODE_CHECK_CASES = ((2, 4, 1100, 512, 2, 1099), (3, 1, 700, 48, 4, 650),
+                      (2, 4, 40, 80, 2, 39), (2, 4, 40, 80, 2, 0))
 # |kernel - plain| <= ATOL + RTOL * max|plain|. fp32: summation order only.
 # bf16: the plain version rounds logits and weights to bf16 before the
 # products (as the JAX package does); the kernel keeps them fp32.
@@ -257,118 +277,186 @@ def check(name, out, ref, dtype, tolerance=TOLERANCE):
     return err
 
 
-def kernels_phase(da):
-    dev = "cuda"
-    dh = HIDDEN // HEADS
-    gen = torch.Generator().manual_seed(SEED)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        eb = torch.tensor([], dtype=dtype).element_size()
+def dense_inputs(gen, dtype, b, t, hidden):
+    """Random q [B, 1, hidden] and k, v [B, T, hidden] of #10 on the card."""
+    return tuple(torch.randn(shape, generator=gen).to("cuda", dtype)
+                 for shape in ((b, 1, hidden), (b, t, hidden),
+                               (b, t, hidden)))
 
-        def rand(*shape):
-            return torch.randn(shape, generator=gen).to(dev, dtype)
 
-        def anc_at(time):
-            anc = torch.randint(0, K, (B, K, T), generator=gen,
-                                dtype=torch.int32)
-            anc[:, :, time] = torch.arange(K, dtype=torch.int32)
-            return anc.to(dev)
+def pool_inputs(gen, dtype, b, beams, t, hidden):
+    """Random q [B, beams, hidden] and pools k, v [B, beams, T, hidden] of
+    #8 on the card, and a maker of ancestry rows [B, beams, T] whose column
+    ``time`` is the identity."""
+    qkv = tuple(torch.randn(shape, generator=gen).to("cuda", dtype)
+                for shape in ((b, beams, hidden), (b, beams, t, hidden),
+                              (b, beams, t, hidden)))
 
-        errs = {"decode_attention": 0.0, "decode_pool_attention": 0.0,
-                "decode_pool_attention[relu]": 0.0}
-        q1, k1, v1 = rand(B, 1, HIDDEN), rand(B, T, HIDDEN), rand(B, T, HIDDEN)
-        qp, kp, vp = rand(B, K, HIDDEN), rand(B, K, T, HIDDEN), rand(
-            B, K, T, HIDDEN)
-        for time_ in TIMES:
-            e = check("decode_attention",
-                      da.decode_attention(q1, k1, v1, time_, HEADS),
-                      da.decode_attention_ref(q1, k1, v1, time_, HEADS), dtype)
-            errs["decode_attention"] = max(errs["decode_attention"], e)
-            anc = anc_at(time_)
-            for relu, key in ((False, "decode_pool_attention"),
-                              (True, "decode_pool_attention[relu]")):
-                e = check(key, da.decode_pool_attention(qp, kp, vp, anc, time_,
-                                                        HEADS, relu=relu),
-                          da.decode_pool_attention_ref(qp, kp, vp, anc, time_,
-                                                       HEADS, relu=relu),
-                          dtype)
-                errs[key] = max(errs[key], e)
+    def anc_at(time_):
+        anc = torch.randint(0, beams, (b, beams, t), generator=gen,
+                            dtype=torch.int32)
+        anc[:, :, time_] = torch.arange(beams, dtype=torch.int32)
+        return anc.to("cuda")
 
-        # timing at the last position of the longest batch (time = T-1)
-        time_ = T - 1
-        n = time_ + 1
-        dense = copies(lambda: (rand(B, 1, HIDDEN), rand(B, T, HIDDEN),
-                                rand(B, T, HIDDEN)), 2 * B * T * HIDDEN * eb)
+    return qkv, anc_at
 
-        def k_dense(q, k, v):
-            return da.decode_attention(q, k, v, time_, HEADS)
 
-        def p_dense(q, k, v):
-            return da.decode_attention_ref(q, k, v, time_, HEADS)
-
-        def heads(x, length):
-            return x.view(x.shape[0], -1, HEADS, dh)[:, :length].transpose(1, 2)
-
-        def l_dense(q, k, v):
-            return sdpa(heads(q, 1), heads(k, n), heads(v, n))
-
-        nbytes = (2 * B * n * HIDDEN + 2 * B * HIDDEN) * eb
-        b_ms, b_by = bound(nbytes, 4 * B * n * HIDDEN, dtype)
-        rows[("decode_attention", dtype)] = dict(
-            max_abs_err=errs["decode_attention"],
-            ms=device_ms(k_dense, dense, 3 * len(dense)),
-            plain_ms=device_ms(p_dense, dense, 3 * len(dense)),
-            library_ms=device_ms(l_dense, dense, 3 * len(dense)),
-            bound_ms=b_ms, bound_by=b_by)
-        del dense
-
-        pool = copies(lambda: (rand(B, K, HIDDEN), rand(B, K, T, HIDDEN),
-                               rand(B, K, T, HIDDEN), anc_at(time_)),
-                      2 * B * K * T * HIDDEN * eb)
+def decode_checks(da, gen, dtype, b, beams, t, hidden, heads, times):
+    """#10 and, at beams > 1, #8 (softmax and relu) against their plain
+    versions at each position in ``times``; returns the largest error of
+    each kernel."""
+    dense = dense_inputs(gen, dtype, b, t, hidden)
+    pool, anc_at = pool_inputs(gen, dtype, b, beams, t, hidden)
+    errs = collections.defaultdict(float)
+    for time_ in times:
+        label = "decode_attention[B%d,T%d,hidden%d,heads%d,time%d]" % (
+            b, t, hidden, heads, time_)
+        errs["decode_attention"] = max(errs["decode_attention"], check(
+            label, da.decode_attention(*dense, time_, heads),
+            da.decode_attention_ref(*dense, time_, heads), dtype))
+        if beams == 1:
+            continue
+        anc = anc_at(time_)
         for relu, key in ((False, "decode_pool_attention"),
                           (True, "decode_pool_attention[relu]")):
-            def k_pool(q, k, v, anc, relu=relu):
-                return da.decode_pool_attention(q, k, v, anc, time_, HEADS,
+            errs[key] = max(errs[key], check(
+                "%s[B%d,beams%d,T%d,hidden%d,heads%d,time%d]" % (
+                    key, b, beams, t, hidden, heads, time_),
+                da.decode_pool_attention(*pool, anc, time_, heads,
+                                         relu=relu),
+                da.decode_pool_attention_ref(*pool, anc, time_, heads,
+                                             relu=relu), dtype))
+    return dict(errs)
+
+
+def decode_times(da, gen, dtype, b, beams, t, hidden, heads, errs):
+    """Device times of #10 (B rows) and #8 (B x beams, softmax and relu) at
+    the cache's last position, of their plain versions and of SDPA (over
+    the ancestry-gathered cache for #8, gathered beforehand), beside the
+    byte bound and the splits the wrapper launched."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dh = hidden // heads
+    eb = torch.tensor([], dtype=dtype).element_size()
+    time_ = t - 1
+    n = time_ + 1
+    # the splits the wrapper recorded at its last launch; null where the
+    # package records none (the parent commit under --package)
+    taken = getattr(da, "taken", {})
+
+    def timed(key, fn, sets):
+        taken.clear()
+        ms = device_ms(fn, sets, 3 * len(sets))
+        return ms, taken.get(key)
+
+    rows = {}
+
+    def heads_of(x, length):
+        return x.view(x.shape[0], -1, heads, dh)[:, :length].transpose(1, 2)
+
+    dense = copies(lambda: dense_inputs(gen, dtype, b, t, hidden),
+                   2 * b * t * hidden * eb)
+
+    def k_dense(q, k, v):
+        return da.decode_attention(q, k, v, time_, heads)
+
+    def p_dense(q, k, v):
+        return da.decode_attention_ref(q, k, v, time_, heads)
+
+    def l_dense(q, k, v):
+        return sdpa(heads_of(q, 1), heads_of(k, n), heads_of(v, n))
+
+    nbytes = (2 * b * n * hidden + 2 * b * hidden) * eb
+    b_ms, b_by = bound(nbytes, 4 * b * n * hidden, dtype)
+    ms, splits = timed("decode_attention", k_dense, dense)
+    rows["decode_attention"] = dict(
+        max_abs_err=errs["decode_attention"], ms=ms,
+        plain_ms=device_ms(p_dense, dense, 3 * len(dense)),
+        library_ms=device_ms(l_dense, dense, 3 * len(dense)),
+        bound_ms=b_ms, bound_by=b_by, splits=splits)
+    del dense
+
+    def pool_set():
+        qkv, anc_at = pool_inputs(gen, dtype, b, beams, t, hidden)
+        return qkv + (anc_at(time_),)
+
+    pool = copies(pool_set, 2 * b * beams * t * hidden * eb)
+    for relu, key in ((False, "decode_pool_attention"),
+                      (True, "decode_pool_attention[relu]")):
+        def k_pool(q, k, v, anc, relu=relu):
+            return da.decode_pool_attention(q, k, v, anc, time_, heads,
+                                            relu=relu)
+
+        def p_pool(q, k, v, anc, relu=relu):
+            return da.decode_pool_attention_ref(q, k, v, anc, time_, heads,
                                                 relu=relu)
 
-            def p_pool(q, k, v, anc, relu=relu):
-                return da.decode_pool_attention_ref(q, k, v, anc, time_,
-                                                    HEADS, relu=relu)
+        # bytes: each DISTINCT selected pool row once (beams that share an
+        # ancestor share its K/V), q, out and the ancestry entries
+        anc = pool[0][3][:, :, :n].long()
+        distinct = torch.zeros(b, beams, n, device="cuda").scatter_(
+            1, anc, 1.0).sum().item()
+        nbytes = (2 * distinct * hidden + 2 * b * beams * hidden) * eb \
+            + 4 * b * beams * n
+        b_ms, b_by = bound(nbytes, 4 * b * beams * n * hidden, dtype)
+        lib_ms = None
+        if not relu:
+            gathered = [
+                (heads_of(q.view(b * beams, 1, hidden), 1),
+                 heads_of(torch.take_along_dim(
+                     k, a.long()[..., None], dim=1).view(
+                         b * beams, t, hidden), n),
+                 heads_of(torch.take_along_dim(
+                     v, a.long()[..., None], dim=1).view(
+                         b * beams, t, hidden), n))
+                for q, k, v, a in pool]
+            lib_ms = device_ms(sdpa, gathered, 3 * len(gathered))
+            del gathered
+        ms, splits = timed("decode_pool_attention", k_pool, pool)
+        rows[key] = dict(
+            max_abs_err=errs[key], ms=ms,
+            plain_ms=device_ms(p_pool, pool, 3 * len(pool)),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, splits=splits)
+    del pool
+    torch.cuda.empty_cache()
+    return rows
 
-            # bytes: each DISTINCT selected pool row once (beams that share
-            # an ancestor share its K/V), q, out and the ancestry entries
-            anc = pool[0][3][:, :, :n].long()
-            distinct = torch.zeros(B, K, n, device=dev).scatter_(
-                1, anc, 1.0).sum().item()
-            nbytes = (2 * distinct * HIDDEN + 2 * B * K * HIDDEN) * eb \
-                + 4 * B * K * n
-            b_ms, b_by = bound(nbytes, 4 * B * K * n * HIDDEN, dtype)
-            lib_ms = None
-            if not relu:
-                # yardstick: SDPA over the ancestry-gathered cache (gather
-                # done beforehand, outside the timing)
-                gathered = [
-                    (heads(q.view(B * K, 1, HIDDEN), 1),
-                     heads(torch.take_along_dim(
-                         k, a.long()[..., None], dim=1).view(
-                             B * K, T, HIDDEN), n),
-                     heads(torch.take_along_dim(
-                         v, a.long()[..., None], dim=1).view(
-                             B * K, T, HIDDEN), n))
-                    for q, k, v, a in pool]
-                lib_ms = device_ms(sdpa, gathered, 3 * len(gathered))
-                del gathered
-            rows[(key, dtype)] = dict(
-                max_abs_err=errs[key],
-                ms=device_ms(k_pool, pool, 3 * len(pool)),
-                plain_ms=device_ms(p_pool, pool, 3 * len(pool)),
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        del pool
+
+def kernels_phase(da):
+    """#10 and #8 at the decode shapes of serving (every TIMES entry, timed
+    at the last) and of long_train's serving (a full 8192-position cache,
+    split), and at DECODE_CHECK_CASES; fp32 and bf16, against their plain
+    versions. Returns the rows keyed (kernel, dtype) and (kernel, "long")
+    (bf16)."""
+    gen = torch.Generator().manual_seed(SEED)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        errs = decode_checks(da, gen, dtype, B, K, T, HIDDEN, HEADS, TIMES)
+        for key, r in decode_times(da, gen, dtype, B, K, T, HIDDEN, HEADS,
+                                   errs).items():
+            rows[(key, dtype)] = r
+            phase("kernels", kernel=key, dtype=name, time=T - 1, **r)
+        long_t = LONG_DECODE_T
+        errs = decode_checks(da, gen, dtype, LONG_DECODE_B, K, long_t,
+                             HIDDEN, HEADS, (long_t - 1,))
+        if dtype == torch.bfloat16:
+            for key, r in decode_times(da, gen, dtype, LONG_DECODE_B, K,
+                                       long_t, HIDDEN, HEADS, errs).items():
+                if r["splits"] is not None and r["splits"] < 2:
+                    raise AssertionError("%s at T=%d launched %d split"
+                                         % (key, long_t, r["splits"]))
+                rows[(key, "long")] = r
+                phase("kernels", kernel=key, dtype=name, case="B%d_T%d" % (
+                    LONG_DECODE_B, long_t), time=long_t - 1, **r)
+        else:
+            phase("kernels", case="B%d_T%d" % (LONG_DECODE_B, long_t),
+                  dtype=name, max_abs_err=errs)
+        for case in DECODE_CHECK_CASES:
+            b, beams, t, hidden, heads, time_ = case
+            phase("kernels", dtype=name, case="B%d_beams%d_T%d_hidden%d_"
+                  "heads%d_time%d" % case, max_abs_err=decode_checks(
+                      da, gen, dtype, b, beams, t, hidden, heads, (time_,)))
         torch.cuda.empty_cache()
-    for (key, dtype), r in rows.items():
-        phase("kernels", kernel=key, dtype=str(dtype).split(".")[-1],
-              time=T - 1, **r)
     return rows
 
 
@@ -496,8 +584,8 @@ ATTN_SMALL = (("small_causal", 6, 4, 9, 9, 16, True, False),
 # mask rule gives that row uniform weights over all Lk keys (the tensor-core
 # dk/dv must reach the query tiles above the diagonal), on 64-row tiles
 # that end ragged; the other head depths the tensor-core backward takes;
-# and a depth it does not take, where bf16 keeps the CUDA-core #2
-# (backward_route)
+# and a depth it does not take, where bf16 keeps the CUDA-core #1 and #2
+# (forward_route)
 ATTN_CHECK_CASES = (("causal_pad_200", 4, 2, 200, 200, 64, True, True),
                     ("dh128_causal_pad_136", 2, 2, 136, 136, 128, True,
                      True),
@@ -557,8 +645,8 @@ def attention_pad(gen, b, lk, padded):
 
 
 def train_attention_rows(fa, gen):
-    """Kernels #1/#2 against fused_attention_ref, #2 on the route
-    backward_route picks; returns the JSON rows of the timed cases."""
+    """Kernels #1/#2 against fused_attention_ref, on the route
+    forward_route picks; returns the JSON rows of the timed cases."""
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -590,9 +678,10 @@ def train_attention_rows(fa, gen):
                 out = fa.fused_attention(q, k, v, pad, causal=causal,
                                          dropout_rate=rate, rng=words)
                 grads = torch.autograd.grad(out, (q, k, v), do)
-                tc = fa.backward_route(dtype, dh) == "tensor_cores"
-                want = {"fused_attention": 1,
-                        "fused_attention_backward" + ("_tc" if tc else ""): 1}
+                tc = fa.forward_route(dtype, dh) == "tensor_cores"
+                sfx = "_tc" if tc else ""
+                want = {"fused_attention" + sfx: 1,
+                        "fused_attention_backward" + sfx: 1}
                 if dict(fa.launches) != want:
                     raise AssertionError("fused_attention %s %s: launches "
                                          "%s, expected %s" % (
@@ -615,6 +704,12 @@ def train_attention_rows(fa, gen):
                     raise AssertionError("fused_attention %s: the all-pad "
                                          "batch row has nonzero dq or dk"
                                          % label)
+                if padded and b > 1 and rate == 0.0:
+                    # the fused rule: the all-pad batch row averages all Lk
+                    # keys, under the causal flag too
+                    check("fused_attention %s all-pad row" % label, out[-1],
+                          v[-1].float().mean(dim=-2, keepdim=True).expand(
+                              h, lq, dh), dtype, TRAIN_TOLERANCE)
                 if not timed:
                     phase("train_kernels", kernel="fused_attention",
                           case=label, max_abs_err=errs[0],
@@ -645,10 +740,14 @@ def train_attention_rows(fa, gen):
                     bwd[key] = device_ms(lambda run: run(), graphs, iters)
                     del graphs
                 if tc:
-                    # the CUDA-core #2 that ran before the tensor-core one,
-                    # on the same inputs (called directly: the tensor-core
-                    # kernels' device time is the same either way)
+                    # the CUDA-core #1 and #2 that ran before the tensor-core
+                    # ones, on the same inputs (called directly: the
+                    # tensor-core kernels' device time is the same either
+                    # way)
                     drop = (causal, rate, words or (0, 0))
+                    fwd["parent_ms"] = device_ms(
+                        fa._forward, [tuple(t.detach() for t in s[:3])
+                                      + (s[3],) + drop for s in sets], iters)
                     args = []
                     for s in sets:
                         qkv = tuple(t.detach() for t in s[:3])
@@ -994,18 +1093,17 @@ def model_flops(shapes, cfg):
 def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
     layer (18 at 6+6), one FFN per layer (12); forward and backward, the
-    attention backward on the route backward_route picks."""
+    attention on the route forward_route picks."""
     from zero_tpu_torch.ops.kernels import fused_attention as fa
 
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
     ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
-    tc = fa.backward_route(getattr(torch, cfg["default_dtype"]),
-                           cfg["hidden_size"] // cfg["num_heads"]) \
-        == "tensor_cores"
-    return {"fused_attention": attn * microbatches,
-            "fused_attention_backward" + ("_tc" if tc else ""):
-                attn * microbatches,
+    sfx = "_tc" if fa.forward_route(
+        getattr(torch, cfg["default_dtype"]),
+        cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
+    return {"fused_attention" + sfx: attn * microbatches,
+            "fused_attention_backward" + sfx: attn * microbatches,
             "fused_ffn": ffn * microbatches,
             "fused_ffn_backward": ffn * microbatches}
 
@@ -1258,42 +1356,86 @@ def train_reference_phase():
     for rate in (0.0, 0.1):
         cfg = _small_model(rate)
         cfg.default_dtype = "bfloat16"
-        runs = []
-        for plain in (False, True):
-            ff.launches.clear()
-            with mock.patch.object(ff, "fused_ffn",
-                                   plain_ffn if plain else ff.fused_ffn):
-                loss = model.train_fn(
-                    gpu, gfeats, cfg,
-                    torch.Generator().manual_seed(SEED))["loss"]
-                grads = torch.autograd.grad(loss, list(gpu.parameters()))
-            runs.append((loss.item(), [g.cpu() for g in grads],
-                         dict(ff.launches)))
-        (lk, gk, nk), (lp, gp, np_) = runs
-        errs = grad_errors(cpu, gp, gk)
-        # the cross-attention key bias's gradient is zero in exact
-        # arithmetic (softmax ignores a per-row constant): both sides hold
-        # bf16 rounding noise there, above grad_errors' 1e-3 floor, so its
-        # error is taken on the scale of the model's largest gradient
-        top = max(g.abs().max().item() for g in gp)
-        for name, a, b in zip([n for n, _ in cpu.named_parameters()], gk,
-                              gp):
-            if name.endswith("cross.k.b"):
-                errs[name] = (a - b).abs().max().item() / top
-        worst = max(errs, key=errs.get)
-        bf16[rate] = dict(loss_kernels=lk, loss_plain=lp,
-                          loss_rel_err=abs(lk - lp) / abs(lp),
-                          grad_rel_err=errs[worst],
-                          grad_worst=sorted(errs, key=errs.get)[-3:])
-        if not (bf16[rate]["loss_rel_err"] <= 1e-2 and errs[worst] <= 2e-2
-                and nk == {"fused_ffn": 4, "fused_ffn_backward": 4}
-                and np_ == {"fused_ffn_ref": 4}):
+        kern, plain = bf16_runs(model, gpu, gfeats, cfg, ff, "fused_ffn",
+                                (ff.fused_ffn, plain_ffn), [ff.launches])
+        bf16[rate] = dict(loss_kernels=kern[0], loss_plain=plain[0],
+                          **bf16_errors(cpu, kern, plain))
+        if not (bf16[rate]["loss_rel_err"] <= 1e-2
+                and bf16[rate]["grad_rel_err"] <= 2e-2
+                and kern[2] == {"fused_ffn": 4, "fused_ffn_backward": 4}
+                and plain[2] == {"fused_ffn_ref": 4}):
             raise AssertionError("train_reference bf16 p=%g: %s, launches "
-                                 "%s / %s" % (rate, bf16[rate], nk, np_))
+                                 "%s / %s" % (rate, bf16[rate], kern[2],
+                                              plain[2]))
+    attn = train_reference_attention_bf16(model, gpu, gfeats)
     phase("train_reference", loss_rel_err=loss_err, grad_rel_err=grad_err,
           dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
           dropout_rel_err=drop_err,
-          bf16={"p=%g" % r: v for r, v in bf16.items()})
+          bf16={"p=%g" % r: v for r, v in bf16.items()},
+          bf16_attention=attn)
+    bad = {r: v for r, v in attn.items() if not v["ok"]}
+    if bad:
+        raise AssertionError("train_reference bf16 attention: %s" % bad)
+
+
+def train_reference_attention_bf16(model, gpu, gfeats):
+    """The small model in bf16 at head depth 16, where #1 and #2 take the
+    tensor cores (forward_route), the FFN kernels on every side, dropout
+    off and on from the same seed words: train_fn with #1 and #2 against
+    the plain attention on the card (loss within 1e-2 relative), and with
+    #2 against the plain version's backward behind the same #1 (grads
+    within 2e-2 of their scale): the bounds of the other bf16 checks.
+    Beside them, ungated: the whole path's grads against the plain
+    version's (``full_path``), and both paths' against the plain attention
+    in fp32 (``kernels_vs_fp32``, ``plain_vs_fp32``): on this 54-token
+    batch one bf16 ulp in an attention output flips ReLU units of the
+    FFNs, whose weight grads then move by a large share of their scale
+    whichever version rounds."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
+    out = {}
+    for rate in (0.0, 0.1):
+        cfg = _small_model(rate)
+        cfg32 = _small_model(rate)
+        cfg.default_dtype = "bfloat16"
+        kern, plain_bwd, plain = bf16_runs(
+            model, gpu, gfeats, cfg, fa, "fused_attention",
+            (fa.fused_attention, plain_backward_fused, plain_attention),
+            [fa.launches])
+        (plain32,) = bf16_runs(model, gpu, gfeats, cfg32, fa,
+                               "fused_attention", (plain_attention,),
+                               [fa.launches])
+        grads = bf16_errors(gpu, kern, plain_bwd)
+        r = dict(loss_kernels=kern[0], loss_plain=plain[0],
+                 loss_rel_err=abs(kern[0] - plain[0]) / abs(plain[0]),
+                 grad_rel_err=grads["grad_rel_err"],
+                 grad_worst=grads["grad_worst"], launches=kern[2],
+                 full_path=bf16_errors(gpu, kern, plain),
+                 kernels_vs_fp32=bf16_errors(gpu, kern, plain32),
+                 plain_vs_fp32=bf16_errors(gpu, plain, plain32))
+        r["ok"] = (r["loss_rel_err"] <= 1e-2 and r["grad_rel_err"] <= 2e-2
+                   and kern[2] == {"fused_attention_tc": 6,
+                                   "fused_attention_backward_tc": 6}
+                   and plain_bwd[2] == {"fused_attention_tc": 6,
+                                        "fused_attention_ref": 6}
+                   and plain[2] == {"fused_attention_ref": 6})
+        out["p=%g" % rate] = r
+    return out
+
+
+def bf16_grad_errors(model, test, ref):
+    """grad_errors of the ``test`` grads against the ``ref`` grads, but the
+    cross-attention key bias's: its gradient is zero in exact arithmetic
+    (softmax ignores a per-row constant), so both sides hold bf16 rounding
+    noise there, above grad_errors' 1e-3 floor, and its error is taken on
+    the scale of the model's largest gradient."""
+    errs = grad_errors(model, ref, test)
+    top = max(g.abs().max().item() for g in ref)
+    for name, a, b in zip([n for n, _ in model.named_parameters()], test,
+                          ref):
+        if name.endswith("cross.k.b"):
+            errs[name] = (a - b).abs().max().item() / top
+    return errs
 
 
 def grad_errors(cpu, gc, gg):
@@ -1901,46 +2043,96 @@ def long_reference_phase(da):
           beam4_steps=g["steps"], bf16=bf16)
 
 
-class _PlainBackwardStream(torch.autograd.Function):
-    """The streaming forward kernel (#5, on the route ``route`` picks), and
-    the plain version's backward (streaming_attention_ref's autograd,
-    recomputed) in place of #6/#7."""
+class _PlainBackward(torch.autograd.Function):
+    """A forward kernel (#1 or #5, on the route its wrapper picks), and the
+    plain version's backward (fused_attention_ref's or
+    streaming_attention_ref's autograd, recomputed) in place of #2 or
+    #6/#7."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad, causal, rate, words):
+    def forward(ctx, q, k, v, pad, causal, rate, words, fused):
+        from zero_tpu_torch.ops.kernels import fused_attention as fa
         from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
         tc = sa.route("cuda", q.dtype, q.shape[-1]) == "tensor_cores"
-        fwd = sa._forward_tc if tc else sa._forward
+        if fused:
+            fwd = fa._forward_tc if tc else fa._forward
+        else:
+            fwd = sa._forward_tc if tc else sa._forward
         o = fwd(*map(sa._aligned, (q, k, v)), pad, causal, rate, words)[0]
         ctx.save_for_backward(q, k, v, pad)
         ctx.args = (causal, rate, words if rate else None)
+        ctx.fused = fused
         return o
 
     @staticmethod
     def backward(ctx, do):
+        from zero_tpu_torch.ops.kernels import fused_attention as fa
         from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
+        ref = fa.fused_attention_ref if ctx.fused \
+            else sa.streaming_attention_ref
         q, k, v, pad = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            ref = sa.streaming_attention_ref(*leaves, pad, *ctx.args)
-            grads = torch.autograd.grad(ref, leaves, do)
-        return tuple(grads) + (None,) * 4
+            grads = torch.autograd.grad(ref(*leaves, pad, *ctx.args),
+                                        leaves, do)
+        return tuple(grads) + (None,) * 5
+
+
+def _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng, fused):
+    pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+           if pad_mask is None else pad_mask.float()).contiguous()
+    rate = float(dropout_rate) if (rng is not None
+                                   and 0.0 < dropout_rate < 1.0) else 0.0
+    words = tuple(rng) if rate else (0, 0)
+    return _PlainBackward.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), pad, bool(causal), rate,
+                                words, fused)
 
 
 def plain_backward_stream(q, k, v, pad_mask=None, *, causal=False,
                           dropout_rate=0.0, rng=None):
     """streaming_attention's interface: the forward kernel, the plain
     version's backward (the same dropout masks from the same words)."""
-    pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
-           if pad_mask is None else pad_mask.float()).contiguous()
-    rate = float(dropout_rate) if (rng is not None
-                                   and 0.0 < dropout_rate < 1.0) else 0.0
-    words = tuple(rng) if rate else (0, 0)
-    return _PlainBackwardStream.apply(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), pad, bool(causal),
-                                      rate, words)
+    return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
+                           False)
+
+
+def plain_backward_fused(q, k, v, pad_mask=None, *, causal=False,
+                         dropout_rate=0.0, rng=None, rpr_tables=None,
+                         max_relative_position=None):
+    """fused_attention's interface (no RPR): the forward kernel, the plain
+    version's backward (the same dropout masks from the same words)."""
+    assert rpr_tables is None
+    return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
+                           True)
+
+
+def bf16_runs(model, params, gfeats, cfg, module, name, fns, counters):
+    """train_fn's loss, grads (on the CPU) and launch counts with
+    ``module.name`` patched to each of ``fns`` in turn."""
+    runs = []
+    for fn in fns:
+        for c in counters:
+            c.clear()
+        with mock.patch.object(module, name, fn):
+            loss = model.train_fn(params, gfeats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+            grads = torch.autograd.grad(loss, list(params.parameters()))
+        runs.append((loss.item(), [g.cpu() for g in grads],
+                     collect(counters)))
+    return runs
+
+
+def bf16_errors(model, test, ref):
+    """Loss and grad errors of the ``test`` run against the ``ref`` run
+    (bf16_runs entries)."""
+    (lt, gt, _), (lr, gr, _) = test, ref
+    errs = bf16_grad_errors(model, gt, gr)
+    worst = max(errs, key=errs.get)
+    return dict(loss_rel_err=abs(lt - lr) / abs(lr), grad_rel_err=errs[worst],
+                grad_worst=sorted(errs, key=errs.get)[-3:])
 
 
 def long_reference_bf16(model, gfeats, sa):
@@ -1967,35 +2159,14 @@ def long_reference_bf16(model, gfeats, sa):
             small = model.init_fn(torch.Generator().manual_seed(SEED),
                                   cfg).cuda()
         cfg.default_dtype = "bfloat16"
-        runs = []
-        for fn in (sa.streaming_attention, plain_backward_stream,
-                   plain_stream):
-            sa.launches.clear()
-            with mock.patch.object(sa, "streaming_attention", fn):
-                loss = model.train_fn(
-                    small, gfeats, cfg,
-                    torch.Generator().manual_seed(SEED))["loss"]
-                grads = torch.autograd.grad(loss, list(small.parameters()))
-            runs.append((loss.item(), [g.cpu() for g in grads],
-                         collect([sa.launches])))
-
-        def errors(test, ref):
-            (lt, gt, _), (lr, gr, _) = test, ref
-            errs = grad_errors(small, gr, gt)
-            top = max(g.abs().max().item() for g in gr)
-            for name, a, b in zip([n for n, _ in small.named_parameters()],
-                                  gt, gr):
-                if name.endswith("cross.k.b"):
-                    errs[name] = (a - b).abs().max().item() / top
-            worst = max(errs, key=errs.get)
-            return dict(loss_rel_err=abs(lt - lr) / abs(lr),
-                        grad_rel_err=errs[worst],
-                        grad_worst=sorted(errs, key=errs.get)[-3:])
-
-        kern, plain_bwd, plain = runs
+        kern, plain_bwd, plain = bf16_runs(
+            model, small, gfeats, cfg, sa, "streaming_attention",
+            (sa.streaming_attention, plain_backward_stream, plain_stream),
+            [sa.launches])
         out["p=%g" % rate] = r = dict(
             loss_kernels=kern[0], loss_plain=plain_bwd[0],
-            **errors(kern, plain_bwd), full_path=errors(kern, plain))
+            **bf16_errors(small, kern, plain_bwd),
+            full_path=bf16_errors(small, kern, plain))
         want = {"streaming_attention_tc": 6, "streaming_attention_dq_tc": 6,
                 "streaming_attention_dkdv_tc": 6}
         if not (r["loss_rel_err"] <= 1e-2 and r["grad_rel_err"] <= 2e-2
@@ -2020,15 +2191,24 @@ def main(argv=None):
                         help="comma-separated subset of %s (device and "
                         "build always run; a subset prints no summary "
                         "lines)" % ",".join(PHASES))
+    parser.add_argument("--package", metavar="DIR",
+                        help="import zero_tpu_torch from DIR (a checkout of "
+                        "another commit) instead of this checkout, to time "
+                        "its decode kernels on the same inputs; phases "
+                        "build and kernels only")
     args = parser.parse_args(argv)
     todo = set(args.phases.split(","))
     unknown = todo - set(PHASES)
     if unknown:
         parser.error("unknown phases %s" % sorted(unknown))
+    if args.package and todo - {"device", "build", "kernels"}:
+        parser.error("--package takes the phases build and kernels only")
     full = todo == set(PHASES)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     from zero_tpu_torch.ops.kernels import cuda_build
     from zero_tpu_torch.ops.kernels import decode_attention as da
 
@@ -2041,6 +2221,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     phase("device", name=kind, nvidia_smi=smi, torch=torch.__version__,
+          package=os.path.dirname(os.path.dirname(cuda_build.CSRC)),
           cuda=torch.version.cuda, count=torch.cuda.device_count(),
           matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_tf32=torch.backends.cudnn.allow_tf32)
@@ -2126,22 +2307,30 @@ def main(argv=None):
 
     kernels = []
     decode_src = "zero_tpu_torch/csrc/decode_attention.cu"
+    # decode: bf16 at the serve phase's shapes (one split), and beside them
+    # long_train's serving shape at a full 8192-position cache (split)
     for name, line in (("decode_pool_attention", 288),
                        ("decode_attention", 366)):
         r = rows[(name, torch.bfloat16)]
+        lr = rows[(name, "long")]
         kernels.append(dict(
             name=name, route="cuda", source=decode_src,
             replaces="zero_tpu/ops/kernels/decode_attention.py:%d" % line,
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            splits=r["splits"],
+            long={"case": "B%d_T%d" % (LONG_DECODE_B, LONG_DECODE_T),
+                  **{k: lr[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "splits")}}))
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
     # attention at the encoder self-attention case, the FFN at N=4096 and
     # at the train phase's largest stacked shape; the library yardstick is
     # timed with dropout off
     for name, source, replaces, key in (
-            ("fused_attention", "fused_attention.cu", "fused_attention.py:488",
-             ("self_pad",)),
+            ("fused_attention_tc", "fused_attention.cu",
+             "fused_attention.py:488", ("self_pad",)),
             ("fused_attention_backward_tc", "fused_attention.cu",
              "fused_attention.py:525", ("self_pad",)),
             ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_SHAPE[0],)),
@@ -2150,7 +2339,8 @@ def main(argv=None):
             ("fused_ffn", "fused_ffn.cu", "fused_ffn.py:186", (FFN_LARGE[0],)),
             ("fused_ffn_backward", "fused_ffn.cu", "fused_ffn.py:214",
              (FFN_LARGE[0],))):
-        # #2's rows are keyed by kernel, its JSON row by its launch key
+        # #1's and #2's rows are keyed by kernel, their JSON rows by their
+        # launch keys
         kernel = name[:-3] if name.endswith("_tc") else name
         r = train_rows[(kernel,) + key + (torch.bfloat16, 0.1)]
         lib = train_rows[(kernel,) + key + (torch.bfloat16, 0.0)][

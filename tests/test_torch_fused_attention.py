@@ -202,3 +202,48 @@ def test_long_keys_raise_naming_the_streaming_kernels():
     want = attention_mod.attn_train(lin, x, mem, pad[:, None, None, :],
                                     2)["output"]
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("device,dtype,dh,route", [
+    ("cpu", torch.bfloat16, 64, "plain"),
+    ("cuda", torch.bfloat16, 16, "tensor_cores"),
+    ("cuda", torch.bfloat16, 64, "tensor_cores"),
+    ("cuda", torch.bfloat16, 128, "tensor_cores"),
+    ("cuda", torch.bfloat16, 40, "cuda_cores"),
+    ("cuda", torch.bfloat16, 256, "cuda_cores"),
+    ("cuda", torch.float32, 64, "cuda_cores")])
+def test_forward_route(device, dtype, dh, route):
+    """One route for both directions: the CPU takes the plain version; on
+    the card bf16 at a head depth the tensor-core kernels take (a multiple
+    of 16 up to 128) runs the tensor-core #1 and #2, fp32 (which must stay
+    exact) and other depths the CUDA-core ones."""
+    assert fa.forward_route(dtype, dh, device) == route
+
+
+# bf16 on both sides: the Pallas kernel rounds its weights to bf16 before
+# the product with V, as the tensor-core #1 does, where the plain version
+# keeps fp32 until the output (8 mantissa bits), so outputs agree within
+# 1e-2 + 1e-2 * max, the streaming test's bf16 bound
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("case", ["causal_all_pad_row", "cross"])
+def test_bf16_ref_matches_pallas_forward_in_interpret_mode(case,
+                                                           monkeypatch):
+    """The inputs the tensor-core #1 takes in bf16: causal self-attention
+    whose batch row 1 is all padding (the fused rule: that row averages
+    all Lk keys) and cross attention, through the Pallas _fused_forward in
+    bf16 and through the plain version (fp32 inside, bf16 out)."""
+    lq, lk, causal = {"causal_all_pad_row": (8, 8, True),
+                      "cross": (6, 10, False)}[case]
+    q, k, v, pad, _ = _inputs(lq, lk, True, seed=5)
+    monkeypatch.setattr(jfa, "INTERPRET", True)
+    want = np.asarray(jfa.fused_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(pad), causal=causal).astype(jnp.float32))
+    got = fa.fused_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        torch.from_numpy(pad), causal=causal).float().numpy()
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= BF16_TOL + BF16_TOL * np.abs(want).max(), err

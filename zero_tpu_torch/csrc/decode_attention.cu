@@ -20,19 +20,32 @@
 // Bound. Per (row, head) the kernel must read the query, the K and V
 // slices of positions 0..time and write the output: ~4 * hidden * (time+1)
 // flops against 2 * hidden * (time+1) elements read, far below the card's
-// ~295 flops/byte ridge, so it is bound by device-memory bytes. The design
-// reads every selected K/V element exactly once from device memory:
-//   * one block per (row, head); its 4 warps take positions round-robin,
-//     a warp reads one position's head slice with neighbouring lanes on
-//     neighbouring elements (coalesced) and reduces the dot by shuffles;
+// ~295 flops/byte ridge, so it is bound by device-memory bytes, and what
+// counts is how many of them are in flight. The design reads every
+// selected K/V element exactly once, in one pass:
+//   * a block (128 threads) owns one (row, head) and a range of positions;
+//     it splits into groups of G lanes, G the 16-byte loads of a head
+//     slice (Dh * sizeof(T) / 16, rounded up to a power of two, at most 32:
+//     8 lanes at Dh 64 in bf16, 16 in fp32; a lane makes two loads at Dh
+//     256 in fp32). A group takes one position at a time, kUnroll of them
+//     with their K and V loads issued before the first dot needs them, and
+//     reduces each dot by a shuffle tree inside the group (3 steps at 8
+//     lanes). Head slices that are not 16-byte aligned take one element a
+//     load, the same way;
+//   * an online softmax per group (running max, sum and an fp32 O slice in
+//     registers; V read in the same sweep as K); the groups fold by their
+//     maxima in shared memory at the end. ReLA (relu) sums relu(s) * V with
+//     no max and no normaliser, and folds by a plain sum;
 //   * the ancestry gather costs one int read per position: the TPU kernel
 //     instead made K masked passes over every pool row, because VMEM
 //     blocks cannot gather rows cheaply;
-//   * scores stay in shared memory (time+1 floats), the softmax is two
-//     block reductions, and the weighted value sum is accumulated in fp32
-//     registers, reduced across warps in shared memory.
-// Not yet done (later work): vectorised 16-byte loads, cp.async/TMA
-// prefetch of the next positions, and split-T for long caches.
+//   * where rows * heads blocks would leave SMs idle (long caches at small
+//     batch), the wrapper splits the positions into chunks
+//     (decode_splits): each chunk's block writes its fp32 partial O and (m,
+//     l), and combine_splits folds them by their maxima (flash-decoding, as
+//     #9 below). At transformer-base decode shapes it is one launch.
+// Every sum is fp32, in a fixed order: the fp32 reference models decode the
+// same beams as the CPU.
 //
 // Cross attention (#9) is bound by the same bytes: each memory element
 // once per batch row, whatever the beam count. A block owns one (batch row,
@@ -44,11 +57,13 @@
 // fp32 where the TPU kernel rounds them to the value dtype. At small batch
 // and long memory B * heads blocks would leave most SMs idle, so the
 // wrapper splits S into chunks (at least 256 positions each) until about
-// two blocks per SM are in flight; a second kernel folds the chunks'
-// partial sums by their running maxima (flash-decoding).
+// two blocks per SM are in flight; combine_splits folds the chunks' partial
+// sums by their running maxima (flash-decoding).
 //
 // Interface: plain C functions, loaded with ctypes; each returns
-// cudaGetLastError() after its launch.
+// cudaGetLastError() after its launches.
+
+#include <cfloat>
 
 #include "zt_common.cuh"
 
@@ -61,140 +76,323 @@ using zt::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-// head depth is at most 32 * kMaxPerLane = 256 (checked by the wrapper)
-constexpr int kMaxPerLane = 8;
+// positions whose K and V loads a lane group has in flight at once
+constexpr int kUnroll = 4;
+// the groups' O slices at the fold: (kThreads / G) x Dh floats, at most
+// kThreads * 8 (G covers a head slice in 16-byte loads, or Dh <= 256 at
+// G = 32)
+constexpr int kFoldFloats = kThreads * 8;
 
-// Block-wide max or sum; every thread gets the result.
-template <bool kMax>
-__device__ float block_reduce(float x, float* scratch) {
-  x = kMax ? warp_max(x) : warp_sum(x);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  float r = scratch[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, scratch[w]) : r + scratch[w];
-  return r;
-}
+// VEC elements of T read by one load: 16 bytes (VEC = 16 / sizeof(T)), or
+// one element where the head slices are not 16-byte aligned
+template <typename T, int VEC>
+struct Chunk;
 
-// grid = (rows = B * beams, heads); block = kThreads.
-// q, out: [rows, hidden]; k, v: [B, beams, t_max, hidden];
-// ancestry: [rows, t_max] int32 pool-row index of each position, or null
-// (each beam reads its own row).
-template <typename T, bool kRelu>
+template <typename T>
+struct Chunk<T, 1> {
+  T x;
+  __device__ __forceinline__ void load(const T* p) { x = *p; }
+  __device__ __forceinline__ void zero() { x = from_float<T>(0.f); }
+  __device__ __forceinline__ float at(int) const { return to_float(x); }
+};
+
+template <>
+struct Chunk<float, 4> {
+  float4 x;
+  __device__ __forceinline__ void load(const float* p) {
+    x = __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ void zero() {
+    x = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ float at(int e) const {
+    return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  uint4 x;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    x = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { x = make_uint4(0u, 0u, 0u, 0u); }
+  // a bf16 is the upper half of the fp32 of the same value
+  __device__ __forceinline__ float at(int e) const {
+    const uint32_t w = e < 2 ? x.x : e < 4 ? x.y : e < 6 ? x.z : x.w;
+    return __uint_as_float((e & 1) ? (w & 0xFFFF0000u) : (w << 16));
+  }
+};
+
+// grid = (rows = B * beams, heads, splits); block = kThreads in groups of
+// `group` lanes (a power of two up to 32). Block (row, head, split) attends
+// positions [split * chunk, min(time + 1, (split + 1) * chunk)).
+// q, out: [rows, hidden]; k, v: [B, beams, t_max, hidden]; ancestry:
+// [rows, t_max] int32 pool-row index of each position, or null (each beam
+// reads its own row). With one split (part_o null) it writes the output;
+// otherwise its unnormalised fp32 sums part_o [B, heads, splits, beams, dh]
+// and the max and sum part_ml [B, heads, splits, beams, 2], which
+// combine_splits folds.
+template <typename T, int VEC, int NL, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 single_query_attention(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int* __restrict__ ancestry, T* __restrict__ out,
-                       int beams, int t_max, int hidden, int dh, int time,
-                       float scale) {
-  extern __shared__ float weights[];  // [time + 1]
-  __shared__ float partial[kWarps][kMaxPerLane * 32];
-  __shared__ float scratch[kWarps];
+                       float* __restrict__ part_o,
+                       float* __restrict__ part_ml, int beams, int t_max,
+                       int hidden, int dh, int time, float scale, int group,
+                       int chunk) {
+  __shared__ float fold[kFoldFloats];
+  __shared__ float group_m[kThreads], group_l[kThreads];
 
-  const int row = blockIdx.x;
-  const int head = blockIdx.y;
+  const int row = blockIdx.x, head = blockIdx.y, heads = gridDim.y;
+  const int split = blockIdx.z, splits = gridDim.z;
   const int b = row / beams;
   const int beam = row - b * beams;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = time + 1;
+  const int tid = threadIdx.x;
+  const int gi = tid / group, gl = tid - gi * group;   // group, its lane
+  const int groups = kThreads / group;
+  const int vecs = dh / VEC;                // loads of one head slice
+  const int t_begin = split * chunk;
+  const int t_end = min(time + 1, t_begin + chunk);
 
-  const T* q_row = q + (size_t)row * hidden + (size_t)head * dh;
-  float qr[kMaxPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < dh ? to_float(q_row[d]) * scale : 0.f;
-  }
-
-  const int* anc = ancestry ? ancestry + (size_t)row * t_max : nullptr;
-  const size_t pool0 = (size_t)b * beams;  // first pool row of sentence b
+  // this lane's loads of a head slice: vecs gl + group * i, i < NL
   const size_t head_off = (size_t)head * dh;
+  const T* q_row = q + (size_t)row * hidden + head_off;
+  float qf[NL][VEC], o[NL][VEC];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int c = gl + group * i;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qf[i][e] = c < vecs ? to_float(q_row[c * VEC + e]) * scale : 0.f;
+      o[i][e] = 0.f;
+    }
+  }
+  const int* anc = ancestry ? ancestry + (size_t)row * t_max : nullptr;
+  const size_t pool0 = (size_t)b * beams;   // first pool row of sentence b
+  float m = -FLT_MAX, l = 0.f;
 
-  // 1. scaled logits of positions 0..time
-  for (int t = warp; t < n; t += kWarps) {
-    const int j = anc ? anc[t] : beam;
-    const T* k_row = k + ((pool0 + j) * t_max + t) * (size_t)hidden + head_off;
+  // an iteration covers groups * kUnroll positions: group gi takes base +
+  // gi + groups * u (the bounds are the block's, so every lane of a warp
+  // takes the same iterations and the shuffles stay converged)
+  for (int base = t_begin; base < t_end; base += groups * kUnroll) {
+    Chunk<T, VEC> kc[kUnroll][NL], vc[kUnroll][NL];
+    bool in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = base + gi + groups * u;
+      in[u] = t < t_end;
+      const int j = (in[u] && anc) ? anc[t] : beam;
+      const size_t off =
+          ((pool0 + j) * t_max + (in[u] ? t : 0)) * (size_t)hidden +
+          head_off;
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int c = gl + group * i;
+        if (in[u] && c < vecs) {
+          kc[u][i].load(k + off + c * VEC);
+          vc[u][i].load(v + off + c * VEC);
+        } else {
+          kc[u][i].zero();
+          vc[u][i].zero();
+        }
+      }
+    }
+    float s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc = fmaf(qf[i][e], kc[u][i].at(e), acc);
+      s[u] = acc;
+    }
+    // each dot over its group's lanes: xor partners stay inside the group
+    for (int w = group >> 1; w > 0; w >>= 1)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], w);
+
+    float p[kUnroll];
+    if (kRelu) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) p[u] = in[u] ? fmaxf(s[u], 0.f) : 0.f;
+    } else {
+      float m_new = m;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (in[u]) m_new = fmaxf(m_new, s[u]);
+      const float alpha = expf(m - m_new);   // 1 while m_new = m
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[i][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        p[u] = in[u] ? expf(s[u] - m_new) : 0.f;
+        l += p[u];
+      }
+      m = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          o[i][e] = fmaf(p[u], vc[u][i].at(e), o[i][e]);
+  }
+
+  // fold the groups: softmax rescales each by e^(m_group - max), relu adds
+  if (!kRelu) {
+    if (gl == 0) group_m[gi] = m;
+    __syncthreads();
+    float big = -FLT_MAX;
+    for (int g = 0; g < groups; ++g) big = fmaxf(big, group_m[g]);
+    const float f = expf(m - big);
+    l *= f;
+#pragma unroll
+    for (int i = 0; i < NL; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[i][e] *= f;
+    m = big;
+    if (gl == 0) group_l[gi] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int c = gl + group * i;
+    if (c < vecs)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) fold[gi * dh + c * VEC + e] = o[i][e];
+  }
+  __syncthreads();
+  float total = 0.f;
+  if (!kRelu)
+    for (int g = 0; g < groups; ++g) total += group_l[g];
+  const size_t part =
+      (((size_t)b * heads + head) * splits + split) * beams + beam;
+  for (int d = tid; d < dh; d += kThreads) {
     float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) acc += qr[i] * to_float(k_row[d]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) weights[t] = acc;
+    for (int g = 0; g < groups; ++g) acc += fold[g * dh + d];
+    if (part_o == nullptr)
+      out[(size_t)row * hidden + head_off + d] =
+          from_float<T>(kRelu ? acc : acc / total);
+    else
+      part_o[part * dh + d] = acc;
   }
-  __syncthreads();
-
-  // 2. weights: relu (unnormalised, ReLA) or max-subtracted softmax
-  float norm = 1.f;
-  if (kRelu) {
-    for (int t = threadIdx.x; t < n; t += kThreads)
-      weights[t] = fmaxf(weights[t], 0.f);
-  } else {
-    float m = -3.402823466e38f;
-    for (int t = threadIdx.x; t < n; t += kThreads) m = fmaxf(m, weights[t]);
-    m = block_reduce<true>(m, scratch);
-    float s = 0.f;
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const float p = expf(weights[t] - m);
-      weights[t] = p;
-      s += p;
-    }
-    s = block_reduce<false>(s, scratch);
-    norm = 1.f / s;
-  }
-  __syncthreads();
-
-  // 3. weighted sum of the selected value rows, fp32
-  float acc[kMaxPerLane];
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) acc[i] = 0.f;
-  for (int t = warp; t < n; t += kWarps) {
-    const int j = anc ? anc[t] : beam;
-    const T* v_row = v + ((pool0 + j) * t_max + t) * (size_t)hidden + head_off;
-    const float w = weights[t];
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) acc[i] += w * to_float(v_row[d]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) partial[warp][d] = acc[i];
-  }
-  __syncthreads();
-  T* o_row = out + (size_t)row * hidden + head_off;
-  for (int d = threadIdx.x; d < dh; d += kThreads) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += partial[w][d];
-    o_row[d] = from_float<T>(o * norm);
+  if (part_o != nullptr && tid == 0) {
+    part_ml[2 * part] = kRelu ? 0.f : m;
+    part_ml[2 * part + 1] = total;
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* ancestry,
-            void* out, int rows, int beams, int t_max, int hidden,
-            int num_heads, int time, int relu, float scale,
-            cudaStream_t stream) {
-  const dim3 grid(rows, num_heads);
-  const size_t smem = (size_t)(time + 1) * sizeof(float);
-  const int dh = hidden / num_heads;
-  if (relu) {
-    single_query_attention<T, true><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, beams,
-        t_max, hidden, dh, time, scale);
-  } else {
-    single_query_attention<T, false><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, beams,
-        t_max, hidden, dh, time, scale);
+// grid = (B, heads); block = kThreads. Folds the splits' partial sums
+// part_o [B, heads, splits, beams, dh] and (m, l) part_ml [B, heads,
+// splits, beams, 2] of single_query_attention or cross_attention: o =
+// sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s; relu: o = sum_s acc_s.
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+combine_splits(const float* __restrict__ part_o,
+               const float* __restrict__ part_ml, T* __restrict__ out,
+               int beams, int hidden, int dh, int splits) {
+  const int b = blockIdx.x;
+  const int head = blockIdx.y;
+  const size_t first = ((size_t)b * gridDim.y + head) * splits * beams;
+  for (int e = threadIdx.x; e < beams * dh; e += kThreads) {
+    const int beam = e / dh;
+    const int d = e - beam * dh;
+    float o;
+    if (kRelu) {
+      o = 0.f;
+      for (int sp = 0; sp < splits; ++sp)
+        o += part_o[(first + (size_t)sp * beams + beam) * dh + d];
+    } else {
+      float big = -INFINITY;
+      for (int sp = 0; sp < splits; ++sp)
+        big = fmaxf(big, part_ml[2 * (first + (size_t)sp * beams + beam)]);
+      float num = 0.f, den = 0.f;
+      for (int sp = 0; sp < splits; ++sp) {
+        const size_t row = first + (size_t)sp * beams + beam;
+        const float w = expf(part_ml[2 * row] - big);
+        num += w * part_o[row * dh + d];
+        den += w * part_ml[2 * row + 1];
+      }
+      o = num / den;
+    }
+    out[((size_t)b * beams + beam) * hidden + (size_t)head * dh + d] =
+        from_float<T>(o);
   }
+}
+
+template <typename T, int VEC, int NL>
+cudaError_t launch_single_nl(const void* q, const void* k, const void* v,
+                             const int* ancestry, void* out, float* part_o,
+                             float* part_ml, int rows, int beams, int t_max,
+                             int hidden, int num_heads, int time, int relu,
+                             float scale, int group, int splits, int chunk,
+                             cudaStream_t stream) {
+  const dim3 grid(rows, num_heads, splits);
+  const int dh = hidden / num_heads;
+  float* po = splits > 1 ? part_o : nullptr;
+  if (relu)
+    single_query_attention<T, VEC, NL, true><<<grid, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, po,
+        part_ml, beams, t_max, hidden, dh, time, scale, group, chunk);
+  else
+    single_query_attention<T, VEC, NL, false><<<grid, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, po,
+        part_ml, beams, t_max, hidden, dh, time, scale, group, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const dim3 fold(rows / beams, num_heads);
+  if (relu)
+    combine_splits<T, true><<<fold, kThreads, 0, stream>>>(
+        part_o, part_ml, (T*)out, beams, hidden, dh, splits);
+  else
+    combine_splits<T, false><<<fold, kThreads, 0, stream>>>(
+        part_o, part_ml, (T*)out, beams, hidden, dh, splits);
+  return cudaGetLastError();
+}
+
+// The lane group and loads per lane of a head slice: 16-byte loads where
+// the slices are 16-byte aligned, else one element a load.
+template <typename T>
+cudaError_t launch_single(const void* q, const void* k, const void* v,
+                          const int* ancestry, void* out, float* part_o,
+                          float* part_ml, int rows, int beams, int t_max,
+                          int hidden, int num_heads, int time, int relu,
+                          float scale, int splits, int chunk,
+                          cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int dh = hidden / num_heads;
+  const bool wide = dh * sizeof(T) % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+                    (uintptr_t)v % 16 == 0;
+  const int vecs = wide ? dh / kVec : dh;
+  int group = 1;
+  while (group < vecs && group < 32) group *= 2;
+  const int nl = (vecs + group - 1) / group;
+#define ZT_SINGLE(VEC, NL)                                                  \
+  launch_single_nl<T, VEC, NL>(q, k, v, ancestry, out, part_o, part_ml,    \
+                               rows, beams, t_max, hidden, num_heads, time, \
+                               relu, scale, group, splits, chunk, s)
+  if (wide) {
+    if (nl == 1) return ZT_SINGLE(kVec, 1);
+    // two 16-byte loads a lane: fp32 past Dh 128 (a bf16 slice of Dh <= 256
+    // is at most 32 loads)
+    if constexpr (sizeof(T) == 4)
+      if (nl == 2) return ZT_SINGLE(kVec, 2);
+  } else {
+    if (nl == 1) return ZT_SINGLE(1, 1);
+    if (nl == 2) return ZT_SINGLE(1, 2);
+    if (nl <= 4) return ZT_SINGLE(1, 4);
+    if (nl <= 8) return ZT_SINGLE(1, 8);
+  }
+#undef ZT_SINGLE
+  return cudaErrorInvalidValue;
 }
 
 constexpr int kCrossTile = 32;                 // memory positions per tile
@@ -209,7 +407,7 @@ constexpr float kCrossMasked = -1e30f;          // NEG_INF of _cross_kernel
 // mask: [B, S] fp32. With one split (part_o null) it writes the output;
 // otherwise its unnormalised fp32 sums part_o [B, heads, splits, beams, dh]
 // and the running max and sum part_ml [B, heads, splits, beams, 2], which
-// cross_attention_combine folds.
+// combine_splits folds.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 cross_attention(const T* __restrict__ q, const T* __restrict__ mk,
@@ -337,35 +535,6 @@ cross_attention(const T* __restrict__ q, const T* __restrict__ mk,
   }
 }
 
-// grid = (B, heads); block = kThreads. Folds the splits' partial sums of
-// cross_attention: o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cross_attention_combine(const float* __restrict__ part_o,
-                        const float* __restrict__ part_ml,
-                        T* __restrict__ out, int beams, int hidden, int dh,
-                        int splits) {
-  const int b = blockIdx.x;
-  const int head = blockIdx.y;
-  const size_t first = ((size_t)b * gridDim.y + head) * splits * beams;
-  for (int e = threadIdx.x; e < beams * dh; e += kThreads) {
-    const int beam = e / dh;
-    const int d = e - beam * dh;
-    float big = -INFINITY;
-    for (int sp = 0; sp < splits; ++sp)
-      big = fmaxf(big, part_ml[2 * (first + (size_t)sp * beams + beam)]);
-    float num = 0.f, den = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const size_t row = first + (size_t)sp * beams + beam;
-      const float w = expf(part_ml[2 * row] - big);
-      num += w * part_o[row * dh + d];
-      den += w * part_ml[2 * row + 1];
-    }
-    out[((size_t)b * beams + beam) * hidden + (size_t)head * dh + d] =
-        from_float<T>(num / den);
-  }
-}
-
 template <typename T, int NC>
 cudaError_t launch_cross_nc(const void* q, const void* mk, const void* mv,
                             const float* mask, void* out, float* part_o,
@@ -386,9 +555,9 @@ cudaError_t launch_cross_nc(const void* q, const void* mk, const void* mv,
       scale, chunk, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  cross_attention_combine<T><<<dim3(batch, num_heads), kThreads, 0,
-                               stream>>>(part_o, part_ml, (T*)out, beams,
-                                         hidden, dh, splits);
+  combine_splits<T, false><<<dim3(batch, num_heads), kThreads, 0,
+                             stream>>>(part_o, part_ml, (T*)out, beams,
+                                       hidden, dh, splits);
   return cudaGetLastError();
 }
 
@@ -440,21 +609,29 @@ extern "C" int zt_cross_attention(const void* q, const void* mk,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. splits > 1 needs part_o
+// [B, heads, splits, beams, dh] and part_ml [B, heads, splits, beams, 2]
+// fp32 scratch (B = rows / beams); chunk positions per split.
 extern "C" int zt_single_query_attention(
     const void* q, const void* k, const void* v, const void* ancestry,
-    void* out, int dtype, int rows, int beams, int t_max, int hidden,
-    int num_heads, int time, int relu, float scale, void* stream) {
+    void* out, void* part_o, void* part_ml, int dtype, int rows, int beams,
+    int t_max, int hidden, int num_heads, int time, int relu, float scale,
+    int splits, int chunk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* anc = (const int*)ancestry;
-  if (dtype == 0) {
-    launch<float>(q, k, v, anc, out, rows, beams, t_max, hidden, num_heads,
-                  time, relu, scale, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k, v, anc, out, rows, beams, t_max, hidden,
-                          num_heads, time, relu, scale, s);
-  } else {
+  float* po = (float*)part_o;
+  float* pml = (float*)part_ml;
+  if (splits < 1 || chunk < 1 ||
+      (splits > 1 && (po == nullptr || pml == nullptr)))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return (int)launch_single<float>(q, k, v, anc, out, po, pml, rows, beams,
+                                     t_max, hidden, num_heads, time, relu,
+                                     scale, splits, chunk, s);
+  if (dtype == 1)
+    return (int)launch_single<__nv_bfloat16>(q, k, v, anc, out, po, pml,
+                                             rows, beams, t_max, hidden,
+                                             num_heads, time, relu, scale,
+                                             splits, chunk, s);
+  return (int)cudaErrorInvalidValue;
 }

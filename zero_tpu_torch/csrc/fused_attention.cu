@@ -10,16 +10,19 @@
 //   zt_attention_backward  replaces _fused_bwd_rule (_bwd_kernel): rebuilds
 //                          the weights from (m, l), gives dq per q-tile and
 //                          dk/dv per k-tile; ds is zero at masked entries.
-//   zt_attention_backward_tc  the same on the tensor cores (bf16, head depth
-//                          a multiple of 16 up to 128): zt::tc::dq_tc, then
-//                          zt::tc::dkdv_tc under the fused rule
-//                          (zt_attention_tc.cuh). The wrapper picks
-//                          (ops/kernels/fused_attention.py:backward_route).
+//   zt_attention_forward_tc, zt_attention_backward_tc  the same on the
+//                          tensor cores (bf16, head depth a multiple of 16
+//                          up to 128): zt::tc::forward_tc, then
+//                          zt::tc::dq_tc and zt::tc::dkdv_tc, all under the
+//                          fused rule (zt_attention_tc.cuh). The wrapper
+//                          picks one route for both directions
+//                          (ops/kernels/fused_attention.py:forward_route).
 //
 // Layout: q [B*H, Lq, Dh], k/v [B*H, Lk, Dh] contiguous, fp32 or bf16; pad
 // [B, Lk] fp32 (1 = attend). Any Lq, Lk; Dh <= 256.
 //
-// Design.
+// Design of the CUDA-core kernels (the tensor-core ones:
+// zt_attention_tc.cuh).
 //   * A block owns 32 query rows (forward, dq) or 32 keys (dk/dv) of one
 //     (batch, head) and walks the other axis in tiles of 32, staged in
 //     shared memory as fp32. In a score tile a warp owns 8 query rows and
@@ -47,20 +50,22 @@
 // Bound. At transformer-base training shapes (L <= 256, Dh = 64) a head's
 // q/k/v are a few tens of KB and the products are ~4*Lq*Lk*Dh flops against
 // ~4*L*Dh elements: ~L/2 flops per byte, so the kernels are bound by
-// operations. The CUDA-core kernels multiply in fp32 (the fp32 inputs need
-// it for exact agreement), one fused multiply-add per shared-memory read.
-// The tensor-core backward multiplies bf16 tiles by wgmma with fp32
-// accumulation; at these lengths a block walks at most four 64-wide tiles,
-// so its time goes to staging, the per-pair softmax and keep bit between
-// the products, and a grid of B*H*ceil(L/64) blocks (512 at B=16, H=8,
-// L=256, about four to an SM).
+// operations. The CUDA-core kernels (fp32, and bf16 at depths the tensor
+// cores do not take) multiply in fp32 (the fp32 inputs need it for exact
+// agreement), one fused multiply-add per shared-memory read. The
+// tensor-core kernels multiply bf16 tiles by wgmma with fp32 accumulation;
+// at these lengths a block walks at most four 64-wide tiles, so their time
+// goes to staging, the per-pair softmax and keep bit between the products,
+// and a grid of B*H*ceil(L/64) blocks (512 at B=16, H=8, L=256, about four
+// to an SM).
 //
 // The fused rule. Under the causal flag keys past a row exist, masked at
 // -1e30, as in the JAX kernel's _scores: a row whose visible keys are all
 // padded (an all-pad batch row of decoder self-attention) gets uniform
 // weights over all Lk keys, where the streaming kernels give them over the
-// keys up to the row. dq and dk agree under both rules; dv does not, so
-// dkdv_tc takes the rule as a template argument.
+// keys up to the row. The tensor-core forward then walks every key tile
+// for a block whose first row has no valid key; dq and dk agree under both
+// rules; dv does not, so dkdv_tc takes the rule as a template argument.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
@@ -548,6 +553,21 @@ extern "C" int zt_attention_backward(
   p.dk = dk;
   p.dv = dv;
   return (int)run(p, dtype, batch * heads, true, stream);
+}
+
+// The bf16 tensor-core forward: zt_attention_forward's arguments; dtype
+// must be 1 and dh a multiple of 16 up to 128 (else cudaErrorInvalidValue).
+extern "C" int zt_attention_forward_tc(
+    const void* q, const void* k, const void* v, const void* pad, void* o,
+    void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
+    int dh, int causal, float scale, int dropout, unsigned int threshold,
+    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+  Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
+                         dropout, threshold, drop_scale, s0, s1);
+  p.out = o;
+  p.m = (float*)m;
+  p.l = (float*)l;
+  return zt::tc::run_forward<true>(p, dtype, batch * heads, stream);
 }
 
 // The bf16 tensor-core backward: the same arguments; dtype must be 1 and dh

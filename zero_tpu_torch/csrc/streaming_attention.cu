@@ -47,24 +47,15 @@
 //   * No atomics and no split over keys or queries: every sum runs in a
 //     fixed order, so dq, dk and dv are the same from run to run.
 //
-// Tensor-core forward #5 (bf16; namespace tc), FlashAttention-2's forward on
-// wgmma, laid out as the backward's dq kernel (zt_attention_tc.cuh): a block
-// is one warpgroup owning 64 query rows of one (batch, head), three blocks
-// to an SM; Q staged once, K and V in 64-key tiles through a 3-slot
-// cp.async ring with the tile's pad values, all in 128-byte-swizzled shared
-// memory, the depth padded to DP = 64 or 128 and zero past Lq, Lk and Dh.
-// Per tile: S = Q.K^T by wgmma m64n64k16 (both k-major); the online softmax
-// on the accumulator fragment (a row's max by shuffles within the quad; m,
-// l and the DP/2-register O accumulator in fp32, O rescaled by alpha); P
-// dropped by the keep bit, scaled by 1/(1 - p) and rounded to bf16 straight
-// into the A fragment; O += P.V with the staged V tile read m/n-major.
-// Under the causal flag the walk stops at the diagonal tile; only that tile
-// and the one straddling Lk take the edge rules. m and l are written in the
-// units the backward reads (m the max of s * Dh^-0.5 or -1e30, l the
-// undropped sum); the JAX kernel multiplies P by V in fp32, this one rounds
-// P to bf16 first, as FlashAttention does.
-// The backward #6/#7 on the tensor cores is zt::tc::dq_tc and
-// zt::tc::dkdv_tc under the streaming rule (zt_attention_tc.cuh).
+// Tensor-core kernels (bf16, zt_attention_tc.cuh under the streaming
+// rule): #5 is zt::tc::forward_tc<DP, false>, FlashAttention-2's forward on
+// wgmma, #6 zt::tc::dq_tc and #7 zt::tc::dkdv_tc<DP, false>. The fused
+// kernels #1/#2 run the same kernels under the fused rule. Under the causal
+// flag the forward walk stops at the diagonal tile; only that tile and the
+// one straddling Lk take the edge rules. m and l are written in the units
+// the backward reads (m the max of s * Dh^-0.5 or -1e30, l the undropped
+// sum); the JAX kernel multiplies P by V in fp32, these round P to bf16
+// first, as FlashAttention does.
 //
 // Bound. #5 does 4 flops per (row, key) pair and depth (S, P.V), #6 6 (S,
 // dP, dQ), #7 8 (S, dP, dV, dK), and each reads its inputs and writes its
@@ -473,242 +464,6 @@ __global__ void __launch_bounds__(kThreads) stream_backward_dkdv(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core forward #5 (stream_forward_tc); the backward #6/#7 runs
-// zt::tc::dq_tc and zt::tc::dkdv_tc (zt_attention_tc.cuh)
-// ---------------------------------------------------------------------------
-namespace tc {
-
-using namespace zt::tc;
-
-// cp.async ring slots and resident blocks per SM of #5 at DP = 64 (one at
-// DP = 128), as for #6
-constexpr int kFwdStages = 3, kFwdMinBlocks = 3;
-
-template <int DP>
-constexpr size_t fwd_smem() {
-  return sizeof(bf16) * (kBlockRows * DP + kFwdStages * 2 * kKeys * DP) +
-         sizeof(float) * kFwdStages * kKeys + 1024;
-}
-
-// The rows of a #5 thread (fragment rows h = 0, 1): the running max m of
-// s * scale (from -1e30: every row has a key), m * log2(e) rounded apart,
-// this thread's share of the undropped sum l, the row's seed word.
-struct FwdRows {
-  int row[2];
-  float m[2], ml[2], l[2];
-  uint32_t seed[2];
-};
-
-// The online softmax over the key tile at k0, from S (s): the row max
-// (quad shuffles), the rescale of l and of the O accumulator o by alpha,
-// then the dropped weights P into s. EDGE: the tile may hold keys past Lk
-// or, under the causal flag, keys past a row; both are absent. Masked keys
-// exist at -1e30: exp(-1e30 - m) is 0 beside a valid key, and exactly 1 on
-// a row with none (m = -1e30), whose weights are then uniform.
-template <int DP, bool EDGE>
-__device__ __forceinline__ void fwd_scores(const Params& p, float (&s)[32],
-                                           float (&o)[DP / 2], FwdRows& r,
-                                           const float* pd, int k0,
-                                           float scale_log2) {
-  const float masked_log2 = kMasked * kLog2e;
-  float smax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = frag_col(j) + e, key = k0 + c;
-      const bool pad_ok = pd[c] > 0.f;   // 0 past Lk
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (pad_ok && (!EDGE || !p.causal || key <= r.row[h]))
-          smax[h] = fmaxf(smax[h], s[4 * j + 2 * h + e]);
-    }
-  float alpha[2], masked[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    // max(s) * scale is the max of s * scale (rounding is monotone)
-    const float m_new = fmaxf(r.m[h], quad_max(smax[h]) * p.scale);
-    const float ml_new = __fmul_rn(m_new, kLog2e);
-    alpha[h] = fast_exp2(__fsub_rn(r.ml[h], ml_new));
-    r.m[h] = m_new;
-    r.ml[h] = ml_new;
-    // a masked key's exponent, subtracted plainly (no fused multiply-add)
-    // so that it is exactly 0 where m = -1e30
-    masked[h] = __fsub_rn(masked_log2, ml_new);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = frag_col(j) + e, key = k0 + c;
-      const bool pad_ok = pd[c] > 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int x = 4 * j + 2 * h + e;
-        const bool exists =
-            !EDGE || (key < p.lk && (!p.causal || key <= r.row[h]));
-        float w = 0.f;
-        if (exists) {
-          // one exponential a pair, of the valid or the masked exponent
-          w = fast_exp2(pad_ok ? fmaf(s[x], scale_log2, -r.ml[h])
-                               : masked[h]);
-          lsum[h] += w;
-          if (p.dropout)
-            w = zt::keep_key(r.seed[h], key, p.s1, p.threshold)
-                    ? w * p.drop_scale : 0.f;
-        }
-        s[x] = w;
-      }
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) r.l[h] = r.l[h] * alpha[h] + lsum[h];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      o[4 * j + 2 * h] *= alpha[h];
-      o[4 * j + 2 * h + 1] *= alpha[h];
-    }
-}
-
-// #5: grid (ceil(Lq / kBlockRows), B*H)
-template <int DP>
-__global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
-    stream_forward_tc(Params p) {
-  extern __shared__ unsigned char smem_raw[];
-  bf16* qs = align1024(smem_raw);                 // [kBlockRows][DP]
-  bf16* ring = qs + kBlockRows * DP;              // slots of K, V [64][DP]
-  float* pads = reinterpret_cast<float*>(ring + kFwdStages * 2 * kKeys * DP);
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y, b = bh / p.heads;
-  const int q0 = blockIdx.x * kBlockRows, dh = p.dh;
-  const size_t qoff = (size_t)bh * p.lq * dh;
-  const bf16* k = (const bf16*)p.k + (size_t)bh * p.lk * dh;
-  const bf16* v = (const bf16*)p.v + (size_t)bh * p.lk * dh;
-  const float* pad = p.pad + (size_t)b * p.lk;
-  const int k_end = p.causal ? min(p.lk, q0 + kBlockRows) : p.lk;
-  const int tiles = (k_end + kKeys - 1) / kKeys;
-
-  auto load = [&](int slot, int t) {
-    const int k0 = t * kKeys;
-    bf16* ks = ring + slot * 2 * kKeys * DP;
-    load_tile<kKeys, DP, kThreadsTC>(ks, k, dh, k0, 0, p.lk, dh);
-    load_tile<kKeys, DP, kThreadsTC>(ks + kKeys * DP, v, dh, k0, 0, p.lk, dh);
-    if (tid < kKeys) {
-      const bool ok = k0 + tid < p.lk;
-      cp_async4(pads + slot * kKeys + tid, ok ? pad + k0 + tid : pad, ok);
-    }
-  };
-  load_tile<kBlockRows, DP, kThreadsTC>(qs, (const bf16*)p.q + qoff, dh, q0,
-                                        0, p.lq, dh);
-#pragma unroll
-  for (int s = 0; s < kFwdStages - 1; ++s) {
-    if (s < tiles) load(s, s);
-    cp_async_commit();
-  }
-
-  const float scale_log2 = p.scale * kLog2e;
-  FwdRows rows;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rows.row[h] = q0 + frag_row(h);
-    rows.m[h] = kMasked;
-    rows.ml[h] = __fmul_rn(kMasked, kLog2e);
-    rows.l[h] = 0.f;
-    rows.seed[h] = row_seed(p, bh, rows.row[h]);
-  }
-
-  float s[32], o[DP / 2];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kFwdStages - 2>();
-    fence_proxy_async();   // the copies, visible to the tensor cores
-    __syncthreads();       // and the slot to refill has retired everywhere
-    if (t + kFwdStages - 1 < tiles)
-      load((t + kFwdStages - 1) % kFwdStages, t + kFwdStages - 1);
-    cp_async_commit();
-    const int slot = t % kFwdStages, k0 = t * kKeys;
-    const bf16* ks = ring + slot * 2 * kKeys * DP;
-    const bf16* vs = ks + kKeys * DP;
-
-    // S = Q.K^T over this warpgroup's 64 rows
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16)
-      wgmma_ss<64>(s, k_desc(qs, kBlockRows, kk), k_desc(ks, kKeys, kk),
-                   kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-
-    // the diagonal tile under the causal flag and the tile that straddles
-    // Lk take the edge rules; every other tile only the pad mask
-    if (k0 + kKeys > p.lk || (p.causal && k0 + kKeys - 1 > q0))
-      fwd_scores<DP, true>(p, s, o, rows, pads + slot * kKeys, k0,
-                           scale_log2);
-    else
-      fwd_scores<DP, false>(p, s, o, rows, pads + slot * kKeys, k0,
-                            scale_log2);
-
-    // O += P.V: P (bf16) from registers, V m/n-major (keys are the k)
-    uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(s, kk, a[kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DP>(o, a[kk], mn_desc(vs, kKeys, 16 * kk), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-  }
-  cp_async_wait<0>();
-
-  // o = O / l; m and l apart, in the units the backward reads
-  float l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] = quad_sum(rows.l[h]);
-    const float inv = 1.f / l[h];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      o[4 * j + 2 * h] *= inv;
-      o[4 * j + 2 * h + 1] *= inv;
-    }
-  }
-  store_acc<DP>((bf16*)p.out + qoff, o, q0, p.lq, dh, 1.f);
-  if ((tid & 3) == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (rows.row[h] < p.lq) {
-        p.m[(size_t)bh * p.lq + rows.row[h]] = rows.m[h];
-        p.l[(size_t)bh * p.lq + rows.row[h]] = l[h];
-      }
-  }
-}
-
-template <int DP>
-cudaError_t launch_forward(const Params& p, int bh, cudaStream_t s) {
-  cudaError_t err = zt::allow_smem(stream_forward_tc<DP>, fwd_smem<DP>());
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.lq + kBlockRows - 1) / kBlockRows, bh);
-  stream_forward_tc<DP><<<grid, kThreadsTC, fwd_smem<DP>(), s>>>(p);
-  return cudaGetLastError();
-}
-
-// bf16 only; head depth a multiple of 16 up to 128
-int run_forward(const Params& p, int dtype, int bh, void* stream) {
-  if (!takes(dtype, p.dh)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(p.dh <= 64 ? launch_forward<64>(p, bh, s)
-                          : launch_forward<128>(p, bh, s));
-}
-
-}  // namespace tc
-
 enum Which { kForward = 0, kDq = 1, kDkdv = 2 };
 
 template <typename T, int NC>
@@ -838,7 +593,7 @@ extern "C" int zt_streaming_forward_tc(
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1);
   p.out = o;
-  return tc::run_forward(p, dtype, batch * heads, stream);
+  return zt::tc::run_forward<false>(p, dtype, batch * heads, stream);
 }
 
 extern "C" int zt_streaming_backward_dq_tc(

@@ -1,23 +1,33 @@
 // Attention code shared by the port's attention libraries
 // (streaming_attention.cu, fused_attention.cu): the launch parameters, the
 // row seed of the dropout mask, and in namespace tc the bf16 tensor-core
-// backward, FlashAttention-2 style, that both run:
+// forward and backward, FlashAttention-2 style, that both run:
 //
-//   dq_tc    #6, and #2's first half: delta = rowsum(dO * O), then dq over
-//            the key tiles.
-//   dkdv_tc  #7, and #2's second half: a block owns 64 keys and walks the
-//            query tiles for dk and dv.
+//   forward_tc  #5, and #1: the online softmax over 64-key tiles; writes o
+//               and the row statistics m and l apart.
+//   dq_tc       #6, and #2's first half: delta = rowsum(dO * O), then dq
+//               over the key tiles.
+//   dkdv_tc     #7, and #2's second half: a block owns 64 keys and walks
+//               the query tiles for dk and dv.
 //
-// The weights are recomputed from the forward's m (the max of s * Dh^-0.5,
-// or -1e30 on a row with no valid key) and l (the undropped sum), stored
-// apart; no [Lq, Lk] tensor leaves the SM.
-//   * A block is one warpgroup (128 threads) owning 64 query rows (dq) or
-//     64 keys (dk/dv), three blocks to an SM. Q, K, V and dO tiles are
-//     staged as stored (row-major [rows, Dh], zero past Lq, Lk and Dh) into
-//     128-byte-swizzled shared memory (zt_wgmma.cuh) through a cp.async
-//     ring; the head depth is padded to DP = 64 or 128 columns. m, l, delta
-//     (fp32) come with each query tile, as 4-byte copies, and each query
-//     row's seed word is hashed once per tile beside them.
+// m is the max of s * Dh^-0.5 over a row's valid keys, or -1e30 on a row
+// with none; l is the undropped sum of exp(s * Dh^-0.5 - m). The backward
+// recomputes the weights from them; no [Lq, Lk] tensor leaves the SM.
+//   * A block is one warpgroup (128 threads) owning 64 query rows (forward,
+//     dq) or 64 keys (dk/dv), three blocks to an SM. Q, K, V and dO tiles
+//     are staged as stored (row-major [rows, Dh], zero past Lq, Lk and Dh)
+//     into 128-byte-swizzled shared memory (zt_wgmma.cuh) through a
+//     cp.async ring; the head depth is padded to DP = 64 or 128 columns.
+//     The key pad values come with each key tile, m, l and delta (fp32)
+//     with each query tile, as 4-byte copies, and each query row's seed
+//     word is hashed once per tile beside them.
+//   * forward (grid: 64-row query tiles x B*H): Q staged once; per 64-key
+//     tile S = Q.K^T by wgmma m64n64k16 (both k-major), the online softmax
+//     on the accumulator fragment (a row's max by shuffles within the quad;
+//     m, l and the DP/2-register O accumulator in fp32, O rescaled by
+//     alpha), P dropped by the keep bit, scaled by 1/(1 - p) and rounded to
+//     bf16 straight into the A fragment, O += P.V with the staged V tile
+//     read m/n-major; o = O / l in bf16.
 //   * dq (grid: 64-row query tiles x B*H): delta = rowsum(dO * O) in fp32
 //     first, written for dk/dv. Over the 64-key tiles (stopping at the
 //     diagonal under the causal flag): S = Q.K^T and dP = dO.V^T by wgmma
@@ -35,24 +45,37 @@
 //     staged Q and dO tiles read m/n-major. dk = dK * scale, dv = dV in
 //     bf16.
 //   P and dS are rounded to bf16 as the products' A operands, as in every
-//   FlashAttention backward; everything else stays fp32.
+//   FlashAttention kernel (the JAX kernels multiply the weights in fp32);
+//   everything else stays fp32.
 //
-// The mask rule (template argument FUSED of dkdv_tc). Under the causal flag
-// the streaming kernels (#5-#7) treat keys past a row as absent: a row
-// normalises over the keys up to it. The fused kernels (#1/#2, and the JAX
-// kernel's _scores) keep them, masked at -1e30: a row whose visible keys
-// are all padded (an all-pad batch row of decoder self-attention) gets
-// uniform weights over all Lk keys. dS is 0 at every masked entry, so dq and
-// dk agree under both rules and dq_tc takes no rule; dv differs, since such
-// a row gives a 1/l share of its dropped dO to every key, the keys above
-// the diagonal too. So under the fused rule dk/dv also walks the query
-// tiles above the diagonal that hold a row at m = -1e30. Such rows come
+// The mask rule (template argument FUSED of forward_tc and dkdv_tc). Under
+// the causal flag the streaming kernels (#5-#7) treat keys past a row as
+// absent: a row normalises over the keys up to it. The fused kernels
+// (#1/#2, and the JAX kernel's _scores) keep them, masked at -1e30: a row
+// whose visible keys are all padded (an all-pad batch row of decoder
+// self-attention) gets uniform weights over all Lk keys. Such rows come
 // first (row i sees every key that row i - 1 sees), so a tile holds one iff
-// its first row is one: a warpgroup vote over m at the first row of each
-// tile above the diagonal, once before the walk, counts them, and the walk
-// takes those tiles and then the tiles from the diagonal on. Every batch
-// row with a valid key keeps the causal skip, and the walk itself has no
-// per-tile branch (a per-tile vote inside the loop made ptxas spill).
+// its first row is one.
+//   * forward: a block may stop at the diagonal only if its first row q0
+//     has a valid key, i.e. some key j <= q0 is not padded; one warpgroup
+//     vote over the pad mask before the walk decides it, and a block that
+//     fails it walks all ceil(Lk / 64) key tiles, where keys past a row
+//     enter at the masked exponent. A row with a valid key gets exactly 0
+//     from every masked key; a row without one gets exactly 1 from each key
+//     (below), so it averages all Lk keys.
+//   * dq and dk agree under both rules (dS is 0 at every masked entry), so
+//     dq_tc takes no rule.
+//   * dv differs, since such a row gives a 1/l share of its dropped dO to
+//     every key, the keys above the diagonal too. So under the fused rule
+//     dk/dv also walks the query tiles above the diagonal that hold a row
+//     at m = -1e30: a warpgroup vote over m at the first row of each tile
+//     above the diagonal, once before the walk, counts them, and the walk
+//     takes those tiles and then the tiles from the diagonal on. Every
+//     batch row with a valid key keeps the causal skip, and the walk itself
+//     has no per-tile branch (a per-tile vote inside the loop made ptxas
+//     spill).
+// The masked exponent -1e30 * log2(e) - m * log2(e) is subtracted plainly
+// (no fused multiply-add), so that on a row with m = -1e30 it is exactly 0.
 
 #pragma once
 
@@ -98,14 +121,15 @@ using bf16 = __nv_bfloat16;
 using Params = AttnParams;
 
 constexpr int kThreadsTC = 128;   // one warpgroup
-constexpr int kBlockRows = 64;    // query rows (#5, dq) or keys (dk/dv)
-constexpr int kKeys = 64;         // keys of a tile that #5 and dq walk
-// cp.async ring slots and resident blocks per SM of dq and dk/dv (at DP =
-// 64; one at DP = 128), chosen on the card at B=2, H=4, L=8320 (PERF.md,
-// Findings): one warpgroup a block with three blocks to an SM ran faster
-// than two warpgroups sharing their tiles with one block to an SM, because
-// blocks that are not in step overlap one's products with another's
-// softmax.
+constexpr int kBlockRows = 64;    // query rows (forward, dq) or keys (dk/dv)
+constexpr int kKeys = 64;         // keys of a tile that forward and dq walk
+// cp.async ring slots and resident blocks per SM of forward, dq and dk/dv
+// (at DP = 64; one at DP = 128), chosen on the card at B=2, H=4, L=8320
+// (PERF.md, Findings): one warpgroup a block with three blocks to an SM ran
+// faster than two warpgroups sharing their tiles with one block to an SM,
+// because blocks that are not in step overlap one's products with
+// another's softmax.
+constexpr int kFwdStages = 3, kFwdMinBlocks = 3;
 constexpr int kDqStages = 3, kDqMinBlocks = 3;
 constexpr int kKvStages = 3, kKvMinBlocks = 3;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -191,6 +215,234 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[DP / 2],
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale,
                                   acc[4 * j + 2 * h + 1] * scale);
     }
+}
+
+template <int DP>
+constexpr size_t fwd_smem() {
+  return sizeof(bf16) * (kBlockRows * DP + kFwdStages * 2 * kKeys * DP) +
+         sizeof(float) * kFwdStages * kKeys + 1024;
+}
+
+// The rows of a forward thread (fragment rows h = 0, 1): the running max m
+// of s * scale over the valid keys (from -1e30), m * log2(e) rounded apart,
+// this thread's share of the undropped sum l, the row's seed word.
+struct FwdRows {
+  int row[2];
+  float m[2], ml[2], l[2];
+  uint32_t seed[2];
+};
+
+// The online softmax over the key tile at k0, from S (s): the row max
+// (quad shuffles), the rescale of l and of the O accumulator o by alpha,
+// then the dropped weights P into s. EDGE: the tile may hold keys past Lk
+// (absent) or, under the causal flag, keys past a row: absent under the
+// streaming rule, masked under the fused rule (FUSED). A masked key enters
+// at -1e30: exp(-1e30 - m) is 0 beside a valid key, and exactly 1 on a row
+// with none (m = -1e30), whose weights are then uniform.
+template <int DP, bool EDGE, bool FUSED>
+__device__ __forceinline__ void fwd_scores(const Params& p, float (&s)[32],
+                                           float (&o)[DP / 2], FwdRows& r,
+                                           const float* pd, int k0,
+                                           float scale_log2) {
+  const float masked_log2 = kMasked * kLog2e;
+  float smax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, key = k0 + c;
+      const bool pad_ok = pd[c] > 0.f;   // 0 past Lk
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (pad_ok && (!EDGE || !p.causal || key <= r.row[h]))
+          smax[h] = fmaxf(smax[h], s[4 * j + 2 * h + e]);
+    }
+  float alpha[2], masked[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // max(s) * scale is the max of s * scale (rounding is monotone)
+    const float m_new = fmaxf(r.m[h], quad_max(smax[h]) * p.scale);
+    const float ml_new = __fmul_rn(m_new, kLog2e);
+    alpha[h] = fast_exp2(__fsub_rn(r.ml[h], ml_new));
+    r.m[h] = m_new;
+    r.ml[h] = ml_new;
+    // a masked key's exponent, subtracted plainly (no fused multiply-add)
+    // so that it is exactly 0 where m = -1e30
+    masked[h] = __fsub_rn(masked_log2, ml_new);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, key = k0 + c;
+      const bool pad_ok = pd[c] > 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * j + 2 * h + e;
+        const bool seen = !EDGE || !p.causal || key <= r.row[h];
+        const bool exists = !EDGE || (key < p.lk && (FUSED || seen));
+        // under the streaming rule a key that exists is seen
+        const bool valid = FUSED ? pad_ok && seen : pad_ok;
+        float w = 0.f;
+        if (exists) {
+          // one exponential a pair, of the valid or the masked exponent
+          w = fast_exp2(valid ? fmaf(s[x], scale_log2, -r.ml[h])
+                              : masked[h]);
+          lsum[h] += w;
+          if (p.dropout)
+            w = zt::keep_key(r.seed[h], key, p.s1, p.threshold)
+                    ? w * p.drop_scale : 0.f;
+        }
+        s[x] = w;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) r.l[h] = r.l[h] * alpha[h] + lsum[h];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      o[4 * j + 2 * h] *= alpha[h];
+      o[4 * j + 2 * h + 1] *= alpha[h];
+    }
+}
+
+// o, m, l of 64 query rows; grid (ceil(Lq / kBlockRows), B*H)
+template <int DP, bool FUSED>
+__global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
+    forward_tc(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = align1024(smem_raw);                 // [kBlockRows][DP]
+  bf16* ring = qs + kBlockRows * DP;              // slots of K, V [64][DP]
+  float* pads = reinterpret_cast<float*>(ring + kFwdStages * 2 * kKeys * DP);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y, b = bh / p.heads;
+  const int q0 = blockIdx.x * kBlockRows, dh = p.dh;
+  const size_t qoff = (size_t)bh * p.lq * dh;
+  const bf16* k = (const bf16*)p.k + (size_t)bh * p.lk * dh;
+  const bf16* v = (const bf16*)p.v + (size_t)bh * p.lk * dh;
+  const float* pad = p.pad + (size_t)b * p.lk;
+
+  auto load = [&](int slot, int t) {
+    const int k0 = t * kKeys;
+    bf16* ks = ring + slot * 2 * kKeys * DP;
+    load_tile<kKeys, DP, kThreadsTC>(ks, k, dh, k0, 0, p.lk, dh);
+    load_tile<kKeys, DP, kThreadsTC>(ks + kKeys * DP, v, dh, k0, 0, p.lk, dh);
+    if (tid < kKeys) {
+      const bool ok = k0 + tid < p.lk;
+      cp_async4(pads + slot * kKeys + tid, ok ? pad + k0 + tid : pad, ok);
+    }
+  };
+  load_tile<kBlockRows, DP, kThreadsTC>(qs, (const bf16*)p.q + qoff, dh, q0,
+                                        0, p.lq, dh);
+
+  // causal: the walk stops at the diagonal tile; under the fused rule only
+  // if row q0 (and with it every row of the block) has a valid key
+  int k_end = p.causal ? min(p.lk, q0 + kBlockRows) : p.lk;
+  if (FUSED && p.causal) {
+    const int last = min(q0, p.lk - 1);
+    int seen = 0;
+    for (int j0 = 0; j0 <= last && !seen; j0 += kThreadsTC)
+      seen = __syncthreads_or(j0 + tid <= last && pad[j0 + tid] > 0.f);
+    if (!seen) k_end = p.lk;
+  }
+  const int tiles = (k_end + kKeys - 1) / kKeys;
+#pragma unroll
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (s < tiles) load(s, s);
+    cp_async_commit();
+  }
+
+  const float scale_log2 = p.scale * kLog2e;
+  FwdRows rows;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rows.row[h] = q0 + frag_row(h);
+    rows.m[h] = kMasked;
+    rows.ml[h] = __fmul_rn(kMasked, kLog2e);
+    rows.l[h] = 0.f;
+    rows.seed[h] = row_seed(p, bh, rows.row[h]);
+  }
+
+  float s[32], o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kFwdStages - 2>();
+    fence_proxy_async();   // the copies, visible to the tensor cores
+    __syncthreads();       // and the slot to refill has retired everywhere
+    if (t + kFwdStages - 1 < tiles)
+      load((t + kFwdStages - 1) % kFwdStages, t + kFwdStages - 1);
+    cp_async_commit();
+    const int slot = t % kFwdStages, k0 = t * kKeys;
+    const bf16* ks = ring + slot * 2 * kKeys * DP;
+    const bf16* vs = ks + kKeys * DP;
+
+    // S = Q.K^T over this warpgroup's 64 rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss<64>(s, k_desc(qs, kBlockRows, kk), k_desc(ks, kKeys, kk),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // the tiles from the diagonal on under the causal flag and the tile
+    // that straddles Lk take the edge rules; every other tile only the pad
+    // mask
+    if (k0 + kKeys > p.lk || (p.causal && k0 + kKeys - 1 > q0))
+      fwd_scores<DP, true, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
+                                  scale_log2);
+    else
+      fwd_scores<DP, false, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
+                                   scale_log2);
+
+    // O += P.V: P (bf16) from registers, V m/n-major (keys are the k)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(s, kk, a[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(o, a[kk], mn_desc(vs, kKeys, 16 * kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  cp_async_wait<0>();
+
+  // o = O / l; m and l apart, in the units the backward reads
+  float l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(rows.l[h]);
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j + 2 * h] *= inv;
+      o[4 * j + 2 * h + 1] *= inv;
+    }
+  }
+  store_acc<DP>((bf16*)p.out + qoff, o, q0, p.lq, dh, 1.f);
+  if ((tid & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (rows.row[h] < p.lq) {
+        p.m[(size_t)bh * p.lq + rows.row[h]] = rows.m[h];
+        p.l[(size_t)bh * p.lq + rows.row[h]] = l[h];
+      }
+  }
+}
+
+template <int DP, bool FUSED>
+cudaError_t launch_forward_dp(const Params& p, int bh, cudaStream_t s) {
+  cudaError_t err = allow_smem(forward_tc<DP, FUSED>, fwd_smem<DP>());
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.lq + kBlockRows - 1) / kBlockRows, bh);
+  forward_tc<DP, FUSED><<<grid, kThreadsTC, fwd_smem<DP>(), s>>>(p);
+  return cudaGetLastError();
 }
 
 // The rows of a dq thread (fragment rows h = 0, 1).
@@ -574,6 +826,16 @@ cudaError_t launch_backward_dp(const Params& p, int bh, bool dkdv,
 // depth a multiple of 16 up to 128.
 inline bool takes(int dtype, int dh) {
   return dtype == 1 && dh % 16 == 0 && dh <= 128;
+}
+
+// o, m, l (p.out, p.m, p.l) under the mask rule FUSED; a launch the
+// kernels do not take returns cudaErrorInvalidValue
+template <bool FUSED>
+int run_forward(const Params& p, int dtype, int bh, void* stream) {
+  if (!takes(dtype, p.dh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(p.dh <= 64 ? launch_forward_dp<64, FUSED>(p, bh, s)
+                          : launch_forward_dp<128, FUSED>(p, bh, s));
 }
 
 // dq (dkdv false) or dk/dv (dkdv true) under the mask rule FUSED; a launch

@@ -18,17 +18,21 @@ Replaces the Pallas TPU kernels of ``zero_tpu/ops/kernels/decode_attention.py``:
   ``cross_attn_step`` (speed-neutral at MT lengths), and so does the port:
   ``chip_smoke.py`` launches it at long-memory and MT shapes.
 
-The first two run one CUDA kernel, the third its own (split over S, with
-a second kernel folding the splits), in ``csrc/decode_attention.cu`` (its
-header explains the design). Bound on the card: device-memory bytes -- the
-K and V head slices of the selected rows of positions <= ``time``, plus the
-query, the ancestry entries and the output, over the card's bandwidth
-(3.35 TB/s on an H100 SXM). The operations (4 per K/V element pair) are
-~2 per byte read, far below the ~295 flops/byte where the tensor cores
-would bound it. The kernel reads each selected element once and gathers
-pool rows by the ancestry index directly, where the TPU kernel made K
-masked passes over every pool row. The cross kernel reads each memory
-element once per batch row, for all its beams.
+The first two run one CUDA kernel, the third its own, in
+``csrc/decode_attention.cu`` (its header explains the design); where the
+blocks of one (row, head) each would leave SMs idle (a long cache at small
+batch), both split their positions into chunks (``decode_splits``,
+``cross_splits``) and a second kernel folds the chunks. Bound on the card:
+device-memory bytes -- the K and V head slices of the selected rows of
+positions <= ``time``, plus the query, the ancestry entries and the
+output, over the card's bandwidth (3.35 TB/s on an H100 SXM). The
+operations (4 per K/V element pair) are ~2 per byte read, far below the
+~295 flops/byte where the tensor cores would bound it. The single-query
+kernel reads each selected element once, in 16-byte loads, in one pass (an
+online softmax per group of lanes), and gathers pool rows by the ancestry
+index directly, where the TPU kernel made K masked passes over every pool
+row. The cross kernel reads each memory element once per batch row, for
+all its beams.
 
 Dispatch: a CUDA tensor launches the kernel, or raises when the kernel
 does not take the input; a CPU tensor goes to the plain version
@@ -55,12 +59,13 @@ from zero_tpu_torch.ops.kernels import cuda_build
 NEG_INF = -1e9   # the masked-logit value of zero_tpu/ops/attention.py
 CROSS_NEG_INF = -1e30   # the masked-logit value of _cross_kernel
 
-# the kernel keeps one head slice per lane group (<= 256 elements) and the
-# (time+1) fp32 weights in shared memory (<= 40 KB of the 48 KB static
-# limit); the wrappers raise outside these bounds. The cross kernel streams
-# the memory in tiles: S has no bound.
+# the JAX package's limits on the single-query kernels (head depth, cache
+# length); the wrappers raise outside them. The cross kernel streams the
+# memory in tiles: S has no bound.
 MAX_HEAD_DIM = 256
 MAX_POSITIONS = 10240
+DECODE_BLOCKS_PER_SM = 4     # the single-query kernel's split target
+DECODE_MIN_CHUNK = 256       # its least positions per split
 CROSS_BEAMS_PER_BLOCK = 16   # the cross kernel's beams per block
 CROSS_MIN_CHUNK = 256        # its least memory positions per split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,6 +74,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # "decode_cross_attention") and calls of the plain versions (the same names
 # with "_ref")
 launches: collections.Counter = collections.Counter()
+# the splits over positions of each single-query kernel's last launch
+taken: dict = {}
 
 
 def build() -> str:
@@ -80,8 +87,9 @@ def build() -> str:
 @functools.lru_cache(maxsize=None)
 def _library():
     fn = cuda_build.load("decode_attention").zt_single_query_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,16 +123,52 @@ def _check(q, k, v, time, num_heads, name):
                          % (name, time, t_max, MAX_POSITIONS))
 
 
-def _launch(q, k, v, ancestry, rows, beams, num_heads, time, relu):
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(blocks: int, n: int, sms: int, per_sm: int, min_chunk: int,
+            tile: int):
+    """(splits, chunk) of ``n`` positions over ``blocks`` blocks each: split
+    until about ``per_sm`` blocks per SM are in flight, each split at least
+    ``min_chunk`` positions, chunks a multiple of ``tile``."""
+    splits = max(1, min(-(-per_sm * sms // blocks), n // min_chunk))
+    chunk = -(-n // splits)
+    chunk = -(-chunk // tile) * tile
+    return -(-n // chunk), chunk
+
+
+def decode_splits(blocks: int, n: int, sms: int):
+    """(splits, chunk) of the single-query kernel: ``blocks`` (rows x heads)
+    over ``n`` positions; chunks a multiple of 64 (a block's positions per
+    iteration at Dh 64 in bf16). ``scripts/decode_split_sweep.py`` times
+    the kernel against DECODE_BLOCKS_PER_SM."""
+    return _splits(blocks, n, sms, DECODE_BLOCKS_PER_SM, DECODE_MIN_CHUNK, 64)
+
+
+def _launch(name, q, k, v, ancestry, rows, beams, num_heads, time, relu):
     out = torch.empty_like(q)
     hidden = q.shape[-1]
+    dh = hidden // num_heads
+    splits, chunk = decode_splits(rows * num_heads, int(time) + 1,
+                                  _sms(q.device))
+    part_o = part_ml = None
+    if splits > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_o = torch.empty((rows // beams, num_heads, splits, beams, dh),
+                             **f32)
+        part_ml = torch.empty((rows // beams, num_heads, splits, beams, 2),
+                              **f32)
+    taken[name] = splits
     with torch.cuda.device(q.device):
         err = _library()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if ancestry is None else ancestry.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], rows, beams, k.shape[-2],
-            hidden, num_heads, int(time), int(relu),
-            float(hidden // num_heads) ** -0.5,
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            _DTYPES[q.dtype], rows, beams, k.shape[-2], hidden, num_heads,
+            int(time), int(relu), float(dh) ** -0.5, splits, chunk,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("decode-attention kernel launch failed: CUDA "
@@ -217,7 +261,8 @@ def decode_attention(q, k, v, time: int, num_heads: int):
         raise ValueError("decode_attention: need q [B, 1, hidden] and k, v "
                          "[B, T, hidden]; got %s, %s, %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    out = _launch(q, k, v, None, b, 1, num_heads, time, False)
+    out = _launch("decode_attention", q, k, v, None, b, 1, num_heads, time,
+                  False)
     launches["decode_attention"] += 1
     return out
 
@@ -251,19 +296,16 @@ def decode_pool_attention(q, k, v, ancestry, time: int, num_heads: int,
             or ancestry.device != q.device:
         raise ValueError("decode_pool_attention: ancestry must be a "
                          "contiguous int32 tensor on %s" % q.device)
-    out = _launch(q, k, v, ancestry, b * beams, beams, num_heads, time, relu)
+    out = _launch("decode_pool_attention", q, k, v, ancestry, b * beams,
+                  beams, num_heads, time, relu)
     launches["decode_pool_attention"] += 1
     return out
 
 
 def cross_splits(blocks: int, s_len: int, sms: int):
-    """(splits, chunk) of the cross kernel's memory axis: split S until
-    about two blocks per SM are in flight, each split at least
-    CROSS_MIN_CHUNK positions, chunks a multiple of the 32-position tile."""
-    splits = max(1, min(-(-2 * sms // blocks), s_len // CROSS_MIN_CHUNK))
-    chunk = -(-s_len // splits)
-    chunk = -(-chunk // 32) * 32
-    return -(-s_len // chunk), chunk
+    """(splits, chunk) of the cross kernel's memory axis: about two blocks
+    per SM, chunks a multiple of the 32-position tile."""
+    return _splits(blocks, s_len, sms, 2, CROSS_MIN_CHUNK, 32)
 
 
 def decode_cross_attention(q, mk, mv, mask, num_heads: int):
@@ -305,7 +347,7 @@ def decode_cross_attention(q, mk, mv, mask, num_heads: int):
     s_len, dh = mk.shape[1], hidden // num_heads
     splits, chunk = cross_splits(
         b * num_heads * -(-beams // CROSS_BEAMS_PER_BLOCK), s_len,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+        _sms(q.device))
     part_o = part_ml = None
     if splits > 1:
         part_o = torch.empty((b, num_heads, splits, beams, dh),

@@ -12,16 +12,18 @@ Replaces the Pallas TPU kernels of ``zero_tpu/ops/kernels/fused_attention.py``:
 
 Both run ``csrc/fused_attention.cu`` (its header gives the design and the
 bound), wrapped in one ``torch.autograd.Function`` whose backward is the
-backward kernel. The forward runs on the CUDA cores. Which backward runs
-on the card is ``backward_route(dtype, Dh)``: the tensor-core one
-(``wgmma``, bf16 in, fp32 accumulation; the streaming backward's #6/#7
-kernels of ``csrc/zt_attention_tc.cuh`` under the fused mask rule) for
-bf16 with a head depth that is a multiple of 16 up to 128, the CUDA-core
-one for fp32 (which must stay exact) and for bf16 at other depths. Under
-the causal flag the fused rule keeps keys past a row, masked at -1e30 (the
-JAX kernel's ``_scores``): a row whose visible keys are all padded gets
-uniform weights over all Lk keys, where the streaming route gives them
-over the keys up to the row.
+backward kernel. Which kernels run on the card is ``forward_route(dtype,
+Dh)``, taken once for both directions: the tensor-core ones (``wgmma``,
+bf16 in, fp32 accumulation; the streaming kernels #5-#7 of
+``csrc/zt_attention_tc.cuh`` under the fused mask rule) for bf16 with a
+head depth that is a multiple of 16 up to 128, the CUDA-core ones for fp32
+(which must stay exact: TF32 would give ~1e-3 against the fp32 models'
+1e-4 tolerance) and for bf16 at other depths. Under the causal flag the
+fused rule keeps keys past a row, masked at -1e30 (the JAX kernel's
+``_scores``): a row whose visible keys are all padded gets uniform weights
+over all Lk keys, where the streaming route gives them over the keys up to
+the row. The tensor-core forward rounds the weights P to bf16 before the
+product with V, as FlashAttention does; the TPU kernel multiplies in fp32.
 
 The Shaw RPR variant (``rpr_tables`` + ``max_relative_position``) replaces
 
@@ -48,8 +50,9 @@ dropout on.
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``fused_attention_ref`` (``fused_attention_rpr_ref`` with tables).
 ``launches`` counts the kernel launches by wrapper ("fused_attention",
-"fused_attention_backward" on the CUDA cores, "fused_attention_backward_tc"
-on the tensor cores, "fused_attention_rpr", "fused_attention_rpr_backward")
+"fused_attention_backward" on the CUDA cores, "fused_attention_tc",
+"fused_attention_backward_tc" on the tensor cores, "fused_attention_rpr",
+"fused_attention_rpr_backward")
 and the plain versions' calls ("fused_attention_ref",
 "fused_attention_rpr_ref").
 """
@@ -85,11 +88,16 @@ def rpr_supported(lq: int, lk: int, max_rel: int) -> bool:
     return 2 * max_rel < lk <= MAX_LK
 
 
-def backward_route(dtype: torch.dtype, dh: int) -> str:
-    """Which backward runs on the card in ``dtype`` at head depth ``dh``:
-    "tensor_cores" (bf16, dh a multiple of 16 up to 128) or "cuda_cores"
-    (the rest); the streaming route's rule."""
-    return sa.route("cuda", dtype, dh)
+def forward_route(dtype: torch.dtype, dh: int, device: str = "cuda") -> str:
+    """Which forward (and with it which backward) runs on ``device`` in
+    ``dtype`` at head depth ``dh``: "plain" on the CPU (the plain versions,
+    the RPR one too), "tensor_cores" on the card in bf16 at dh a multiple of
+    16 up to 128, else "cuda_cores"; the streaming route's rule."""
+    return sa.route(device, dtype, dh)
+
+
+# the route's earlier name, from when only the backward took it
+backward_route = forward_route
 
 
 def keep_mask(words, shape, rate: float, device=None) -> torch.Tensor:
@@ -169,7 +177,10 @@ def _library():
                            ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         bwds.append(bwd)
-    return (fwd,) + tuple(bwds)
+    fwd_tc = lib.zt_attention_forward_tc
+    fwd_tc.argtypes = fwd.argtypes
+    fwd_tc.restype = ctypes.c_int
+    return (fwd,) + tuple(bwds) + (fwd_tc,)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,22 +210,32 @@ def _raise_on(err: int, what: str):
                            "error %d" % (what, err))
 
 
-def _forward(q, k, v, pad, causal, rate, words):
+def _fwd(which, key, q, k, v, pad, causal, rate, words):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     o = torch.empty_like(q)
     m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        err = _library()[0](
+        err = _library()[which](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(), _DTYPES[q.dtype],
             b, h, lq, lk, dh, int(causal), float(dh) ** -0.5,
             *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "forward")
-    launches["fused_attention"] += 1
+    _raise_on(err, key)
+    launches[key] += 1
     return o, m, l
+
+
+def _forward(q, k, v, pad, causal, rate, words):
+    """#1 on the CUDA cores: (o, m, l)."""
+    return _fwd(0, "fused_attention", q, k, v, pad, causal, rate, words)
+
+
+def _forward_tc(q, k, v, pad, causal, rate, words):
+    """#1 on the tensor cores (bf16; 16-byte aligned q, k, v)."""
+    return _fwd(3, "fused_attention_tc", q, k, v, pad, causal, rate, words)
 
 
 def _bwd(which, key, q, k, v, pad, o, do, m, l, causal, rate, words):
@@ -251,11 +272,15 @@ def _backward_tc(q, k, v, pad, o, do, m, l, causal, rate, words):
 
 class _FusedAttention(torch.autograd.Function):
     """Forward kernel; backward kernels for dq, dk, dv (no grad for the
-    pad mask) on the ``route`` that ``backward_route`` picked."""
+    pad mask), both on the ``route`` that ``forward_route`` picked."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad, causal, rate, words, route):
-        o, m, l = _forward(q, k, v, pad, causal, rate, words)
+        if route == "tensor_cores":
+            q, k, v = map(sa._aligned, (q, k, v))
+            o, m, l = _forward_tc(q, k, v, pad, causal, rate, words)
+        else:
+            o, m, l = _forward(q, k, v, pad, causal, rate, words)
         ctx.save_for_backward(q, k, v, pad, o, m, l)
         ctx.args = (causal, rate, words)
         ctx.route = route
@@ -266,7 +291,7 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v, pad, o, m, l = ctx.saved_tensors
         do = do.contiguous()
         if ctx.route == "tensor_cores":
-            q, k, v, o, do = map(sa._aligned, (q, k, v, o, do))
+            do = sa._aligned(do)
             dq, dk, dv = _backward_tc(q, k, v, pad, o, do, m, l, *ctx.args)
         else:
             dq, dk, dv = _backward(q, k, v, pad, o, do, m, l, *ctx.args)
@@ -404,7 +429,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         max_rel = int(max_relative_position)
         tables = (rpr_tables.keys.to(q.dtype).contiguous(),
                   rpr_tables.values.to(q.dtype).contiguous())
-    if q.device.type == "cpu":
+    route = forward_route(q.dtype, q.shape[-1], q.device.type)
+    if route == "plain":
         if tables is not None:
             return fused_attention_rpr_ref(q, k, v, pad, *tables, max_rel,
                                            causal, rate, rng)
@@ -418,4 +444,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _FusedAttentionRpr.apply(q, k, v, pad, *tables, max_rel,
                                         bool(causal), rate, words)
     return _FusedAttention.apply(q, k, v, pad, bool(causal), rate, words,
-                                 backward_route(q.dtype, q.shape[-1]))
+                                 route)
