@@ -11,9 +11,10 @@ small models.
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
                                         # summary lines
-  python3 chip_smoke.py --phases build,kernels --package DIR   # another
-                                        # checkout's decode kernels, on the
-                                        # same inputs
+  python3 chip_smoke.py --phases build,kernels,long_kernels --package DIR
+                                        # another checkout's decode kernels
+                                        # (#10/#8; #9 in long_kernels), on
+                                        # the same inputs
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -23,7 +24,7 @@ non-zero):
              one process each, all at once; the ptxas register/shared-memory
              report and every kernel that spills registers; the count of
              tensor-core instructions (HGMMA, HMMA) in the SASS of the fused
-             FFN, streaming and fused-attention libraries, whose wgmma
+             FFN, streaming, fused-attention and RPR libraries, whose wgmma
              (HGMMA) count must not be 0
   kernels    decode_attention (#10) and decode_pool_attention (#8, softmax
              and relu) at transformer-base beam-4 decode shapes (B=32
@@ -84,18 +85,24 @@ non-zero):
   rpr_kernels  fused_attention's RPR variant (#3 forward, #4 backward) at
              the train_kernels shapes with max_relative_position 16, fp32
              and bf16, dropout 0 and 0.1: output and the five gradients (dq,
-             dk, dv, dTk, dTv) held against fused_attention_rpr_ref; device
-             times of kernel, plain version, the composite the model runs
-             with use_flash_attention off (_attn_core's one-hot form) and,
-             as a floor, SDPA WITHOUT relative positions, beside the bound
-             (the RPR terms counted)
+             dk, dv, dTk, dTv) held against fused_attention_rpr_ref, #4 on
+             the route forward_route picks (bf16 at Dh 64: the tensor-core
+             #4, launch counts show which ran); checked also (bf16) under
+             the causal flag with an all-pad row at L=200, at head depths
+             128, 32, 80 (tensor cores) and 40 (CUDA cores), and at m=64
+             (129 buckets); device times of kernel, of the CUDA-core #4 on
+             the same inputs (parent_ms), plain version, the composite the
+             model runs with use_flash_attention off (_attn_core's one-hot
+             form) and, as a floor, SDPA WITHOUT relative positions, beside
+             the bound (the RPR terms counted)
   rpr_train  transformer_rpr (configs/transformer_rpr_rela.json: 6+6
              layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
              update_cycle 4) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn, which RPR ignores) on,
              then off: ms/step, tokens/s, MFU (RPR matmuls counted); RPR
              kernel launches = those the steps' own shapes predict (an
-             attention over Lk > 2m keys), no FFN kernel, no plain version;
+             attention over Lk > 2m keys; the backward the tensor-core #4),
+             no FFN kernel, no plain version;
              then --mode test (beam 4: the encoder runs the RPR forward
              kernel, the decoder no decode kernel, RPR keeps both off) and
              --mode score (the RPR forward kernel) of the checkpoint
@@ -118,7 +125,8 @@ non-zero):
              decode_cross_attention (#9, unwired as in the JAX package)
              against its plain version at B=32 beam 4 S=64 and B=4 beam 4
              S=16384, timed beside the composite of cross_attn_step and
-             SDPA
+             SDPA, and checked with a fully masked batch row (which
+             averages all S positions) at 5 beams and at 1; fp32 and bf16
   long_train transformer-base (configs/transformer_base_wmt14.json with
              use_flash_attention and max_len/token_size 16384,
              pad_seq_multiple 128; a constant learning rate 1e-3) trained
@@ -894,142 +902,192 @@ def train_kernels_phase():
 
 RPR_MAX = 16        # max_relative_position of RPR_CONFIG, at ATTN_CASES
 RPR_SMALL_MAX = 3   # rpr_reference's model, at ATTN_SMALL: 2m < every Lk
+# checked, not timed, in bf16 (name, B, H, Lq, Lk, Dh, causal, padded, m):
+# the causal flag with an all-pad batch row (its weights are uniform over
+# all Lk keys, so it feeds dTv's bucket 0 from the keys past the diagonal,
+# which no other row reaches), on 64-row tiles that end ragged; the other
+# head depths the tensor-core #4 takes (128: 32-row dk/dv tiles; 32; 80,
+# padded to 128); a depth it does not take (40: the CUDA-core #4); and the
+# kernel's largest m (R = 129 buckets, three 64-bucket steps)
+RPR_CHECK_CASES = (
+    ("causal_pad_200", 4, 2, 200, 200, 64, True, True, RPR_MAX),
+    ("dh128_causal_pad_136", 2, 2, 136, 136, 128, True, True, RPR_MAX),
+    ("dh32_cross_72x200", 2, 2, 72, 200, 32, False, True, RPR_MAX),
+    ("dh80_causal_pad_136", 2, 2, 136, 136, 80, True, True, RPR_MAX),
+    ("dh40_pad_136", 2, 1, 136, 136, 40, False, True, RPR_MAX),
+    ("m64_causal_pad_200", 2, 2, 200, 200, 64, True, True, 64))
 # the tables as the wrappers read them (.keys, .values), without the
 # parameter wrapping of ops/rpr.py:RprTables, so gradients reach tk and tv
 Tables = collections.namedtuple("Tables", "keys values")
 
 
 def rpr_attention_rows(fa, gen):
-    """Kernels #3/#4 against fused_attention_rpr_ref; returns the rows."""
+    """Kernels #3/#4 against fused_attention_rpr_ref, #4 on the route
+    forward_route picks (bf16 at Dh 64: the tensor-core #4, whose CUDA-core
+    parent is timed on the same inputs as parent_ms); returns the rows."""
     from zero_tpu_torch.ops import attention as attn
 
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES + ATTN_SMALL:
+    cases = [c + (RPR_MAX if c in ATTN_CASES else RPR_SMALL_MAX, dtype)
+             for c in ATTN_CASES + ATTN_SMALL
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [c + (torch.bfloat16,) for c in RPR_CHECK_CASES]
+    for name, b, h, lq, lk, dh, causal, padded, m, dtype in cases:
         timed = name in [c[0] for c in ATTN_CASES]
-        m = RPR_MAX if timed else RPR_SMALL_MAX
         r = 2 * m + 1
-        for dtype in (torch.float32, torch.bfloat16):
-            def inputs():
-                q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
-                k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
-                v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
-                tk = torch.randn(r, dh, generator=gen).to(dev, dtype)
-                tv = torch.randn(r, dh, generator=gen).to(dev, dtype)
-                pad = attention_pad(gen, b, lk, padded)
-                do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
-                return [t.requires_grad_() for t in (q, k, v, tk, tv)] + [
-                    pad.to(dev), do]
 
-            # bound: attention's products over the pairs each row needs,
-            # plus the RPR terms per row (q.Tk and wb.Tv forward; their
-            # recompute, do.Tv, ds_b.Tk, dTk and dTv backward)
-            pairs = attention_pairs(inputs()[5], h, lq, causal)
-            eb = torch.tensor([], dtype=dtype).element_size()
-            rows_rd = b * h * lq * r * dh
-            fwd_bytes = (2 * b * h * lq * dh + 2 * b * h * lk * dh
-                         + 2 * r * dh) * eb + 4 * b * lk
-            bwd_bytes = (4 * b * h * lq * dh + 4 * b * h * lk * dh
-                         + 4 * r * dh) * eb + 4 * b * lk + 8 * b * h * lq
-            for rate in (0.0, 0.1):
-                q, k, v, tk, tv, pad, do = inputs()
-                words = SEED_WORDS if rate else None
-                out = fa.fused_attention(q, k, v, pad, causal=causal,
-                                         dropout_rate=rate, rng=words,
-                                         rpr_tables=Tables(tk, tv),
-                                         max_relative_position=m)
-                grads = torch.autograd.grad(out, (q, k, v, tk, tv), do)
-                ref = fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
-                                                 causal, rate, words)
-                rgrads = torch.autograd.grad(ref, (q, k, v, tk, tv), do)
-                label = "%s[%s,p=%g,m=%d]" % (name, str(dtype)[6:], rate, m)
-                errs = [check("fused_attention_rpr " + label, out, ref, dtype,
-                              TRAIN_TOLERANCE)]
-                errs += [check("fused_attention_rpr_backward %s d%s"
-                               % (label, w), g, rg, dtype, TRAIN_TOLERANCE)
-                         for w, g, rg in zip(("q", "k", "v", "Tk", "Tv"),
-                                             grads, rgrads)]
-                if not all(torch.isfinite(x).all() for x in (out,) + grads):
-                    raise AssertionError("fused_attention_rpr %s: non-finite "
-                                         "output or gradient" % label)
-                if not timed:
-                    phase("rpr_kernels", kernel="fused_attention_rpr",
-                          case=label, max_abs_err=errs[0],
-                          backward_max_abs_err=max(errs[1:]))
-                    continue
-                sets = copies(inputs, fwd_bytes)
+        def inputs():
+            q = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+            k = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+            v = torch.randn(b, h, lk, dh, generator=gen).to(dev, dtype)
+            tk = torch.randn(r, dh, generator=gen).to(dev, dtype)
+            tv = torch.randn(r, dh, generator=gen).to(dev, dtype)
+            pad = attention_pad(gen, b, lk, padded)
+            do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+            return [t.requires_grad_() for t in (q, k, v, tk, tv)] + [
+                pad.to(dev), do]
 
-                def k_fwd(q, k, v, tk, tv, pad, do):
-                    return fa.fused_attention(
-                        q, k, v, pad, causal=causal, dropout_rate=rate,
-                        rng=words, rpr_tables=Tables(tk, tv),
-                        max_relative_position=m)
-
-                def p_fwd(q, k, v, tk, tv, pad, do):
-                    return fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
-                                                      causal, rate, words)
-
-                def l_fwd(q, k, v, tk, tv, pad, do):
-                    # a floor: SDPA computes attention WITHOUT the RPR terms
-                    if causal:
-                        return sdpa(q, k, v, is_causal=True)
-                    return sdpa(q, k, v, attn_mask=(pad > 0)[:, None, None])
-
-                iters = 2 * len(sets)
-                fwd = dict(ms=device_ms(k_fwd, sets, iters),
-                           plain_ms=device_ms(p_fwd, sets, iters))
-                bwd = {}
-                for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
-                    graphs = [(grad_ms(fn(*s), s[:5], s[6]),) for s in sets]
-                    bwd[key] = device_ms(lambda run: run(), graphs, iters)
-                    del graphs
-                if rate == 0.0:
-                    fwd["library_ms"] = device_ms(l_fwd, sets, iters)
-                    graphs = [(grad_ms(l_fwd(*s), s[:3], s[6]),)
-                              for s in sets]
-                    bwd["library_ms"] = device_ms(lambda run: run(), graphs,
-                                                  iters)
-                    del graphs
-                    # the composite of use_flash_attention=false on
-                    # [B, L, hidden] projections, under the same mask
-                    keep = (sets[0][5] > 0)[:, None, None, :]
-                    if causal:
-                        keep = keep & torch.ones(lq, lk, dtype=torch.bool,
-                                                 device=dev).tril()
-                    keep = keep.float()
-                    csets = [[attn.combine_heads(x.detach()).requires_grad_()
-                              for x in s[:3]]
-                             + [x.detach().requires_grad_() for x in s[3:5]]
-                             + [attn.combine_heads(s[6])] for s in sets]
-
-                    def c_fwd(q2, k2, v2, tk, tv, do2):
-                        return attn._attn_core(q2, k2, v2, keep, h,
-                                               rpr_tables=Tables(tk, tv),
-                                               rpr_max=m)[0]
-
-                    fwd["composite_ms"] = device_ms(c_fwd, csets, iters)
-                    graphs = [(grad_ms(c_fwd(*s), s[:5], s[5]),)
-                              for s in csets]
-                    bwd["composite_ms"] = device_ms(lambda run: run(), graphs,
-                                                    iters)
-                    del graphs, csets
-                    bwd["fwd_bwd_ms"] = device_ms(fwd_bwd(k_fwd, 5), sets,
-                                                  iters)
-                fb, fby = bound(fwd_bytes, 4 * pairs * dh + 4 * rows_rd, dtype)
-                bb, bby = bound(bwd_bytes, 10 * pairs * dh + 10 * rows_rd,
-                                dtype)
-                fwd.update(bound_ms=fb, bound_by=fby, max_abs_err=errs[0])
-                bwd.update(bound_ms=bb, bound_by=bby,
-                           max_abs_err=max(errs[1:]))
+        # bound: attention's products over the pairs each row needs,
+        # plus the RPR terms per row (q.Tk and wb.Tv forward; their
+        # recompute, do.Tv, ds_b.Tk, dTk and dTv backward)
+        pairs = attention_pairs(inputs()[5], h, lq, causal)
+        eb = torch.tensor([], dtype=dtype).element_size()
+        rows_rd = b * h * lq * r * dh
+        fwd_bytes = (2 * b * h * lq * dh + 2 * b * h * lk * dh
+                     + 2 * r * dh) * eb + 4 * b * lk
+        bwd_bytes = (4 * b * h * lq * dh + 4 * b * h * lk * dh
+                     + 4 * r * dh) * eb + 4 * b * lk + 8 * b * h * lq
+        tc = fa.forward_route(dtype, dh) == "tensor_cores"
+        want = {"fused_attention_rpr": 1,
+                "fused_attention_rpr_backward" + ("_tc" if tc else ""): 1}
+        for rate in (0.0, 0.1):
+            q, k, v, tk, tv, pad, do = inputs()
+            words = SEED_WORDS if rate else None
+            fa.launches.clear()
+            out = fa.fused_attention(q, k, v, pad, causal=causal,
+                                     dropout_rate=rate, rng=words,
+                                     rpr_tables=Tables(tk, tv),
+                                     max_relative_position=m)
+            grads = torch.autograd.grad(out, (q, k, v, tk, tv), do)
+            if dict(fa.launches) != want:
+                raise AssertionError("fused_attention_rpr %s %s: launches "
+                                     "%s, expected %s" % (
+                                         name, dtype, dict(fa.launches),
+                                         want))
+            ref = fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
+                                             causal, rate, words)
+            rgrads = torch.autograd.grad(ref, (q, k, v, tk, tv), do)
+            label = "%s[%s,p=%g,m=%d]" % (name, str(dtype)[6:], rate, m)
+            errs = [check("fused_attention_rpr " + label, out, ref, dtype,
+                          TRAIN_TOLERANCE)]
+            errs += [check("fused_attention_rpr_backward %s d%s"
+                           % (label, w), g, rg, dtype, TRAIN_TOLERANCE)
+                     for w, g, rg in zip(("q", "k", "v", "Tk", "Tv"),
+                                         grads, rgrads)]
+            if not all(torch.isfinite(x).all() for x in (out,) + grads):
+                raise AssertionError("fused_attention_rpr %s: non-finite "
+                                     "output or gradient" % label)
+            if padded and b > 1 and (grads[0][-1].any()
+                                     or grads[1][-1].any()):
+                raise AssertionError("fused_attention_rpr %s: the all-pad "
+                                     "batch row has nonzero dq or dk"
+                                     % label)
+            if not timed:
                 phase("rpr_kernels", kernel="fused_attention_rpr",
-                      case=label, **fwd)
-                phase("rpr_kernels", kernel="fused_attention_rpr_backward",
-                      case=label, **bwd)
-                rows[("fused_attention_rpr", name, dtype, rate)] = fwd
-                rows[("fused_attention_rpr_backward", name, dtype, rate)] = bwd
-                del sets
-                torch.cuda.empty_cache()
+                      case=label, max_abs_err=errs[0],
+                      backward_max_abs_err=max(errs[1:]),
+                      kernels=sorted(want))
+                continue
+            sets = copies(inputs, fwd_bytes)
+
+            def k_fwd(q, k, v, tk, tv, pad, do):
+                return fa.fused_attention(
+                    q, k, v, pad, causal=causal, dropout_rate=rate,
+                    rng=words, rpr_tables=Tables(tk, tv),
+                    max_relative_position=m)
+
+            def p_fwd(q, k, v, tk, tv, pad, do):
+                return fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m,
+                                                  causal, rate, words)
+
+            def l_fwd(q, k, v, tk, tv, pad, do):
+                # a floor: SDPA computes attention WITHOUT the RPR terms
+                if causal:
+                    return sdpa(q, k, v, is_causal=True)
+                return sdpa(q, k, v, attn_mask=(pad > 0)[:, None, None])
+
+            iters = 2 * len(sets)
+            fwd = dict(ms=device_ms(k_fwd, sets, iters),
+                       plain_ms=device_ms(p_fwd, sets, iters))
+            bwd = {}
+            for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
+                graphs = [(grad_ms(fn(*s), s[:5], s[6]),) for s in sets]
+                bwd[key] = device_ms(lambda run: run(), graphs, iters)
+                del graphs
+            if tc:
+                # the CUDA-core #4 that ran before the tensor-core one,
+                # on the same inputs, behind the same forward
+                drop = (causal, rate, words or (0, 0))
+                args = []
+                for s in sets:
+                    qkv = tuple(t.detach() for t in s[:3])
+                    tables = (s[3].detach(), s[4].detach())
+                    o, mx, lx = fa._forward_rpr(*qkv, s[5], *tables, m,
+                                                *drop)
+                    args.append(qkv + (s[5],) + tables
+                                + (o, s[6], mx, lx, m) + drop)
+                bwd["parent_ms"] = device_ms(fa._backward_rpr, args,
+                                             iters)
+                del args
+            if rate == 0.0:
+                fwd["library_ms"] = device_ms(l_fwd, sets, iters)
+                graphs = [(grad_ms(l_fwd(*s), s[:3], s[6]),)
+                          for s in sets]
+                bwd["library_ms"] = device_ms(lambda run: run(), graphs,
+                                              iters)
+                del graphs
+                # the composite of use_flash_attention=false on
+                # [B, L, hidden] projections, under the same mask
+                keep = (sets[0][5] > 0)[:, None, None, :]
+                if causal:
+                    keep = keep & torch.ones(lq, lk, dtype=torch.bool,
+                                             device=dev).tril()
+                keep = keep.float()
+                csets = [[attn.combine_heads(x.detach()).requires_grad_()
+                          for x in s[:3]]
+                         + [x.detach().requires_grad_() for x in s[3:5]]
+                         + [attn.combine_heads(s[6])] for s in sets]
+
+                def c_fwd(q2, k2, v2, tk, tv, do2):
+                    return attn._attn_core(q2, k2, v2, keep, h,
+                                           rpr_tables=Tables(tk, tv),
+                                           rpr_max=m)[0]
+
+                fwd["composite_ms"] = device_ms(c_fwd, csets, iters)
+                graphs = [(grad_ms(c_fwd(*s), s[:5], s[5]),)
+                          for s in csets]
+                bwd["composite_ms"] = device_ms(lambda run: run(), graphs,
+                                                iters)
+                del graphs, csets
+                bwd["fwd_bwd_ms"] = device_ms(fwd_bwd(k_fwd, 5), sets,
+                                              iters)
+            fb, fby = bound(fwd_bytes, 4 * pairs * dh + 4 * rows_rd, dtype)
+            bb, bby = bound(bwd_bytes, 10 * pairs * dh + 10 * rows_rd,
+                            dtype)
+            fwd.update(bound_ms=fb, bound_by=fby, max_abs_err=errs[0])
+            bwd.update(bound_ms=bb, bound_by=bby,
+                       max_abs_err=max(errs[1:]))
+            phase("rpr_kernels", kernel="fused_attention_rpr",
+                  case=label, **fwd)
+            phase("rpr_kernels", kernel="fused_attention_rpr_backward",
+                  case=label, route="tensor_cores" if tc else
+                  "cuda_cores", **bwd)
+            rows[("fused_attention_rpr", name, dtype, rate)] = fwd
+            rows[("fused_attention_rpr_backward", name, dtype, rate)] = bwd
+            del sets
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1112,7 +1170,11 @@ def rpr_expected_launches(cfg, summary):
     """transformer_rpr: an attention takes the RPR kernels where its keys
     outnumber 2m (ops/attention.py:_rpr_flash_ok), at each step's stacked
     lengths: encoder self-attention and decoder cross attention over the
-    source, decoder self-attention over the target. Its FFN never fuses."""
+    source, decoder self-attention over the target. Its FFN never fuses.
+    The backward runs on the route forward_route picks (bf16 at Dh 64: the
+    tensor-core #4)."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
     two_m = 2 * cfg["max_relative_position"]
     n = 0
     for shapes in summary["shapes"]:
@@ -1120,7 +1182,10 @@ def rpr_expected_launches(cfg, summary):
         n += len(shapes) * (cfg["num_encoder_layer"] * (ls > two_m)
                             + cfg["num_decoder_layer"] * ((lt > two_m)
                                                           + (ls > two_m)))
-    return {"fused_attention_rpr": n, "fused_attention_rpr_backward": n}
+    sfx = "_tc" if fa.forward_route(
+        getattr(torch, cfg["default_dtype"]),
+        cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
+    return {"fused_attention_rpr": n, "fused_attention_rpr_backward" + sfx: n}
 
 
 def train_run(d, out, flags, counters, config=CONFIG):
@@ -1591,6 +1656,10 @@ BF16_CHECK_CASES = (("ragged_causal_8259", 1, 2, 8259, 8259, 64, True,
                     ("dh256_causal_200", 1, 2, 200, 200, 256, True, False))
 # (B, beams, S): transformer-base MT decode and the long-memory serving shape
 CROSS_CASES = ((32, 4, 64), (4, 4, 16384))
+# checked, not timed: the last batch row's memory fully masked (it averages
+# all S positions), split over S; 5 beams (two beam groups, the second of
+# one beam) and one beam
+CROSS_CHECK_CASES = ((3, 5, 3000), (2, 1, 700))
 LONG_STEPS = 3
 LONG_PARAMS = ("use_flash_attention=true,max_len=16384,token_size=16384,"
                "pad_seq_multiple=128")
@@ -1751,14 +1820,17 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
 def cross_rows(da, gen):
     """Kernel #9 against decode_cross_attention_ref; bf16 timings beside
     the composite cross_attn_step runs (_attn_core over the beam-folded
-    queries) and SDPA."""
+    queries) and SDPA, and the memory splits the wrapper launched (null
+    for a checkout that records none)."""
     from zero_tpu_torch.ops import attention as attn
 
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dh = HIDDEN // HEADS
+    taken = getattr(da, "taken", {})
     rows = {}
-    for b, beams, s_len in CROSS_CASES:
+    for b, beams, s_len in CROSS_CASES + CROSS_CHECK_CASES:
+        masked = (b, beams, s_len) in CROSS_CHECK_CASES
         for dtype in (torch.float32, torch.bfloat16):
             def inputs():
                 q = torch.randn(b, beams, HIDDEN, generator=gen).to(dev,
@@ -1770,16 +1842,27 @@ def cross_rows(da, gen):
                 lens = torch.randint(s_len // 2, s_len + 1, (b,),
                                      generator=gen)
                 mask = (torch.arange(s_len)[None] < lens[:, None]).float()
+                if masked:
+                    mask[-1] = 0.0
                 return q, mk, mv, mask.to(dev)
 
             args = inputs()
-            label = "B%d_beams%d_S%d[%s]" % (b, beams, s_len, str(dtype)[6:])
-            err = check("decode_cross_attention " + label,
-                        da.decode_cross_attention(*args, HEADS),
+            label = "B%d_beams%d_S%d%s[%s]" % (
+                b, beams, s_len, "_masked_row" if masked else "",
+                str(dtype)[6:])
+            taken.clear()
+            out = da.decode_cross_attention(*args, HEADS)
+            splits = taken.get("decode_cross_attention")
+            err = check("decode_cross_attention " + label, out,
                         da.decode_cross_attention_ref(*args, HEADS), dtype)
-            if dtype != torch.bfloat16:
+            if masked:
+                # the fully masked row: every position's weight 1/S
+                check("decode_cross_attention %s masked row" % label, out[-1],
+                      args[2][-1].float().mean(0).expand(beams, HIDDEN),
+                      dtype)
+            if dtype != torch.bfloat16 or masked:
                 phase("long_kernels", kernel="decode_cross_attention",
-                      case=label, max_abs_err=err)
+                      case=label, max_abs_err=err, splits=splits)
                 continue
             sets = copies(inputs, 2 * b * s_len * HIDDEN * 2)
 
@@ -1812,7 +1895,7 @@ def cross_rows(da, gen):
                      plain_ms=device_ms(p_cross, sets, iters),
                      composite_ms=device_ms(c_cross, sets, iters),
                      library_ms=device_ms(l_cross, lsets, iters),
-                     bound_ms=b_ms, bound_by=b_by)
+                     bound_ms=b_ms, bound_by=b_by, splits=splits)
             phase("long_kernels", kernel="decode_cross_attention",
                   case=label, **r)
             rows[("decode_cross_attention", s_len)] = r
@@ -1821,12 +1904,15 @@ def cross_rows(da, gen):
     return rows
 
 
-def long_kernels_phase(da):
+def long_kernels_phase(da, streaming=True):
+    """#5-#7 (unless not ``streaming``: under --package only #9 runs, on
+    the same inputs as here, since the streaming rows draw no inputs #9
+    reads) and #9."""
     from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
     gen = torch.Generator().manual_seed(SEED + 4)
-    rows = streaming_rows(sa, gen)
-    rows.update(cross_rows(da, gen))
+    rows = streaming_rows(sa, gen) if streaming else {}
+    rows.update(cross_rows(da, torch.Generator().manual_seed(SEED + 5)))
     return rows
 
 
@@ -2195,14 +2281,15 @@ def main(argv=None):
                         help="import zero_tpu_torch from DIR (a checkout of "
                         "another commit) instead of this checkout, to time "
                         "its decode kernels on the same inputs; phases "
-                        "build and kernels only")
+                        "build, kernels and long_kernels (#9 only) only")
     args = parser.parse_args(argv)
     todo = set(args.phases.split(","))
     unknown = todo - set(PHASES)
     if unknown:
         parser.error("unknown phases %s" % sorted(unknown))
-    if args.package and todo - {"device", "build", "kernels"}:
-        parser.error("--package takes the phases build and kernels only")
+    if args.package and todo - {"device", "build", "kernels", "long_kernels"}:
+        parser.error("--package takes the phases build, kernels and "
+                     "long_kernels only")
     full = todo == set(PHASES)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2232,13 +2319,15 @@ def main(argv=None):
     libs = cuda_build.build(*sources)
     for name in sources:
         cuda_build.load(name)
-    # the bf16 FFN kernels (#11/#12), the bf16 streaming kernels (#5-#7)
-    # and the bf16 fused backward (#2) run on the tensor cores: wgmma
-    # (HGMMA) in their libraries' SASS
+    # the bf16 FFN kernels (#11/#12), the bf16 streaming kernels (#5-#7),
+    # the bf16 fused attention (#1/#2) and the bf16 RPR backward (#4) run
+    # on the tensor cores: wgmma (HGMMA) in their libraries' SASS (another
+    # checkout's, under --package, may predate them)
     sass = {n: tensor_core_sass(libs[n])
-            for n in ("fused_ffn", "streaming_attention", "fused_attention")}
+            for n in ("fused_ffn", "streaming_attention", "fused_attention",
+                      "fused_attention_rpr")}
     for n, counts in sass.items():
-        if counts is not None and not counts["HGMMA"]:
+        if counts is not None and not counts["HGMMA"] and not args.package:
             raise AssertionError("%s: no wgmma (HGMMA) in the SASS: %s"
                                  % (n, counts))
     phase("build", seconds=time.time() - t0,
@@ -2247,7 +2336,8 @@ def main(argv=None):
           ptxas_spills={n: cuda_build.ptxas_spills(n) for n in sources},
           fused_ffn_tensor_core_sass=sass["fused_ffn"],
           streaming_tensor_core_sass=sass["streaming_attention"],
-          fused_attention_tensor_core_sass=sass["fused_attention"])
+          fused_attention_tensor_core_sass=sass["fused_attention"],
+          fused_attention_rpr_tensor_core_sass=sass["fused_attention_rpr"])
 
     rows, train_rows, rpr_rows, long_rows, launches = {}, {}, {}, {}, {}
     if "kernels" in todo:
@@ -2257,7 +2347,7 @@ def main(argv=None):
     if "rpr_kernels" in todo:
         rpr_rows = rpr_kernels_phase()
     if "long_kernels" in todo:
-        long_rows = long_kernels_phase(da)
+        long_rows = long_kernels_phase(da, streaming=not args.package)
 
     from zero_tpu_torch.config import default_config, load_config_file
     from zero_tpu_torch.models import get_model
@@ -2358,12 +2448,15 @@ def main(argv=None):
         kernels.append(row)
     # RPR kernels: bf16 at rate 0.1, encoder self-attention at m 16; the
     # library column is SDPA WITHOUT relative positions (a floor, not the
-    # same function), composite_ms the use_flash_attention=false path
+    # same function), composite_ms the use_flash_attention=false path. #4
+    # is the tensor-core kernel, parent_ms the CUDA-core one on the same
+    # inputs in this run
     for name, line in (("fused_attention_rpr", 580),
-                       ("fused_attention_rpr_backward", 624)):
-        r = rpr_rows[(name, "self_pad", torch.bfloat16, 0.1)]
-        r0 = rpr_rows[(name, "self_pad", torch.bfloat16, 0.0)]
-        kernels.append(dict(
+                       ("fused_attention_rpr_backward_tc", 624)):
+        kernel = name[:-3] if name.endswith("_tc") else name
+        r = rpr_rows[(kernel, "self_pad", torch.bfloat16, 0.1)]
+        r0 = rpr_rows[(kernel, "self_pad", torch.bfloat16, 0.0)]
+        row = dict(
             name=name, route="cuda",
             source="zero_tpu_torch/csrc/fused_attention_rpr.cu",
             replaces="zero_tpu/ops/kernels/fused_attention.py:%d" % line,
@@ -2371,7 +2464,10 @@ def main(argv=None):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r0["library_ms"],
             library="scaled_dot_product_attention without RPR (floor)",
-            composite_ms=r0["composite_ms"]))
+            composite_ms=r0["composite_ms"])
+        if "parent_ms" in r:
+            row.update(tensor_cores=True, parent_ms=r["parent_ms"])
+        kernels.append(row)
     # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
     # mask, an all-pad row), as long_train runs them; SDPA with dropout off.
     # #5-#7 are the tensor-core kernels, parent_ms the CUDA-core ones that
@@ -2400,7 +2496,7 @@ def main(argv=None):
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], composite_ms=r["composite_ms"],
-        wired=False))
+        splits=r["splits"], wired=False))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

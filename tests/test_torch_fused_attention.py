@@ -135,7 +135,7 @@ def test_backward_route(dtype, dh, route):
     runs them; fp32, which must stay exact, and other depths keep the
     CUDA-core kernel. (The CPU takes the plain version before a route is
     asked.)"""
-    assert fa.backward_route(dtype, dh) == route
+    assert fa.forward_route(dtype, dh) == route
 
 
 WORDS = (0x243F6A88, 0x85A308D3)

@@ -14,8 +14,10 @@
 //                          memory projections [B, S, hidden] under a [B, S]
 //                          pad mask (unwired in the JAX package and here).
 //
-// The first two are one kernel here: the plain cache is a pool with one
-// beam whose ancestry is the identity (ancestry == nullptr).
+// All three are one kernel here (decode_attention_kernel): the plain cache
+// is a pool with one beam whose ancestry is the identity (ancestry ==
+// nullptr), and the cross attention reads one memory row per position for
+// up to kCrossBeams beam queries at once, under a pad mask.
 //
 // Bound. Per (row, head) the kernel must read the query, the K and V
 // slices of positions 0..time and write the output: ~4 * hidden * (time+1)
@@ -48,17 +50,18 @@
 // same beams as the CPU.
 //
 // Cross attention (#9) is bound by the same bytes: each memory element
-// once per batch row, whatever the beam count. A block owns one (batch row,
-// head) and up to 16 beams (4 per warp); it walks S in tiles of 32
-// positions staged in shared memory as fp32, and every staged K/V element
-// serves all its beams (the beam fold). An fp32 online softmax (running
-// max and sum per beam, as csrc/fused_attention.cu) lets S grow without a
-// VMEM-style limit: shared memory does not depend on S. The weights stay
-// fp32 where the TPU kernel rounds them to the value dtype. At small batch
-// and long memory B * heads blocks would leave most SMs idle, so the
-// wrapper splits S into chunks (at least 256 positions each) until about
-// two blocks per SM are in flight; combine_splits folds the chunks' partial
-// sums by their running maxima (flash-decoding).
+// once per batch row, whatever the beam count. It is the same design over
+// the memory positions: a block owns one (batch row, head) and up to
+// kCrossBeams beams; each lane group reads a position's K and V head slices
+// in 16-byte loads (kUnroll positions in flight) and takes the dots of all
+// the block's beams from the one K load, the scaled beam queries in
+// registers (the beam fold); an online softmax per beam and group, the
+// groups folded by their maxima in shared memory. Masked positions take the
+// logit -1e30 of _cross_kernel, so a batch row whose positions are all
+// masked averages all S of them. Shared memory does not depend on S. At
+// small batch and long memory the wrapper splits S into chunks
+// (cross_splits) and combine_splits folds them (flash-decoding). The
+// weights stay fp32 where the TPU kernel rounds them to the value dtype.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
@@ -71,8 +74,6 @@ namespace {
 
 using zt::from_float;
 using zt::to_float;
-using zt::warp_max;
-using zt::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -82,6 +83,10 @@ constexpr int kUnroll = 4;
 // kThreads * 8 (G covers a head slice in 16-byte loads, or Dh <= 256 at
 // G = 32)
 constexpr int kFoldFloats = kThreads * 8;
+// beam queries of a cross-attention block (#9): each memory position's K
+// load serves all of them; more beams take more blocks
+constexpr int kCrossBeams = 4;
+constexpr float kCrossMasked = -1e30f;   // NEG_INF of _cross_kernel
 
 // VEC elements of T read by one load: 16 bytes (VEC = 16 / sizeof(T)), or
 // one element where the head slices are not 16-byte aligned
@@ -124,69 +129,99 @@ struct Chunk<__nv_bfloat16, 8> {
   }
 };
 
-// grid = (rows = B * beams, heads, splits); block = kThreads in groups of
-// `group` lanes (a power of two up to 32). Block (row, head, split) attends
-// positions [split * chunk, min(time + 1, (split + 1) * chunk)).
-// q, out: [rows, hidden]; k, v: [B, beams, t_max, hidden]; ancestry:
-// [rows, t_max] int32 pool-row index of each position, or null (each beam
-// reads its own row). With one split (part_o null) it writes the output;
-// otherwise its unnormalised fp32 sums part_o [B, heads, splits, beams, dh]
-// and the max and sum part_ml [B, heads, splits, beams, 2], which
-// combine_splits folds.
-template <typename T, int VEC, int NL, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-single_query_attention(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int* __restrict__ ancestry, T* __restrict__ out,
-                       float* __restrict__ part_o,
-                       float* __restrict__ part_ml, int beams, int t_max,
-                       int hidden, int dh, int time, float scale, int group,
-                       int chunk) {
-  __shared__ float fold[kFoldFloats];
-  __shared__ float group_m[kThreads], group_l[kThreads];
+// The arguments of a launch. q, out: [B, beams, hidden] (rows = B * beams);
+// CROSS false (#10/#8): k, v [B, beams, t_max, hidden] pools, ancestry
+// [rows, t_max] int32 pool-row index of each position or null (each beam
+// reads its own row); CROSS true (#9): k, v [B, t_max = S, hidden] memory,
+// mask [B, S] fp32. n positions are attended (time + 1, or S). part_o [B,
+// heads, splits, beams, dh] and part_ml [B, heads, splits, beams, 2]: the
+// splits' unnormalised fp32 sums and their (max, sum), or part_o null with
+// one split.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* ancestry;
+  const float* mask;
+  void* out;
+  float* part_o;
+  float* part_ml;
+  int beams, t_max, hidden, dh, n;
+  float scale;
+  int group, chunk, bgroups;
+};
 
-  const int row = blockIdx.x, head = blockIdx.y, heads = gridDim.y;
+// grid = (B * bgroups, heads, splits), bgroups = ceil(beams / NB); block =
+// kThreads in groups of a.group lanes (a power of two up to 32). Block (b *
+// bgroups + g, head, split) attends beams [NB g, NB g + NB) of batch row b
+// over positions [split * chunk, min(n, (split + 1) * chunk)); every group
+// takes the dots of all NB beams from one K load. With one split it writes
+// the output; otherwise part_o/part_ml, which combine_splits folds.
+template <typename T, int VEC, int NL, int NB, bool kRelu, bool CROSS>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(DecodeArgs a) {
+  __shared__ float fold[NB * kFoldFloats];
+  __shared__ float group_m[NB * kThreads], group_l[NB * kThreads];
+
+  const int b = blockIdx.x / a.bgroups;
+  const int beam0 = (blockIdx.x - b * a.bgroups) * NB;
+  const int nb = min(NB, a.beams - beam0);
+  const int head = blockIdx.y, heads = gridDim.y;
   const int split = blockIdx.z, splits = gridDim.z;
-  const int b = row / beams;
-  const int beam = row - b * beams;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, group = a.group, dh = a.dh;
   const int gi = tid / group, gl = tid - gi * group;   // group, its lane
   const int groups = kThreads / group;
   const int vecs = dh / VEC;                // loads of one head slice
-  const int t_begin = split * chunk;
-  const int t_end = min(time + 1, t_begin + chunk);
-
-  // this lane's loads of a head slice: vecs gl + group * i, i < NL
+  const int t_begin = split * a.chunk;
+  const int t_end = min(a.n, t_begin + a.chunk);
   const size_t head_off = (size_t)head * dh;
-  const T* q_row = q + (size_t)row * hidden + head_off;
-  float qf[NL][VEC], o[NL][VEC];
+  const T* __restrict__ k = (const T*)a.k + head_off;
+  const T* __restrict__ v = (const T*)a.v + head_off;
+  // position t reads K/V row kv0 + j * t_max + t: j = 0 (CROSS), the pool
+  // row ancestry[row, t], or the beam's own
+  const size_t kv0 = (size_t)b * (CROSS ? 1 : a.beams) * a.t_max;
+  const int* __restrict__ anc =
+      (!CROSS && a.ancestry)
+          ? a.ancestry + ((size_t)b * a.beams + beam0) * a.t_max
+          : nullptr;
+  const float* __restrict__ mask =
+      CROSS ? a.mask + (size_t)b * a.t_max : nullptr;
+
+  // the scaled queries (0 past nb) and this lane's share of each beam's O
+  // slice: loads gl + group * i, i < NL
+  float qf[NB][NL][VEC], o[NB][NL][VEC], m[NB], l[NB];
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const int c = gl + group * i;
+  for (int r = 0; r < NB; ++r) {
+    const T* q_row = (const T*)a.q +
+        ((size_t)b * a.beams + beam0 + min(r, nb - 1)) * a.hidden + head_off;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      qf[i][e] = c < vecs ? to_float(q_row[c * VEC + e]) * scale : 0.f;
-      o[i][e] = 0.f;
+    for (int i = 0; i < NL; ++i) {
+      const int c = gl + group * i;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[r][i][e] = r < nb && c < vecs
+                          ? to_float(q_row[c * VEC + e]) * a.scale : 0.f;
+        o[r][i][e] = 0.f;
+      }
     }
+    m[r] = -FLT_MAX;
+    l[r] = 0.f;
   }
-  const int* anc = ancestry ? ancestry + (size_t)row * t_max : nullptr;
-  const size_t pool0 = (size_t)b * beams;   // first pool row of sentence b
-  float m = -FLT_MAX, l = 0.f;
 
   // an iteration covers groups * kUnroll positions: group gi takes base +
   // gi + groups * u (the bounds are the block's, so every lane of a warp
   // takes the same iterations and the shuffles stay converged)
   for (int base = t_begin; base < t_end; base += groups * kUnroll) {
     Chunk<T, VEC> kc[kUnroll][NL], vc[kUnroll][NL];
-    bool in[kUnroll];
+    bool in[kUnroll], valid[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + gi + groups * u;
       in[u] = t < t_end;
-      const int j = (in[u] && anc) ? anc[t] : beam;
-      const size_t off =
-          ((pool0 + j) * t_max + (in[u] ? t : 0)) * (size_t)hidden +
-          head_off;
+      const int tt = in[u] ? t : 0;
+      valid[u] = in[u] && (!CROSS || __ldg(mask + tt) > 0.f);
+      const int j = CROSS ? 0 : (anc && in[u]) ? __ldg(anc + t) : beam0;
+      const size_t off = (kv0 + (size_t)j * a.t_max + tt) * a.hidden;
 #pragma unroll
       for (int i = 0; i < NL; ++i) {
         const int c = gl + group * i;
@@ -199,101 +234,124 @@ single_query_attention(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    float s[kUnroll];
+    float s[kUnroll][NB];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float acc = 0.f;
+    for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-      for (int i = 0; i < NL; ++i)
+      for (int r = 0; r < NB; ++r) {
+        float acc = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          acc = fmaf(qf[i][e], kc[u][i].at(e), acc);
-      s[u] = acc;
-    }
+        for (int i = 0; i < NL; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc = fmaf(qf[r][i][e], kc[u][i].at(e), acc);
+        s[u][r] = acc;
+      }
     // each dot over its group's lanes: xor partners stay inside the group
     for (int w = group >> 1; w > 0; w >>= 1)
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        s[u] += __shfl_xor_sync(0xffffffffu, s[u], w);
-
-    float p[kUnroll];
-    if (kRelu) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) p[u] = in[u] ? fmaxf(s[u], 0.f) : 0.f;
-    } else {
-      float m_new = m;
+        for (int r = 0; r < NB; ++r)
+          s[u][r] += __shfl_xor_sync(0xffffffffu, s[u][r], w);
+
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      float p[kUnroll];
+      if (kRelu) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          p[u] = in[u] ? fmaxf(s[u][r], 0.f) : 0.f;
+      } else {
+        // a masked position's logit: -1e30 (_cross_kernel)
+        float m_new = m[r];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (CROSS && !valid[u]) s[u][r] = kCrossMasked;
+          if (in[u]) m_new = fmaxf(m_new, s[u][r]);
+        }
+        const float alpha = expf(m[r] - m_new);   // 1 while m_new = m
+        l[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < NL; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[r][i][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          p[u] = in[u] ? expf(s[u][r] - m_new) : 0.f;
+          l[r] += p[u];
+        }
+        m[r] = m_new;
+      }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (in[u]) m_new = fmaxf(m_new, s[u]);
-      const float alpha = expf(m - m_new);   // 1 while m_new = m
-      l *= alpha;
 #pragma unroll
-      for (int i = 0; i < NL; ++i)
+        for (int i = 0; i < NL; ++i)
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) o[i][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        p[u] = in[u] ? expf(s[u] - m_new) : 0.f;
-        l += p[u];
-      }
-      m = m_new;
+          for (int e = 0; e < VEC; ++e)
+            o[r][i][e] = fmaf(p[u], vc[u][i].at(e), o[r][i][e]);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int i = 0; i < NL; ++i)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          o[i][e] = fmaf(p[u], vc[u][i].at(e), o[i][e]);
   }
 
   // fold the groups: softmax rescales each by e^(m_group - max), relu adds
   if (!kRelu) {
-    if (gl == 0) group_m[gi] = m;
+#pragma unroll
+    for (int r = 0; r < NB; ++r)
+      if (gl == 0) group_m[gi * NB + r] = m[r];
     __syncthreads();
-    float big = -FLT_MAX;
-    for (int g = 0; g < groups; ++g) big = fmaxf(big, group_m[g]);
-    const float f = expf(m - big);
-    l *= f;
 #pragma unroll
-    for (int i = 0; i < NL; ++i)
+    for (int r = 0; r < NB; ++r) {
+      float big = -FLT_MAX;
+      for (int g = 0; g < groups; ++g) big = fmaxf(big, group_m[g * NB + r]);
+      const float f = expf(m[r] - big);
+      m[r] = big;
+      l[r] *= f;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) o[i][e] *= f;
-    m = big;
-    if (gl == 0) group_l[gi] = l;
+      for (int i = 0; i < NL; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[r][i][e] *= f;
+      if (gl == 0) group_l[gi * NB + r] = l[r];
+    }
   }
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const int c = gl + group * i;
-    if (c < vecs)
+  for (int r = 0; r < NB; ++r)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) fold[gi * dh + c * VEC + e] = o[i][e];
-  }
+    for (int i = 0; i < NL; ++i) {
+      const int c = gl + group * i;
+      if (c < vecs)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          fold[(gi * NB + r) * dh + c * VEC + e] = o[r][i][e];
+    }
   __syncthreads();
-  float total = 0.f;
-  if (!kRelu)
-    for (int g = 0; g < groups; ++g) total += group_l[g];
-  const size_t part =
-      (((size_t)b * heads + head) * splits + split) * beams + beam;
-  for (int d = tid; d < dh; d += kThreads) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += fold[g * dh + d];
-    if (part_o == nullptr)
-      out[(size_t)row * hidden + head_off + d] =
+  for (int x = tid; x < nb * dh; x += kThreads) {
+    const int r = NB == 1 ? 0 : x / dh, d = x - r * dh;
+    float acc = 0.f, total = 0.f;
+    for (int g = 0; g < groups; ++g) {
+      acc += fold[(g * NB + r) * dh + d];
+      if (!kRelu) total += group_l[g * NB + r];
+    }
+    const int beam = beam0 + r;
+    if (a.part_o == nullptr) {
+      ((T*)a.out)[((size_t)b * a.beams + beam) * a.hidden + head_off + d] =
           from_float<T>(kRelu ? acc : acc / total);
-    else
-      part_o[part * dh + d] = acc;
-  }
-  if (part_o != nullptr && tid == 0) {
-    part_ml[2 * part] = kRelu ? 0.f : m;
-    part_ml[2 * part + 1] = total;
+    } else {
+      const size_t part =
+          (((size_t)b * heads + head) * splits + split) * a.beams + beam;
+      a.part_o[part * dh + d] = acc;
+      if (d == 0) {
+        // every thread's m[r] is the block's max after the fold
+        a.part_ml[2 * part] = kRelu ? 0.f : m[r];
+        a.part_ml[2 * part + 1] = total;
+      }
+    }
   }
 }
 
 // grid = (B, heads); block = kThreads. Folds the splits' partial sums
 // part_o [B, heads, splits, beams, dh] and (m, l) part_ml [B, heads,
-// splits, beams, 2] of single_query_attention or cross_attention: o =
-// sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s; relu: o = sum_s acc_s.
+// splits, beams, 2] of decode_attention_kernel: o = sum_s e^(m_s - M)
+// acc_s / sum_s e^(m_s - M) l_s; relu: o = sum_s acc_s.
 template <typename T, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 combine_splits(const float* __restrict__ part_o,
@@ -328,310 +386,104 @@ combine_splits(const float* __restrict__ part_o,
   }
 }
 
-template <typename T, int VEC, int NL>
-cudaError_t launch_single_nl(const void* q, const void* k, const void* v,
-                             const int* ancestry, void* out, float* part_o,
-                             float* part_ml, int rows, int beams, int t_max,
-                             int hidden, int num_heads, int time, int relu,
-                             float scale, int group, int splits, int chunk,
-                             cudaStream_t stream) {
-  const dim3 grid(rows, num_heads, splits);
-  const int dh = hidden / num_heads;
-  float* po = splits > 1 ? part_o : nullptr;
-  if (relu)
-    single_query_attention<T, VEC, NL, true><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, po,
-        part_ml, beams, t_max, hidden, dh, time, scale, group, chunk);
-  else
-    single_query_attention<T, VEC, NL, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ancestry, (T*)out, po,
-        part_ml, beams, t_max, hidden, dh, time, scale, group, chunk);
+template <typename T, int VEC, int NL, int NB, bool kRelu, bool CROSS>
+cudaError_t launch_nl(DecodeArgs a, int batch, int heads, int splits,
+                      cudaStream_t stream) {
+  float* part_o = a.part_o;
+  if (splits == 1) a.part_o = nullptr;
+  decode_attention_kernel<T, VEC, NL, NB, kRelu, CROSS>
+      <<<dim3(batch * a.bgroups, heads, splits), kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const dim3 fold(rows / beams, num_heads);
-  if (relu)
-    combine_splits<T, true><<<fold, kThreads, 0, stream>>>(
-        part_o, part_ml, (T*)out, beams, hidden, dh, splits);
-  else
-    combine_splits<T, false><<<fold, kThreads, 0, stream>>>(
-        part_o, part_ml, (T*)out, beams, hidden, dh, splits);
+  combine_splits<T, kRelu><<<dim3(batch, heads), kThreads, 0, stream>>>(
+      part_o, a.part_ml, (T*)a.out, a.beams, a.hidden, a.dh, splits);
   return cudaGetLastError();
 }
 
-// The lane group and loads per lane of a head slice: 16-byte loads where
-// the slices are 16-byte aligned, else one element a load.
-template <typename T>
-cudaError_t launch_single(const void* q, const void* k, const void* v,
-                          const int* ancestry, void* out, float* part_o,
-                          float* part_ml, int rows, int beams, int t_max,
-                          int hidden, int num_heads, int time, int relu,
-                          float scale, int splits, int chunk,
-                          cudaStream_t s) {
+// The lane group and loads per lane of a head slice (16-byte loads where
+// the slices and the K and V bases are 16-byte aligned, else one element a
+// load; the group the loads' count rounded up to a power of two, at most 32
+// lanes), then the launch: two 16-byte loads a lane only in fp32 past Dh
+// 128 (a bf16 slice of Dh <= 256 is at most 32 loads), up to 8
+// one-element loads a lane.
+template <typename T, int NB, bool kRelu, bool CROSS>
+cudaError_t launch(DecodeArgs a, int batch, int heads, int splits,
+                   cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  const int dh = hidden / num_heads;
-  const bool wide = dh * sizeof(T) % 16 == 0 && (uintptr_t)k % 16 == 0 &&
-                    (uintptr_t)v % 16 == 0;
-  const int vecs = wide ? dh / kVec : dh;
-  int group = 1;
-  while (group < vecs && group < 32) group *= 2;
-  const int nl = (vecs + group - 1) / group;
-#define ZT_SINGLE(VEC, NL)                                                  \
-  launch_single_nl<T, VEC, NL>(q, k, v, ancestry, out, part_o, part_ml,    \
-                               rows, beams, t_max, hidden, num_heads, time, \
-                               relu, scale, group, splits, chunk, s)
+  const bool wide = a.dh * sizeof(T) % 16 == 0 && (uintptr_t)a.k % 16 == 0 &&
+                    (uintptr_t)a.v % 16 == 0;
+  const int vecs = wide ? a.dh / kVec : a.dh;
+  a.group = 1;
+  while (a.group < vecs && a.group < 32) a.group *= 2;
+  const int nl = (vecs + a.group - 1) / a.group;
+  a.bgroups = (a.beams + NB - 1) / NB;
+#define ZT_LAUNCH(VEC, NL) \
+  launch_nl<T, VEC, NL, NB, kRelu, CROSS>(a, batch, heads, splits, s)
   if (wide) {
-    if (nl == 1) return ZT_SINGLE(kVec, 1);
-    // two 16-byte loads a lane: fp32 past Dh 128 (a bf16 slice of Dh <= 256
-    // is at most 32 loads)
+    if (nl == 1) return ZT_LAUNCH(kVec, 1);
     if constexpr (sizeof(T) == 4)
-      if (nl == 2) return ZT_SINGLE(kVec, 2);
+      if (nl == 2) return ZT_LAUNCH(kVec, 2);
   } else {
-    if (nl == 1) return ZT_SINGLE(1, 1);
-    if (nl == 2) return ZT_SINGLE(1, 2);
-    if (nl <= 4) return ZT_SINGLE(1, 4);
-    if (nl <= 8) return ZT_SINGLE(1, 8);
+    if (nl == 1) return ZT_LAUNCH(1, 1);
+    if (nl == 2) return ZT_LAUNCH(1, 2);
+    if (nl <= 4) return ZT_LAUNCH(1, 4);
+    if (nl <= 8) return ZT_LAUNCH(1, 8);
   }
-#undef ZT_SINGLE
+#undef ZT_LAUNCH
   return cudaErrorInvalidValue;
 }
 
-constexpr int kCrossTile = 32;                 // memory positions per tile
-constexpr int kBeamsPerWarp = 4;
-constexpr int kBeamsPerBlock = kWarps * kBeamsPerWarp;   // 16
-constexpr float kCrossMasked = -1e30f;          // NEG_INF of _cross_kernel
-
-// grid = (B, heads, splits * groups), groups = ceil(beams / 16); block =
-// kThreads. Block (b, head, split * groups + group) attends beams
-// [16 group, 16 group + 16) over memory positions [chunk split,
-// chunk (split + 1)). q, out: [B, beams, hidden]; mk, mv: [B, S, hidden];
-// mask: [B, S] fp32. With one split (part_o null) it writes the output;
-// otherwise its unnormalised fp32 sums part_o [B, heads, splits, beams, dh]
-// and the running max and sum part_ml [B, heads, splits, beams, 2], which
-// combine_splits folds.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-cross_attention(const T* __restrict__ q, const T* __restrict__ mk,
-                const T* __restrict__ mv, const float* __restrict__ mask,
-                T* __restrict__ out, float* __restrict__ part_o,
-                float* __restrict__ part_ml, int beams, int s_len,
-                int hidden, int dh, float scale, int chunk, int groups) {
-  extern __shared__ float smem[];
-  float* qs = smem;                                // [16][dh], scaled
-  float* ks = qs + kBeamsPerBlock * dh;            // [32][dh + 1]
-  float* vs = ks + kCrossTile * (dh + 1);          // [32][dh]
-  float* ps = vs + kCrossTile * dh;                // [16][32]
-  const int b = blockIdx.x;
-  const int head = blockIdx.y;
-  const int heads = gridDim.y;
-  const int group = blockIdx.z % groups;
-  const int split = blockIdx.z / groups;
-  const int splits = gridDim.z / groups;
-  const int beam0 = group * kBeamsPerBlock;
-  const int nb = min(kBeamsPerBlock, beams - beam0);
-  const int s_begin = split * chunk;
-  const int s_end = min(s_len, s_begin + chunk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head_off = (size_t)head * dh;
-  const T* k_b = mk + (size_t)b * s_len * hidden + head_off;
-  const T* v_b = mv + (size_t)b * s_len * hidden + head_off;
-  const float* mask_b = mask + (size_t)b * s_len;
-
-  for (int e = threadIdx.x; e < kBeamsPerBlock * dh; e += kThreads) {
-    const int r = e / dh;
-    const int d = e - r * dh;
-    qs[e] = r < nb ? to_float(q[((size_t)b * beams + beam0 + r) * hidden +
-                                head_off + d]) * scale
-                   : 0.f;
-  }
-  float m[kBeamsPerWarp], l[kBeamsPerWarp], acc[kBeamsPerWarp][NC];
-#pragma unroll
-  for (int r = 0; r < kBeamsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int s0 = s_begin; s0 < s_end; s0 += kCrossTile) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int e = threadIdx.x; e < kCrossTile * dh; e += kThreads) {
-      const int r = e / dh;
-      const int d = e - r * dh;
-      const bool in = s0 + r < s_end;
-      const size_t off = (size_t)(s0 + r) * hidden + d;
-      ks[r * (dh + 1) + d] = in ? to_float(k_b[off]) : 0.f;
-      vs[r * dh + d] = in ? to_float(v_b[off]) : 0.f;
-    }
-    __syncthreads();
-    const int pos = s0 + lane;
-    const bool exists = pos < s_end;
-    const bool valid = exists && mask_b[exists ? pos : 0] > 0.f;
-    float s[kBeamsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kBeamsPerWarp; ++r) s[r] = 0.f;
-    const float* kr = ks + lane * (dh + 1);
-    const float* qr = qs + warp * kBeamsPerWarp * dh;
-    for (int d = 0; d < dh; ++d) {
-      const float kd = kr[d];
-#pragma unroll
-      for (int r = 0; r < kBeamsPerWarp; ++r) s[r] += qr[r * dh + d] * kd;
-    }
-#pragma unroll
-    for (int r = 0; r < kBeamsPerWarp; ++r) {
-      // position s0 exists in every tile, so m_new is finite
-      const float x = exists ? (valid ? s[r] : kCrossMasked) : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float alpha = expf(m[r] - m_new);
-      const float e = exists ? expf(x - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(e);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      ps[(warp * kBeamsPerWarp + r) * kCrossTile + lane] = e;
-    }
-    __syncwarp();
-    for (int jj = 0; jj < kCrossTile; ++jj) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < dh ? vs[jj * dh + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kBeamsPerWarp; ++r) {
-        const float e = ps[(warp * kBeamsPerWarp + r) * kCrossTile + jj];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] += e * vv[c];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kBeamsPerWarp; ++r) {
-    const int local = warp * kBeamsPerWarp + r;
-    if (local >= nb) continue;
-    const int beam = beam0 + local;
-    if (part_o == nullptr) {
-      T* o_row = out + ((size_t)b * beams + beam) * hidden + head_off;
-      const float inv = 1.f / l[r];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) o_row[d] = from_float<T>(acc[r][c] * inv);
-      }
-    } else {
-      const size_t row =
-          (((size_t)b * heads + head) * splits + split) * beams + beam;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) part_o[row * dh + d] = acc[r][c];
-      }
-      if (lane == 0) {
-        part_ml[2 * row] = m[r];
-        part_ml[2 * row + 1] = l[r];
-      }
-    }
-  }
-}
-
-template <typename T, int NC>
-cudaError_t launch_cross_nc(const void* q, const void* mk, const void* mv,
-                            const float* mask, void* out, float* part_o,
-                            float* part_ml, int batch, int beams, int s_len,
-                            int hidden, int num_heads, float scale,
-                            int splits, int chunk, cudaStream_t stream) {
-  const int dh = hidden / num_heads;
-  const int groups = (beams + kBeamsPerBlock - 1) / kBeamsPerBlock;
-  const size_t bytes = sizeof(float) *
-      (size_t)(kBeamsPerBlock * dh + kCrossTile * (dh + 1) +
-               kCrossTile * dh + kBeamsPerBlock * kCrossTile);
-  cudaError_t err = zt::allow_smem(cross_attention<T, NC>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch, num_heads, splits * groups);
-  cross_attention<T, NC><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)mk, (const T*)mv, mask, (T*)out,
-      splits > 1 ? part_o : nullptr, part_ml, beams, s_len, hidden, dh,
-      scale, chunk, groups);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  combine_splits<T, false><<<dim3(batch, num_heads), kThreads, 0,
-                             stream>>>(part_o, part_ml, (T*)out, beams,
-                                       hidden, dh, splits);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_cross(const void* q, const void* mk, const void* mv,
-                         const float* mask, void* out, float* part_o,
-                         float* part_ml, int batch, int beams, int s_len,
-                         int hidden, int num_heads, float scale, int splits,
-                         int chunk, cudaStream_t s) {
-  const int dh = hidden / num_heads;
-#define ZT_CROSS(NC)                                                       \
-  launch_cross_nc<T, NC>(q, mk, mv, mask, out, part_o, part_ml, batch,     \
-                         beams, s_len, hidden, num_heads, scale, splits,   \
-                         chunk, s)
-  if (dh <= 32) return ZT_CROSS(1);
-  if (dh <= 64) return ZT_CROSS(2);
-  if (dh <= 128) return ZT_CROSS(4);
-  if (dh <= 256) return ZT_CROSS(8);
-#undef ZT_CROSS
-  return cudaErrorInvalidValue;
+template <bool kRelu, bool CROSS>
+int run(int dtype, const DecodeArgs& a, int batch, int heads, int splits,
+        void* stream) {
+  constexpr int NB = CROSS ? kCrossBeams : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch<float, NB, kRelu, CROSS>(a, batch, heads, splits, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, NB, kRelu, CROSS>(a, batch, heads,
+                                                        splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. splits > 1 needs part_o
-// [B, heads, splits, beams, dh] and part_ml [B, heads, splits, beams, 2]
-// fp32 scratch; chunk (a multiple of 32) positions per split.
+// #9. dtype: 0 = float32, 1 = bfloat16. splits > 1 needs part_o [B, heads,
+// splits, beams, dh] and part_ml [B, heads, splits, beams, 2] fp32 scratch;
+// chunk positions per split.
 extern "C" int zt_cross_attention(const void* q, const void* mk,
                                   const void* mv, const void* mask, void* out,
                                   void* part_o, void* part_ml, int dtype,
                                   int batch, int beams, int s_len, int hidden,
                                   int num_heads, float scale, int splits,
                                   int chunk, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* m = (const float*)mask;
-  float* po = (float*)part_o;
-  float* pml = (float*)part_ml;
-  if (splits < 1 || (splits > 1 && (po == nullptr || pml == nullptr)))
+  if (splits < 1 || chunk < 1 ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_cross<float>(q, mk, mv, m, out, po, pml, batch, beams,
-                                    s_len, hidden, num_heads, scale, splits,
-                                    chunk, s);
-  if (dtype == 1)
-    return (int)launch_cross<__nv_bfloat16>(q, mk, mv, m, out, po, pml,
-                                            batch, beams, s_len, hidden,
-                                            num_heads, scale, splits, chunk,
-                                            s);
-  return (int)cudaErrorInvalidValue;
+  const DecodeArgs a = {q, mk, mv, nullptr, (const float*)mask, out,
+                        (float*)part_o, (float*)part_ml, beams, s_len,
+                        hidden, hidden / num_heads, s_len, scale, 0, chunk,
+                        0};
+  return run<false, true>(dtype, a, batch, num_heads, splits, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. splits > 1 needs part_o
-// [B, heads, splits, beams, dh] and part_ml [B, heads, splits, beams, 2]
-// fp32 scratch (B = rows / beams); chunk positions per split.
+// #10/#8. dtype: 0 = float32, 1 = bfloat16. splits > 1 needs part_o [B,
+// heads, splits, beams, dh] and part_ml [B, heads, splits, beams, 2] fp32
+// scratch (B = rows / beams); chunk positions per split.
 extern "C" int zt_single_query_attention(
     const void* q, const void* k, const void* v, const void* ancestry,
     void* out, void* part_o, void* part_ml, int dtype, int rows, int beams,
     int t_max, int hidden, int num_heads, int time, int relu, float scale,
     int splits, int chunk, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* anc = (const int*)ancestry;
-  float* po = (float*)part_o;
-  float* pml = (float*)part_ml;
   if (splits < 1 || chunk < 1 ||
-      (splits > 1 && (po == nullptr || pml == nullptr)))
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_single<float>(q, k, v, anc, out, po, pml, rows, beams,
-                                     t_max, hidden, num_heads, time, relu,
-                                     scale, splits, chunk, s);
-  if (dtype == 1)
-    return (int)launch_single<__nv_bfloat16>(q, k, v, anc, out, po, pml,
-                                             rows, beams, t_max, hidden,
-                                             num_heads, time, relu, scale,
-                                             splits, chunk, s);
-  return (int)cudaErrorInvalidValue;
+  const DecodeArgs a = {q, k, v, (const int*)ancestry, nullptr, out,
+                        (float*)part_o, (float*)part_ml, beams, t_max,
+                        hidden, hidden / num_heads, time + 1, scale, 0, chunk,
+                        0};
+  return relu ? run<true, false>(dtype, a, rows / beams, num_heads, splits,
+                                 stream)
+              : run<false, false>(dtype, a, rows / beams, num_heads, splits,
+                                  stream);
 }

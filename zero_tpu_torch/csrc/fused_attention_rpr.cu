@@ -4,6 +4,13 @@
 //
 //   zt_attention_rpr_forward   replaces _fused_forward_rpr (_fwd_kernel_rpr).
 //   zt_attention_rpr_backward  replaces _fused_bwd_rule_rpr (_bwd_kernel_rpr).
+//   zt_attention_rpr_backward_tc  the same on the tensor cores (bf16, head
+//                          depth a multiple of 16 up to 128): zt::tc::dq_tc
+//                          and zt::tc::dkdv_tc under the fused mask rule
+//                          with the Rpr policy (zt_attention_tc.cuh), then
+//                          the table reduction below. The wrapper takes it
+//                          on the route of ops/kernels/fused_attention.py:
+//                          forward_route; the forward stays the kernel here.
 //
 // Math. With c(i, j) = clip(i - j, -m, m) + m, R = 2m + 1 buckets and the
 // tables Tk, Tv [R, Dh] in the order given (bucket c is row c):
@@ -19,7 +26,8 @@
 // [B, Lk] fp32 (1 = attend); Tk/Tv [R, Dh] in the q dtype. Any Lq, Lk;
 // Dh <= 256; R <= 129 (m <= 64).
 //
-// Design. The tiling is that of fused_attention.cu (kernels #1/#2): a block
+// Design of the CUDA-core kernels (fp32, and bf16 at depths the tensor-core
+// backward does not take). The tiling is that of fused_attention.cu: a block
 // owns 32 query rows (forward, dq) or 32 keys (dk/dv) of one (batch, head)
 // and walks the other axis in tiles of 32 staged in shared memory as fp32;
 // a warp owns 8 query rows and lane j owns key j of a tile.
@@ -61,13 +69,17 @@
 // of attention, and the tables are a few KB. In bf16 the least time is set
 // by reading q/k/v and writing o (~5 us at B=16, H=8, L=256 on an H100),
 // with the tensor-core products close behind; in fp32 on the CUDA cores by
-// operations. This first kernel multiplies on the CUDA cores in fp32, one
-// multiply-add per shared-memory read; tensor cores are later work.
+// operations. The CUDA-core kernels multiply in fp32, one multiply-add per
+// shared-memory read. The tensor-core backward runs #2's wgmma kernels with
+// the RPR terms added where a tile meets the band |i - j| <= m (at most
+// three of a 64-row block's key tiles at m <= 32); outside it the terms are
+// per-row constants and the bucket sums row sums. Its five small products
+// (q.Tk, do.Tv, ds_b.Tk, ds_b^T.q, wb^T.do) are wgmma tiles of 64 buckets.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
 
-#include "zt_common.cuh"
+#include "zt_attention_tc.cuh"
 
 namespace {
 
@@ -752,4 +764,65 @@ extern "C" int zt_attention_rpr_backward(
   p.dk = dk;
   p.dv = dv;
   return (int)run(p, dtype, batch * heads, true, dtk, dtv, stream);
+}
+
+// The tensor-core backward, with the arguments of zt_attention_rpr_backward
+// but for: qr is fp32 scratch [B*H, Lq, R, 2] of the pairs (q.Tk, do.Tv)
+// and dwb is unused; part_tk/part_tv hold one [R, Dh] partial per dq block,
+// ceil(Lq / 64) * B * H of them (zt::tc::kBlockRows rows a block).
+extern "C" int zt_attention_rpr_backward_tc(
+    const void* q, const void* k, const void* v, const void* pad,
+    const void* tk, const void* tv, const void* o, const void* dout,
+    const void* m, const void* l, void* delta, void* qr, void* dwb,
+    void* part_tk, void* part_tv, void* dq, void* dk, void* dv, void* dtk,
+    void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
+    int rel, int causal, float scale, int dropout, unsigned int threshold,
+    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+  const int bh = batch * heads, nb = 2 * rel + 1;
+  if (nb > kMaxBuckets || rel < 0 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  zt::AttnParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.pad = (const float*)pad;
+  p.o = o;
+  p.dout = dout;
+  p.out = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.m = (float*)m;
+  p.l = (float*)l;
+  p.delta = (float*)delta;
+  p.heads = heads;
+  p.lq = lq;
+  p.lk = lk;
+  p.dh = dh;
+  p.causal = causal;
+  p.dropout = dropout;
+  p.scale = scale;
+  p.drop_scale = drop_scale;
+  p.threshold = threshold;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.tk = tk;
+  p.tv = tv;
+  p.qd = (float2*)qr;
+  p.part_tk = (float*)part_tk;
+  p.part_tv = (float*)part_tv;
+  p.rel = rel;
+  using Rpr = zt::tc::Rpr;
+  int err = zt::tc::run_backward<true, Rpr>(p, dtype, bh, false, stream);
+  if (err != 0) return err;
+  err = zt::tc::run_backward<true, Rpr>(p, dtype, bh, true, stream);
+  if (err != 0) return err;
+  const int n = nb * dh;
+  const int blocks =
+      (lq + zt::tc::kBlockRows - 1) / zt::tc::kBlockRows * bh;
+  rpr_reduce_tables<__nv_bfloat16>
+      <<<dim3((n + 31) / 32, 2), kReduceWarps * 32, 0,
+         (cudaStream_t)stream>>>((const float*)part_tk,
+                                 (const float*)part_tv, (__nv_bfloat16*)dtk,
+                                 (__nv_bfloat16*)dtv, blocks, n);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Attention code shared by the port's attention libraries
-// (streaming_attention.cu, fused_attention.cu): the launch parameters, the
-// row seed of the dropout mask, and in namespace tc the bf16 tensor-core
-// forward and backward, FlashAttention-2 style, that both run:
+// (streaming_attention.cu, fused_attention.cu, fused_attention_rpr.cu): the
+// launch parameters, the row seed of the dropout mask, and in namespace tc
+// the bf16 tensor-core forward and backward, FlashAttention-2 style, that
+// they run:
 //
 //   forward_tc  #5, and #1: the online softmax over 64-key tiles; writes o
 //               and the row statistics m and l apart.
@@ -9,6 +10,9 @@
 //               over the key tiles.
 //   dkdv_tc     #7, and #2's second half: a block owns 64 keys and walks
 //               the query tiles for dk and dv.
+//   dq_tc and dkdv_tc take a policy: NoRpr (the default) or Rpr, #4, which
+//   adds Shaw's relative-position terms, the bucket sums and the table
+//   gradients (see Rpr below).
 //
 // m is the max of s * Dh^-0.5 over a row's valid keys, or -1e30 on a row
 // with none; l is the undropped sum of exp(s * Dh^-0.5 - m). The backward
@@ -105,6 +109,16 @@ struct AttnParams {
   int heads, lq, lk, dh, causal, dropout;
   float scale, drop_scale;
   uint32_t threshold, s0, s1;
+  // Shaw RPR (the Rpr policy of dq_tc and dkdv_tc; fused_attention_rpr.cu):
+  // tables tk, tv [R, Dh] bf16, R = 2 rel + 1; fp32 scratch qd [B*H, Lq,
+  // R] of pairs (q.Tk^T, do.Tv^T); fp32 table-gradient partials part_tk,
+  // part_tv [dq blocks, R, Dh]
+  const void* tk;
+  const void* tv;
+  float2* qd;
+  float* part_tk;
+  float* part_tv;
+  int rel;
 };
 
 // The seed word of query row i of head bh (0 when dropout is off).
@@ -135,10 +149,12 @@ constexpr int kKvStages = 3, kKvMinBlocks = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // queries of a tile that dk/dv walks: 64, or 32 at DP = 128 so that dK, dV,
-// S and dP (160 fp32 a thread) stay in registers
-template <int DP>
+// S and dP (160 fp32 a thread) stay in registers, and under the Rpr policy
+// (POL::kOn), whose terms need registers beside them (at 64 rows ptxas
+// spilled 528 bytes)
+template <int DP, class POL>
 __host__ __device__ constexpr int query_tile() {
-  return DP == 64 ? 64 : 32;
+  return DP == 64 && !POL::kOn ? 64 : 32;
 }
 
 // 2^x and 1/x by the special-function unit (one instruction each; P and
@@ -185,17 +201,42 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The policy of dq_tc and dkdv_tc. NoRpr: plain attention (#2, #6, #7);
+// its code paths are those of the kernels without a policy. Rpr: Shaw's
+// relative positions (#4), the terms below dkdv_tc.
+struct NoRpr {
+  static constexpr bool kOn = false;
+  __host__ __device__ static constexpr size_t dq_smem(int) { return 0; }
+  template <int DP>
+  __host__ __device__ static constexpr size_t kv_smem() { return 0; }
+};
+
+struct Rpr {
+  static constexpr bool kOn = true;
+  // dq: the bucket sums (wb, ds_b) of the block's 64 rows as bf16 pairs
+  // [64][R]
+  __host__ __device__ static constexpr size_t dq_smem(int rel) {
+    return sizeof(__nv_bfloat162) * kBlockRows * (2 * rel + 1);
+  }
+  // dk/dv: each ring slot's per-query-row terms (qr, dwb) at the edge
+  // buckets 0 and 2 rel
+  template <int DP>
+  __host__ __device__ static constexpr size_t kv_smem() {
+    return sizeof(float4) * kKvStages * query_tile<DP, Rpr>();
+  }
+};
+
 template <int DP>
 constexpr size_t dq_smem() {
   return sizeof(bf16) * (2 * kBlockRows * DP + kDqStages * 2 * kKeys * DP) +
          sizeof(float) * (kDqStages * kKeys + kBlockRows) + 1024;
 }
 
-template <int DP>
+template <int DP, class POL>
 constexpr size_t dkdv_smem() {
   return sizeof(bf16) * (2 * kBlockRows * DP +
-                         kKvStages * 2 * query_tile<DP>() * DP) +
-         sizeof(float4) * kKvStages * query_tile<DP>() + 1024;
+                         kKvStages * 2 * query_tile<DP, POL>() * DP) +
+         sizeof(float4) * kKvStages * query_tile<DP, POL>() + 1024;
 }
 
 // Write a thread's share of a warpgroup's m64 x DP accumulator, times
@@ -488,10 +529,302 @@ __device__ __forceinline__ void dq_scores(const Params& p, float (&s)[32],
     }
 }
 
+// ---------------------------------------------------------------------------
+// The Rpr policy (#4). With c(i, j) = clip(i - j, -rel, rel) + rel, R = 2 rel
+// + 1 buckets and the tables Tk, Tv [R, Dh]:
+//   S += qr[i, c(i, j)] (qr = Q.Tk^T),  dP += dwb[i, c(i, j)] (dwb = dO.Tv^T),
+//   wb[i, c] = sum_{j: c(i,j) = c} P_drop,  ds_b[i, c] = the same sum of dS,
+//   dq += ds_b.Tk,  dTk = scale * sum_i ds_b^T q,  dTv = sum_i wb^T dO.
+// A 64 x 64 tile that lies wholly outside the band |i - j| <= rel has one
+// bucket everywhere (2 rel left of the band, 0 right of it): there the
+// terms are per-row constants and the bucket sums row sums. Only the tiles
+// that meet the band index buckets per element, and only their interior
+// buckets (0 < c < 2 rel) read the scratch per element; the edge buckets'
+// terms come once per tile. The small products (qr, dwb before the dq walk;
+// ds_b.Tk, ds_b^T.Q, wb^T.dO after it) are wgmma tiles of 64 buckets, the
+// tables staged in a ring slot as a K and a V tile. dk/dv read qr and dwb
+// from the fp32 scratch of pairs that dq writes.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int rpr_bucket(int i, int j, int rel) {
+  return min(max(i - j, -rel), rel) + rel;
+}
+
+// The one bucket of a tile of query rows r0 .. r0 + rows - 1 and keys c0 ..
+// c0 + keys - 1 that lies outside the band (2 rel or 0), or -1 where it
+// meets the band.
+__device__ __forceinline__ int rpr_tile_bucket(int r0, int rows, int c0,
+                                               int keys, int rel) {
+  if (r0 - (c0 + keys - 1) > rel) return 2 * rel;
+  if (c0 - (r0 + rows - 1) > rel) return 0;
+  return -1;
+}
+
+// The (qr, dwb) pair of bucket b of a row: the edge buckets' pairs lo (b =
+// 0) and hi (b = 2 rel) are given, an interior one is read from the row's
+// scratch qd.
+__device__ __forceinline__ float2 rpr_terms(const float2* qd, int b,
+                                            int rel, float2 lo, float2 hi) {
+  return b == 0 ? lo : b == 2 * rel ? hi : qd[b];
+}
+
+// A dq thread's sums over its rows' edge buckets, 0 (lo) and 2 rel (hi),
+// kept in registers through the walk: of P_drop (w) and of dS (d). In the
+// band an interior bucket of a row gets exactly one key, so its value is a
+// plain shared-memory store.
+struct RprSums {
+  float wlo[2], whi[2], dlo[2], dhi[2];
+};
+
+// Two bf16 as one wgmma A-operand word, the first low.
+__device__ __forceinline__ uint32_t bf16_pair(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Before the dq walk: qr and dwb of the block's rows into the scratch (S
+// and dP serve as the accumulators), the tables staged 64 buckets at a time
+// in the ring's last slot, whose first tile the walk loads only after this;
+// then the bucket sums zeroed.
+template <int DP>
+__device__ __forceinline__ void rpr_dq_prologue(const Params& p, int bh,
+                                                int q0, const bf16* qs,
+                                                const bf16* dos, bf16* slot,
+                                                __nv_bfloat162* sums,
+                                                float (&s)[32],
+                                                float (&dp)[32]) {
+  const int nb = 2 * p.rel + 1, dh = p.dh;
+  bf16* tks = slot;
+  bf16* tvs = slot + kKeys * DP;
+  for (int c0 = 0; c0 < nb; c0 += kKeys) {
+    if (c0 > 0) __syncthreads();   // the last chunk's products are done
+    load_tile<kKeys, DP, kThreadsTC>(tks, (const bf16*)p.tk, dh, c0, 0, nb,
+                                     dh);
+    load_tile<kKeys, DP, kThreadsTC>(tvs, (const bf16*)p.tv, dh, c0, 0, nb,
+                                     dh);
+    cp_async_commit();
+    cp_async_wait<0>();   // with Q, dO and the first key tiles
+    fence_proxy_async();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      wgmma_ss<64>(s, k_desc(qs, kBlockRows, kk), k_desc(tks, kKeys, kk),
+                   kk > 0);
+      wgmma_ss<64>(dp, k_desc(dos, kBlockRows, kk), k_desc(tvs, kKeys, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = q0 + frag_row(h), c = c0 + frag_col(j) + e;
+          if (i < p.lq && c < nb)
+            p.qd[((size_t)bh * p.lq + i) * nb + c] = make_float2(
+                s[4 * j + 2 * h + e], dp[4 * j + 2 * h + e]);
+        }
+  }
+  uint32_t* z = reinterpret_cast<uint32_t*>(sums);
+  for (int e = threadIdx.x; e < kBlockRows * nb; e += kThreadsTC) z[e] = 0u;
+  __syncthreads();   // the scratch and the zeros, visible; the slot free
+}
+
+// dq_scores with the RPR terms, and the bucket sums of the tile at k0. BAND:
+// the tile meets the band (buckets per element); else its one bucket is ce.
+template <bool EDGE, bool BAND>
+__device__ __forceinline__ void rpr_dq_scores(
+    const Params& p, float (&s)[32], const float (&dp)[32], const float* pd,
+    int k0, const DqRows& r, float scale_log2, int bh, int q0, int ce,
+    RprSums& sum, __nv_bfloat162* sums) {
+  const float masked_log2 = kMasked * kLog2e;
+  const int nb = 2 * p.rel + 1;
+  const float2* qd[2];
+  float2 lo[2], hi[2];
+  float wsum[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qd[h] = p.qd + ((size_t)bh * p.lq + (r.row_in[h] ? r.row[h] : 0)) * nb;
+    if (BAND) {
+      lo[h] = qd[h][0];
+      hi[h] = qd[h][2 * p.rel];
+    } else {
+      lo[h] = hi[h] = qd[h][ce];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, key = k0 + c;
+      const bool pad_ok = pd[c] > 0.f;   // 0 past Lk
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * j + 2 * h + e;
+        // a key that exists enters wb, valid or masked: an all-pad row
+        // (m = -1e30) gets 1/l from every key
+        const bool exists = !EDGE || (r.row_in[h] && key < p.lk);
+        const bool valid =
+            pad_ok && (!EDGE || (r.row_in[h] &&
+                                 (!p.causal || key <= r.row[h])));
+        const int b = BAND ? rpr_bucket(r.row[h], key, p.rel) : ce;
+        float wd = 0.f, ds = 0.f;
+        if (exists) {
+          const float2 t =
+              BAND ? rpr_terms(qd[h], b, p.rel, lo[h], hi[h]) : lo[h];
+          const float w =
+              fast_exp2(valid ? fmaf(s[x] + t.x, scale_log2, -r.ml[h])
+                              : __fsub_rn(masked_log2, r.ml[h])) *
+              r.inv_l[h];
+          float dw = dp[x] + t.y;
+          wd = w;
+          if (p.dropout) {
+            const bool keep =
+                zt::keep_key(r.seed[h], key, p.s1, p.threshold);
+            wd = keep ? w * p.drop_scale : 0.f;
+            dw = keep ? dw * p.drop_scale : 0.f;
+          }
+          if (valid) ds = w * (dw - r.delta[h]);
+        }
+        s[x] = ds;
+        if (!BAND) {
+          wsum[h] += wd;
+          dsum[h] += ds;
+        } else if (b == 0) {
+          sum.wlo[h] += wd;
+          sum.dlo[h] += ds;
+        } else if (b == 2 * p.rel) {
+          sum.whi[h] += wd;
+          sum.dhi[h] += ds;
+        } else if (exists) {
+          sums[(r.row[h] - q0) * nb + b] = __floats2bfloat162_rn(wd, ds);
+        }
+      }
+    }
+  if (!BAND) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (ce == 0) {
+        sum.wlo[h] += wsum[h];
+        sum.dlo[h] += dsum[h];
+      } else {
+        sum.whi[h] += wsum[h];
+        sum.dhi[h] += dsum[h];
+      }
+    }
+  }
+}
+
+// After the dq walk: the edge buckets' quad sums into the bucket sums, then
+// dQ += ds_b.Tk by wgmma (ds_b the register A operand, rounded to bf16 as
+// dS is; Tk staged in ring slot 0 and read m/n-major), 64 buckets a step.
+template <int DP>
+__device__ __forceinline__ void rpr_dq_finish(const Params& p,
+                                              const RprSums& sum,
+                                              __nv_bfloat162* sums,
+                                              bf16* slot,
+                                              float (&dq)[DP / 2]) {
+  const int nb = 2 * p.rel + 1, dh = p.dh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float wl = quad_sum(sum.wlo[h]), wh = quad_sum(sum.whi[h]);
+    const float dl = quad_sum(sum.dlo[h]), dhi = quad_sum(sum.dhi[h]);
+    if ((threadIdx.x & 3) == 0) {
+      __nv_bfloat162* row = sums + frag_row(h) * nb;
+      row[0] = __floats2bfloat162_rn(wl, dl);
+      if (p.rel > 0) row[2 * p.rel] = __floats2bfloat162_rn(wh, dhi);
+    }
+  }
+  __syncthreads();   // the sums complete, the ring no longer read
+  for (int c0 = 0; c0 < nb; c0 += kKeys) {
+    if (c0 > 0) __syncthreads();   // the last chunk's products are done
+    load_tile<kKeys, DP, kThreadsTC>(slot, (const bf16*)p.tk, dh, c0, 0, nb,
+                                     dh);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + frag_col(2 * kk + (q >> 1));
+        const __nv_bfloat162* row = sums + frag_row(q & 1) * nb;
+        const bf16 zero = __float2bfloat16_rn(0.f);
+        a[kk][q] = bf16_pair(c < nb ? row[c].y : zero,
+                             c + 1 < nb ? row[c + 1].y : zero);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(dq, a[kk], mn_desc(slot, kKeys, 16 * kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+}
+
+// After dq: the block's table-gradient partials dTk = scale * ds_b^T.Q and
+// dTv = wb^T.dO (fp32 [R, Dh] at part_tk/part_tv[block]) by wgmma, 64
+// buckets a step: the A fragment (bucket rows, query-row columns) read from
+// the bucket sums, Q and dO read m/n-major.
+template <int DP>
+__device__ __forceinline__ void rpr_dq_tables(const Params& p,
+                                              const bf16* qs, const bf16* dos,
+                                              const __nv_bfloat162* sums) {
+  const int nb = 2 * p.rel + 1, dh = p.dh;
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  float acc[DP / 2];
+  for (int c0 = 0; c0 < nb; c0 += kKeys)
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = c0 + frag_row(q & 1);
+          const int i = frag_col(2 * kk + (q >> 1));
+          if (c < nb) {
+            const __nv_bfloat162 u = sums[i * nb + c];
+            const __nv_bfloat162 v = sums[(i + 1) * nb + c];
+            a[kk][q] = t ? bf16_pair(u.x, v.x) : bf16_pair(u.y, v.y);
+          } else {
+            a[kk][q] = 0u;
+          }
+        }
+#pragma unroll
+      for (int x = 0; x < DP / 2; ++x) acc[x] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(acc, a[kk], mn_desc(t ? dos : qs, kBlockRows, 16 * kk),
+                     1);
+      wgmma_commit();
+      wgmma_wait_all();
+      float* part = (t ? p.part_tv : p.part_tk) + blk * nb * dh;
+      const float sc = t ? 1.f : p.scale;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + frag_row(h), d = frag_col(j);
+          if (c < nb && d < dh)   // dh is a multiple of 16: so is d + 1
+            *reinterpret_cast<float2*>(part + (size_t)c * dh + d) =
+                make_float2(acc[4 * j + 2 * h] * sc,
+                            acc[4 * j + 2 * h + 1] * sc);
+        }
+    }
+}
+
 // delta = rowsum(dO * O) and dq; grid (ceil(Lq / kBlockRows), B*H). Both
 // mask rules: dS is 0 at every masked entry, so the key tiles past the
-// diagonal are skipped under the causal flag either way.
-template <int DP>
+// diagonal are skipped under the causal flag either way (but see Rpr).
+// POL = Rpr adds the RPR terms, the bucket sums and the table partials.
+template <int DP, class POL = NoRpr>
 __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
     dq_tc(Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -500,6 +833,9 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
   bf16* ring = dos + kBlockRows * DP;             // slots of K, V [64][DP]
   float* pads = reinterpret_cast<float*>(ring + kDqStages * 2 * kKeys * DP);
   float* delta_s = pads + kDqStages * kKeys;      // [kBlockRows]
+  // Rpr: the bucket sums (wb, ds_b), bf16 pairs [kBlockRows][R]
+  __nv_bfloat162* sums =
+      reinterpret_cast<__nv_bfloat162*>(delta_s + kBlockRows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / p.heads;
   const int q0 = blockIdx.x * kBlockRows, dh = p.dh;
@@ -510,7 +846,14 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
   const bf16* k = (const bf16*)p.k + (size_t)bh * p.lk * dh;
   const bf16* v = (const bf16*)p.v + (size_t)bh * p.lk * dh;
   const float* pad = p.pad + (size_t)b * p.lk;
-  const int k_end = p.causal ? min(p.lk, q0 + kBlockRows) : p.lk;
+  int k_end = p.causal ? min(p.lk, q0 + kBlockRows) : p.lk;
+  if constexpr (POL::kOn) {
+    // an all-pad row (the fused rule) feeds wb, and so dTv, from every
+    // key, the keys past the diagonal too: a block whose first row has no
+    // valid key (m = -1e30, one load for the whole block) walks them all
+    if (p.causal && q0 < p.lq && p.m[(size_t)bh * p.lq + q0] == kMasked)
+      k_end = p.lk;
+  }
   const int tiles = (k_end + kKeys - 1) / kKeys;
 
   auto load = [&](int slot, int t) {
@@ -530,6 +873,11 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
     if (s < tiles) load(s, s);
     cp_async_commit();
   }
+  float s[32], dp[32], dq[DP / 2];
+  if constexpr (POL::kOn)
+    rpr_dq_prologue<DP>(p, bh, q0, qs, dos,
+                        ring + (kDqStages - 1) * 2 * kKeys * DP, sums, s,
+                        dp);
 
   // delta: each warp sums its share of the block's rows in fp32
   constexpr int kRowsPerWarp = kBlockRows / (kThreadsTC / 32);
@@ -570,11 +918,11 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
   }
   const bool rows_edge = q0 + kBlockRows > p.lq;
 
-  float s[32], dp[32], dq[DP / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  RprSums edge_sums = {};
 
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kDqStages - 2>();
@@ -599,10 +947,35 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
     wgmma_commit();
     wgmma_wait_all();
 
-    if (rows_edge || (p.causal && k0 + kKeys - 1 > q0))
-      dq_scores<true>(p, s, dp, pads + slot * kKeys, k0, rows, scale_log2);
-    else
-      dq_scores<false>(p, s, dp, pads + slot * kKeys, k0, rows, scale_log2);
+    if constexpr (POL::kOn) {
+      // the edge rules also where the tile holds keys past Lk, which must
+      // not enter wb
+      const bool edge = rows_edge || k0 + kKeys > p.lk ||
+                        (p.causal && k0 + kKeys - 1 > q0);
+      const int ce = rpr_tile_bucket(q0, kBlockRows, k0, kKeys, p.rel);
+      const float* pd = pads + slot * kKeys;
+      if (ce < 0) {
+        if (edge)
+          rpr_dq_scores<true, true>(p, s, dp, pd, k0, rows, scale_log2, bh,
+                                    q0, ce, edge_sums, sums);
+        else
+          rpr_dq_scores<false, true>(p, s, dp, pd, k0, rows, scale_log2, bh,
+                                     q0, ce, edge_sums, sums);
+      } else {
+        if (edge)
+          rpr_dq_scores<true, false>(p, s, dp, pd, k0, rows, scale_log2, bh,
+                                     q0, ce, edge_sums, sums);
+        else
+          rpr_dq_scores<false, false>(p, s, dp, pd, k0, rows, scale_log2,
+                                      bh, q0, ce, edge_sums, sums);
+      }
+    } else {
+      if (rows_edge || (p.causal && k0 + kKeys - 1 > q0))
+        dq_scores<true>(p, s, dp, pads + slot * kKeys, k0, rows, scale_log2);
+      else
+        dq_scores<false>(p, s, dp, pads + slot * kKeys, k0, rows,
+                         scale_log2);
+    }
 
     // dQ += dS.K: dS from registers, K m/n-major (keys are the k)
     uint32_t a[4][4];
@@ -617,7 +990,9 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
   }
   cp_async_wait<0>();
 
+  if constexpr (POL::kOn) rpr_dq_finish<DP>(p, edge_sums, sums, ring, dq);
   store_acc<DP>((bf16*)p.out + qoff, dq, q0, p.lq, dh, p.scale);
+  if constexpr (POL::kOn) rpr_dq_tables<DP>(p, qs, dos, sums);
 }
 
 // The keys of a dk/dv thread (fragment rows h = 0, 1).
@@ -672,11 +1047,64 @@ __device__ __forceinline__ void dkdv_scores(const Params& p,
     }
 }
 
-// dk, dv; grid (ceil(Lk / kBlockRows), B*H); reads delta from dq_tc
-template <int DP, bool FUSED>
+// Rpr: dkdv_scores with the RPR terms. Each query row's terms at the edge
+// buckets come staged with the slot (eg: qr, dwb at 0, then at 2 rel).
+// BAND: the tile meets the band, and an interior bucket's terms are read
+// from the scratch per element; else the tile's one bucket is ce.
+template <int BQ, bool EDGE, bool FUSED, bool BAND>
+__device__ __forceinline__ void rpr_dkdv_scores(
+    const Params& p, float (&s)[BQ / 2], float (&dp)[BQ / 2],
+    const float4* st, const float4* eg, int qt0, const DkvKeys& kv,
+    float scale_log2, int bh, int ce) {
+  const float masked_log2 = kMasked * kLog2e;
+  const int nb = 2 * p.rel + 1;
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, i = qt0 + c;
+      const float4 r = st[c];
+      const float ml = __fmul_rn(r.x, kLog2e), inv_l = fast_rcp(r.y);
+      const uint32_t seed = __float_as_uint(r.w);
+      const float4 edge = eg[c];
+      const float2 lo = make_float2(edge.x, edge.y);
+      const float2 hi = make_float2(edge.z, edge.w);
+      const float2* qd =
+          p.qd + ((size_t)bh * p.lq + (i < p.lq ? i : 0)) * nb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * j + 2 * h + e;
+        const bool seen = !EDGE || !p.causal || kv.key[h] <= i;
+        const bool exists =
+            kv.key_in[h] && (!EDGE || i < p.lq) && (FUSED || seen);
+        const bool valid = exists && seen && kv.pad_ok[h];
+        float wd = 0.f, ds = 0.f;
+        if (exists) {
+          const float2 t =
+              BAND ? rpr_terms(qd, rpr_bucket(i, kv.key[h], p.rel), p.rel,
+                               lo, hi)
+                   : (ce == 0 ? lo : hi);
+          const float w =
+              fast_exp2((valid ? (s[x] + t.x) * scale_log2 : masked_log2) -
+                        ml) * inv_l;
+          const bool keep =
+              !p.dropout || zt::keep_key(seed, kv.key[h], p.s1, p.threshold);
+          wd = keep ? w * p.drop_scale : 0.f;
+          if (valid)
+            ds = w * ((keep ? (dp[x] + t.y) * p.drop_scale : 0.f) - r.z);
+        }
+        s[x] = ds;
+        dp[x] = wd;
+      }
+    }
+}
+
+// dk, dv; grid (ceil(Lk / kBlockRows), B*H); reads delta (and, under Rpr,
+// the scratch of qr and dwb) from dq_tc
+template <int DP, bool FUSED, class POL = NoRpr>
 __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
     dkdv_tc(Params p) {
-  constexpr int BQ = query_tile<DP>();
+  constexpr int BQ = query_tile<DP, POL>();
   extern __shared__ unsigned char smem_raw[];
   bf16* ks = align1024(smem_raw);                 // [kBlockRows][DP]
   bf16* vs = ks + kBlockRows * DP;                // [kBlockRows][DP]
@@ -684,6 +1112,8 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
   // per query row of a slot: m, l, delta and the row's seed word
   float4* stats =
       reinterpret_cast<float4*>(ring + kKvStages * 2 * BQ * DP);
+  // Rpr: per query row of a slot, (qr, dwb) at buckets 0 and 2 rel
+  float4* edges = stats + kKvStages * BQ;
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / p.heads;
   const int k0 = blockIdx.x * kBlockRows, dh = p.dh;
@@ -724,6 +1154,12 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
       cp_async4(&st->y, p.l + gi, in);
       cp_async4(&st->z, p.delta + gi, in);
       st->w = __uint_as_float(row_seed(p, bh, i));
+      if constexpr (POL::kOn) {
+        const float2* qd = p.qd + gi * (2 * p.rel + 1);
+        float4* eg = edges + slot * BQ + tid;
+        cp_async8(&eg->x, qd, in);
+        cp_async8(&eg->z, qd + 2 * p.rel, in);
+      }
     }
   };
   load_tile<kBlockRows, DP, kThreadsTC>(ks, (const bf16*)p.k + koff, dh, k0,
@@ -775,12 +1211,35 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
     wgmma_commit();
     wgmma_wait_all();
 
-    if (qt0 + BQ > p.lq || (p.causal && qt0 < k0 + kBlockRows - 1))
-      dkdv_scores<BQ, true, FUSED>(p, s, dp, stats + slot * BQ, qt0, kv,
-                                   scale_log2);
-    else
-      dkdv_scores<BQ, false, FUSED>(p, s, dp, stats + slot * BQ, qt0, kv,
-                                    scale_log2);
+    const bool edge =
+        qt0 + BQ > p.lq || (p.causal && qt0 < k0 + kBlockRows - 1);
+    if constexpr (POL::kOn) {
+      const float4* st = stats + slot * BQ;
+      const float4* eg = edges + slot * BQ;
+      const int ce = rpr_tile_bucket(qt0, BQ, k0, kBlockRows, p.rel);
+      if (ce < 0) {
+        if (edge)
+          rpr_dkdv_scores<BQ, true, FUSED, true>(p, s, dp, st, eg, qt0, kv,
+                                                 scale_log2, bh, ce);
+        else
+          rpr_dkdv_scores<BQ, false, FUSED, true>(p, s, dp, st, eg, qt0, kv,
+                                                  scale_log2, bh, ce);
+      } else {
+        if (edge)
+          rpr_dkdv_scores<BQ, true, FUSED, false>(p, s, dp, st, eg, qt0, kv,
+                                                  scale_log2, bh, ce);
+        else
+          rpr_dkdv_scores<BQ, false, FUSED, false>(p, s, dp, st, eg, qt0,
+                                                   kv, scale_log2, bh, ce);
+      }
+    } else {
+      if (edge)
+        dkdv_scores<BQ, true, FUSED>(p, s, dp, stats + slot * BQ, qt0, kv,
+                                     scale_log2);
+      else
+        dkdv_scores<BQ, false, FUSED>(p, s, dp, stats + slot * BQ, qt0, kv,
+                                      scale_log2);
+    }
 
     // dV += P_drop^T.dO, dK += dS^T.Q: A from registers, B m/n-major
     uint32_t ap[BQ / 16][4], as[BQ / 16][4];
@@ -804,20 +1263,23 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
   store_acc<DP>((bf16*)p.dv + koff, dv, k0, p.lk, dh, 1.f);
 }
 
-template <int DP, bool FUSED>
+template <int DP, bool FUSED, class POL>
 cudaError_t launch_backward_dp(const Params& p, int bh, bool dkdv,
                                cudaStream_t s) {
   cudaError_t err;
   if (!dkdv) {
-    err = allow_smem(dq_tc<DP>, dq_smem<DP>());
+    const size_t bytes = dq_smem<DP>() + POL::dq_smem(p.rel);
+    err = allow_smem(dq_tc<DP, POL>, bytes);
     if (err != cudaSuccess) return err;
     dim3 grid((p.lq + kBlockRows - 1) / kBlockRows, bh);
-    dq_tc<DP><<<grid, kThreadsTC, dq_smem<DP>(), s>>>(p);
+    dq_tc<DP, POL><<<grid, kThreadsTC, bytes, s>>>(p);
   } else {
-    err = allow_smem(dkdv_tc<DP, FUSED>, dkdv_smem<DP>());
+    const size_t bytes =
+        dkdv_smem<DP, POL>() + POL::template kv_smem<DP>();
+    err = allow_smem(dkdv_tc<DP, FUSED, POL>, bytes);
     if (err != cudaSuccess) return err;
     dim3 grid((p.lk + kBlockRows - 1) / kBlockRows, bh);
-    dkdv_tc<DP, FUSED><<<grid, kThreadsTC, dkdv_smem<DP>(), s>>>(p);
+    dkdv_tc<DP, FUSED, POL><<<grid, kThreadsTC, bytes, s>>>(p);
   }
   return cudaGetLastError();
 }
@@ -838,15 +1300,17 @@ int run_forward(const Params& p, int dtype, int bh, void* stream) {
                           : launch_forward_dp<128, FUSED>(p, bh, s));
 }
 
-// dq (dkdv false) or dk/dv (dkdv true) under the mask rule FUSED; a launch
-// the kernels do not take returns cudaErrorInvalidValue
-template <bool FUSED>
+// dq (dkdv false) or dk/dv (dkdv true) under the mask rule FUSED and the
+// policy POL; a launch the kernels do not take returns
+// cudaErrorInvalidValue
+template <bool FUSED, class POL = NoRpr>
 int run_backward(const Params& p, int dtype, int bh, bool dkdv,
                  void* stream) {
   if (!takes(dtype, p.dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(p.dh <= 64 ? launch_backward_dp<64, FUSED>(p, bh, dkdv, s)
-                          : launch_backward_dp<128, FUSED>(p, bh, dkdv, s));
+  return (int)(p.dh <= 64
+                   ? launch_backward_dp<64, FUSED, POL>(p, bh, dkdv, s)
+                   : launch_backward_dp<128, FUSED, POL>(p, bh, dkdv, s));
 }
 
 }  // namespace tc

@@ -40,6 +40,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// two 4-byte words, 8-byte aligned, zero where !ok
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

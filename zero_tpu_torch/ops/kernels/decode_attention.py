@@ -18,8 +18,8 @@ Replaces the Pallas TPU kernels of ``zero_tpu/ops/kernels/decode_attention.py``:
   ``cross_attn_step`` (speed-neutral at MT lengths), and so does the port:
   ``chip_smoke.py`` launches it at long-memory and MT shapes.
 
-The first two run one CUDA kernel, the third its own, in
-``csrc/decode_attention.cu`` (its header explains the design); where the
+All three run one CUDA kernel in ``csrc/decode_attention.cu`` (its header
+explains the design); where the
 blocks of one (row, head) each would leave SMs idle (a long cache at small
 batch), both split their positions into chunks (``decode_splits``,
 ``cross_splits``) and a second kernel folds the chunks. Bound on the card:
@@ -32,7 +32,8 @@ kernel reads each selected element once, in 16-byte loads, in one pass (an
 online softmax per group of lanes), and gathers pool rows by the ancestry
 index directly, where the TPU kernel made K masked passes over every pool
 row. The cross kernel reads each memory element once per batch row, for
-all its beams.
+up to CROSS_BEAMS_PER_BLOCK beams, in the same 16-byte loads: each lane
+group takes the dots of all the block's beams from one K load.
 
 Dispatch: a CUDA tensor launches the kernel, or raises when the kernel
 does not take the input; a CPU tensor goes to the plain version
@@ -66,7 +67,8 @@ MAX_HEAD_DIM = 256
 MAX_POSITIONS = 10240
 DECODE_BLOCKS_PER_SM = 4     # the single-query kernel's split target
 DECODE_MIN_CHUNK = 256       # its least positions per split
-CROSS_BEAMS_PER_BLOCK = 16   # the cross kernel's beams per block
+CROSS_BEAMS_PER_BLOCK = 4    # the cross kernel's beams per block
+CROSS_BLOCKS_PER_SM = 2      # its split target
 CROSS_MIN_CHUNK = 256        # its least memory positions per split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,7 +76,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # "decode_cross_attention") and calls of the plain versions (the same names
 # with "_ref")
 launches: collections.Counter = collections.Counter()
-# the splits over positions of each single-query kernel's last launch
+# the splits over positions (memory positions for the cross kernel) of each
+# kernel's last launch
 taken: dict = {}
 
 
@@ -303,9 +306,13 @@ def decode_pool_attention(q, k, v, ancestry, time: int, num_heads: int,
 
 
 def cross_splits(blocks: int, s_len: int, sms: int):
-    """(splits, chunk) of the cross kernel's memory axis: about two blocks
-    per SM, chunks a multiple of the 32-position tile."""
-    return _splits(blocks, s_len, sms, 2, CROSS_MIN_CHUNK, 32)
+    """(splits, chunk) of the cross kernel's memory axis: ``blocks`` (B x
+    heads x beam groups) over ``s_len`` positions, about
+    CROSS_BLOCKS_PER_SM blocks per SM, chunks a multiple of 32.
+    ``scripts/decode_split_sweep.py --kernel cross`` times the kernel
+    against the target."""
+    return _splits(blocks, s_len, sms, CROSS_BLOCKS_PER_SM, CROSS_MIN_CHUNK,
+                   32)
 
 
 def decode_cross_attention(q, mk, mv, mask, num_heads: int):
@@ -354,6 +361,7 @@ def decode_cross_attention(q, mk, mv, mask, num_heads: int):
                              dtype=torch.float32, device=q.device)
         part_ml = torch.empty((b, num_heads, splits, beams, 2),
                               dtype=torch.float32, device=q.device)
+    taken["decode_cross_attention"] = splits
     with torch.cuda.device(q.device):
         err = _cross_library()(
             q.data_ptr(), mk.data_ptr(), mv.data_ptr(), pad.data_ptr(),

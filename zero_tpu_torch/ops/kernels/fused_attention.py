@@ -34,9 +34,14 @@ The Shaw RPR variant (``rpr_tables`` + ``max_relative_position``) replaces
   dq, dk, dv and the table gradients dTk, dTv summed over the whole grid.
 
 They run ``csrc/fused_attention_rpr.cu``, one more ``autograd.Function``.
-The TPU kernel works on bucket-flipped tables; these take the tables in
-the order given and return their gradients in that order. The plain
-version is ``fused_attention_rpr_ref``.
+The forward is its CUDA-core kernel on every route; the backward takes
+``forward_route``'s: on the tensor cores (bf16, Dh a multiple of 16 up to
+128) it is #2's ``wgmma`` kernels with the RPR terms added where a tile
+meets the band |i - j| <= m (``csrc/zt_attention_tc.cuh``, policy
+``Rpr``), elsewhere the CUDA-core kernels. The TPU kernel works on
+bucket-flipped tables; these take the tables in the order given and return
+their gradients in that order. The plain version is
+``fused_attention_rpr_ref``.
 
 Dropout. The TPU kernels seed the TPU's hardware PRNG per grid block; the
 port draws the streaming kernels' row-seeded mask
@@ -52,7 +57,7 @@ to ``fused_attention_ref`` (``fused_attention_rpr_ref`` with tables).
 ``launches`` counts the kernel launches by wrapper ("fused_attention",
 "fused_attention_backward" on the CUDA cores, "fused_attention_tc",
 "fused_attention_backward_tc" on the tensor cores, "fused_attention_rpr",
-"fused_attention_rpr_backward")
+"fused_attention_rpr_backward" and "fused_attention_rpr_backward_tc")
 and the plain versions' calls ("fused_attention_ref",
 "fused_attention_rpr_ref").
 """
@@ -94,10 +99,6 @@ def forward_route(dtype: torch.dtype, dh: int, device: str = "cuda") -> str:
     the RPR one too), "tensor_cores" on the card in bf16 at dh a multiple of
     16 up to 128, else "cuda_cores"; the streaming route's rule."""
     return sa.route(device, dtype, dh)
-
-
-# the route's earlier name, from when only the backward took it
-backward_route = forward_route
 
 
 def keep_mask(words, shape, rate: float, device=None) -> torch.Tensor:
@@ -191,10 +192,13 @@ def _rpr_library():
     fwd = lib.zt_attention_rpr_forward
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + tail
     fwd.restype = ctypes.c_int
-    bwd = lib.zt_attention_rpr_backward
-    bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + tail
-    bwd.restype = ctypes.c_int
-    return fwd, bwd
+    bwds = []
+    for name in ("zt_attention_rpr_backward", "zt_attention_rpr_backward_tc"):
+        bwd = getattr(lib, name)
+        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + tail
+        bwd.restype = ctypes.c_int
+        bwds.append(bwd)
+    return (fwd,) + tuple(bwds)
 
 
 def _dropout_args(rate: float, words):
@@ -316,53 +320,72 @@ def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words):
     return o, m, l
 
 
+# rows of a dq block of the RPR backward, whose grid sizes the table
+# partials: the CUDA-core kernel's 32-row tiles, the tensor-core one's 64
+_RPR_DQ_ROWS = {"cuda_cores": 32, "tensor_cores": 64}
+
+
 def _backward_rpr(q, k, v, pad, tk, tv, o, do, m, l, max_rel, causal, rate,
-                  words):
+                  words, route="cuda_cores"):
+    """#4 on ``route`` ("cuda_cores", or "tensor_cores": bf16, 16-byte
+    aligned inputs): (dq, dk, dv, dTk, dTv)."""
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     buckets = tk.shape[0]
-    blocks = b * h * -(-lq // 32)     # the dq kernel's grid: 32 rows a block
+    blocks = b * h * -(-lq // _RPR_DQ_ROWS[route])
     f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dtk, dtv = torch.empty_like(tk), torch.empty_like(tv)
     delta = torch.empty_like(m)
-    qr = torch.empty((b * h, lq, buckets), **f32)
-    dwb = torch.empty_like(qr)
+    tc = route == "tensor_cores"
+    if tc:
+        # one scratch of (q.Tk, do.Tv) pairs
+        qr, dwb = torch.empty((b * h, lq, buckets, 2), **f32), None
+    else:
+        qr = torch.empty((b * h, lq, buckets), **f32)
+        dwb = torch.empty_like(qr)
     part_tk = torch.empty((blocks, buckets, dh), **f32)
     part_tv = torch.empty_like(part_tk)
     with torch.cuda.device(q.device):
-        err = _rpr_library()[1](
+        err = _rpr_library()[2 if tc else 1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             tk.data_ptr(), tv.data_ptr(), o.data_ptr(), do.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr(), qr.data_ptr(),
-            dwb.data_ptr(), part_tk.data_ptr(), part_tv.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dtk.data_ptr(),
-            dtv.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh, max_rel,
-            int(causal), float(dh) ** -0.5, *_dropout_args(rate, words),
+            None if dwb is None else dwb.data_ptr(), part_tk.data_ptr(),
+            part_tv.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dtk.data_ptr(), dtv.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk,
+            dh, max_rel, int(causal), float(dh) ** -0.5,
+            *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "RPR backward")
-    launches["fused_attention_rpr_backward"] += 1
+    launches["fused_attention_rpr_backward" + ("_tc" if tc else "")] += 1
     return dq, dk, dv, dtk, dtv
 
 
 class _FusedAttentionRpr(torch.autograd.Function):
-    """RPR forward kernel; backward kernels for dq, dk, dv, dTk, dTv."""
+    """RPR forward kernel (CUDA cores); backward kernels for dq, dk, dv,
+    dTk, dTv on the ``route`` that ``forward_route`` picked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad, tk, tv, max_rel, causal, rate, words):
+    def forward(ctx, q, k, v, pad, tk, tv, max_rel, causal, rate, words,
+                route):
+        if route == "tensor_cores":
+            q, k, v, tk, tv = map(sa._aligned, (q, k, v, tk, tv))
         o, m, l = _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate,
                                words)
         ctx.save_for_backward(q, k, v, pad, tk, tv, o, m, l)
-        ctx.args = (max_rel, causal, rate, words)
+        ctx.args = (max_rel, causal, rate, words, route)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, pad, tk, tv, o, m, l = ctx.saved_tensors
-        dq, dk, dv, dtk, dtv = _backward_rpr(q, k, v, pad, tk, tv, o,
-                                             do.contiguous(), m, l,
-                                             *ctx.args)
-        return dq, dk, dv, None, dtk, dtv, None, None, None, None
+        do = do.contiguous()
+        if ctx.args[-1] == "tensor_cores":
+            do = sa._aligned(do)
+        dq, dk, dv, dtk, dtv = _backward_rpr(q, k, v, pad, tk, tv, o, do, m,
+                                             l, *ctx.args)
+        return dq, dk, dv, None, dtk, dtv, None, None, None, None, None
 
 
 def _check(q, k, v, pad):
@@ -442,6 +465,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tables is not None:
         _check_rpr(q, *tables, max_rel)
         return _FusedAttentionRpr.apply(q, k, v, pad, *tables, max_rel,
-                                        bool(causal), rate, words)
+                                        bool(causal), rate, words, route)
     return _FusedAttention.apply(q, k, v, pad, bool(causal), rate, words,
                                  route)
