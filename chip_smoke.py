@@ -25,7 +25,8 @@ non-zero):
              report and every kernel that spills registers; the count of
              tensor-core instructions (HGMMA, HMMA) in the SASS of the fused
              FFN, streaming, fused-attention and RPR libraries, whose wgmma
-             (HGMMA) count must not be 0
+             (HGMMA) count must not be 0; the ptxas lines and spills of the
+             tensor-core RPR forward (forward_tc under the Rpr policy)
   kernels    decode_attention (#10) and decode_pool_attention (#8, softmax
              and relu) at transformer-base beam-4 decode shapes (B=32
              sentences x beam 4, hidden 512, 8 heads, T = 64 + 50, every
@@ -85,24 +86,24 @@ non-zero):
   rpr_kernels  fused_attention's RPR variant (#3 forward, #4 backward) at
              the train_kernels shapes with max_relative_position 16, fp32
              and bf16, dropout 0 and 0.1: output and the five gradients (dq,
-             dk, dv, dTk, dTv) held against fused_attention_rpr_ref, #4 on
-             the route forward_route picks (bf16 at Dh 64: the tensor-core
-             #4, launch counts show which ran); checked also (bf16) under
-             the causal flag with an all-pad row at L=200, at head depths
-             128, 32, 80 (tensor cores) and 40 (CUDA cores), and at m=64
-             (129 buckets); device times of kernel, of the CUDA-core #4 on
-             the same inputs (parent_ms), plain version, the composite the
-             model runs with use_flash_attention off (_attn_core's one-hot
-             form) and, as a floor, SDPA WITHOUT relative positions, beside
-             the bound (the RPR terms counted)
+             dk, dv, dTk, dTv) held against fused_attention_rpr_ref, both
+             directions on the route forward_route picks (bf16 at Dh 64: the
+             tensor-core #3 and #4, launch counts show which ran); checked
+             also (bf16) under the causal flag with an all-pad row at L=200,
+             at head depths 128, 32, 80 (tensor cores) and 40 (CUDA cores),
+             and at m=64 (129 buckets); device times of kernel, of the
+             CUDA-core #3 and #4 on the same inputs (parent_ms), plain
+             version, the composite the model runs with use_flash_attention
+             off (_attn_core's one-hot form) and, as a floor, SDPA WITHOUT
+             relative positions, beside the bound (the RPR terms counted)
   rpr_train  transformer_rpr (configs/transformer_rpr_rela.json: 6+6
              layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
              update_cycle 4) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn, which RPR ignores) on,
              then off: ms/step, tokens/s, MFU (RPR matmuls counted); RPR
              kernel launches = those the steps' own shapes predict (an
-             attention over Lk > 2m keys; the backward the tensor-core #4),
-             no FFN kernel, no plain version;
+             attention over Lk > 2m keys; the tensor-core #3 and #4), no FFN
+             kernel, no plain version;
              then --mode test (beam 4: the encoder runs the RPR forward
              kernel, the decoder no decode kernel, RPR keeps both off) and
              --mode score (the RPR forward kernel) of the checkpoint
@@ -906,9 +907,9 @@ RPR_SMALL_MAX = 3   # rpr_reference's model, at ATTN_SMALL: 2m < every Lk
 # the causal flag with an all-pad batch row (its weights are uniform over
 # all Lk keys, so it feeds dTv's bucket 0 from the keys past the diagonal,
 # which no other row reaches), on 64-row tiles that end ragged; the other
-# head depths the tensor-core #4 takes (128: 32-row dk/dv tiles; 32; 80,
-# padded to 128); a depth it does not take (40: the CUDA-core #4); and the
-# kernel's largest m (R = 129 buckets, three 64-bucket steps)
+# head depths the tensor-core #3/#4 take (128: 32-row dk/dv tiles; 32; 80,
+# padded to 128); a depth they do not take (40: the CUDA-core #3/#4); and
+# the kernels' largest m (R = 129 buckets, three 64-bucket steps)
 RPR_CHECK_CASES = (
     ("causal_pad_200", 4, 2, 200, 200, 64, True, True, RPR_MAX),
     ("dh128_causal_pad_136", 2, 2, 136, 136, 128, True, True, RPR_MAX),
@@ -916,15 +917,22 @@ RPR_CHECK_CASES = (
     ("dh80_causal_pad_136", 2, 2, 136, 136, 80, True, True, RPR_MAX),
     ("dh40_pad_136", 2, 1, 136, 136, 40, False, True, RPR_MAX),
     ("m64_causal_pad_200", 2, 2, 200, 200, 64, True, True, 64))
+# m = 0, forward only: one bucket, which every key falls in, so the
+# tensor-core #3 has no interior bucket and its two edge buckets are one.
+# (dTk is then 0 by the algebra, the score term being a per-row constant,
+# and a bf16 backward carries the rounding of its delta, which it forms from
+# the bf16 output, into it: no absolute bound fits a zero reference.)
+RPR_M0_CASE = ("m0_causal_pad_136", 2, 2, 136, 136, 64, True, True, 0)
 # the tables as the wrappers read them (.keys, .values), without the
 # parameter wrapping of ops/rpr.py:RprTables, so gradients reach tk and tv
 Tables = collections.namedtuple("Tables", "keys values")
 
 
 def rpr_attention_rows(fa, gen):
-    """Kernels #3/#4 against fused_attention_rpr_ref, #4 on the route
-    forward_route picks (bf16 at Dh 64: the tensor-core #4, whose CUDA-core
-    parent is timed on the same inputs as parent_ms); returns the rows."""
+    """Kernels #3/#4 against fused_attention_rpr_ref, on the route
+    forward_route picks (bf16 at Dh 64: the tensor-core #3 and #4, whose
+    CUDA-core parents are timed on the same inputs as parent_ms); returns
+    the rows."""
     from zero_tpu_torch.ops import attention as attn
 
     dev = "cuda"
@@ -959,9 +967,11 @@ def rpr_attention_rows(fa, gen):
                      + 2 * r * dh) * eb + 4 * b * lk
         bwd_bytes = (4 * b * h * lq * dh + 4 * b * h * lk * dh
                      + 4 * r * dh) * eb + 4 * b * lk + 8 * b * h * lq
-        tc = fa.forward_route(dtype, dh) == "tensor_cores"
-        want = {"fused_attention_rpr": 1,
-                "fused_attention_rpr_backward" + ("_tc" if tc else ""): 1}
+        route = fa.forward_route(dtype, dh)
+        tc = route == "tensor_cores"
+        sfx = "_tc" if tc else ""
+        want = {"fused_attention_rpr" + sfx: 1,
+                "fused_attention_rpr_backward" + sfx: 1}
         for rate in (0.0, 0.1):
             q, k, v, tk, tv, pad, do = inputs()
             words = SEED_WORDS if rate else None
@@ -1021,6 +1031,14 @@ def rpr_attention_rows(fa, gen):
             iters = 2 * len(sets)
             fwd = dict(ms=device_ms(k_fwd, sets, iters),
                        plain_ms=device_ms(p_fwd, sets, iters))
+            if tc:
+                # the CUDA-core #3 that ran before the tensor-core one, on
+                # the same inputs
+                def parent_fwd(q, k, v, tk, tv, pad, do):
+                    return fa._forward_rpr(q, k, v, pad, tk, tv, m, causal,
+                                           rate, words, route="cuda_cores")
+
+                fwd["parent_ms"] = device_ms(parent_fwd, sets, iters)
             bwd = {}
             for key, fn in (("ms", k_fwd), ("plain_ms", p_fwd)):
                 graphs = [(grad_ms(fn(*s), s[:5], s[6]),) for s in sets]
@@ -1080,10 +1098,9 @@ def rpr_attention_rows(fa, gen):
             bwd.update(bound_ms=bb, bound_by=bby,
                        max_abs_err=max(errs[1:]))
             phase("rpr_kernels", kernel="fused_attention_rpr",
-                  case=label, **fwd)
+                  case=label, route=route, **fwd)
             phase("rpr_kernels", kernel="fused_attention_rpr_backward",
-                  case=label, route="tensor_cores" if tc else
-                  "cuda_cores", **bwd)
+                  case=label, route=route, **bwd)
             rows[("fused_attention_rpr", name, dtype, rate)] = fwd
             rows[("fused_attention_rpr_backward", name, dtype, rate)] = bwd
             del sets
@@ -1091,10 +1108,43 @@ def rpr_attention_rows(fa, gen):
     return rows
 
 
+def rpr_m0_check(fa, gen):
+    """The RPR forward at RPR_M0_CASE against fused_attention_rpr_ref,
+    bf16, dropout 0 and 0.1."""
+    name, b, h, lq, lk, dh, causal, padded, m = RPR_M0_CASE
+    dev, dtype = "cuda", torch.bfloat16
+    sfx = "_tc" if fa.forward_route(dtype, dh) == "tensor_cores" else ""
+    for rate in (0.0, 0.1):
+        q, k, v = (torch.randn(b, h, n, dh, generator=gen).to(dev, dtype)
+                   for n in (lq, lk, lk))
+        tk, tv = (torch.randn(2 * m + 1, dh, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        pad = attention_pad(gen, b, lk, padded).to(dev)
+        words = SEED_WORDS if rate else None
+        fa.launches.clear()
+        out = fa.fused_attention(q, k, v, pad, causal=causal,
+                                 dropout_rate=rate, rng=words,
+                                 rpr_tables=Tables(tk, tv),
+                                 max_relative_position=m)
+        if dict(fa.launches) != {"fused_attention_rpr" + sfx: 1}:
+            raise AssertionError("fused_attention_rpr %s: launches %s"
+                                 % (name, dict(fa.launches)))
+        ref = fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, m, causal,
+                                         rate, words)
+        label = "%s[%s,p=%g,m=%d]" % (name, str(dtype)[6:], rate, m)
+        err = check("fused_attention_rpr " + label, out, ref, dtype,
+                    TRAIN_TOLERANCE)
+        phase("rpr_kernels", kernel="fused_attention_rpr", case=label,
+              max_abs_err=err, kernels=sorted(fa.launches))
+
+
 def rpr_kernels_phase():
     from zero_tpu_torch.ops.kernels import fused_attention as fa
 
-    return rpr_attention_rows(fa, torch.Generator().manual_seed(SEED + 2))
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rows = rpr_attention_rows(fa, gen)
+    rpr_m0_check(fa, gen)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1152,14 +1202,10 @@ def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
     layer (18 at 6+6), one FFN per layer (12); forward and backward, the
     attention on the route forward_route picks."""
-    from zero_tpu_torch.ops.kernels import fused_attention as fa
-
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
     ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
-    sfx = "_tc" if fa.forward_route(
-        getattr(torch, cfg["default_dtype"]),
-        cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
+    sfx = route_suffix(cfg)
     return {"fused_attention" + sfx: attn * microbatches,
             "fused_attention_backward" + sfx: attn * microbatches,
             "fused_ffn": ffn * microbatches,
@@ -1171,10 +1217,8 @@ def rpr_expected_launches(cfg, summary):
     outnumber 2m (ops/attention.py:_rpr_flash_ok), at each step's stacked
     lengths: encoder self-attention and decoder cross attention over the
     source, decoder self-attention over the target. Its FFN never fuses.
-    The backward runs on the route forward_route picks (bf16 at Dh 64: the
-    tensor-core #4)."""
-    from zero_tpu_torch.ops.kernels import fused_attention as fa
-
+    Both directions run on the route forward_route picks (bf16 at Dh 64:
+    the tensor-core #3 and #4)."""
     two_m = 2 * cfg["max_relative_position"]
     n = 0
     for shapes in summary["shapes"]:
@@ -1182,10 +1226,19 @@ def rpr_expected_launches(cfg, summary):
         n += len(shapes) * (cfg["num_encoder_layer"] * (ls > two_m)
                             + cfg["num_decoder_layer"] * ((lt > two_m)
                                                           + (ls > two_m)))
-    sfx = "_tc" if fa.forward_route(
+    sfx = route_suffix(cfg)
+    return {"fused_attention_rpr" + sfx: n,
+            "fused_attention_rpr_backward" + sfx: n}
+
+
+def route_suffix(cfg):
+    """The launch counters' suffix of the attention kernels' route at a
+    config's dtype and head depth: "_tc" on the tensor cores."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+
+    return "_tc" if fa.forward_route(
         getattr(torch, cfg["default_dtype"]),
         cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
-    return {"fused_attention_rpr": n, "fused_attention_rpr_backward" + sfx: n}
 
 
 def train_run(d, out, flags, counters, config=CONFIG):
@@ -1286,9 +1339,10 @@ def train_phase(d, da, config=CONFIG, label="train",
         raise AssertionError("%s: plain versions ran while serving or "
                              "scoring: %s %s" % (label, serve_launches,
                                                  score_launches))
+    rpr_fwd = {"fused_attention_rpr" + route_suffix(cfg)}
     if cfg.get("model_name") == "transformer_rpr" and (
-            set(serve_launches) != {"fused_attention_rpr"}
-            or set(score_launches) != {"fused_attention_rpr"}):
+            set(serve_launches) != rpr_fwd
+            or set(score_launches) != rpr_fwd):
         # RPR decode runs no decode kernel; the encoder (serving) and the
         # scoring forward run #3, as the saved flags say
         raise AssertionError("%s: serving launched %s, scoring %s"
@@ -2320,7 +2374,7 @@ def main(argv=None):
     for name in sources:
         cuda_build.load(name)
     # the bf16 FFN kernels (#11/#12), the bf16 streaming kernels (#5-#7),
-    # the bf16 fused attention (#1/#2) and the bf16 RPR backward (#4) run
+    # the bf16 fused attention (#1/#2) and the bf16 RPR kernels (#3/#4) run
     # on the tensor cores: wgmma (HGMMA) in their libraries' SASS (another
     # checkout's, under --package, may predate them)
     sass = {n: tensor_core_sass(libs[n])
@@ -2330,10 +2384,18 @@ def main(argv=None):
         if counts is not None and not counts["HGMMA"] and not args.package:
             raise AssertionError("%s: no wgmma (HGMMA) in the SASS: %s"
                                  % (n, counts))
+    # the tensor-core RPR forward (#3: forward_tc under the Rpr policy)
+    rpr_fwd_tc = [line for line in cuda_build.ptxas_report(
+        "fused_attention_rpr") if "forward_tc" in line and "Rpr" in line]
     phase("build", seconds=time.time() - t0,
           libraries=[os.path.relpath(libs[n], REPO) for n in sources],
           ptxas={n: cuda_build.ptxas_report(n) for n in sources},
           ptxas_spills={n: cuda_build.ptxas_spills(n) for n in sources},
+          rpr_forward_tc_ptxas=rpr_fwd_tc,
+          rpr_forward_tc_spills={
+              k: v for k, v in cuda_build.ptxas_spills(
+                  "fused_attention_rpr").items()
+              if "forward_tc" in k and "Rpr" in k},
           fused_ffn_tensor_core_sass=sass["fused_ffn"],
           streaming_tensor_core_sass=sass["streaming_attention"],
           fused_attention_tensor_core_sass=sass["fused_attention"],
@@ -2448,10 +2510,10 @@ def main(argv=None):
         kernels.append(row)
     # RPR kernels: bf16 at rate 0.1, encoder self-attention at m 16; the
     # library column is SDPA WITHOUT relative positions (a floor, not the
-    # same function), composite_ms the use_flash_attention=false path. #4
-    # is the tensor-core kernel, parent_ms the CUDA-core one on the same
-    # inputs in this run
-    for name, line in (("fused_attention_rpr", 580),
+    # same function), composite_ms the use_flash_attention=false path. #3
+    # and #4 are the tensor-core kernels, parent_ms the CUDA-core ones on
+    # the same inputs in this run
+    for name, line in (("fused_attention_rpr_tc", 580),
                        ("fused_attention_rpr_backward_tc", 624)):
         kernel = name[:-3] if name.endswith("_tc") else name
         r = rpr_rows[(kernel, "self_pad", torch.bfloat16, 0.1)]

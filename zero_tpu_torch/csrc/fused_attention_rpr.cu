@@ -4,13 +4,16 @@
 //
 //   zt_attention_rpr_forward   replaces _fused_forward_rpr (_fwd_kernel_rpr).
 //   zt_attention_rpr_backward  replaces _fused_bwd_rule_rpr (_bwd_kernel_rpr).
-//   zt_attention_rpr_backward_tc  the same on the tensor cores (bf16, head
-//                          depth a multiple of 16 up to 128): zt::tc::dq_tc
-//                          and zt::tc::dkdv_tc under the fused mask rule
-//                          with the Rpr policy (zt_attention_tc.cuh), then
-//                          the table reduction below. The wrapper takes it
-//                          on the route of ops/kernels/fused_attention.py:
-//                          forward_route; the forward stays the kernel here.
+//   zt_attention_rpr_forward_tc, zt_attention_rpr_backward_tc  the same on
+//                          the tensor cores (bf16, head depth a multiple of
+//                          16 up to 128): zt::tc::forward_tc, and
+//                          zt::tc::dq_tc and zt::tc::dkdv_tc then the table
+//                          reduction below, under the fused mask rule with
+//                          the Rpr policy (zt_attention_tc.cuh). The
+//                          wrapper takes them, in both directions, on the
+//                          route of ops/kernels/fused_attention.py:
+//                          forward_route; fp32 and other depths take the
+//                          CUDA-core kernels here.
 //
 // Math. With c(i, j) = clip(i - j, -m, m) + m, R = 2m + 1 buckets and the
 // tables Tk, Tv [R, Dh] in the order given (bucket c is row c):
@@ -70,11 +73,14 @@
 // by reading q/k/v and writing o (~5 us at B=16, H=8, L=256 on an H100),
 // with the tensor-core products close behind; in fp32 on the CUDA cores by
 // operations. The CUDA-core kernels multiply in fp32, one multiply-add per
-// shared-memory read. The tensor-core backward runs #2's wgmma kernels with
-// the RPR terms added where a tile meets the band |i - j| <= m (at most
-// three of a 64-row block's key tiles at m <= 32); outside it the terms are
-// per-row constants and the bucket sums row sums. Its five small products
-// (q.Tk, do.Tv, ds_b.Tk, ds_b^T.q, wb^T.do) are wgmma tiles of 64 buckets.
+// shared-memory read. The tensor-core kernels are #1's and #2's wgmma
+// kernels with the RPR terms added where a tile meets the band |i - j| <= m
+// (at most three of a 64-row block's key tiles at m <= 32); outside it the
+// terms are per-row constants and the bucket sums row sums. Their small
+// products (q.Tk and wb.Tv forward; q.Tk, do.Tv, ds_b.Tk, ds_b^T.q and
+// wb^T.do backward) are wgmma tiles of 64 buckets. The forward keeps q.Tk
+// of its 64 rows in shared memory (fp32 [64][R]), where an interior
+// bucket's one key leaves its score for the bucket sum after the walk.
 //
 // Interface: plain C functions, loaded with ctypes; each returns
 // cudaGetLastError() after its launches.
@@ -725,6 +731,42 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// The launch parameters of the tensor-core kernels (zt::AttnParams) that
+// both directions share.
+zt::AttnParams tc_params(const void* q, const void* k, const void* v,
+                         const void* pad, const void* tk, const void* tv,
+                         const void* m, const void* l, int heads, int lq,
+                         int lk, int dh, int rel, int causal, float scale,
+                         int dropout, unsigned int threshold,
+                         float drop_scale, unsigned int s0, unsigned int s1) {
+  zt::AttnParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.pad = (const float*)pad;
+  p.m = (float*)m;
+  p.l = (float*)l;
+  p.heads = heads;
+  p.lq = lq;
+  p.lk = lk;
+  p.dh = dh;
+  p.causal = causal;
+  p.dropout = dropout;
+  p.scale = scale;
+  p.drop_scale = drop_scale;
+  p.threshold = threshold;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.tk = tk;
+  p.tv = tv;
+  p.rel = rel;
+  return p;
+}
+
+bool tc_takes(int batch, int heads, int rel) {
+  return rel >= 0 && 2 * rel + 1 <= kMaxBuckets && batch * heads <= 65535;
+}
+
 }  // namespace
 
 extern "C" int zt_attention_rpr_forward(
@@ -766,6 +808,24 @@ extern "C" int zt_attention_rpr_backward(
   return (int)run(p, dtype, batch * heads, true, dtk, dtv, stream);
 }
 
+// The tensor-core forward, with the arguments of zt_attention_rpr_forward;
+// dtype must be 1 and dh a multiple of 16 up to 128 (else
+// cudaErrorInvalidValue).
+extern "C" int zt_attention_rpr_forward_tc(
+    const void* q, const void* k, const void* v, const void* pad,
+    const void* tk, const void* tv, void* o, void* m, void* l, int dtype,
+    int batch, int heads, int lq, int lk, int dh, int rel, int causal,
+    float scale, int dropout, unsigned int threshold, float drop_scale,
+    unsigned int s0, unsigned int s1, void* stream) {
+  if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
+  zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
+                               rel, causal, scale, dropout, threshold,
+                               drop_scale, s0, s1);
+  p.out = o;
+  return zt::tc::run_forward<true, zt::tc::Rpr>(p, dtype, batch * heads,
+                                                 stream);
+}
+
 // The tensor-core backward, with the arguments of zt_attention_rpr_backward
 // but for: qr is fp32 scratch [B*H, Lq, R, 2] of the pairs (q.Tk, do.Tv)
 // and dwb is unused; part_tk/part_tv hold one [R, Dh] partial per dq block,
@@ -778,39 +838,20 @@ extern "C" int zt_attention_rpr_backward_tc(
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
     int rel, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+  if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   const int bh = batch * heads, nb = 2 * rel + 1;
-  if (nb > kMaxBuckets || rel < 0 || bh > 65535)
-    return (int)cudaErrorInvalidValue;
-  zt::AttnParams p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.pad = (const float*)pad;
+  zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
+                               rel, causal, scale, dropout, threshold,
+                               drop_scale, s0, s1);
   p.o = o;
   p.dout = dout;
   p.out = dq;
   p.dk = dk;
   p.dv = dv;
-  p.m = (float*)m;
-  p.l = (float*)l;
   p.delta = (float*)delta;
-  p.heads = heads;
-  p.lq = lq;
-  p.lk = lk;
-  p.dh = dh;
-  p.causal = causal;
-  p.dropout = dropout;
-  p.scale = scale;
-  p.drop_scale = drop_scale;
-  p.threshold = threshold;
-  p.s0 = s0;
-  p.s1 = s1;
-  p.tk = tk;
-  p.tv = tv;
   p.qd = (float2*)qr;
   p.part_tk = (float*)part_tk;
   p.part_tv = (float*)part_tv;
-  p.rel = rel;
   using Rpr = zt::tc::Rpr;
   int err = zt::tc::run_backward<true, Rpr>(p, dtype, bh, false, stream);
   if (err != 0) return err;

@@ -10,9 +10,11 @@
 //               over the key tiles.
 //   dkdv_tc     #7, and #2's second half: a block owns 64 keys and walks
 //               the query tiles for dk and dv.
-//   dq_tc and dkdv_tc take a policy: NoRpr (the default) or Rpr, #4, which
-//   adds Shaw's relative-position terms, the bucket sums and the table
-//   gradients (see Rpr below).
+//   All three take a policy: NoRpr (the default) or Rpr, which adds Shaw's
+//   relative-position terms: in forward_tc #3 (q.Tk before the walk, the
+//   bucket sums of P_drop in it, wb.Tv after it), in dq_tc and dkdv_tc #4
+//   (the same terms, the bucket sums of dS and the table gradients; see Rpr
+//   below).
 //
 // m is the max of s * Dh^-0.5 over a row's valid keys, or -1e30 on a row
 // with none; l is the undropped sum of exp(s * Dh^-0.5 - m). The backward
@@ -48,9 +50,10 @@
 //     then dV += P_drop^T.dO and dK += dS^T.Q with A from registers and the
 //     staged Q and dO tiles read m/n-major. dk = dK * scale, dv = dV in
 //     bf16.
-//   P and dS are rounded to bf16 as the products' A operands, as in every
-//   FlashAttention kernel (the JAX kernels multiply the weights in fp32);
-//   everything else stays fp32.
+//   P and dS (and under Rpr the bucket sums wb and ds_b) are rounded to
+//   bf16 as the products' A operands, as in every FlashAttention kernel
+//   (the JAX kernels multiply the weights in fp32); everything else stays
+//   fp32.
 //
 // The mask rule (template argument FUSED of forward_tc and dkdv_tc). Under
 // the causal flag the streaming kernels (#5-#7) treat keys past a row as
@@ -109,10 +112,10 @@ struct AttnParams {
   int heads, lq, lk, dh, causal, dropout;
   float scale, drop_scale;
   uint32_t threshold, s0, s1;
-  // Shaw RPR (the Rpr policy of dq_tc and dkdv_tc; fused_attention_rpr.cu):
-  // tables tk, tv [R, Dh] bf16, R = 2 rel + 1; fp32 scratch qd [B*H, Lq,
-  // R] of pairs (q.Tk^T, do.Tv^T); fp32 table-gradient partials part_tk,
-  // part_tv [dq blocks, R, Dh]
+  // Shaw RPR (the Rpr policy; fused_attention_rpr.cu): tables tk, tv [R,
+  // Dh] bf16, R = 2 rel + 1; for dq_tc and dkdv_tc, fp32 scratch qd [B*H,
+  // Lq, R] of pairs (q.Tk^T, do.Tv^T) and fp32 table-gradient partials
+  // part_tk, part_tv [dq blocks, R, Dh]
   const void* tk;
   const void* tv;
   float2* qd;
@@ -201,11 +204,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The policy of dq_tc and dkdv_tc. NoRpr: plain attention (#2, #6, #7);
-// its code paths are those of the kernels without a policy. Rpr: Shaw's
-// relative positions (#4), the terms below dkdv_tc.
+// The policy of forward_tc, dq_tc and dkdv_tc. NoRpr: plain attention (#1,
+// #2, #5, #6, #7); its code paths are those of the kernels without a
+// policy. Rpr: Shaw's relative positions (#3, #4), the terms below.
 struct NoRpr {
   static constexpr bool kOn = false;
+  __host__ __device__ static constexpr size_t fwd_smem(int) { return 0; }
   __host__ __device__ static constexpr size_t dq_smem(int) { return 0; }
   template <int DP>
   __host__ __device__ static constexpr size_t kv_smem() { return 0; }
@@ -213,6 +217,11 @@ struct NoRpr {
 
 struct Rpr {
   static constexpr bool kOn = true;
+  // forward: qr of the block's 64 rows, fp32 [64][R], which the walk's
+  // interior buckets reuse as their scratch (rpr_fwd_scores)
+  __host__ __device__ static constexpr size_t fwd_smem(int rel) {
+    return sizeof(float) * kBlockRows * (2 * rel + 1);
+  }
   // dq: the bucket sums (wb, ds_b) of the block's 64 rows as bf16 pairs
   // [64][R]
   __host__ __device__ static constexpr size_t dq_smem(int rel) {
@@ -225,6 +234,54 @@ struct Rpr {
     return sizeof(float4) * kKvStages * query_tile<DP, Rpr>();
   }
 };
+
+// ---------------------------------------------------------------------------
+// The Rpr policy (#3, #4). With c(i, j) = clip(i - j, -rel, rel) + rel,
+// R = 2 rel + 1 buckets and the tables Tk, Tv [R, Dh]:
+//   S += qr[i, c(i, j)] (qr = Q.Tk^T),  dP += dwb[i, c(i, j)] (dwb = dO.Tv^T),
+//   wb[i, c] = sum_{j: c(i,j) = c} P_drop,  ds_b[i, c] = the same sum of dS,
+//   o += wb.Tv,  dq += ds_b.Tk,  dTk = scale * sum_i ds_b^T q,
+//   dTv = sum_i wb^T dO.
+// A 64 x 64 tile that lies wholly outside the band |i - j| <= rel has one
+// bucket everywhere (2 rel left of the band, 0 right of it): there the
+// terms are per-row constants and the bucket sums row sums. Only the tiles
+// that meet the band index buckets per element, and only their interior
+// buckets (0 < c < 2 rel) read the scratch per element; the edge buckets'
+// terms come once per tile. An interior bucket of a row gets exactly one
+// key (j = i - c + rel), so its bucket sum is that key's value, a plain
+// store. The small products (qr before the forward walk and wb.Tv after
+// it; qr, dwb before the dq walk, ds_b.Tk, ds_b^T.Q, wb^T.dO after it) are
+// wgmma tiles of 64 buckets, the tables staged in a ring slot as a K or a
+// V tile.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int rpr_bucket(int i, int j, int rel) {
+  return min(max(i - j, -rel), rel) + rel;
+}
+
+// The one bucket of a tile of query rows r0 .. r0 + rows - 1 and keys c0 ..
+// c0 + keys - 1 that lies outside the band (2 rel or 0), or -1 where it
+// meets the band.
+__device__ __forceinline__ int rpr_tile_bucket(int r0, int rows, int c0,
+                                               int keys, int rel) {
+  if (r0 - (c0 + keys - 1) > rel) return 2 * rel;
+  if (c0 - (r0 + rows - 1) > rel) return 0;
+  return -1;
+}
+
+// A valid score under the Rpr policy, S + qr[i, c(i, j)], and its exponent
+// in log2 units against the row max (ml = m * log2(e)). forward_tc and
+// dq_tc form both through these two functions from the same fp32 S and qr
+// of the same wgmma instructions, so #4 rebuilds as exp(s - m) / l exactly
+// the weights #3 normalised.
+__device__ __forceinline__ float rpr_score(float s, float qr) {
+  return s + qr;
+}
+
+__device__ __forceinline__ float rpr_exponent(float score, float scale_log2,
+                                              float ml) {
+  return fmaf(score, scale_log2, -ml);
+}
 
 template <int DP>
 constexpr size_t dq_smem() {
@@ -348,14 +405,279 @@ __device__ __forceinline__ void fwd_scores(const Params& p, float (&s)[32],
     }
 }
 
-// o, m, l of 64 query rows; grid (ceil(Lq / kBlockRows), B*H)
-template <int DP, bool FUSED>
+// The forward under the Rpr policy (#3). Each block keeps qr = Q.Tk^T of
+// its 64 rows in shared memory (fp32 [64][R]); each tile reads its rows' qr
+// at the edge buckets into registers once (held through the walk they made
+// ptxas spill at the 168 registers of three blocks an SM). The bucket sums
+// of P_drop: the edge
+// buckets' are row sums in registers, rescaled by alpha with l; an interior
+// bucket's one key leaves its score in the qr scratch, over the qr it was
+// formed from (read there first, in the same statement, and never again),
+// and after the walk becomes exp2 of its exponent against the row's final
+// max, dropped by the key's keep bit. So no [64][R] array is rescaled, and
+// no element pays a reduction.
+
+// forward_tc's Rpr state of a thread's rows (fragment rows h = 0, 1): its
+// share of the rows' bucket sums of P_drop at the edge buckets 0 (wlo) and
+// 2 rel (whi).
+struct RprFwdRows {
+  float wlo[2], whi[2];
+};
+
+// What an interior bucket's scratch entry holds for a masked key (its
+// weight is then the masked exponent's); a valid key leaves its score.
+constexpr float kRprMaskedKey = INFINITY;
+
+// Before the forward walk: qr = Q.Tk^T of the block's rows into the scratch
+// qr (S serves as the accumulator), Tk staged 64 buckets at a time in
+// `slot` as a K tile. Its first 64 buckets came with Q, in the commit group
+// ahead of the walk's first key tiles, which stay in flight behind this.
+// Then the edge buckets' sums zeroed.
+template <int DP>
+__device__ __forceinline__ void rpr_fwd_prologue(const Params& p,
+                                                 const bf16* qs, bf16* slot,
+                                                 float* qr, float (&s)[32],
+                                                 RprFwdRows& x) {
+  const int nb = 2 * p.rel + 1;
+  for (int c0 = 0; c0 < nb; c0 += kKeys) {
+    if (c0 == 0) {
+      cp_async_wait<kFwdStages - 1>();   // Q and the first 64 buckets
+    } else {
+      __syncthreads();   // the last chunk's products are done
+      load_tile<kKeys, DP, kThreadsTC>(slot, (const bf16*)p.tk, p.dh, c0, 0,
+                                       nb, p.dh);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss<64>(s, k_desc(qs, kBlockRows, kk), k_desc(slot, kKeys, kk),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + frag_col(j) + e;
+          if (c < nb) qr[frag_row(h) * nb + c] = s[4 * j + 2 * h + e];
+        }
+  }
+  __syncthreads();   // the scratch complete; the slot free for the walk
+#pragma unroll
+  for (int h = 0; h < 2; ++h) x.wlo[h] = x.whi[h] = 0.f;
+}
+
+// fwd_scores under the Rpr policy and the fused mask rule: the scores S +
+// qr (BAND: the tile meets the band, and an interior bucket's qr is read
+// from the scratch per element and replaced by the key's score; else the
+// tile's one bucket is ce), the online softmax over them, the dropped
+// weights P into s, and the edge buckets' sums of P_drop. (The interior
+// store sits in the first pass, so that no scratch address lives into the
+// second: beside S and O they made ptxas spill.)
+template <int DP, bool EDGE, bool BAND>
+__device__ __forceinline__ void rpr_fwd_scores(const Params& p,
+                                               float (&s)[32],
+                                               float (&o)[DP / 2],
+                                               FwdRows& r, RprFwdRows& x,
+                                               float* qr, const float* pd,
+                                               int k0, int ce,
+                                               float scale_log2) {
+  const float masked_log2 = kMasked * kLog2e;
+  const int nb = 2 * p.rel + 1, top = 2 * p.rel;
+  float* const row_qr[2] = {qr + frag_row(0) * nb, qr + frag_row(1) * nb};
+  float lo[2], hi[2];   // qr at the edge buckets
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = row_qr[h][0];
+    hi[h] = row_qr[h][top];
+  }
+  float smax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, key = k0 + c;
+      const bool pad_ok = pd[c] > 0.f;   // 0 past Lk
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        const bool valid = pad_ok && (!EDGE || !p.causal || key <= r.row[h]);
+        if (BAND) {
+          const int b = rpr_bucket(r.row[h], key, p.rel);
+          if (b == 0 || b == top) {
+            s[i] = rpr_score(s[i], b == 0 ? lo[h] : hi[h]);
+          } else {
+            s[i] = rpr_score(s[i], row_qr[h][b]);
+            if (!EDGE || key < p.lk)
+              row_qr[h][b] = valid ? s[i] : kRprMaskedKey;
+          }
+        } else {
+          s[i] = rpr_score(s[i], ce == 0 ? lo[h] : hi[h]);
+        }
+        if (valid) smax[h] = fmaxf(smax[h], s[i]);
+      }
+    }
+  float alpha[2], masked[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(r.m[h], quad_max(smax[h]) * p.scale);
+    const float ml_new = __fmul_rn(m_new, kLog2e);
+    alpha[h] = fast_exp2(__fsub_rn(r.ml[h], ml_new));
+    r.m[h] = m_new;
+    r.ml[h] = ml_new;
+    masked[h] = __fsub_rn(masked_log2, ml_new);
+  }
+  float lsum[2] = {0.f, 0.f}, wlo[2] = {0.f, 0.f}, whi[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e, key = k0 + c;
+      const bool pad_ok = pd[c] > 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        const bool seen = !EDGE || !p.causal || key <= r.row[h];
+        const bool exists = !EDGE || key < p.lk;
+        const bool valid = pad_ok && seen;
+        float w = 0.f;
+        if (exists) {
+          w = fast_exp2(valid ? rpr_exponent(s[i], scale_log2, r.ml[h])
+                              : masked[h]);
+          lsum[h] += w;
+          if (p.dropout)
+            w = zt::keep_key(r.seed[h], key, p.s1, p.threshold)
+                    ? w * p.drop_scale : 0.f;
+        }
+        if (!BAND) {
+          wlo[h] += w;   // the tile's one bucket, ce: moved below
+        } else {
+          const int b = rpr_bucket(r.row[h], key, p.rel);
+          if (b == 0)
+            wlo[h] += w;
+          else if (b == top)
+            whi[h] += w;
+        }
+        s[i] = w;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!BAND && ce != 0) {
+      whi[h] = wlo[h];
+      wlo[h] = 0.f;
+    }
+    r.l[h] = r.l[h] * alpha[h] + lsum[h];
+    x.wlo[h] = x.wlo[h] * alpha[h] + wlo[h];
+    x.whi[h] = x.whi[h] * alpha[h] + whi[h];
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      o[4 * j + 2 * h] *= alpha[h];
+      o[4 * j + 2 * h + 1] *= alpha[h];
+    }
+}
+
+// After the forward walk: O += wb.Tv by wgmma, 64 buckets a step, wb the
+// register A operand (rounded to bf16, as #4 rounds wb) and Tv staged in
+// `slot` as a V tile read m/n-major; its first 64 buckets were issued there
+// during the last key tile. wb is in the units of the rows' final
+// max, as O is: the edge buckets' sums from x (quad sums); an interior
+// bucket c of row i from the scratch, exp2 of its one key's exponent against
+// the final max, times 1/(1 - p) or 0 by the key's keep bit. That key, j =
+// i - c + rel, weighs 0 where it does not exist or the walk did not reach it
+// (j < 0, j >= key_end: past Lk, or past the causal stop, where it is masked
+// for a row with a valid key).
+template <int DP>
+__device__ __forceinline__ void rpr_fwd_finish(const Params& p,
+                                               const FwdRows& r,
+                                               const RprFwdRows& x,
+                                               const float* qr, int key_end,
+                                               float scale_log2, bf16* slot,
+                                               float (&o)[DP / 2]) {
+  const float masked_log2 = kMasked * kLog2e;
+  const int nb = 2 * p.rel + 1, top = 2 * p.rel;
+  float wl[2], wh[2], masked[2];
+  const float* row_qr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    wl[h] = quad_sum(x.wlo[h]);
+    wh[h] = quad_sum(x.whi[h]);
+    masked[h] = __fsub_rn(masked_log2, r.ml[h]);
+    row_qr[h] = qr + frag_row(h) * nb;
+  }
+  // bucket c of fragment row h, without branches but on the dropout flag:
+  // an interior bucket's weight is formed at every column and kept where
+  // its key was reached and kept (an early-return form ran slower on the
+  // card: PERF.md, Findings)
+  auto weight = [&](int h, int c) {
+    const int j = r.row[h] + p.rel - c;
+    const float u = row_qr[h][min(c, nb - 1)];
+    const bool in = c > 0 && c < top && (unsigned)j < (unsigned)key_end &&
+                    (!p.dropout ||
+                     zt::keep_key(r.seed[h], j, p.s1, p.threshold));
+    const float w = fast_exp2(u == kRprMaskedKey
+                                  ? masked[h]
+                                  : rpr_exponent(u, scale_log2, r.ml[h])) *
+                    p.drop_scale;
+    return c == 0 ? wl[h] : c == top ? wh[h] : in ? w : 0.f;
+  };
+  for (int c0 = 0; c0 < nb; c0 += kKeys) {
+    // the scratch complete, and the walk's (or the last chunk's) products
+    // done with the slot
+    __syncthreads();
+    if (c0 > 0) {
+      load_tile<kKeys, DP, kThreadsTC>(slot, (const bf16*)p.tv, p.dh, c0, 0,
+                                       nb, p.dh);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    // the weights of the k16 steps that hold a bucket below R; a step past
+    // R is zero (and still issued: a wgmma under a branch serialises them)
+    const int steps = (nb - c0 + 15) / 16;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + frag_col(2 * kk + (q >> 1)), h = q & 1;
+        a[kk][q] = kk < steps ? pack_bf16(weight(h, c), weight(h, c + 1))
+                              : 0u;
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(o, a[kk], mn_desc(slot, kKeys, 16 * kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+}
+
+// o, m, l of 64 query rows; grid (ceil(Lq / kBlockRows), B*H). POL = Rpr
+// (the fused rule only) adds the RPR terms.
+template <int DP, bool FUSED, class POL = NoRpr>
 __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
     forward_tc(Params p) {
+  static_assert(FUSED || !POL::kOn, "Rpr takes the fused mask rule");
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = align1024(smem_raw);                 // [kBlockRows][DP]
   bf16* ring = qs + kBlockRows * DP;              // slots of K, V [64][DP]
   float* pads = reinterpret_cast<float*>(ring + kFwdStages * 2 * kKeys * DP);
+  // Rpr: qr of the block's rows, fp32 [kBlockRows][R]
+  float* qr = pads + kFwdStages * kKeys;
+  // Rpr: Tk's 64-bucket tiles, in the ring's last slot, which the walk
+  // first loads after the prologue
+  bf16* table_slot = ring + (kFwdStages - 1) * 2 * kKeys * DP;
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / p.heads;
   const int q0 = blockIdx.x * kBlockRows, dh = p.dh;
@@ -376,6 +698,12 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
   };
   load_tile<kBlockRows, DP, kThreadsTC>(qs, (const bf16*)p.q + qoff, dh, q0,
                                         0, p.lq, dh);
+  if constexpr (POL::kOn) {
+    // Tk's first 64 buckets, in one commit group with Q
+    load_tile<kKeys, DP, kThreadsTC>(table_slot, (const bf16*)p.tk, dh, 0, 0,
+                                     2 * p.rel + 1, dh);
+    cp_async_commit();
+  }
 
   // causal: the walk stops at the diagonal tile; under the fused rule only
   // if row q0 (and with it every row of the block) has a valid key
@@ -410,6 +738,9 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  RprFwdRows rpr;
+  if constexpr (POL::kOn)
+    rpr_fwd_prologue<DP>(p, qs, table_slot, qr, s, rpr);
 
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kFwdStages - 2>();
@@ -417,6 +748,10 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
     __syncthreads();       // and the slot to refill has retired everywhere
     if (t + kFwdStages - 1 < tiles)
       load((t + kFwdStages - 1) % kFwdStages, t + kFwdStages - 1);
+    else if (POL::kOn && t == tiles - 1)   // Tv's first 64 buckets
+      load_tile<kKeys, DP, kThreadsTC>(
+          ring + (t + kFwdStages - 1) % kFwdStages * 2 * kKeys * DP,
+          (const bf16*)p.tv, dh, 0, 0, 2 * p.rel + 1, dh);
     cp_async_commit();
     const int slot = t % kFwdStages, k0 = t * kKeys;
     const bf16* ks = ring + slot * 2 * kKeys * DP;
@@ -434,12 +769,33 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
     // the tiles from the diagonal on under the causal flag and the tile
     // that straddles Lk take the edge rules; every other tile only the pad
     // mask
-    if (k0 + kKeys > p.lk || (p.causal && k0 + kKeys - 1 > q0))
-      fwd_scores<DP, true, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
-                                  scale_log2);
-    else
-      fwd_scores<DP, false, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
-                                   scale_log2);
+    const bool edge = k0 + kKeys > p.lk || (p.causal && k0 + kKeys - 1 > q0);
+    if constexpr (POL::kOn) {
+      const int ce = rpr_tile_bucket(q0, kBlockRows, k0, kKeys, p.rel);
+      const float* pd = pads + slot * kKeys;
+      if (ce < 0) {
+        if (edge)
+          rpr_fwd_scores<DP, true, true>(p, s, o, rows, rpr, qr, pd, k0, ce,
+                                         scale_log2);
+        else
+          rpr_fwd_scores<DP, false, true>(p, s, o, rows, rpr, qr, pd, k0, ce,
+                                          scale_log2);
+      } else {
+        if (edge)
+          rpr_fwd_scores<DP, true, false>(p, s, o, rows, rpr, qr, pd, k0, ce,
+                                          scale_log2);
+        else
+          rpr_fwd_scores<DP, false, false>(p, s, o, rows, rpr, qr, pd, k0,
+                                           ce, scale_log2);
+      }
+    } else {
+      if (edge)
+        fwd_scores<DP, true, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
+                                    scale_log2);
+      else
+        fwd_scores<DP, false, FUSED>(p, s, o, rows, pads + slot * kKeys, k0,
+                                     scale_log2);
+    }
 
     // O += P.V: P (bf16) from registers, V m/n-major (keys are the k)
     uint32_t a[4][4];
@@ -453,6 +809,10 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
     wgmma_wait_all();
   }
   cp_async_wait<0>();
+  if constexpr (POL::kOn)   // Tv where the last tile put it
+    rpr_fwd_finish<DP>(
+        p, rows, rpr, qr, min(p.lk, tiles * kKeys), scale_log2,
+        ring + (tiles + kFwdStages - 2) % kFwdStages * 2 * kKeys * DP, o);
 
   // o = O / l; m and l apart, in the units the backward reads
   float l[2];
@@ -477,12 +837,13 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
   }
 }
 
-template <int DP, bool FUSED>
+template <int DP, bool FUSED, class POL>
 cudaError_t launch_forward_dp(const Params& p, int bh, cudaStream_t s) {
-  cudaError_t err = allow_smem(forward_tc<DP, FUSED>, fwd_smem<DP>());
+  const size_t bytes = fwd_smem<DP>() + POL::fwd_smem(p.rel);
+  cudaError_t err = allow_smem(forward_tc<DP, FUSED, POL>, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((p.lq + kBlockRows - 1) / kBlockRows, bh);
-  forward_tc<DP, FUSED><<<grid, kThreadsTC, fwd_smem<DP>(), s>>>(p);
+  forward_tc<DP, FUSED, POL><<<grid, kThreadsTC, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -529,36 +890,8 @@ __device__ __forceinline__ void dq_scores(const Params& p, float (&s)[32],
     }
 }
 
-// ---------------------------------------------------------------------------
-// The Rpr policy (#4). With c(i, j) = clip(i - j, -rel, rel) + rel, R = 2 rel
-// + 1 buckets and the tables Tk, Tv [R, Dh]:
-//   S += qr[i, c(i, j)] (qr = Q.Tk^T),  dP += dwb[i, c(i, j)] (dwb = dO.Tv^T),
-//   wb[i, c] = sum_{j: c(i,j) = c} P_drop,  ds_b[i, c] = the same sum of dS,
-//   dq += ds_b.Tk,  dTk = scale * sum_i ds_b^T q,  dTv = sum_i wb^T dO.
-// A 64 x 64 tile that lies wholly outside the band |i - j| <= rel has one
-// bucket everywhere (2 rel left of the band, 0 right of it): there the
-// terms are per-row constants and the bucket sums row sums. Only the tiles
-// that meet the band index buckets per element, and only their interior
-// buckets (0 < c < 2 rel) read the scratch per element; the edge buckets'
-// terms come once per tile. The small products (qr, dwb before the dq walk;
-// ds_b.Tk, ds_b^T.Q, wb^T.dO after it) are wgmma tiles of 64 buckets, the
-// tables staged in a ring slot as a K and a V tile. dk/dv read qr and dwb
-// from the fp32 scratch of pairs that dq writes.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int rpr_bucket(int i, int j, int rel) {
-  return min(max(i - j, -rel), rel) + rel;
-}
-
-// The one bucket of a tile of query rows r0 .. r0 + rows - 1 and keys c0 ..
-// c0 + keys - 1 that lies outside the band (2 rel or 0), or -1 where it
-// meets the band.
-__device__ __forceinline__ int rpr_tile_bucket(int r0, int rows, int c0,
-                                               int keys, int rel) {
-  if (r0 - (c0 + keys - 1) > rel) return 2 * rel;
-  if (c0 - (r0 + rows - 1) > rel) return 0;
-  return -1;
-}
+// The Rpr policy's backward (#4): dq_tc reads qr and dwb from its own
+// prologue, dk/dv from the fp32 scratch of pairs that dq writes.
 
 // The (qr, dwb) pair of bucket b of a row: the edge buckets' pairs lo (b =
 // 0) and hi (b = 2 rel) are given, an interior one is read from the row's
@@ -676,7 +1009,8 @@ __device__ __forceinline__ void rpr_dq_scores(
           const float2 t =
               BAND ? rpr_terms(qd[h], b, p.rel, lo[h], hi[h]) : lo[h];
           const float w =
-              fast_exp2(valid ? fmaf(s[x] + t.x, scale_log2, -r.ml[h])
+              fast_exp2(valid ? rpr_exponent(rpr_score(s[x], t.x),
+                                             scale_log2, r.ml[h])
                               : __fsub_rn(masked_log2, r.ml[h])) *
               r.inv_l[h];
           float dw = dp[x] + t.y;
@@ -1290,14 +1624,14 @@ inline bool takes(int dtype, int dh) {
   return dtype == 1 && dh % 16 == 0 && dh <= 128;
 }
 
-// o, m, l (p.out, p.m, p.l) under the mask rule FUSED; a launch the
-// kernels do not take returns cudaErrorInvalidValue
-template <bool FUSED>
+// o, m, l (p.out, p.m, p.l) under the mask rule FUSED and the policy POL;
+// a launch the kernels do not take returns cudaErrorInvalidValue
+template <bool FUSED, class POL = NoRpr>
 int run_forward(const Params& p, int dtype, int bh, void* stream) {
   if (!takes(dtype, p.dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(p.dh <= 64 ? launch_forward_dp<64, FUSED>(p, bh, s)
-                          : launch_forward_dp<128, FUSED>(p, bh, s));
+  return (int)(p.dh <= 64 ? launch_forward_dp<64, FUSED, POL>(p, bh, s)
+                          : launch_forward_dp<128, FUSED, POL>(p, bh, s));
 }
 
 // dq (dkdv false) or dk/dv (dkdv true) under the mask rule FUSED and the

@@ -33,15 +33,14 @@ The Shaw RPR variant (``rpr_tables`` + ``max_relative_position``) replaces
 * ``_fused_bwd_rule_rpr`` (``pallas_call`` at :624, ``_bwd_kernel_rpr``):
   dq, dk, dv and the table gradients dTk, dTv summed over the whole grid.
 
-They run ``csrc/fused_attention_rpr.cu``, one more ``autograd.Function``.
-The forward is its CUDA-core kernel on every route; the backward takes
-``forward_route``'s: on the tensor cores (bf16, Dh a multiple of 16 up to
-128) it is #2's ``wgmma`` kernels with the RPR terms added where a tile
-meets the band |i - j| <= m (``csrc/zt_attention_tc.cuh``, policy
-``Rpr``), elsewhere the CUDA-core kernels. The TPU kernel works on
-bucket-flipped tables; these take the tables in the order given and return
-their gradients in that order. The plain version is
-``fused_attention_rpr_ref``.
+They run ``csrc/fused_attention_rpr.cu``, one more ``autograd.Function``,
+both directions on ``forward_route``'s route: on the tensor cores (bf16, Dh
+a multiple of 16 up to 128) #1's and #2's ``wgmma`` kernels with the RPR
+terms added where a tile meets the band |i - j| <= m
+(``csrc/zt_attention_tc.cuh``, policy ``Rpr``), elsewhere the CUDA-core
+kernels. The TPU kernel works on bucket-flipped tables; these take the
+tables in the order given and return their gradients in that order. The
+plain version is ``fused_attention_rpr_ref``.
 
 Dropout. The TPU kernels seed the TPU's hardware PRNG per grid block; the
 port draws the streaming kernels' row-seeded mask
@@ -55,11 +54,10 @@ dropout on.
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor goes
 to ``fused_attention_ref`` (``fused_attention_rpr_ref`` with tables).
 ``launches`` counts the kernel launches by wrapper ("fused_attention",
-"fused_attention_backward" on the CUDA cores, "fused_attention_tc",
-"fused_attention_backward_tc" on the tensor cores, "fused_attention_rpr",
-"fused_attention_rpr_backward" and "fused_attention_rpr_backward_tc")
-and the plain versions' calls ("fused_attention_ref",
-"fused_attention_rpr_ref").
+"fused_attention_backward", "fused_attention_rpr" and
+"fused_attention_rpr_backward" on the CUDA cores, the same names with
+"_tc" on the tensor cores) and the plain versions' calls
+("fused_attention_ref", "fused_attention_rpr_ref").
 """
 
 from __future__ import annotations
@@ -189,16 +187,16 @@ def _rpr_library():
     lib = cuda_build.load("fused_attention_rpr")
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
             ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
-    fwd = lib.zt_attention_rpr_forward
-    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + tail
-    fwd.restype = ctypes.c_int
-    bwds = []
-    for name in ("zt_attention_rpr_backward", "zt_attention_rpr_backward_tc"):
-        bwd = getattr(lib, name)
-        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + tail
-        bwd.restype = ctypes.c_int
-        bwds.append(bwd)
-    return (fwd,) + tuple(bwds)
+    fns = []
+    for name, pointers in (("zt_attention_rpr_forward", 9),
+                           ("zt_attention_rpr_backward", 20),
+                           ("zt_attention_rpr_backward_tc", 20),
+                           ("zt_attention_rpr_forward_tc", 9)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + tail
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
 
 
 def _dropout_args(rate: float, words):
@@ -302,21 +300,30 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words):
+# the RPR forward of each route: its entry in _rpr_library and its counter
+_RPR_FORWARD = {"cuda_cores": (0, "fused_attention_rpr"),
+                "tensor_cores": (3, "fused_attention_rpr_tc")}
+
+
+def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words,
+                 route="cuda_cores"):
+    """#3 on ``route`` ("cuda_cores", or "tensor_cores": bf16, 16-byte
+    aligned inputs): (o, m, l)."""
     b, h, lq, dh = q.shape
     lk = k.shape[2]
+    which, key = _RPR_FORWARD[route]
     o = torch.empty_like(q)
     m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        err = _rpr_library()[0](
+        err = _rpr_library()[which](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             tk.data_ptr(), tv.data_ptr(), o.data_ptr(), m.data_ptr(),
             l.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh, max_rel,
             int(causal), float(dh) ** -0.5, *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "RPR forward")
-    launches["fused_attention_rpr"] += 1
+    launches[key] += 1
     return o, m, l
 
 
@@ -363,8 +370,8 @@ def _backward_rpr(q, k, v, pad, tk, tv, o, do, m, l, max_rel, causal, rate,
 
 
 class _FusedAttentionRpr(torch.autograd.Function):
-    """RPR forward kernel (CUDA cores); backward kernels for dq, dk, dv,
-    dTk, dTv on the ``route`` that ``forward_route`` picked."""
+    """RPR forward kernel; backward kernels for dq, dk, dv, dTk, dTv; both
+    on the ``route`` that ``forward_route`` picked."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad, tk, tv, max_rel, causal, rate, words,
@@ -372,7 +379,7 @@ class _FusedAttentionRpr(torch.autograd.Function):
         if route == "tensor_cores":
             q, k, v, tk, tv = map(sa._aligned, (q, k, v, tk, tv))
         o, m, l = _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate,
-                               words)
+                               words, route)
         ctx.save_for_backward(q, k, v, pad, tk, tv, o, m, l)
         ctx.args = (max_rel, causal, rate, words, route)
         return o

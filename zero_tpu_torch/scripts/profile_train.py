@@ -11,8 +11,9 @@ makes ``update_cycle`` microbatches of ``--rows`` random sentences padded to
 the given lengths (each row 60-100% full), runs one train step to warm up,
 then one more under ``torch.profiler``. Prints one JSON line: wall ms of the
 step, device-busy ms (the union of CUDA kernel intervals) and the idle
-share, kernel launches, the CUDA kernels with the most device time, and the
-host-side ops with the most self time. ``--parameters
+share, kernel launches, the CUDA kernels with the most device time (with
+each one's per-call min, median and max), and the host-side ops with the
+most self time. ``--parameters
 use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels;
 ``--config configs/transformer_rpr_rela.json`` profiles transformer_rpr
 (its attentions over more than 2m keys take the RPR kernels). ``--max-len
@@ -102,9 +103,8 @@ def main(argv=None):
                         for e in kernels]) / 1e3
     by_kernel = {}
     for e in kernels:
-        total, count = by_kernel.get(e.name, (0.0, 0))
-        by_kernel[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+        by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -sum(kv[1]))
     host = sorted((a for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU),
                   key=lambda a: -a.self_cpu_time_total)
@@ -123,8 +123,10 @@ def main(argv=None):
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels": [
-            {"name": name[:80], "ms": total / 1e3, "calls": count}
-            for name, (total, count) in top_kernels[:args.top]],
+            {"name": name[:80], "ms": sum(us) / 1e3, "calls": len(us),
+             "us_min": min(us), "us_median": sorted(us)[len(us) // 2],
+             "us_max": max(us)}
+            for name, us in top_kernels[:args.top]],
         "top_host_ops": [
             {"name": a.key, "self_ms": a.self_cpu_time_total / 1e3,
              "calls": a.count}
