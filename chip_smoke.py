@@ -3,10 +3,12 @@
 hold them against their plain PyTorch versions, serve transformer-base
 through ``python -m zero_tpu_torch.run --mode test`` (beam 4, then beam 1),
 train it through ``python -m zero_tpu_torch.run --mode train``, train, serve
-and score transformer_rpr (Shaw relative positions) the same way, train,
-score and serve transformer-base on sequences past 8192 tokens (the
-streaming-attention kernels), and check these paths against the CPU on
-small models.
+and score transformer_rpr (Shaw relative positions), transformer_rela (ReLA)
+and transformer_aan (average attention) the same way, decode the test set
+with an ensemble of transformer-base and transformer_rela (``--mode
+ensemble``), train, score and serve transformer-base on sequences past 8192
+tokens (the streaming-attention kernels), and check these paths against the
+CPU on small models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -112,6 +114,34 @@ non-zero):
              within 1e-4; dropout on, kernels against plain versions on the
              card, loss within 1e-5; beam-4 decode card against CPU,
              identical sequences
+  rela_train transformer_rela (configs/transformer_rpr_rela.json with
+             model_name=transformer_rela: 6+6 layers, 512/2048, bf16,
+             dropout 0.1) trained TRAIN_STEPS steps with
+             use_flash_attention (and use_fused_ffn) on: ms/step, tokens/s,
+             MFU; no kernel launch (ReLA keeps the composite attention and
+             an unfused FFN, as in the JAX package); then --mode test at
+             beam 4 (#8 in relu mode, once per decoder layer and step, no
+             plain version), at beam 1 (no decode kernel: #10 has no relu
+             mode) and --mode score (no kernel)
+  rela_reference  a small fp32 transformer_rela: train_fn loss and grads
+             card against CPU within 1e-4; beam 4 card (#8 relu) against
+             CPU, identical sequences
+  aan_train  transformer_aan (configs/transformer_aan_wmt14.json: 6+6,
+             512/2048, bf16, dropout 0.1) trained TRAIN_STEPS steps with both
+             kernel flags on (launches 6 each of #1/#2 and #11/#12 forwards
+             and backwards per microbatch: the encoder; the AAN decoder's
+             cross attention and FFN run the composite; no plain version),
+             then off; then --mode test at beam 4 (the encoder's #1 and #11,
+             no decode kernel: a running-sum cache) and --mode score
+  aan_reference  a small fp32 transformer_aan: train_fn loss and grads card
+             (the encoder's CUDA-core #1/#2, #11/#12) against CPU within
+             1e-4; beam 4 card against CPU, identical sequences
+  ensemble   --mode ensemble at beam 4 over the checkpoints train and
+             rela_train saved (transformer-base and transformer_rela), on the
+             64-sentence test set: #8 in softmax and in relu mode, once per
+             decoder layer and step each; BLEU and sentences/s; then a small
+             fp32 transformer + transformer_rela ensemble, card against CPU:
+             identical sequences, scores within 1e-4
   long_kernels  streaming attention (#5 forward, #6 dq, #7 dk/dv) against
              streaming_attention_ref at B*H=8, Lq=Lk=8320 causal; B=2, H=4,
              L=8320 under a pad mask with an all-pad row (whose dq and dk
@@ -147,8 +177,8 @@ non-zero):
              card (the tensor-core forward #5 on both sides), dropout off
              and on: loss within 1e-2 relative, grads within 2e-2 of their
              scale
-Then the `kernels` JSON line, the nvidia-smi name/power-limit line, and
-as the last line {"ok": true, "device": {...}}.
+Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
+name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -1175,7 +1205,10 @@ def model_flops(shapes, cfg):
     step's stacked shape; forward x 3 for forward + backward, plus the
     chunked CE's recomputed logits. transformer_rpr adds its RPR matmuls,
     q.Tk and the bucket sums' product with Tv: 4 * rows * (2m+1) * hidden
-    per attention (the one-hot expansions are not counted)."""
+    per attention (the one-hot expansions are not counted);
+    transformer_aan's decoder has the gate's product in place of
+    self-attention (its cumulative mean is no matmul). ReLA's matmuls are
+    transformer's."""
     d, f = cfg["hidden_size"], cfg["filter_size"]
     v = 32768
     b, ls, lt = stacked_shape(shapes)
@@ -1186,13 +1219,19 @@ def model_flops(shapes, cfg):
     total = 0
     for _ in shapes:
         ns, nt = b * ls, b * lt
+        if cfg.get("model_name") == "transformer_aan":
+            # average attention: the gate's [2d, 2d] product (and the
+            # aan_ffn), no self-attention matmuls
+            dec_self = 2 * nt * 2 * d * 2 * d + (
+                4 * nt * d * f if cfg.get("use_ffn") else 0)
+        else:
+            dec_self = 2 * nt * d * 4 * d + 4 * b * lt * lt * d
         enc = cfg["num_encoder_layer"] * (
             2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * ls * ls * d
             + rpr * ns)
         dec = cfg["num_decoder_layer"] * (
-            2 * nt * d * 4 * d + 2 * nt * d * 2 * d + 2 * ns * d * 2 * d
-            + 4 * nt * d * f + 4 * b * lt * lt * d + 4 * b * lt * ls * d
-            + 2 * rpr * nt)
+            dec_self + 2 * nt * d * 2 * d + 2 * ns * d * 2 * d
+            + 4 * nt * d * f + 4 * b * lt * ls * d + 2 * rpr * nt)
         logits = 2 * nt * d * v
         total += 3 * (enc + dec + logits) + logits
     return total
@@ -1241,7 +1280,7 @@ def route_suffix(cfg):
         cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
 
 
-def train_run(d, out, flags, counters, config=CONFIG):
+def train_run(d, out, flags, counters, config=CONFIG, extra=""):
     from zero_tpu_torch import run
 
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
@@ -1249,6 +1288,7 @@ def train_run(d, out, flags, counters, config=CONFIG):
             "output_dir={1},use_flash_attention={2},use_fused_ffn={2},"
             "max_training_steps={3},disp_freq=1,save_freq=0,eval_freq=0,"
             "sample_freq=0,epoches=100".format(d, out, flags, TRAIN_STEPS))
+    spec += extra
     for c in counters:
         c.clear()
     summary = run.main(["--mode", "train", "--config", config,
@@ -1264,20 +1304,25 @@ def collect(counters):
 
 
 def train_phase(d, da, config=CONFIG, label="train",
-                expected=expected_launches):
-    """Train ``config`` TRAIN_STEPS steps with both kernel flags on, then
-    off; then serve (--mode test) and score the kernel run's checkpoint.
-    Returns the kernel run's launch counts."""
+                expected=expected_launches, extra="",
+                flag_runs=("true", "false"), serving=None):
+    """Train ``config`` (with the ``extra`` parameters) TRAIN_STEPS steps
+    with both kernel flags on, then off (``flag_runs``); then serve
+    (--mode test) and score the kernel run's checkpoint, whose launches
+    ``serving(cfg, served, serve_launches, score_launches)`` checks where
+    given (no plain version in any case). Returns the kernel run's launch
+    counts and the serving run's."""
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
     cfg = load_config_file(config)
+    cfg.update(kv.split("=", 1) for kv in extra.split(",") if kv)
     counters = (fa.launches, ff.launches, da.launches)
     results = {}
-    for flags in ("true", "false"):
+    for flags in flag_runs:
         out = os.path.join(d, "%s_%s" % (label, flags))
-        summary, launches = train_run(d, out, flags, counters, config)
+        summary, launches = train_run(d, out, flags, counters, config, extra)
         steps = summary["steps"]
         if steps != TRAIN_STEPS:
             raise AssertionError("trained %d steps, wanted %d"
@@ -1309,26 +1354,14 @@ def train_phase(d, da, config=CONFIG, label="train",
         phase(label, **results[flags])
         torch.cuda.reset_peak_memory_stats()
     # the kernel run's checkpoint serves through --mode test
-    from zero_tpu_torch import run
-    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
-            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
-            "output_dir={0}/{1}_true,test_output={0}/{1}_trained.txt,"
-            "eval_batch_size=32".format(d, label))
-    for c in counters:
-        c.clear()
-    served = run.main(["--mode", "test", "--parameters", spec])
-    serve_launches = collect(counters)
-    with open(os.path.join(d, label + "_trained.txt")) as r:
-        lines = r.read().splitlines()
-    if len(lines) != 64 or served["sentences"] != 64:
-        raise AssertionError("served %d lines of the trained model"
-                             % len(lines))
+    served, serve_launches = serve_checkpoint(d, label, counters)
     # and scores it through --mode score (the saved param.json keeps both
     # kernel flags on, so the forward runs the kernels)
+    from zero_tpu_torch import run
     for c in counters:
         c.clear()
-    scores, ppl = run.main(["--mode", "score", "--parameters", spec.replace(
-        "_trained.txt", "_scores.txt")])
+    scores, ppl = run.main(["--mode", "score", "--parameters",
+                            checkpoint_spec(d, label, "scores")])
     score_launches = collect(counters)
     if len(scores) != 64 or not all(map(math.isfinite, scores)):
         raise AssertionError("scored %d sentences: %s" % (len(scores),
@@ -1339,19 +1372,53 @@ def train_phase(d, da, config=CONFIG, label="train",
         raise AssertionError("%s: plain versions ran while serving or "
                              "scoring: %s %s" % (label, serve_launches,
                                                  score_launches))
-    rpr_fwd = {"fused_attention_rpr" + route_suffix(cfg)}
-    if cfg.get("model_name") == "transformer_rpr" and (
-            set(serve_launches) != rpr_fwd
-            or set(score_launches) != rpr_fwd):
-        # RPR decode runs no decode kernel; the encoder (serving) and the
-        # scoring forward run #3, as the saved flags say
-        raise AssertionError("%s: serving launched %s, scoring %s"
-                             % (label, serve_launches, score_launches))
-    phase(label, served_sentences=len(lines), served_bleu=served["bleu"],
-          served_s=served["seconds"], serve_launches=serve_launches,
+    if serving is not None:
+        serving(cfg, served, serve_launches, score_launches)
+    phase(label, served_sentences=served["sentences"],
+          served_bleu=served["bleu"], served_s=served["seconds"],
+          sentences_per_s=served["sentences"] / served["seconds"],
+          decode_steps=served["steps"], serve_launches=serve_launches,
           scored_sentences=len(scores), score_ppl=ppl,
           score_launches=score_launches)
-    return results["true"]["launches"]
+    return results["true"]["launches"], serve_launches
+
+
+def checkpoint_spec(d, label, output, beam=None):
+    """--parameters of --mode test/score over the kernel run's checkpoint
+    of ``label`` on the 64-sentence test set, writing ``output``."""
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
+            "output_dir={0}/{1}_true,test_output={0}/{1}_{2}.txt,"
+            "eval_batch_size=32".format(d, label, output))
+    return spec + ("" if beam is None else ",beam_size=%d" % beam)
+
+
+def serve_checkpoint(d, label, counters, beam=None):
+    """--mode test of the kernel run's checkpoint of ``label`` (the saved
+    beam, or ``beam``); returns evaluate()'s summary and the launches."""
+    from zero_tpu_torch import run
+
+    for c in counters:
+        c.clear()
+    output = "trained" if beam is None else "trained_beam%d" % beam
+    served = run.main(["--mode", "test", "--parameters",
+                       checkpoint_spec(d, label, output, beam)])
+    launches = collect(counters)
+    with open(os.path.join(d, "%s_%s.txt" % (label, output))) as r:
+        lines = r.read().splitlines()
+    if len(lines) != 64 or served["sentences"] != 64:
+        raise AssertionError("served %d lines of the trained model"
+                             % len(lines))
+    return served, launches
+
+
+def rpr_serving(cfg, served, serve_launches, score_launches):
+    """RPR decode runs no decode kernel; the encoder (serving) and the
+    scoring forward run #3, as the saved flags say."""
+    rpr_fwd = {"fused_attention_rpr" + route_suffix(cfg)}
+    if set(serve_launches) != rpr_fwd or set(score_launches) != rpr_fwd:
+        raise AssertionError("rpr_train: serving launched %s, scoring %s"
+                             % (serve_launches, score_launches))
 
 
 def _small_model(dropout, model_name="transformer"):
@@ -1646,6 +1713,227 @@ def rpr_reference_phase(da):
           dropout_loss_kernels=losses[0], dropout_loss_plain=losses[1],
           dropout_rel_err=drop_err, beam4_same_sequences=same,
           beam4_max_score_err=score_err, beam4_steps=g["steps"])
+
+
+# ---------------------------------------------------------------------------
+# transformer_rela, transformer_aan and ensemble decoding
+# ---------------------------------------------------------------------------
+
+AAN_CONFIG = os.path.join(REPO, "configs", "transformer_aan_wmt14.json")
+# transformer_rela is configs/transformer_rpr_rela.json with these names
+RELA_EXTRA = ",model_name=transformer_rela,scope_name=transformer_rela"
+TEST_BATCHES = 2    # the 64-sentence test set at eval_batch_size 32
+
+
+def no_kernel(cfg, summary):
+    """ReLA trains on the composite attention whatever the flags say, and
+    its FFN is never fused (the JAX package's rule): no launch at all."""
+    return {}
+
+
+def rela_serving(cfg, served, serve_launches, score_launches):
+    """Beam-4 decode runs #8 in relu mode, once per decoder layer and
+    step; the encoder and the scoring forward run no kernel."""
+    want = {"decode_pool_attention_relu":
+            cfg["num_decoder_layer"] * served["steps"]}
+    if serve_launches != want or score_launches:
+        raise AssertionError("rela_train: serving launched %s, expected %s; "
+                             "scoring %s, expected none"
+                             % (serve_launches, want, score_launches))
+
+
+def rela_train_phase(d, da):
+    """transformer_rela (configs/transformer_rpr_rela.json renamed) trained
+    TRAIN_STEPS steps with use_flash_attention on (no kernel launch, per
+    the JAX rule), served at beam 4 (#8 in relu mode), at beam 1 (no
+    decode kernel: #10 has no relu mode) and scored. Returns the beam-4
+    serving launches."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    _, served = train_phase(d, da, RPR_CONFIG, "rela_train", no_kernel,
+                            RELA_EXTRA, ("true",), rela_serving)
+    served1, launches1 = serve_checkpoint(
+        d, "rela_train", (fa.launches, ff.launches, da.launches), beam=1)
+    if launches1:
+        raise AssertionError("rela_train beam 1 launched %s, expected no "
+                             "kernel" % launches1)
+    phase("rela_train", beam=1, sentences_per_s=served1["sentences"]
+          / served1["seconds"], decode_steps=served1["steps"],
+          served_bleu=served1["bleu"], serve_launches=launches1)
+    return served
+
+
+def aan_expected_launches(cfg, summary):
+    """transformer_aan: per microbatch one attention and one FFN per
+    encoder layer, forward and backward (6 each at 6 layers; the attention
+    on the route forward_route picks); the AAN decoder's cross attention
+    and FFN run the composite."""
+    n = cfg["num_encoder_layer"] * cfg["update_cycle"] * summary["steps"]
+    sfx = route_suffix(cfg)
+    return {"fused_attention" + sfx: n, "fused_attention_backward" + sfx: n,
+            "fused_ffn": n, "fused_ffn_backward": n}
+
+
+def aan_serving(cfg, served, serve_launches, score_launches):
+    """Serving and scoring run the encoder's forward kernels (one
+    attention and one FFN per encoder layer and test batch); AAN decode
+    keeps a running sum and takes no decode kernel."""
+    n = cfg["num_encoder_layer"] * TEST_BATCHES
+    want = {"fused_attention" + route_suffix(cfg): n, "fused_ffn": n}
+    if serve_launches != want or score_launches != want:
+        raise AssertionError("aan_train: serving launched %s, scoring %s, "
+                             "expected %s" % (serve_launches, score_launches,
+                                              want))
+
+
+def small_reference(da, name, train_want, decode_want):
+    """A small fp32 ``name`` model (_small_model, dropout off): train_fn
+    loss and grads on the card (kernels) against the CPU (plain versions)
+    within 1e-4, and beam 4 on the card against the CPU: identical
+    sequences, scores within 1e-4. ``train_want`` is the card's training
+    launches; ``decode_want(steps)`` its decode launches."""
+    import copy
+
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.search import beam_search
+
+    counters = (fa.launches, ff.launches, da.launches)
+    model = get_model(name)
+    feats = _small_batch()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    cfg = _small_model(0.0, name)
+    cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+    gpu = copy.deepcopy(cpu).cuda()
+    lc = model.train_fn(cpu, feats, cfg, None)["loss"]
+    gc = torch.autograd.grad(lc, list(cpu.parameters()))
+    for c in counters:
+        c.clear()
+    lg = model.train_fn(gpu, gfeats, cfg, None)["loss"]
+    gg = torch.autograd.grad(lg, list(gpu.parameters()))
+    train_launches = collect(counters)
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    errs = grad_errors(cpu, gc, gg)
+    worst = max(errs, key=errs.get)
+    cfg.beam_size = 4
+    inf = model.infer_fn(cfg)
+    with torch.inference_mode():
+        c = beam_search(cpu, feats["source"], inf, cfg)
+        for n in counters:
+            n.clear()
+        g = beam_search(gpu, gfeats["source"], inf, cfg)
+    decode_launches = collect(counters)
+    same = torch.equal(g["seq"].cpu(), c["seq"])
+    score_err = (g["score"].cpu() - c["score"]).abs().max().item()
+    out = dict(loss_rel_err=loss_err, grad_rel_err=errs[worst], worst=worst,
+               train_launches=train_launches, beam4_same_sequences=same,
+               beam4_max_score_err=score_err, beam4_steps=g["steps"],
+               decode_launches=decode_launches)
+    if not (loss_err <= 1e-4 and errs[worst] <= 1e-4
+            and train_launches == train_want and same and score_err <= 1e-4
+            and decode_launches == decode_want(g["steps"])
+            and torch.isfinite(g["score"]).all()):
+        raise AssertionError("%s reference: %s" % (name, out))
+    return out
+
+
+def rela_reference_phase(da):
+    """A small fp32 transformer_rela: no training kernel (ReLA keeps the
+    composite); beam 4 on the card through #8's relu mode."""
+    phase("rela_reference", **small_reference(
+        da, "transformer_rela", {},
+        lambda steps: {"decode_pool_attention_relu": 2 * steps}))
+
+
+def aan_reference_phase(da):
+    """A small fp32 transformer_aan: the encoder's CUDA-core #1/#2 and
+    #11/#12 (fp32) on the card; beam 4 with no decode kernel."""
+    n = 2   # encoder layers of _small_model
+    phase("aan_reference", **small_reference(
+        da, "transformer_aan",
+        {"fused_attention": n, "fused_attention_backward": n,
+         "fused_ffn": n, "fused_ffn_backward": n},
+        lambda steps: {"fused_attention": n, "fused_ffn": n}))
+
+
+def ensemble_phase(d, da):
+    """--mode ensemble at beam 4 over the checkpoints that train
+    (transformer-base) and rela_train saved, on the 64-sentence test set:
+    #8 in both modes, once per decoder layer and step each; then a small
+    fp32 transformer + transformer_rela ensemble on the card against the
+    CPU. Returns the ensemble run's launches."""
+    import copy
+
+    from zero_tpu_torch import run, train
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.search import beam_search
+
+    counters = (fa.launches, ff.launches, da.launches)
+    cfg = load_config_file(CONFIG)
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
+            "test_output={0}/ensemble.txt,eval_batch_size=32,"
+            "beam_size=4".format(d))
+    for c in counters:
+        c.clear()
+    summary = run.main(["--mode", "ensemble", "--ensemble_dirs",
+                        "{0}/train_true;{0}/rela_train_true".format(d),
+                        "--parameters", spec])
+    launches = collect(counters)
+    with open(os.path.join(d, "ensemble.txt")) as r:
+        lines = r.read().splitlines()
+    # transformer-base's encoder runs #1 and #11 (its saved flags), ReLA's
+    # the composite; each model's decoder its mode of #8
+    enc = cfg["num_encoder_layer"] * TEST_BATCHES
+    steps = cfg["num_decoder_layer"] * summary["steps"]
+    want = {"fused_attention" + route_suffix(cfg): enc, "fused_ffn": enc,
+            "decode_pool_attention": steps,
+            "decode_pool_attention_relu": steps}
+    if len(lines) != 64 or summary["sentences"] != 64 or launches != want:
+        raise AssertionError("ensemble: %d lines, launches %s, expected %s"
+                             % (len(lines), launches, want))
+
+    # small fp32 models: the card's ensemble decodes the CPU's sequences
+    names = ("transformer", "transformer_rela")
+    cfgs = [_small_model(0.0, n) for n in names]
+    for c in cfgs:
+        c.beam_size = 4
+    cpu = [get_model(n).init_fn(torch.Generator().manual_seed(SEED + i), c)
+           for i, (n, c) in enumerate(zip(names, cfgs))]
+    gpu = [copy.deepcopy(p).cuda() for p in cpu]
+    inf = train.make_ensemble_inference(
+        [get_model(n).infer_fn(c) for n, c in zip(names, cfgs)])
+    src = _small_batch()["source"]
+    with torch.inference_mode():
+        c = beam_search(cpu, src, inf, cfgs[0])
+        for n in counters:
+            n.clear()
+        g = beam_search(gpu, src.cuda(), inf, cfgs[0])
+    small = collect(counters)
+    same = torch.equal(g["seq"].cpu(), c["seq"])
+    score_err = (g["score"].cpu() - c["score"]).abs().max().item()
+    small_want = {"fused_attention": 2, "fused_ffn": 2,
+                  "decode_pool_attention": 2 * g["steps"],
+                  "decode_pool_attention_relu": 2 * g["steps"]}
+    phase("ensemble", models=list(names), sentences=summary["sentences"],
+          bleu=summary["bleu"], decode_s=summary["seconds"],
+          sentences_per_s=summary["sentences"] / summary["seconds"],
+          target_tokens_per_s=summary["target_tokens"] / summary["seconds"],
+          decode_steps=summary["steps"], launches=launches,
+          small_same_sequences=same, small_max_score_err=score_err,
+          small_launches=small)
+    if not (same and score_err <= 1e-4 and small == small_want
+            and torch.isfinite(g["score"]).all()):
+        raise AssertionError("ensemble small models: card vs CPU sequences "
+                             "equal %s, score err %.3g, launches %s, "
+                             "expected %s" % (same, score_err, small,
+                                              small_want))
+    return launches
 
 
 def converge_phase(d):
@@ -2321,8 +2609,9 @@ def long_reference_bf16(model, gfeats, sa):
 
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
-          "rpr_train", "rpr_reference", "long_kernels", "long_train",
-          "long_reference")
+          "rpr_train", "rpr_reference", "rela_train", "rela_reference",
+          "aan_train", "aan_reference", "ensemble", "long_kernels",
+          "long_train", "long_reference")
 
 
 def main(argv=None):
@@ -2344,7 +2633,11 @@ def main(argv=None):
     if args.package and todo - {"device", "build", "kernels", "long_kernels"}:
         parser.error("--package takes the phases build, kernels and "
                      "long_kernels only")
+    if "ensemble" in todo and not {"train", "rela_train"} <= todo:
+        parser.error("ensemble decodes the checkpoints of the phases train "
+                     "and rela_train: give them too")
     full = todo == set(PHASES)
+    began = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -2435,13 +2728,22 @@ def main(argv=None):
                 da, d, 1, "decode_attention")
         if "reference" in todo:
             reference_phase(da)
-        if "train" in todo or "rpr_train" in todo:
+        if todo & {"train", "rpr_train", "rela_train", "aan_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
-            launches.update(train_phase(d, da))
+            launches.update(train_phase(d, da)[0])
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
-                                        rpr_expected_launches))
+                                        rpr_expected_launches,
+                                        serving=rpr_serving)[0])
+        if "rela_train" in todo:
+            rela_launches = rela_train_phase(d, da)
+        if "aan_train" in todo:
+            aan_launches = train_phase(d, da, AAN_CONFIG, "aan_train",
+                                       aan_expected_launches,
+                                       serving=aan_serving)[0]
+        if "ensemble" in todo:
+            ensemble_launches = ensemble_phase(d, da)
         if "long_train" in todo:
             write_long_corpus(d, words)
             launches.update(long_train_phase(d, da))
@@ -2449,6 +2751,10 @@ def main(argv=None):
         train_reference_phase()
     if "rpr_reference" in todo:
         rpr_reference_phase(da)
+    if "rela_reference" in todo:
+        rela_reference_phase(da)
+    if "aan_reference" in todo:
+        aan_reference_phase(da)
     if "long_reference" in todo:
         long_reference_phase(da)
     if "converge" in todo:
@@ -2476,6 +2782,16 @@ def main(argv=None):
                   **{k: lr[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "library_ms", "bound_ms",
                                         "splits")}}))
+    # #8's relu mode: ReLA's beam-4 serving and the ensemble's ReLA model
+    # launch it (serving's shape, bf16; no library call takes relu weights)
+    r = rows[("decode_pool_attention[relu]", torch.bfloat16)]
+    kernels[0]["relu"] = dict(
+        launches=rela_launches["decode_pool_attention_relu"],
+        ensemble_launches=ensemble_launches["decode_pool_attention_relu"],
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "splits")})
+    kernels[0]["ensemble_launches"] = ensemble_launches[
+        "decode_pool_attention"]
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
     # attention at the encoder self-attention case, the FFN at N=4096 and
     # at the train phase's largest stacked shape; the library yardstick is
@@ -2505,6 +2821,8 @@ def main(argv=None):
             bound_by=r["bound_by"], library_ms=lib)
         if name.startswith("fused_ffn"):
             row["case"] = "N%d_%d_%d_%d" % ((key[0],) + FFN_SHAPE[1:])
+        # transformer_aan's encoder runs the same kernels (aan_train)
+        row["aan_train_launches"] = aan_launches[name]
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)
@@ -2560,6 +2878,7 @@ def main(argv=None):
         library_ms=r["library_ms"], composite_ms=r["composite_ms"],
         splits=r["splits"], wired=False))
     print(json.dumps({"kernels": kernels}))
+    phase("total", seconds=time.time() - began)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

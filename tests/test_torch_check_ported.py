@@ -1,0 +1,87 @@
+"""zero_tpu_torch refuses what it has not ported instead of ignoring it:
+the parallelism options raise in ``--mode train`` (the defaults do not),
+and ``--mode test`` with a mesh decodes on the one device with the JAX
+package's warning. And ``decode_split_sweep.py --package DIR`` imports
+DIR's zero_tpu_torch in a fresh process."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import json  # noqa: E402
+import logging  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from zero_tpu_torch import run  # noqa: E402
+from zero_tpu_torch.config import default_config  # noqa: E402
+from zero_tpu_torch.models.common import check_ported  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("option", [
+    "mesh_model=2", "mesh_seq=2", "mesh_pipe=2", "mesh_expert=2",
+    "mesh_data=2", "zero_stage=1", "dist_num_processes=2"])
+def test_parallel_options_raise_in_training(option):
+    """Each raises before any work (no files are given), naming itself."""
+    with pytest.raises(NotImplementedError, match="%s.*later slice" % option):
+        run.main(["--mode", "train", "--parameters", "device=cpu," + option])
+
+
+@pytest.mark.parametrize("option", ["", "mesh_data=-1", "mesh_data=0",
+                                    "mesh_data=1,mesh_model=1,zero_stage=0"])
+def test_defaults_do_not_raise(option):
+    cfg = default_config()
+    cfg.parse(option)
+    check_ported(cfg)
+    check_ported(cfg, training=False)
+
+
+def test_mode_test_with_a_mesh_decodes_on_one_device(tmp_path, caplog):
+    rs = np.random.RandomState(3)
+    words = ["tok%d" % i for i in range(14)]
+    with open(tmp_path / "vocab.txt", "w") as w:
+        w.write("\n".join(words) + "\n")
+    lines = [" ".join(rs.choice(words, rs.randint(2, 9))) for _ in range(4)]
+    for name in ("test.src", "test.tgt"):
+        with open(tmp_path / name, "w") as w:
+            w.write("\n".join(lines) + "\n")
+    spec = ("device=cpu,mesh_model=2,model_name=transformer,"
+            "hidden_size=16,embed_size=16,"
+            "filter_size=32,num_heads=2,num_encoder_layer=1,"
+            "num_decoder_layer=1,beam_size=2,decode_length=4,"
+            "eval_batch_size=4,src_vocab_file={0}/vocab.txt,"
+            "tgt_vocab_file={0}/vocab.txt,src_test_file={0}/test.src,"
+            "tgt_test_file={0}/test.tgt,output_dir={0}/out,"
+            "test_output={0}/trans.txt".format(tmp_path))
+    with caplog.at_level(logging.WARNING):
+        summary = run.main(["--mode", "test", "--parameters", spec])
+    assert summary["sentences"] == 4
+    assert any("decoding on one device" in r.getMessage()
+               and "mesh_model=2" in r.getMessage() for r in caplog.records)
+
+
+def test_split_sweep_package_imports_that_checkout(tmp_path):
+    """A stub checkout whose decode-attention module stops the sweep at
+    import: the first line the sweep prints names the stub's package, and
+    the stub's exit code comes back."""
+    kernels = tmp_path / "zero_tpu_torch" / "ops" / "kernels"
+    kernels.mkdir(parents=True)
+    for d in (kernels.parents[1], kernels.parent, kernels):
+        (d / "__init__.py").write_text("")
+    (kernels / "decode_attention.py").write_text(
+        "import sys\nprint('stub decode_attention', flush=True)\n"
+        "sys.exit(7)\n")
+    out = subprocess.run(
+        [sys.executable, "-m", "zero_tpu_torch.scripts.decode_split_sweep",
+         "--package", str(tmp_path), "--lengths", "114"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    lines = out.stdout.splitlines()
+    assert out.returncode == 7, out.stderr
+    assert json.loads(lines[0]) == {
+        "zero_tpu_torch": str(tmp_path / "zero_tpu_torch" / "__init__.py")}
+    assert lines[1] == "stub decode_attention"

@@ -1,7 +1,7 @@
 """zero_tpu_torch CLI: ``--mode test`` on a checkpoint written by the JAX
 package's Saver gives the JAX package's translations; device errors, and
-modes and options of later slices; and the port's import boundary (no jax,
-no zero_tpu)."""
+options of later slices; and the port's import boundary (no jax, no
+zero_tpu)."""
 
 import pytest
 
@@ -92,17 +92,17 @@ def test_device_cuda_without_a_card_raises(corpus):
                   corpus[1] + ",device=cuda"])
 
 
-# --mode ensemble is a later slice; train and score are ported, but their
-# options of a later slice (remat, scanned layers) raise before any work
+# every mode is ported, but options of a later slice raise before any
+# work: remat and scanned layers, and in training a mesh
 _LATER = {"train": ["--parameters", "device=cpu,use_remat=true"],
           "score": ["--parameters", "device=cpu,scan_layers=true"],
-          "ensemble": []}
+          "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 
 
-@pytest.mark.parametrize("mode", ["train", "score", "ensemble"])
+@pytest.mark.parametrize("mode", ["train", "score", "train_mesh"])
 def test_modes_of_later_slices_raise(mode):
     with pytest.raises(NotImplementedError, match="slice"):
-        run.main(["--mode", mode] + _LATER[mode])
+        run.main(["--mode", mode.split("_")[0]] + _LATER[mode])
 
 
 def _imports(path):

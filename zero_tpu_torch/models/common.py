@@ -16,7 +16,8 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
   * fp32 master parameters: the loss casts them to the compute dtype with
     a differentiable cast, so the gradients reach the fp32 parameters
 
-``scan_layers`` and ``use_remat`` are a later slice: both raise.
+``scan_layers`` and ``use_remat`` are a later slice: both raise, and so do
+the parallelism options in training (check_ported).
 """
 
 from __future__ import annotations
@@ -188,14 +189,37 @@ def ce_from_feature(feature, soft_table, labels, mask, cfg, factor):
                                         labels, mask, factor)
 
 
-def check_ported(cfg):
-    """Raise on training options of a later slice instead of ignoring
-    them."""
+def parallel_options(cfg) -> list:
+    """The parallelism options of ``cfg`` that ask for more than one
+    device: a mesh degree above 1 (``mesh_data`` -1 and 0 mean every
+    device, which is one here), ``dist_num_processes`` above 1 or
+    ``zero_stage`` above 0. Returns their "name=value" strings."""
+    asked = ["%s=%s" % (key, getattr(cfg, key))
+             for key in ("mesh_data", "mesh_model", "mesh_seq", "mesh_pipe",
+                         "mesh_expert", "dist_num_processes")
+             if int(getattr(cfg, key, 1)) > 1]
+    if int(getattr(cfg, "zero_stage", 0)) > 0:
+        asked.append("zero_stage=%s" % cfg.zero_stage)
+    return asked
+
+
+def check_ported(cfg, training: bool = True):
+    """Raise on options of a later slice instead of ignoring them:
+    ``scan_layers`` and ``use_remat`` always, and in training the
+    parallelism options (parallel_options), where the JAX package shards or
+    raises. Evaluation decodes on one device with a warning instead
+    (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
+    when the devices are too few."""
     for key in ("scan_layers", "use_remat"):
         if bool(getattr(cfg, key, False)):
             raise NotImplementedError(
                 "%s=true is not ported to zero_tpu_torch yet: it comes with "
                 "a later slice" % key)
+    asked = parallel_options(cfg) if training else []
+    if asked:
+        raise NotImplementedError(
+            "%s: multi-device training is not ported to zero_tpu_torch yet: "
+            "it comes with a later slice" % ", ".join(asked))
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +269,7 @@ def make_transformer(hooks: LayerHooks):
     def _loss(params, features, cfg, gen, training, label_smooth):
         """Cast the fp32 parameters to the compute dtype (differentiably),
         encode, decode, CE. Returns (scalar loss, per-sentence [B])."""
-        check_ported(cfg)
+        check_ported(cfg, training)
         dtype = dtypes.compute_dtype(cfg)
 
         def body(cparams):

@@ -2,11 +2,13 @@
 ``decode_prefix``) and static-cache decoding.
 
 Counterpart of ``zero_tpu/ops/attention.py`` for the post-LN Transformer:
-the softmax path. The decode KV cache is PREALLOCATED at [B, T_max, hidden]
-and written at the current step -- in place here, where JAX returns an
-updated copy; validity is a ``position <= time`` mask. Softmax runs in fp32
-regardless of the compute dtype. Self-attention uses one fused qkv
-projection; cross attention computes the memory k/v once at encode time.
+the softmax path, and ReLA's (``relu=True``: multiply-masked relu weights
+and the gated-RMSNorm epilogue ``post``). The decode KV cache is
+PREALLOCATED at [B, T_max, hidden] and written at the current step -- in
+place here, where JAX returns an updated copy; validity is a ``position <=
+time`` mask. Softmax runs in fp32 regardless of the compute dtype.
+Self-attention uses one fused qkv projection; cross attention computes the
+memory k/v once at encode time.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ def kernels_supported(lq: int, lk: int) -> bool:
 
 class Attention(torch.nn.Module):
     """Attention projections: fused ``qkv`` (self-attention) or ``q``,
-    ``k``, ``v`` (cross attention), and the output map ``o``."""
+    ``k``, ``v`` (cross attention), the output map ``o``, and ReLA's
+    epilogue ``post``."""
 
     def __init__(self, projections: dict):
         super().__init__()
@@ -43,9 +46,21 @@ class Attention(torch.nn.Module):
             self.add_module(name, lin)
 
 
+class GatedRmsNorm(torch.nn.Module):
+    """ReLA's epilogue parameters: ``scale`` and ``gate``, [hidden]."""
+
+    def __init__(self, scale: torch.Tensor, gate: torch.Tensor):
+        super().__init__()
+        self.scale = torch.nn.Parameter(scale)
+        self.gate = torch.nn.Parameter(gate)
+
+
 def init_attention(gen, d_query: int, hidden: int, self_attention: bool,
                    d_memory: Optional[int] = None, out_map: bool = True,
-                   bias: bool = True, weight_init=None) -> Attention:
+                   bias: bool = True, weight_init=None,
+                   rela: bool = False) -> Attention:
+    """``rela`` adds the gated-RMSNorm epilogue ``post`` (scale ones, gate
+    from ``weight_init``)."""
     weight_init = weight_init or inits.variance_scaling(1.0, "uniform")
     proj = {}
     if self_attention:
@@ -62,6 +77,9 @@ def init_attention(gen, d_query: int, hidden: int, self_attention: bool,
     if out_map:
         proj["o"] = nn.init_linear(gen, hidden, hidden, bias=bias,
                                    weight_init=weight_init)
+    if rela:
+        proj["post"] = GatedRmsNorm(torch.ones(hidden),
+                                    weight_init(gen, (hidden,)))
     return Attention(proj)
 
 
@@ -83,8 +101,22 @@ def _rpr_flash_ok(lq: int, lk: int, max_rel, causal, pad_mask) -> bool:
             and fa.rpr_supported(lq, lk, max_rel))
 
 
-def _out_map(params: Attention, o):
+def _out_map(params: Attention, o, relu=False):
+    """ReLA's epilogue (relu attention with ``post`` params), then the
+    output map."""
+    if relu and hasattr(params, "post"):
+        o = gated_rms_norm(params.post, o)
     return nn.linear(params.o, o) if hasattr(params, "o") else o
+
+
+def gated_rms_norm(params: GatedRmsNorm, x, eps: float = 1e-8):
+    """ReLA epilogue, in fp32: scale * x * rsqrt(mean(x^2) + eps) *
+    sigmoid(gate * x)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    out = (params.scale.float() * xf * torch.rsqrt(ms + eps)
+           * torch.sigmoid(params.gate.float() * xf))
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +136,10 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
-               rpr_tables=None, rpr_ids=None, rpr_max=None):
+               rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False):
     """Softmax attention on [B, L, hidden] projections, with dropout on the
-    weights (8-bit threshold masks of ops/common.py:dropout).
+    weights (8-bit threshold masks of ops/common.py:dropout). relu=True
+    switches to ReLA's weights: logits times the keep-mask, then relu.
 
     keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block; or
     a callable that builds it (models/common.py's lazy causal mask).
@@ -137,9 +170,14 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     logits = logits.float()
     if callable(keep_mask):
         keep_mask = keep_mask()
-    if keep_mask is not None:
-        logits = torch.where(keep_mask > 0, logits, NEG_INF)
-    weights = torch.softmax(logits, dim=-1)
+    if relu:
+        if keep_mask is not None:
+            logits = logits * keep_mask.float()
+        weights = torch.relu(logits)
+    else:
+        if keep_mask is not None:
+            logits = torch.where(keep_mask > 0, logits, NEG_INF)
+        weights = torch.softmax(logits, dim=-1)
     dweights = common.dropout(rng, weights, drop).to(q.dtype)
     if use_onehot:
         o = rpr_mod.output_with_rpr_onehot(dweights, vh, rpr_tables.values,
@@ -155,7 +193,8 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
 
 def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
                rng=None, drop=None, use_flash=False, causal=False,
-               pad_mask=None, rpr_tables=None, max_relative_position=None):
+               pad_mask=None, rpr_tables=None, max_relative_position=None,
+               relu=False):
     """Full-sequence attention; memory=None -> self-attention through the
     fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0, or a callable
     that builds it (only the composite path calls it); the caller combines
@@ -172,7 +211,9 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     use_flash they ride the RPR kernels (#3/#4) only where _rpr_flash_ok
     holds, as in the JAX package; elsewhere (e.g. Lk <= 2m) the composite
     _attn_core runs; RPR never streams, so past fa.MAX_LK keys it takes
-    _attn_core, as in JAX. Returns {'output', 'weights'} (weights None on
+    _attn_core, as in JAX. ReLA (``relu``) keeps _attn_core at every
+    length, use_flash or not, as the JAX package does; its epilogue runs
+    before the output map. Returns {'output', 'weights'} (weights None on
     the kernel paths)."""
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
@@ -181,6 +222,7 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
     lq, lk = q.shape[1], k.shape[1]
+    use_flash = use_flash and not relu
     if use_flash and rpr_tables is not None:
         use_flash = _rpr_flash_ok(lq, lk, max_relative_position, causal,
                                   pad_mask)
@@ -201,8 +243,8 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     else:
         o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
                                 drop=drop, rpr_tables=rpr_tables,
-                                rpr_max=max_relative_position)
-    return {"output": _out_map(params, o), "weights": weights}
+                                rpr_max=max_relative_position, relu=relu)
+    return {"output": _out_map(params, o, relu), "weights": weights}
 
 
 # ---------------------------------------------------------------------------
@@ -225,13 +267,13 @@ def init_self_cache(batch: int, max_len: int, hidden: int, dtype, device):
 
 
 def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1,
-                   rpr_tables=None, max_relative_position=None):
+                   rpr_tables=None, max_relative_position=None, relu=False):
     """Self-attention over an UNPERMUTED beam KV pool via ancestry indices,
     in the masked flat form of the JAX package: the pool is one [K*T] key
     axis per sentence and (row j, position t) pairs that ancestry does not
     select are masked; the in-flight span [time, time+span) lives in each
     beam's own row. RPR adds the step's distance row, tiled over the K pool
-    rows.
+    rows. relu: ReLA's weights, the logits times the selection, then relu.
 
     q: [B*K, s, hidden]; k, v: [B*K, T, hidden] pools; ancestry: [B, K, T].
     """
@@ -266,8 +308,11 @@ def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1,
         logits = logits + torch.einsum("bihsd,sjd->bhisj", qh,
                                        r_k.to(qh.dtype)).float()
 
-    logits = torch.where(keep, logits, NEG_INF)
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    if relu:
+        weights = torch.relu(logits * keep.float())
+    else:
+        weights = torch.softmax(torch.where(keep, logits, NEG_INF), dim=-1)
+    weights = weights.to(q.dtype)
     o = torch.einsum("bhisj,bhjd->bihsd", weights, vh)
     if rpr_tables is not None:
         r_v = rpr_mod.gather_embeddings(rpr_tables.values, rpr_ids)
@@ -278,7 +323,7 @@ def _ancestry_attn(q, k, v, ancestry, time, num_heads, *, span=1,
 
 def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
                    use_flash=False, rpr_tables=None,
-                   max_relative_position=None):
+                   max_relative_position=None, relu=False):
     """One-step self-attention with a static cache.
 
     x_t: [B, 1, d]; cache: {'pool_k','pool_v': [B, T_max, hidden]}, written
@@ -291,6 +336,8 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
     the decode kernels of ops/kernels/decode_attention.py (their plain
     versions for CPU tensors); RPR (``rpr_tables``) keeps both kernels off,
     as in the JAX package; otherwise the plain attention code here runs.
+    ReLA (``relu``) takes the pool kernel's relu mode on the ancestry pools
+    and never the single-beam kernel, as in the JAX package.
     """
     q, k_t, v_t = nn.linear(params.qkv, x_t).chunk(3, dim=-1)
     span = x_t.shape[1]
@@ -313,13 +360,14 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
                 q.reshape(batch, beams, hidden).contiguous(),
                 k.view(batch, beams, t_max, hidden),
                 v.view(batch, beams, t_max, hidden),
-                anc_eff, time, num_heads)
+                anc_eff, time, num_heads, relu=relu)
             o = o.reshape(batch * beams, 1, hidden)
         else:
             o = _ancestry_attn(q, k, v, ancestry, time, num_heads, span=span,
                                rpr_tables=rpr_tables,
-                               max_relative_position=max_relative_position)
-    elif use_kernel:
+                               max_relative_position=max_relative_position,
+                               relu=relu)
+    elif use_kernel and not relu:
         o = da.decode_attention(q.contiguous(), k, v, time, num_heads)
     else:
         # multi-position steps may attend across all freshly-written slots
@@ -330,8 +378,8 @@ def self_attn_step(params: Attention, x_t, cache, time: int, num_heads, *,
             rpr_ids = rpr_mod.relative_positions_row(
                 time, t_max, max_relative_position, k.device)
         o, _ = _attn_core(q, k, v, keep, num_heads, rpr_tables=rpr_tables,
-                          rpr_ids=rpr_ids)
-    return _out_map(params, o), cache
+                          rpr_ids=rpr_ids, relu=relu)
+    return _out_map(params, o, relu), cache
 
 
 def cross_attn_precompute(params: Attention, memory):
@@ -341,15 +389,16 @@ def cross_attn_precompute(params: Attention, memory):
 
 
 def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
-                    time=None, rpr_tables=None, max_relative_position=None):
+                    time=None, rpr_tables=None, max_relative_position=None,
+                    relu=False):
     """One-step cross attention over precomputed memory projections.
 
     The memory stays UNTILED at [B, S, hidden] while queries come per beam
     at [B*K, 1, hidden]: the beams fold into the query-length dimension,
     so k/v are read once per sentence instead of once per beam.
     mem_keep: [B, S] 1/0 pad mask. rpr_tables: relative positions between
-    decode step ``time`` and the memory positions. Returns
-    [B*K, 1, hidden]."""
+    decode step ``time`` and the memory positions. relu: ReLA's weights
+    and epilogue. Returns [B*K, 1, hidden]."""
     q = nn.linear(params.q, x_t)
     mem_batch = mkv["mk"].shape[0]
     q_batch = q.shape[0]
@@ -363,6 +412,6 @@ def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
             time, mkv["mk"].shape[1], max_relative_position,
             q.device).repeat(q2.shape[1], 1)
     o, _ = _attn_core(q2, mkv["mk"], mkv["mv"], keep, num_heads,
-                      rpr_tables=rpr_tables, rpr_ids=rpr_ids)
+                      rpr_tables=rpr_tables, rpr_ids=rpr_ids, relu=relu)
     o = o.reshape(q_batch, q.shape[1], -1)
-    return _out_map(params, o)
+    return _out_map(params, o, relu)

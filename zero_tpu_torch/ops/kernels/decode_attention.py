@@ -72,9 +72,9 @@ CROSS_BLOCKS_PER_SM = 2      # its split target
 CROSS_MIN_CHUNK = 256        # its least memory positions per split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches ("decode_attention", "decode_pool_attention",
-# "decode_cross_attention") and calls of the plain versions (the same names
-# with "_ref")
+# kernel launches ("decode_attention", "decode_pool_attention" and, in
+# ReLA's relu mode, "decode_pool_attention_relu", "decode_cross_attention")
+# and calls of the plain versions (the same names with "_ref")
 launches: collections.Counter = collections.Counter()
 # the splits over positions (memory positions for the cross kernel) of each
 # kernel's last launch
@@ -205,7 +205,7 @@ def decode_pool_attention_ref(q, k, v, ancestry, time: int, num_heads: int,
                               relu: bool = False):
     """Plain PyTorch ``decode_pool_attention``: gather each beam's history
     by ``ancestry``, then single-query attention over positions <= time."""
-    launches["decode_pool_attention_ref"] += 1
+    launches["decode_pool_attention%s_ref" % _mode(relu)] += 1
     b, beams, hidden = q.shape
     t_max = k.shape[2]
     dh = hidden // num_heads
@@ -301,8 +301,13 @@ def decode_pool_attention(q, k, v, ancestry, time: int, num_heads: int,
                          "contiguous int32 tensor on %s" % q.device)
     out = _launch("decode_pool_attention", q, k, v, ancestry, b * beams,
                   beams, num_heads, time, relu)
-    launches["decode_pool_attention"] += 1
+    launches["decode_pool_attention%s" % _mode(relu)] += 1
     return out
+
+
+def _mode(relu: bool) -> str:
+    """The pool kernel's counter suffix: "_relu" in ReLA's relu mode."""
+    return "_relu" if relu else ""
 
 
 def cross_splits(blocks: int, s_len: int, sms: int):

@@ -1,4 +1,5 @@
-"""Core NN primitives: linear, layer norm, FFN, positional signal, masks.
+"""Core NN primitives: linear, layer norm, FFN, positional signal, masks,
+and AAN's cumulative average.
 
 Counterparts of ``zero_tpu/ops/nn.py``. Each primitive is an (init_*, *)
 pair as there: ``init_*`` builds a parameter module whose state-dict names
@@ -180,3 +181,37 @@ def causal_mask(length: int, dtype=torch.float32, device=None):
 def masking_mask(mask, dtype=torch.float32):
     """[B, 1, 1, S] keep-mask from a [B, S] 0/1 pad mask."""
     return mask.to(dtype)[:, None, None, :]
+
+
+# ---------------------------------------------------------------------------
+# average attention (AAN)
+# ---------------------------------------------------------------------------
+
+def aan_cummean(x, mask, masked: bool = True):
+    """AAN cumulative (masked) mean, O(L) cumsum form, fp32 accumulation.
+
+    Per position g, equal to ``einsum(aan_weight(mask), x)``:
+      masked:   m_g * (sum_{j<=g} m_j x_j) / max(sum_{j<=g} m_j, 1)
+      unmasked: (sum_{j<=g} x_j)          / max(sum_{j<=g} m_j, 1)
+    x: [B, L, d]; mask: [B, L] 0/1."""
+    mf = mask.float()
+    xf = x.float()
+    num = torch.cumsum(xf * mf[..., None] if masked else xf, dim=1)
+    cnt = torch.cumsum(mf, dim=1)
+    out = num / torch.clamp(cnt, min=1.0)[..., None]
+    if masked:
+        out = out * mf[..., None]
+    return out.to(x.dtype)
+
+
+def aan_weight(mask, dtype=torch.float32):
+    """AAN weight matrix [B, L, L]: the row-normalised cumulative average
+    over valid positions, w[i, j] = m[i, j] / sum_j m[i, j] with
+    m = outer(mask) * tril (rows without a valid position are 0)."""
+    length = mask.shape[1]
+    tril = torch.tril(torch.ones((length, length), device=mask.device))
+    mf = mask.float()
+    m = mf[:, :, None] * mf[:, None, :] * tril[None]
+    denom = m.sum(dim=-1, keepdim=True)
+    w = torch.where(denom > 0, m / torch.clamp(denom, min=1.0), 0.0)
+    return w.to(dtype)

@@ -2,11 +2,13 @@
 
   python -m zero_tpu_torch.run --mode {train,test,score} --config FILE \
       --parameters k=v,...
+  python -m zero_tpu_torch.run --mode ensemble --ensemble_dirs "d1;d2" \
+      --parameters k=v,...
 
 Counterpart of ``zero_tpu/run.py``. Merge priority: command line > saved
-param.json > config file > defaults. Runs on ``device`` (default "cuda";
-``--parameters device=cpu`` for the CPU). ``--mode ensemble`` is a later
-slice and raises.
+param.json > config file > defaults; ``--mode ensemble`` merges each
+model directory's param.json under the command line. Runs on ``device``
+(default "cuda"; ``--parameters device=cpu`` for the CPU).
 """
 
 from __future__ import annotations
@@ -27,11 +29,6 @@ from zero_tpu_torch.recorder import Recorder
 from zero_tpu_torch.vocab import Vocab
 
 log = logging.getLogger("zero_tpu_torch")
-
-_LATER = {
-    "ensemble": "a later serving slice (ensemble decoding)",
-}
-
 
 def setup_recorder(params):
     """Attach a (possibly resumed) Recorder."""
@@ -72,8 +69,8 @@ def load_vocabs(params):
 
 def main(argv=None):
     """Run one mode. Returns train()'s summary dict (--mode train),
-    evaluate()'s (--mode test) or scorer()'s (scores, ppl) (--mode
-    score)."""
+    evaluate()'s (--mode test), ensemble()'s (--mode ensemble) or
+    scorer()'s (scores, ppl) (--mode score)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -89,15 +86,24 @@ def main(argv=None):
     parser.add_argument("--mode", default="train",
                         choices=["train", "test", "score", "ensemble"])
     args = parser.parse_args(argv)
-    if args.mode in _LATER:
-        raise NotImplementedError(
-            "--mode %s is not ported to zero_tpu_torch yet: it comes with %s"
-            % (args.mode, _LATER[args.mode]))
+
+    if args.mode == "ensemble":
+        all_params = []
+        for midx, model_dir in enumerate(args.ensemble_dirs.split(";")):
+            params = merge_params(default_config(), args.config,
+                                  args.parameters, output_dir=model_dir)
+            params.output_dir = os.path.abspath(model_dir)
+            params = load_vocabs(params)
+            log.info("Parameters of %d-th model", midx)
+            print_parameters(params)
+            all_params.append(params)
+        log.info("zero_tpu_torch on %s", graph.device_of(all_params[0]))
+        return graph.ensemble(all_params)
 
     params = default_config()
     params = merge_params(params, args.config, args.parameters)
     if args.mode in ("train", "score"):
-        check_ported(params)
+        check_ported(params, training=args.mode == "train")
     random.seed(params.random_seed)
     np.random.seed(params.random_seed)
     device = graph.device_of(params)

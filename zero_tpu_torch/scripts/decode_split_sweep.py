@@ -19,9 +19,11 @@ than L2, queued behind a device spin so that the host's enqueue does not
 gate the device. Prints one JSON line per (length, target, kernel): the
 splits the wrapper launched (``decode_attention.taken``; null where the
 package records none), the device ms of one call (CUDA events) and the
-host us of one wrapper call (the enqueue). ``--package DIR`` imports
-``zero_tpu_torch`` from another checkout instead, to compare its wrappers
-on the same inputs.
+host us of one wrapper call (the enqueue). The first line names the
+``zero_tpu_torch`` that was imported (its ``__file__``). ``--package DIR``
+times another checkout's wrappers on the same inputs: the sweep runs again
+in a fresh process whose working directory and ``sys.path[0]`` are DIR, so
+that it imports DIR's ``zero_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -72,7 +75,11 @@ def main(argv=None):
     parser.add_argument("--package", default="")
     args = parser.parse_args(argv)
     if args.package:
-        sys.path.insert(0, os.path.abspath(args.package))
+        return _in_package(os.path.abspath(args.package), sys.argv[1:]
+                           if argv is None else list(argv))
+    import zero_tpu_torch
+    print(json.dumps({"zero_tpu_torch": zero_tpu_torch.__file__}),
+          flush=True)
     from zero_tpu_torch.ops.kernels import decode_attention as da
 
     taken = getattr(da, "taken", {})
@@ -138,5 +145,25 @@ def main(argv=None):
                        per_sm, fn, sets)
 
 
+def _in_package(package: str, argv) -> int:
+    """Run this script without ``--package`` in a fresh process whose
+    working directory and sys.path[0] are ``package``; returns its exit
+    code. (This process has already imported its own zero_tpu_torch, the
+    script's package, when run with -m.)"""
+    rest, skip = [], False
+    for arg in argv:
+        if skip:
+            skip = False
+        elif arg == "--package":
+            skip = True
+        elif not arg.startswith("--package="):
+            rest.append(arg)
+    script = os.path.abspath(__file__)
+    code = ("import runpy, sys; sys.path.insert(0, %r); sys.argv = %r; "
+            "runpy.run_path(%r, run_name='__main__')"
+            % (package, [script] + rest, script))
+    return subprocess.run([sys.executable, "-c", code], cwd=package).returncode
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -16,7 +16,10 @@ each one's per-call min, median and max), and the host-side ops with the
 most self time. ``--parameters
 use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels;
 ``--config configs/transformer_rpr_rela.json`` profiles transformer_rpr
-(its attentions over more than 2m keys take the RPR kernels). ``--max-len
+(its attentions over more than 2m keys take the RPR kernels), and with
+``--parameters model_name=transformer_rela`` transformer_rela (the
+composite attention, whatever the flags); ``--config
+configs/transformer_aan_wmt14.json`` transformer_aan. ``--max-len
 16384 --parameters use_flash_attention=true`` profiles one long step: one
 row of that many source and target positions per microbatch (``max_len``
 set to match), so every attention streams (kernels #5-#7).

@@ -6,7 +6,8 @@ abort (or the safe_nan skip), periodic display/save/sample/eval, mid-epoch
 resume from ``record.json`` by skipping consumed batches, dev-BLEU-driven
 best checkpointing and early stop, the EMA weight swap for eval, a SIGTERM
 checkpoint-and-exit, and the final save and dev eval; plus the ``--mode
-test`` (``evaluate``) and ``--mode score`` (``scorer``) entry points.
+test`` (``evaluate``), ``--mode score`` (``scorer``) and ``--mode
+ensemble`` (``ensemble``) entry points.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 
 from zero_tpu_torch import dtypes, evalu, lrs
 from zero_tpu_torch.data import Dataset
-from zero_tpu_torch.models.base import get_model
+from zero_tpu_torch.models.base import Inference, get_model
+from zero_tpu_torch.models.common import parallel_options
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
 from zero_tpu_torch.search import beam_search
@@ -356,16 +358,23 @@ def _restore_eval_params(params, model, device):
     return dtypes.cast_to_compute(weights, params).to(device).eval()
 
 
-def evaluate(params) -> dict:
+def _eval_on_one_device(params) -> None:
+    """The eval modes run on the one device. A config that asks for more
+    (a mesh, several processes) gets the JAX package's warning from
+    _eval_mesh, as there when the devices are too few, and decodes here."""
+    asked = parallel_options(params)
+    if asked:
+        log.warning("eval mesh unavailable (%s asks for more devices than "
+                    "the 1 zero_tpu_torch uses); decoding on one device",
+                    ", ".join(asked))
+
+
+def _decode_test_set(params, weights, decode, label) -> dict:
     """Decode the test set, log BLEU, write the translations. Returns
     {'bleu', 'sentences', 'target_tokens', 'steps', 'seconds'}: the
     decode loop's sentence and top-beam token counts (EOS excluded), the
     summed beam-search steps and its wall time (host clock; every batch
     ends in a device-to-host copy of its results)."""
-    device = device_of(params)
-    model = get_model(params.model_name)
-    weights = _restore_eval_params(params, model, device)
-    decode = make_decode_fn(params, model)
     test_dataset = _make_dataset(params, params.src_test_file,
                                  params.tgt_test_file)
     steps = []
@@ -380,8 +389,8 @@ def evaluate(params) -> dict:
                                                    test_dataset, params)
     seconds = time.time() - begin
     bleu = evalu.eval_metric(translations, params.tgt_test_file, indices)
-    log.info("Translation Performance, BLEU Score: %.4f, using %.3f s",
-             bleu, seconds)
+    log.info("%s Performance, BLEU Score: %.4f, using %.3f s", label, bleu,
+             seconds)
     out = params.test_output or os.path.join(params.output_dir, "trans.txt")
     evalu.dump_translation(translations, out, indices)
     return {"bleu": bleu, "sentences": len(translations),
@@ -389,10 +398,22 @@ def evaluate(params) -> dict:
             "steps": sum(steps), "seconds": seconds}
 
 
+def evaluate(params) -> dict:
+    """Decode the test set with the latest checkpoint; returns
+    _decode_test_set's summary."""
+    device = device_of(params)
+    _eval_on_one_device(params)
+    model = get_model(params.model_name)
+    weights = _restore_eval_params(params, model, device)
+    decode = make_decode_fn(params, model)
+    return _decode_test_set(params, weights, decode, "Translation")
+
+
 def scorer(params):
     """Teacher-forced scores of the test set (dropout and label smoothing
     off); writes one per-sentence score per line. Returns (scores, ppl)."""
     device = device_of(params)
+    _eval_on_one_device(params)
     model = get_model(params.model_name)
     weights = _restore_eval_params(params, model, device)
     score_step = make_score_step(model, params)
@@ -410,3 +431,61 @@ def scorer(params):
     out = params.test_output or os.path.join(params.output_dir, "scores.txt")
     evalu.dump_translation(scores, out)
     return scores, ppl
+
+
+def make_ensemble_inference(inferences) -> Inference:
+    """Compose N models' inferences into one: at each step the fp32 mean
+    of the models' softmaxes, then log(p + 1e-20). Parameters, states and
+    caches are per-model lists; each model reorders its own cache (its own
+    cache mode: ancestry pools or the permuted cache; every ported model
+    has a reorder_cache)."""
+
+    def _log_mean_prob(logits):
+        probs = sum(torch.softmax(x.float(), dim=-1) for x in logits)
+        return torch.log(probs / len(logits) + 1e-20)
+
+    def encode(all_params, source):
+        return [inf.encode(p, source)
+                for inf, p in zip(inferences, all_params)]
+
+    def init_cache(all_params, states, batch, max_len):
+        return [inf.init_cache(p, s, batch, max_len)
+                for inf, p, s in zip(inferences, all_params, states)]
+
+    def decode_step(all_params, prev_tok, states, caches, time):
+        steps = [inf.decode_step(p, prev_tok, s, c, time)
+                 for inf, p, s, c in zip(inferences, all_params, states,
+                                         caches)]
+        return (_log_mean_prob([logits for logits, _ in steps]),
+                [c for _, c in steps])
+
+    def decode_prefix(all_params, buffer, states, time):
+        return _log_mean_prob([
+            inf.decode_prefix(p, buffer, s, time)
+            for inf, p, s in zip(inferences, all_params, states)])
+
+    def reorder_cache(caches, beam_indices, batch, beam_size, time, span=1):
+        return [inf.reorder_cache(c, beam_indices, batch, beam_size, time,
+                                  span=span)
+                for inf, c in zip(inferences, caches)]
+
+    return Inference(encode=encode, init_cache=init_cache,
+                     decode_step=decode_step, decode_prefix=decode_prefix,
+                     reorder_cache=reorder_cache)
+
+
+def ensemble(all_params) -> dict:
+    """Decode the test set with an ensemble of separately trained models,
+    one config each (their names may differ); the first config's files,
+    beam and decode settings drive the search. Returns _decode_test_set's
+    summary."""
+    default = all_params[0]
+    device = device_of(default)
+    _eval_on_one_device(default)
+    models = [get_model(p.model_name) for p in all_params]
+    weights = [_restore_eval_params(p, m, device)
+               for p, m in zip(all_params, models)]
+    inference = make_ensemble_inference(
+        [m.infer_fn(p) for m, p in zip(models, all_params)])
+    decode = make_decode_fn(default, models[0], inference=inference)
+    return _decode_test_set(default, weights, decode, "Ensemble Translation")
