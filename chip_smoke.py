@@ -6,9 +6,11 @@ train it through ``python -m zero_tpu_torch.run --mode train``, train, serve
 and score transformer_rpr (Shaw relative positions), transformer_rela (ReLA)
 and transformer_aan (average attention) the same way, decode the test set
 with an ensemble of transformer-base and transformer_rela (``--mode
-ensemble``), train, score and serve transformer-base on sequences past 8192
-tokens (the streaming-attention kernels), and check these paths against the
-CPU on small models.
+ensemble``), train the deep config (configs/deep_transformer_fuse_l0drop.json:
+20+6 layers, use_remat) as transformer_fuse, transformer_l0drop and
+transformer_fixup and serve and score each, train, score and serve
+transformer-base on sequences past 8192 tokens (the streaming-attention
+kernels), and check these paths against the CPU on small models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -142,6 +144,36 @@ non-zero):
              decoder layer and step each; BLEU and sentences/s; then a small
              fp32 transformer + transformer_rela ensemble, card against CPU:
              identical sequences, scores within 1e-4
+  deep_train configs/deep_transformer_fuse_l0drop.json as written
+             (transformer_fuse, 20+6 layers, 512/2048, 8 heads,
+             depth-scaled init, bf16, dropout 0.1, token_size 4096,
+             update_cycle 4, use_remat) trained DEEP_STEPS steps with both
+             kernel flags on: ms/step, tokens/s, MFU (model FLOPs: the
+             recompute not counted), peak memory; launches per microbatch
+             = 40 #1 and #11 (20 encoder layers, twice: the recompute), 20
+             #2 and #12, the merged decoder none; then --mode test at beam
+             4 (the encoder's #1 and #11, no decode kernel) and --mode
+             score
+  deep_memory  the same config MEMORY_STEPS steps each with use_remat off,
+             then remat_policy nothing, dots and dots_all:
+             torch.cuda.max_memory_allocated and the median step; launches
+             checked (forwards twice a layer under remat)
+  l0drop_train the same config as transformer_l0drop, DEEP_STEPS steps:
+             launches per microbatch 64 #1, 32 #2, 52 #11, 26 #12; the
+             expected-L0 penalty beside the loss; served at beam 4 (#8, 6
+             a decode step) and beam 1 (#10), at l0_compact_ratio 0 and
+             0.5, and scored; then one batch at those widths whose gates
+             are forced closed on a row: finite loss and grads
+  fixup_train the same widths as transformer_fixup, FIXUP_STEPS steps (no
+             training kernel, as in the JAX package); --mode test at beam 4
+             (#8) and --mode score (no kernel)
+  deep_reference  small fp32 transformer_fuse, transformer_l0drop and
+             transformer_fixup models with use_remat and dropout 0.1:
+             train_fn loss (1e-5) and grads (1e-4) card against CPU on the
+             same seed words; beam 4 card against CPU, identical
+             sequences; in bf16 on the card (tensor-core kernels) the
+             checkpointed run against the same layers without the
+             checkpoint: grads within 1e-6 of their max (the gap printed)
   long_kernels  streaming attention (#5 forward, #6 dq, #7 dk/dv) against
              streaming_attention_ref at B*H=8, Lq=Lk=8320 causal; B=2, H=4,
              L=8320 under a pad mask with an all-pad row (whose dq and dk
@@ -229,7 +261,7 @@ TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 # (dW, dk/dv), so the relative part is 1e-4; bf16 as above
 TRAIN_TOLERANCE = {torch.float32: (1e-5, 1e-4),
                    torch.bfloat16: (1e-2, 2e-2)}
-TRAIN_STEPS = 30
+TRAIN_STEPS = 12
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
 # the card spins this many cycles before each timed run (~0.25 s), so the
 # host enqueues the whole run first and events time device work only
@@ -1207,8 +1239,11 @@ def model_flops(shapes, cfg):
     q.Tk and the bucket sums' product with Tv: 4 * rows * (2m+1) * hidden
     per attention (the one-hot expansions are not counted);
     transformer_aan's decoder has the gate's product in place of
-    self-attention (its cumulative mean is no matmul). ReLA's matmuls are
-    transformer's."""
+    self-attention (its cumulative mean is no matmul); transformer_fuse's
+    the query side's v projection (its average is no matmul either).
+    ReLA's, L0Drop's and Fixup's matmuls are transformer's (L0Drop's gate
+    projection, 2 * d FLOPs a source token, is left out). Model FLOPs:
+    use_remat's recompute of the layers' forwards is not counted."""
     d, f = cfg["hidden_size"], cfg["filter_size"]
     v = 32768
     b, ls, lt = stacked_shape(shapes)
@@ -1224,6 +1259,8 @@ def model_flops(shapes, cfg):
             # aan_ffn), no self-attention matmuls
             dec_self = 2 * nt * 2 * d * 2 * d + (
                 4 * nt * d * f if cfg.get("use_ffn") else 0)
+        elif cfg.get("model_name") == "transformer_fuse":
+            dec_self = 2 * nt * d * d
         else:
             dec_self = 2 * nt * d * 4 * d + 4 * b * lt * lt * d
         enc = cfg["num_encoder_layer"] * (
@@ -1237,17 +1274,26 @@ def model_flops(shapes, cfg):
     return total
 
 
+def remat_forwards(cfg):
+    """Forward launches of a layer's kernel per microbatch: 2 under
+    use_remat (the backward recomputes each layer's forward), else 1.
+    ``cfg`` holds a config file's values, overrides as strings."""
+    return 2 if str(cfg.get("use_remat", False)).lower() == "true" else 1
+
+
 def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
-    layer (18 at 6+6), one FFN per layer (12); forward and backward, the
-    attention on the route forward_route picks."""
+    layer (18 at 6+6), one FFN per layer (12); forward (twice under
+    use_remat) and backward, the attention on the route forward_route
+    picks. transformer_l0drop's layers are transformer's."""
     microbatches = cfg["update_cycle"] * summary["steps"]
     attn = cfg["num_encoder_layer"] + 2 * cfg["num_decoder_layer"]
     ffn = cfg["num_encoder_layer"] + cfg["num_decoder_layer"]
+    fwd = remat_forwards(cfg)
     sfx = route_suffix(cfg)
-    return {"fused_attention" + sfx: attn * microbatches,
+    return {"fused_attention" + sfx: attn * microbatches * fwd,
             "fused_attention_backward" + sfx: attn * microbatches,
-            "fused_ffn": ffn * microbatches,
+            "fused_ffn": ffn * microbatches * fwd,
             "fused_ffn_backward": ffn * microbatches}
 
 
@@ -1280,14 +1326,15 @@ def route_suffix(cfg):
         cfg["hidden_size"] // cfg["num_heads"]) == "tensor_cores" else ""
 
 
-def train_run(d, out, flags, counters, config=CONFIG, extra=""):
+def train_run(d, out, flags, counters, config=CONFIG, extra="",
+              steps=TRAIN_STEPS):
     from zero_tpu_torch import run
 
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
             "output_dir={1},use_flash_attention={2},use_fused_ffn={2},"
             "max_training_steps={3},disp_freq=1,save_freq=0,eval_freq=0,"
-            "sample_freq=0,epoches=100".format(d, out, flags, TRAIN_STEPS))
+            "sample_freq=0,epoches=100".format(d, out, flags, steps))
     spec += extra
     for c in counters:
         c.clear()
@@ -1305,13 +1352,15 @@ def collect(counters):
 
 def train_phase(d, da, config=CONFIG, label="train",
                 expected=expected_launches, extra="",
-                flag_runs=("true", "false"), serving=None):
-    """Train ``config`` (with the ``extra`` parameters) TRAIN_STEPS steps
+                flag_runs=("true", "false"), serving=None, steps=TRAIN_STEPS,
+                note=None):
+    """Train ``config`` (with the ``extra`` parameters) ``steps`` steps
     with both kernel flags on, then off (``flag_runs``); then serve
     (--mode test) and score the kernel run's checkpoint, whose launches
     ``serving(cfg, served, serve_launches, score_launches)`` checks where
-    given (no plain version in any case). Returns the kernel run's launch
-    counts and the serving run's."""
+    given (no plain version in any case); ``note`` is printed beside the
+    numbers. Returns the kernel run's results (its launch counts under
+    "launches") and the serving run's launch counts."""
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
@@ -1322,11 +1371,11 @@ def train_phase(d, da, config=CONFIG, label="train",
     results = {}
     for flags in flag_runs:
         out = os.path.join(d, "%s_%s" % (label, flags))
-        summary, launches = train_run(d, out, flags, counters, config, extra)
-        steps = summary["steps"]
-        if steps != TRAIN_STEPS:
+        summary, launches = train_run(d, out, flags, counters, config, extra,
+                                      steps)
+        if summary["steps"] != steps:
             raise AssertionError("trained %d steps, wanted %d"
-                                 % (steps, TRAIN_STEPS))
+                                 % (summary["steps"], steps))
         if not all(math.isfinite(x) for x in summary["losses"]):
             raise AssertionError("non-finite loss: %s" % summary["losses"])
         want = expected(cfg, summary) if flags == "true" else {}
@@ -1350,7 +1399,8 @@ def train_phase(d, da, config=CONFIG, label="train",
             loss_first=summary["losses"][0], loss_last=summary["losses"][-1],
             gnorm_first=summary["gnorms"][0],
             gnorm_last=summary["gnorms"][-1], launches=launches,
-            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            **({} if note is None else {"note": note}))
         phase(label, **results[flags])
         torch.cuda.reset_peak_memory_stats()
     # the kernel run's checkpoint serves through --mode test
@@ -1380,7 +1430,7 @@ def train_phase(d, da, config=CONFIG, label="train",
           decode_steps=served["steps"], serve_launches=serve_launches,
           scored_sentences=len(scores), score_ppl=ppl,
           score_launches=score_launches)
-    return results["true"]["launches"], serve_launches
+    return results["true"], serve_launches
 
 
 def checkpoint_spec(d, label, output, beam=None):
@@ -1393,16 +1443,17 @@ def checkpoint_spec(d, label, output, beam=None):
     return spec + ("" if beam is None else ",beam_size=%d" % beam)
 
 
-def serve_checkpoint(d, label, counters, beam=None):
+def serve_checkpoint(d, label, counters, beam=None, extra="", tag=""):
     """--mode test of the kernel run's checkpoint of ``label`` (the saved
-    beam, or ``beam``); returns evaluate()'s summary and the launches."""
+    beam, or ``beam``; ``extra`` parameters, ``tag`` in the output's
+    name); returns evaluate()'s summary and the launches."""
     from zero_tpu_torch import run
 
     for c in counters:
         c.clear()
-    output = "trained" if beam is None else "trained_beam%d" % beam
+    output = ("trained" if beam is None else "trained_beam%d" % beam) + tag
     served = run.main(["--mode", "test", "--parameters",
-                       checkpoint_spec(d, label, output, beam)])
+                       checkpoint_spec(d, label, output, beam) + extra])
     launches = collect(counters)
     with open(os.path.join(d, "%s_%s.txt" % (label, output))) as r:
         lines = r.read().splitlines()
@@ -1764,26 +1815,29 @@ def rela_train_phase(d, da):
     return served
 
 
-def aan_expected_launches(cfg, summary):
-    """transformer_aan: per microbatch one attention and one FFN per
-    encoder layer, forward and backward (6 each at 6 layers; the attention
-    on the route forward_route picks); the AAN decoder's cross attention
-    and FFN run the composite."""
+def encoder_expected_launches(cfg, summary):
+    """transformer_aan and transformer_fuse: per microbatch one attention
+    and one FFN per encoder layer, forward (twice under use_remat) and
+    backward (6 each at 6 layers; the attention on the route forward_route
+    picks); the AAN decoder's cross attention and FFN, and the merged
+    decoder's attention and FFN, run the composite."""
     n = cfg["num_encoder_layer"] * cfg["update_cycle"] * summary["steps"]
+    fwd = n * remat_forwards(cfg)
     sfx = route_suffix(cfg)
-    return {"fused_attention" + sfx: n, "fused_attention_backward" + sfx: n,
-            "fused_ffn": n, "fused_ffn_backward": n}
+    return {"fused_attention" + sfx: fwd, "fused_attention_backward" + sfx: n,
+            "fused_ffn": fwd, "fused_ffn_backward": n}
 
 
-def aan_serving(cfg, served, serve_launches, score_launches):
+def encoder_serving(cfg, served, serve_launches, score_launches):
     """Serving and scoring run the encoder's forward kernels (one
-    attention and one FFN per encoder layer and test batch); AAN decode
-    keeps a running sum and takes no decode kernel."""
+    attention and one FFN per encoder layer and test batch); AAN and fuse
+    decode keep a running sum and take no decode kernel."""
     n = cfg["num_encoder_layer"] * TEST_BATCHES
     want = {"fused_attention" + route_suffix(cfg): n, "fused_ffn": n}
     if serve_launches != want or score_launches != want:
-        raise AssertionError("aan_train: serving launched %s, scoring %s, "
-                             "expected %s" % (serve_launches, score_launches,
+        raise AssertionError("%s: serving launched %s, scoring %s, "
+                             "expected %s" % (cfg["model_name"],
+                                              serve_launches, score_launches,
                                               want))
 
 
@@ -1934,6 +1988,345 @@ def ensemble_phase(d, da):
                              "expected %s" % (same, score_err, small,
                                               small_want))
     return launches
+
+
+DEEP_CONFIG = os.path.join(REPO, "configs", "deep_transformer_fuse_l0drop.json")
+DEEP_STEPS = 20      # deep_train and l0drop_train
+MEMORY_STEPS = 5     # deep_memory, each setting
+FIXUP_STEPS = 10
+L0DROP_EXTRA = ",model_name=transformer_l0drop,scope_name=transformer_l0drop"
+FIXUP_EXTRA = ",model_name=transformer_fixup,scope_name=transformer_fixup"
+# deep_memory's settings: remat off, then each remat_policy
+REMAT_SETTINGS = (("off", ",use_remat=false"),
+                  ("nothing", ",remat_policy=nothing"),
+                  ("dots", ",remat_policy=dots"),
+                  ("dots_all", ",remat_policy=dots_all"))
+MFU_NOTE = "model FLOPs (forward x3); use_remat's recompute not counted"
+
+
+def deep_train_phase(d, da):
+    """configs/deep_transformer_fuse_l0drop.json as written
+    (transformer_fuse, 20+6, use_remat) DEEP_STEPS steps with both kernel
+    flags on: per microbatch the encoder's #1 and #11 twice a layer (the
+    recompute) and #2 and #12 once; the merged decoder takes no kernel.
+    Then --mode test at beam 4 and --mode score (the encoder's #1 and #11,
+    no decode kernel). Returns the training results."""
+    return train_phase(d, da, DEEP_CONFIG, "deep_train",
+                       encoder_expected_launches, flag_runs=("true",),
+                       serving=encoder_serving, steps=DEEP_STEPS,
+                       note=MFU_NOTE)[0]
+
+
+def deep_memory_phase(d, da):
+    """The deep config MEMORY_STEPS steps (both kernel flags on) with
+    use_remat off, then under each remat_policy: peak memory allocated,
+    median step and launches (#1 and #11 twice a layer under remat)."""
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    out = {}
+    for name, extra in REMAT_SETTINGS:
+        cfg = load_config_file(DEEP_CONFIG)
+        cfg.update(kv.split("=", 1) for kv in extra.split(",") if kv)
+        path = os.path.join(d, "deep_memory_" + name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        summary, launches = train_run(d, path, "true", counters, DEEP_CONFIG,
+                                      extra, MEMORY_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        shutil.rmtree(path)
+        want = encoder_expected_launches(cfg, summary)
+        ends = summary["step_end_times"]
+        step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
+        out[name] = dict(peak_gib=peak / 2 ** 30,
+                         allocated_before_gib=before / 2 ** 30,
+                         ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+                         loss_last=summary["losses"][-1], launches=launches)
+        phase("deep_memory", remat=name, **out[name])
+        if (summary["steps"] != MEMORY_STEPS or launches != want
+                or not all(map(math.isfinite, summary["losses"]))):
+            raise AssertionError("deep_memory %s: %d steps, losses %s, "
+                                 "launches %s, expected %s"
+                                 % (name, summary["steps"],
+                                    summary["losses"], launches, want))
+    return out
+
+
+def l0drop_serving(cfg, served, serve_launches, score_launches):
+    """Beam 4: the encoder's #1 and #11 once a layer per test batch, #8
+    once per decoder layer and step (decode's cross attention and FFN take
+    no kernel); scoring (l0_compact_ratio 0): every attention's #1 and
+    FFN's #11 of the teacher-forced pass."""
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    sfx = route_suffix(cfg)
+    want = {"fused_attention" + sfx: enc * TEST_BATCHES,
+            "fused_ffn": enc * TEST_BATCHES,
+            "decode_pool_attention": dec * served["steps"]}
+    score_want = {"fused_attention" + sfx: (enc + 2 * dec) * TEST_BATCHES,
+                  "fused_ffn": (enc + dec) * TEST_BATCHES}
+    if serve_launches != want or score_launches != score_want:
+        raise AssertionError("l0drop_train: serving launched %s, expected "
+                             "%s; scoring %s, expected %s"
+                             % (serve_launches, want, score_launches,
+                                score_want))
+
+
+def l0drop_train_phase(d, da):
+    """The deep config as transformer_l0drop DEEP_STEPS steps with both
+    kernel flags on (every attention and FFN: 64 #1, 32 #2, 52 #11, 26 #12
+    per microbatch at 20+6 under use_remat), the expected-L0 penalty of
+    each step beside its loss; served at beam 4 (#8) and beam 1 (#10), at
+    l0_compact_ratio 0 and 0.5 (the compacted memory's count softmax on
+    the composite), and scored; then one batch at the same widths whose
+    gates are forced closed on a row. Returns (training results, beam-4
+    serving launches, beam-1 serving launches)."""
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.models import transformer_l0drop as l0mod
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    cfg = load_config_file(DEEP_CONFIG)
+    cfg.update(kv.split("=", 1) for kv in L0DROP_EXTRA.split(",") if kv)
+    penalties = []
+    real_penalty = l0mod.l0_penalty
+
+    def record(log_alpha, mask):
+        penalty = real_penalty(log_alpha, mask)
+        penalties.append(penalty.detach())
+        return penalty
+
+    with mock.patch.object(l0mod, "l0_penalty", record):
+        results, served4 = train_phase(
+            d, da, DEEP_CONFIG, "l0drop_train", expected_launches,
+            L0DROP_EXTRA, ("true",), l0drop_serving, steps=DEEP_STEPS,
+            note=MFU_NOTE)
+    cycle = int(cfg["update_cycle"])
+    per_step = [torch.stack(penalties[i:i + cycle]).mean().item()
+                for i in range(0, len(penalties), cycle)]
+    weight = [cfg["l0_norm_reg_scalar"] * min(
+        max(step - cfg["l0_norm_start_reg_ramp_up"], 0)
+        / max(cfg["l0_norm_end_reg_ramp_up"]
+              - cfg["l0_norm_start_reg_ramp_up"], 1), 1.0)
+        for step in (0, DEEP_STEPS - 1)]
+    phase("l0drop_train", loss_first=results["loss_first"],
+          loss_last=results["loss_last"], l0_penalty_first=per_step[0],
+          l0_penalty_last=per_step[-1], l0_weight_first=weight[0],
+          l0_weight_last=weight[1], penalty_steps=len(per_step))
+    if len(per_step) != DEEP_STEPS or not all(map(math.isfinite, per_step)):
+        raise AssertionError("l0drop_train: penalties %s" % per_step)
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    served1 = None
+    for beam, ratio in ((1, 0.0), (4, 0.5), (1, 0.5)):
+        served, launches = serve_checkpoint(
+            d, "l0drop_train", counters, beam=beam,
+            extra=",l0_compact_ratio=%g" % ratio, tag="_ratio%g" % ratio)
+        kernel = "decode_pool_attention" if beam > 1 else "decode_attention"
+        want = {"fused_attention" + route_suffix(cfg): enc * TEST_BATCHES,
+                "fused_ffn": enc * TEST_BATCHES,
+                kernel: dec * served["steps"]}
+        phase("l0drop_train", beam=beam, l0_compact_ratio=ratio,
+              sentences_per_s=served["sentences"] / served["seconds"],
+              decode_steps=served["steps"], served_bleu=served["bleu"],
+              serve_launches=launches)
+        if launches != want:
+            raise AssertionError("l0drop_train beam %d ratio %g launched %s,"
+                                 " expected %s" % (beam, ratio, launches,
+                                                   want))
+        if beam == 1 and ratio == 0.0:
+            served1 = launches
+    l0drop_closed_row(d, da)
+    return results, served4, served1
+
+
+def l0drop_closed_row(d, da):
+    """One training batch of transformer_l0drop at the deep config's widths
+    (bf16, both kernel flags, use_remat) whose gates are forced closed on
+    row 0 (its noise set to 0): that row's memory is all pad, which the
+    cross attention's #1/#2 take with uniform weights. The loss and every
+    grad must be finite."""
+    from zero_tpu_torch.config import default_config, load_config_file
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops import l0norm
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.vocab import Vocab
+
+    counters = (fa.launches, ff.launches, da.launches)
+    values = load_config_file(DEEP_CONFIG)
+    values.update(model_name="transformer_l0drop", use_flash_attention=True,
+                  use_fused_ffn=True, update_cycle=1)
+    cfg = default_config().override_from_dict(values)
+    cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
+    model = get_model("transformer_l0drop")
+    params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
+    rs = np.random.RandomState(SEED + 2)
+    src = rs.randint(3, 32768, (16, 48))
+    tgt = rs.randint(3, 32768, (16, 40))
+    for i, (ns, nt) in enumerate(zip(rs.randint(10, 49, 16),
+                                     rs.randint(10, 41, 16))):
+        src[i, ns:] = 0
+        tgt[i, nt:] = 0
+    feats = {"source": torch.as_tensor(src).cuda(),
+             "target": torch.as_tensor(tgt).cuda()}
+    real_noise, real_gate = l0norm.uniform_noise, l0norm.hard_concrete_from_noise
+    gates = []
+
+    def closed_row0(words, shape, device):
+        noise = real_noise(words, shape, device)
+        noise[0] = 0.0
+        return noise
+
+    def spy(*args):
+        gates.append(real_gate(*args))
+        return gates[-1]
+
+    for c in counters:
+        c.clear()
+    with mock.patch.object(l0norm, "uniform_noise", closed_row0), \
+            mock.patch.object(l0norm, "hard_concrete_from_noise", spy):
+        loss = model.train_fn(params, feats, cfg,
+                              torch.Generator().manual_seed(SEED),
+                              step=1000)["loss"]
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    launches = collect(counters)
+    want = expected_launches(values, {"steps": 1})
+    out = dict(closed_row_gates_max=gates[0][0].max().item(),
+               other_rows_open=int((gates[0][1:] > 0).sum().item()),
+               loss=loss.item(),
+               grads_finite=all(bool(torch.isfinite(g).all())
+                                for g in grads),
+               launches=launches)
+    phase("l0drop_closed_row", **out)
+    if not (out["closed_row_gates_max"] == 0.0 and out["other_rows_open"]
+            and math.isfinite(out["loss"]) and out["grads_finite"]
+            and launches == want):
+        raise AssertionError("l0drop_closed_row: %s, expected launches %s"
+                             % (out, want))
+    del params, grads
+
+
+def fixup_serving(cfg, served, serve_launches, score_launches):
+    """Fixup's layers pass no kernel flag but use_flash_decode: beam 4
+    runs #8 once per decoder layer and step, scoring no kernel."""
+    want = {"decode_pool_attention": cfg["num_decoder_layer"]
+            * served["steps"]}
+    if serve_launches != want or score_launches:
+        raise AssertionError("fixup_train: serving launched %s, expected "
+                             "%s; scoring %s, expected none"
+                             % (serve_launches, want, score_launches))
+
+
+def fixup_train_phase(d, da):
+    """The deep config's widths as transformer_fixup FIXUP_STEPS steps
+    with both kernel flags on (no training kernel, as in the JAX package),
+    then --mode test at beam 4 (#8) and --mode score. Returns the beam-4
+    serving launches."""
+    return train_phase(d, da, DEEP_CONFIG, "fixup_train", no_kernel,
+                       FIXUP_EXTRA, ("true",), fixup_serving,
+                       steps=FIXUP_STEPS, note=MFU_NOTE)[1]
+
+
+def remat_reference(da, name, train_want, decode_want):
+    """A small ``name`` model (_small_model) with dropout 0.1 and
+    use_remat: train_fn loss and grads on the card (kernels, fp32) against
+    the CPU (plain versions) on the same seed words, loss within 1e-5 and
+    grads within 1e-4; beam 4 card against CPU, identical sequences; then
+    in bf16 on the card (the tensor-core kernels) the checkpointed layers
+    against the same layers without the checkpoint on the same words,
+    grads within 1e-6 of their max."""
+    import copy
+
+    from zero_tpu_torch.models import common, get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.search import beam_search
+
+    counters = (fa.launches, ff.launches, da.launches)
+    model = get_model(name)
+    feats = _small_batch()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    cfg = _small_model(0.1, name)
+    cfg.use_remat = True
+
+    def run(params, batch, config):
+        loss = model.train_fn(params, batch, config,
+                              torch.Generator().manual_seed(SEED),
+                              step=100)["loss"]
+        return loss, torch.autograd.grad(loss, list(params.parameters()))
+
+    cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+    gpu = copy.deepcopy(cpu).cuda()
+    lc, gc = run(cpu, feats, cfg)
+    for c in counters:
+        c.clear()
+    lg, gg = run(gpu, gfeats, cfg)
+    train_launches = collect(counters)
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    errs = grad_errors(cpu, gc, gg)
+    worst = max(errs, key=errs.get)
+    cfg.beam_size = 4
+    inf = model.infer_fn(cfg)
+    with torch.inference_mode():
+        c = beam_search(cpu, feats["source"], inf, cfg)
+        for n in counters:
+            n.clear()
+        g = beam_search(gpu, gfeats["source"], inf, cfg)
+    decode_launches = collect(counters)
+    same = torch.equal(g["seq"].cpu(), c["seq"])
+
+    cfg16 = _small_model(0.1, name)
+    cfg16.use_remat = True
+    cfg16.default_dtype = "bfloat16"
+    for n in counters:
+        n.clear()
+    l1, g1 = run(gpu, gfeats, cfg16)
+    bf16_launches = collect(counters)
+    with mock.patch.object(common, "remat_layer",
+                           lambda layer, ctx, fn, *args: fn(layer, *args)):
+        l0, g0 = run(gpu, gfeats, cfg16)
+    top = max(b.abs().max().item() for b in g0)
+    gap = max((a - b).abs().max().item() for a, b in zip(g1, g0)) / top
+    out = dict(loss_rel_err=loss_err, grad_rel_err=errs[worst], worst=worst,
+               train_launches=train_launches, beam4_same_sequences=same,
+               beam4_steps=g["steps"], decode_launches=decode_launches,
+               bf16_remat_loss_gap=abs(l1.item() - l0.item()),
+               bf16_remat_grad_gap=gap, bf16_launches=bf16_launches)
+    bf16_want = {(k + "_tc" if k.startswith("fused_attention") else k): v
+                 for k, v in train_want.items()}
+    if not (loss_err <= 1e-5 and errs[worst] <= 1e-4
+            and train_launches == train_want and same
+            and bf16_launches == bf16_want
+            and decode_launches == decode_want(g["steps"])
+            and torch.isfinite(g["score"]).all() and math.isfinite(l1.item())
+            and gap <= 1e-6):
+        raise AssertionError("%s remat reference: %s" % (name, out))
+    return out
+
+
+def deep_reference_phase(da):
+    """Small transformer_fuse, transformer_l0drop and transformer_fixup
+    models (2+2 layers) under use_remat with dropout on: card against CPU
+    and, in bf16, the checkpoint against none (remat_reference). fp32
+    takes the CUDA-core #1/#2 and #11/#12, forwards twice a layer."""
+    n = 2   # layers a side of _small_model
+    phase("deep_reference", model="transformer_fuse", **remat_reference(
+        da, "transformer_fuse",
+        {"fused_attention": 2 * n, "fused_attention_backward": n,
+         "fused_ffn": 2 * n, "fused_ffn_backward": n},
+        lambda steps: {"fused_attention": n, "fused_ffn": n}))
+    phase("deep_reference", model="transformer_l0drop", **remat_reference(
+        da, "transformer_l0drop",
+        {"fused_attention": 2 * 3 * n, "fused_attention_backward": 3 * n,
+         "fused_ffn": 2 * 2 * n, "fused_ffn_backward": 2 * n},
+        lambda steps: {"fused_attention": n, "fused_ffn": n,
+                       "decode_pool_attention": n * steps}))
+    phase("deep_reference", model="transformer_fixup", **remat_reference(
+        da, "transformer_fixup", {},
+        lambda steps: {"decode_pool_attention": n * steps}))
 
 
 def converge_phase(d):
@@ -2610,8 +3003,9 @@ def long_reference_bf16(model, gfeats, sa):
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
-          "aan_train", "aan_reference", "ensemble", "long_kernels",
-          "long_train", "long_reference")
+          "aan_train", "aan_reference", "ensemble", "deep_train",
+          "deep_memory", "l0drop_train", "fixup_train", "deep_reference",
+          "long_kernels", "long_train", "long_reference")
 
 
 def main(argv=None):
@@ -2728,22 +3122,34 @@ def main(argv=None):
                 da, d, 1, "decode_attention")
         if "reference" in todo:
             reference_phase(da)
-        if todo & {"train", "rpr_train", "rela_train", "aan_train"}:
+        if todo & {"train", "rpr_train", "rela_train", "aan_train",
+                   "deep_train", "deep_memory", "l0drop_train",
+                   "fixup_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
-            launches.update(train_phase(d, da)[0])
+            launches.update(train_phase(d, da)[0]["launches"])
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches,
-                                        serving=rpr_serving)[0])
+                                        serving=rpr_serving)[0]["launches"])
         if "rela_train" in todo:
             rela_launches = rela_train_phase(d, da)
         if "aan_train" in todo:
             aan_launches = train_phase(d, da, AAN_CONFIG, "aan_train",
-                                       aan_expected_launches,
-                                       serving=aan_serving)[0]
+                                       encoder_expected_launches,
+                                       serving=encoder_serving)[0]["launches"]
         if "ensemble" in todo:
             ensemble_launches = ensemble_phase(d, da)
+        if "deep_train" in todo:
+            deep_launches = deep_train_phase(d, da)["launches"]
+        if "deep_memory" in todo:
+            deep_memory_phase(d, da)
+        if "l0drop_train" in todo:
+            l0drop_results, l0drop_served4, l0drop_served1 = \
+                l0drop_train_phase(d, da)
+            l0drop_launches = l0drop_results["launches"]
+        if "fixup_train" in todo:
+            fixup_served = fixup_train_phase(d, da)
         if "long_train" in todo:
             write_long_corpus(d, words)
             launches.update(long_train_phase(d, da))
@@ -2755,6 +3161,8 @@ def main(argv=None):
         rela_reference_phase(da)
     if "aan_reference" in todo:
         aan_reference_phase(da)
+    if "deep_reference" in todo:
+        deep_reference_phase(da)
     if "long_reference" in todo:
         long_reference_phase(da)
     if "converge" in todo:
@@ -2792,6 +3200,12 @@ def main(argv=None):
                              "bound_by", "library_ms", "splits")})
     kernels[0]["ensemble_launches"] = ensemble_launches[
         "decode_pool_attention"]
+    # this slice's serving: transformer_l0drop at beam 4 (#8) and 1 (#10),
+    # transformer_fixup at beam 4 (#8)
+    kernels[0]["l0drop_serve_launches"] = l0drop_served4[
+        "decode_pool_attention"]
+    kernels[0]["fixup_serve_launches"] = fixup_served["decode_pool_attention"]
+    kernels[1]["l0drop_serve_launches"] = l0drop_served1["decode_attention"]
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
     # attention at the encoder self-attention case, the FFN at N=4096 and
     # at the train phase's largest stacked shape; the library yardstick is
@@ -2821,8 +3235,12 @@ def main(argv=None):
             bound_by=r["bound_by"], library_ms=lib)
         if name.startswith("fused_ffn"):
             row["case"] = "N%d_%d_%d_%d" % ((key[0],) + FFN_SHAPE[1:])
-        # transformer_aan's encoder runs the same kernels (aan_train)
+        # transformer_aan's encoder runs the same kernels (aan_train), and
+        # so do the deep config's models (deep_train: transformer_fuse's
+        # encoder; l0drop_train: every layer; both under use_remat)
         row["aan_train_launches"] = aan_launches[name]
+        row["deep_train_launches"] = deep_launches[name]
+        row["l0drop_train_launches"] = l0drop_launches[name]
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)

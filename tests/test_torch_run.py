@@ -93,8 +93,8 @@ def test_device_cuda_without_a_card_raises(corpus):
 
 
 # every mode is ported, but options of a later slice raise before any
-# work: remat and scanned layers, and in training a mesh
-_LATER = {"train": ["--parameters", "device=cpu,use_remat=true"],
+# work: scanned layers, and in training a mesh
+_LATER = {"train": ["--parameters", "device=cpu,scan_layers=true"],
           "score": ["--parameters", "device=cpu,scan_layers=true"],
           "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 

@@ -15,18 +15,28 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
     are recomputed in the backward (``chunked_tied_ce``)
   * fp32 master parameters: the loss casts them to the compute dtype with
     a differentiable cast, so the gradients reach the fp32 parameters
+  * ``use_remat``: in training each layer runs under a non-reentrant
+    activation checkpoint (``remat_policy`` picks what it keeps), with its
+    dropout seeds drawn before it and passed in, so the recompute draws
+    the forward's masks
+  * the variants' extras: ``post_encode`` (L0Drop's gates), the
+    post-stack ``enc_post``/``dec_post`` (Fixup's shift and scale),
+    ``extra_init``/``extra_loss`` (L0Drop's gate projection and penalty)
+    and ``zero_softmax`` (Fixup's zero softmax table)
 
-``scan_layers`` and ``use_remat`` are a later slice: both raise, and so do
-the parallelism options in training (check_ported).
+``scan_layers`` is a later slice: it raises, and so do the parallelism
+options in training (check_ported).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from zero_tpu_torch import dtypes
 from zero_tpu_torch.models.base import Inference
@@ -51,6 +61,14 @@ class LayerHooks(NamedTuple):
     # serve (RPR's relative-position tables): on the card they keep the
     # classic permuted cache instead of the ancestry pools
     pool_kernel: bool = True
+    # optional encoder-output postprocessor (L0Drop):
+    # (params, state, cfg, rngs, training) -> state
+    post_encode: Optional[Callable] = None
+    # optional post-stack transforms (Fixup's trailing shift/scale)
+    init_enc_post: Optional[Callable] = None  # (gen, cfg) -> module
+    enc_post: Optional[Callable] = None       # (p, x) -> x
+    init_dec_post: Optional[Callable] = None  # (gen, cfg) -> module
+    dec_post: Optional[Callable] = None       # (p, x) -> x
 
 
 class Layer(torch.nn.Module):
@@ -62,18 +80,27 @@ class Layer(torch.nn.Module):
         for name, part in parts.items():
             self.add_module(name, part)
 
+    def forward(self, fn, *args):
+        """fn(self, *args): lets torch.func.functional_call run a layer
+        on given tensors (the activation checkpoint's recompute)."""
+        return fn(self, *args)
+
 
 class Seq2Seq(torch.nn.Module):
     """Parameters of a transformer-family model. State-dict keys are the
     JAX param paths with '/' turned into '.': ``embedding``, ``emb_bias``,
-    ``encoder.<l>....``, ``decoder.<l>....``."""
+    ``encoder.<l>....``, ``decoder.<l>....``, and the variants' extra
+    modules under their JAX keys (``source_pruning``, ``enc_post``,
+    ``dec_post``)."""
 
-    def __init__(self, tables: dict, encoder, decoder):
+    def __init__(self, tables: dict, encoder, decoder, extra=None):
         super().__init__()
         for name, t in tables.items():
             self.register_parameter(name, torch.nn.Parameter(t))
         self.encoder = torch.nn.ModuleList(encoder)
         self.decoder = torch.nn.ModuleList(decoder)
+        for name, module in (extra or {}).items():
+            self.add_module(name, module)
 
     def forward(self, fn):
         """fn(self): lets torch.func.functional_call run a function of the
@@ -97,8 +124,11 @@ def layer_initializer(cfg, layer: int):
 # embeddings
 # ---------------------------------------------------------------------------
 
-def init_embeddings(gen, cfg) -> dict:
-    """Embedding tables per the sharing flags + the shared scale bias."""
+def init_embeddings(gen, cfg, zero_softmax: bool = False) -> dict:
+    """Embedding tables per the sharing flags + the shared scale bias.
+
+    zero_softmax: Fixup zero-initialises a *separate* softmax table; with
+    sharing on, the tied table keeps its init."""
     emb_init = inits.normal(cfg.hidden_size ** -0.5)
     tables = {}
     src_vocab = cfg.src_vocab.size()
@@ -109,8 +139,9 @@ def init_embeddings(gen, cfg) -> dict:
         tables["src_embedding"] = emb_init(gen, (src_vocab, cfg.embed_size))
         tables["tgt_embedding"] = emb_init(gen, (tgt_vocab, cfg.embed_size))
         if not cfg.shared_target_softmax_embedding:
-            tables["softmax_embedding"] = emb_init(
-                gen, (tgt_vocab, cfg.embed_size))
+            init = inits.zeros() if zero_softmax else emb_init
+            tables["softmax_embedding"] = init(gen,
+                                               (tgt_vocab, cfg.embed_size))
     tables["emb_bias"] = config_initializer(cfg)(gen, (cfg.embed_size,))
     return tables
 
@@ -138,6 +169,73 @@ def shift_right(x):
     """Prepend a zero vector and drop the last position (applied post-bias,
     so the zero survives)."""
     return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1, :]
+
+
+# the matmuls each policy keeps: "dots" those without batch dims (the
+# projections and the FFN), "dots_all" the batched ones too (attention's
+# scores and context)
+_SAVED_DOTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "dots_all": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                 torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+}
+
+
+def remat_policy(cfg):
+    """cfg.remat_policy as a checkpoint ``context_fn``. "nothing" (the
+    default) recomputes the whole layer in the backward; "dots" keeps the
+    outputs of the matmuls without batch dims and recomputes the rest;
+    "dots_all" keeps the batched matmuls' too (selective activation
+    checkpointing)."""
+    name = str(getattr(cfg, "remat_policy", "nothing") or "nothing")
+    if name == "nothing":
+        return noop_context_fn
+    if name not in _SAVED_DOTS:
+        raise ValueError("unknown remat_policy %r (nothing|dots|dots_all)"
+                         % name)
+    return functools.partial(create_selective_checkpoint_contexts,
+                             list(_SAVED_DOTS[name]))
+
+
+# dropout seeds drawn per layer under use_remat, as the JAX package's
+# _REMAT_KEYS: the upper bound on a layer's dropout sites
+REMAT_KEYS = 10
+
+
+def _draw_keys(rngs):
+    return [rngs() for _ in range(REMAT_KEYS)]
+
+
+def _key_source(keys):
+    """An rngs callable over a layer's pre-drawn seeds; a draw past them
+    raises instead of wrapping round."""
+    it = iter(keys)
+
+    def draw():
+        try:
+            return next(it)
+        except StopIteration:
+            raise RuntimeError(
+                "a layer asked for more than %d dropout seeds under "
+                "use_remat" % REMAT_KEYS) from None
+    return draw
+
+
+def remat_layer(layer, context_fn, fn, *args):
+    """``fn(layer, *args)`` under a non-reentrant activation checkpoint.
+
+    The layer's tensors go in as an input and the layer runs on them
+    through functional_call: the loss casts the fp32 parameters inside a
+    functional_call of its own, which has put the fp32 masters back by the
+    time the backward recomputes the layer. Dropout draws from seeds in
+    ``args``, never from a torch generator, so the recompute needs no RNG
+    state (``preserve_rng_state`` off)."""
+    def call(tensors, *inputs):
+        return torch.func.functional_call(layer, tensors, (fn,) + inputs)
+
+    return checkpoint(call, dict(layer.named_parameters()), *args,
+                      use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
 
 
 def output_logits(feature, softmax_table):
@@ -205,16 +303,15 @@ def parallel_options(cfg) -> list:
 
 def check_ported(cfg, training: bool = True):
     """Raise on options of a later slice instead of ignoring them:
-    ``scan_layers`` and ``use_remat`` always, and in training the
-    parallelism options (parallel_options), where the JAX package shards or
-    raises. Evaluation decodes on one device with a warning instead
+    ``scan_layers`` always, and in training the parallelism options
+    (parallel_options), where the JAX package shards or raises. Evaluation
+    decodes on one device with a warning instead
     (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
     when the devices are too few."""
-    for key in ("scan_layers", "use_remat"):
-        if bool(getattr(cfg, key, False)):
-            raise NotImplementedError(
-                "%s=true is not ported to zero_tpu_torch yet: it comes with "
-                "a later slice" % key)
+    if bool(getattr(cfg, "scan_layers", False)):
+        raise NotImplementedError(
+            "scan_layers=true is not ported to zero_tpu_torch yet: it comes "
+            "with a later slice")
     asked = parallel_options(cfg) if training else []
     if asked:
         raise NotImplementedError(
@@ -226,16 +323,41 @@ def check_ported(cfg, training: bool = True):
 # skeleton model
 # ---------------------------------------------------------------------------
 
-def make_transformer(hooks: LayerHooks):
-    """Build (init_fn, train_fn, score_fn, infer_fn) from layer hooks."""
+def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
+                     extra_init: Optional[Callable] = None,
+                     extra_loss: Optional[Callable] = None):
+    """Build (init_fn, train_fn, score_fn, infer_fn) from layer hooks.
+
+    extra_init(gen, cfg) -> {name: module} registered beside the layers
+    (L0Drop's ``source_pruning``). extra_loss(params, state, cfg, step) ->
+    scalar added to the training loss (L0Drop's ramped penalty); ``state``
+    is what post_encode returned."""
 
     def init_fn(gen, cfg) -> Seq2Seq:
-        return Seq2Seq(
-            init_embeddings(gen, cfg),
-            [hooks.init_enc_layer(gen, cfg, l)
-             for l in range(cfg.num_encoder_layer)],
-            [hooks.init_dec_layer(gen, cfg, l)
-             for l in range(cfg.num_decoder_layer)])
+        tables = init_embeddings(gen, cfg, zero_softmax)
+        encoder = [hooks.init_enc_layer(gen, cfg, l)
+                   for l in range(cfg.num_encoder_layer)]
+        decoder = [hooks.init_dec_layer(gen, cfg, l)
+                   for l in range(cfg.num_decoder_layer)]
+        extra = {}
+        if hooks.init_enc_post is not None:
+            extra["enc_post"] = hooks.init_enc_post(gen, cfg)
+        if hooks.init_dec_post is not None:
+            extra["dec_post"] = hooks.init_dec_post(gen, cfg)
+        if extra_init is not None:
+            extra.update(extra_init(gen, cfg))
+        return Seq2Seq(tables, encoder, decoder, extra)
+
+    def _use_remat(cfg, training):
+        return bool(getattr(cfg, "use_remat", False)) and training
+
+    def _enc_layer_keys(p, x, src_keep, keys, cfg):
+        return hooks.enc_layer(p, x, src_keep, cfg, _key_source(keys))
+
+    def _dec_layer_keys(p, x, state, self_keep, mem_keep, tgt_mask, keys,
+                        cfg):
+        return hooks.dec_layer_train(p, x, state, self_keep, mem_keep, cfg,
+                                     _key_source(keys), tgt_mask)
 
     def _encode(params, source, cfg, rngs, dtype, training):
         mask = (source != 0).to(dtype)
@@ -244,9 +366,21 @@ def make_transformer(hooks: LayerHooks):
         x = nn.add_timing_signal(x)
         x = dropout(rngs(), x, cfg.dropout if training else None)
         src_keep = nn.masking_mask(mask)
+        remat = remat_policy(cfg) if _use_remat(cfg, training) else None
         for p in params.encoder:
-            x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
-        return {"encodes": x, "mask": mask}
+            if remat is not None:
+                # the seeds are drawn here, outside the checkpoint, so the
+                # recompute reads the forward's
+                x = remat_layer(p, remat, _enc_layer_keys, x, src_keep,
+                                _draw_keys(rngs), cfg)
+            else:
+                x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
+        if hooks.enc_post is not None:
+            x = hooks.enc_post(params.enc_post, x)
+        state = {"encodes": x, "mask": mask}
+        if hooks.post_encode is not None:
+            state = hooks.post_encode(params, state, cfg, rngs, training)
+        return state
 
     def _decode_train(params, target, state, cfg, rngs, dtype, training):
         mask = (target != 0).to(dtype)
@@ -261,14 +395,23 @@ def make_transformer(hooks: LayerHooks):
         self_keep = functools.cache(functools.partial(
             nn.causal_mask, target.shape[1], device=target.device))
         mem_keep = nn.masking_mask(state["mask"])
+        remat = remat_policy(cfg) if _use_remat(cfg, training) else None
         for p in params.decoder:
-            x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep, cfg,
-                                      rngs, mask)
+            if remat is not None:
+                x = remat_layer(p, remat, _dec_layer_keys, x, state,
+                                self_keep, mem_keep, mask, _draw_keys(rngs),
+                                cfg)
+            else:
+                x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep,
+                                          cfg, rngs, mask)
+        if hooks.dec_post is not None:
+            x = hooks.dec_post(params.dec_post, x)
         return x, soft_table, mask
 
-    def _loss(params, features, cfg, gen, training, label_smooth):
+    def _loss(params, features, cfg, gen, step, training, label_smooth):
         """Cast the fp32 parameters to the compute dtype (differentiably),
-        encode, decode, CE. Returns (scalar loss, per-sentence [B])."""
+        encode, decode, CE (plus extra_loss in training). Returns (scalar
+        loss, per-sentence [B])."""
         check_ported(cfg, training)
         dtype = dtypes.compute_dtype(cfg)
 
@@ -279,19 +422,24 @@ def make_transformer(hooks: LayerHooks):
             feature, soft_table, mask = _decode_train(
                 cparams, features["target"], state, cfg, rngs, dtype,
                 training)
-            return ce_from_feature(feature, soft_table, features["target"],
-                                   mask, cfg, label_smooth)
+            loss, per_sample = ce_from_feature(
+                feature, soft_table, features["target"], mask, cfg,
+                label_smooth)
+            if extra_loss is not None and training:
+                loss = loss + extra_loss(cparams, state, cfg, step)
+            return loss, per_sample
 
         cast = {name: p.to(dtype) for name, p in params.named_parameters()}
         return torch.func.functional_call(params, cast, (body,))
 
     def train_fn(params, features, cfg, gen, step=0):
-        loss, _ = _loss(params, features, cfg, gen, True, cfg.label_smooth)
+        loss, _ = _loss(params, features, cfg, gen, step, True,
+                        cfg.label_smooth)
         return {"loss": loss}
 
     def score_fn(params, features, cfg):
         # dropout off, label smoothing off
-        _, per_sample = _loss(params, features, cfg, None, False, 0.0)
+        _, per_sample = _loss(params, features, cfg, None, 0, False, 0.0)
         return {"score": per_sample}
 
     def infer_fn(cfg):
@@ -359,6 +507,8 @@ def make_transformer(hooks: LayerHooks):
                                                 time, cfg)
                 new_c.pop("ancestry", None)
                 new_layer_caches.append(new_c)
+            if hooks.dec_post is not None:
+                x = hooks.dec_post(params.dec_post, x)
             logits = output_logits(x[:, 0], soft_table)
             out_cache = {"layers": new_layer_caches}
             if anc is not None:
@@ -406,6 +556,8 @@ def make_transformer(hooks: LayerHooks):
             for p in params.decoder:
                 x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep,
                                           cfg, RngGen(None), mask)
+            if hooks.dec_post is not None:
+                x = hooks.dec_post(params.dec_post, x)
             return output_logits(x[:, time], soft_table)
 
         return Inference(encode=encode, init_cache=init_cache,

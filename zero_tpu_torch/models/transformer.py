@@ -5,7 +5,8 @@ self-attention -> residual+LN -> FFN -> residual+LN; the decoder adds
 causal self-attention and cross attention; weight-tied softmax. Training
 layers take a dropout-seed source ``rngs`` (ops/common.py:RngGen) and route
 attention and the FFN through the fused kernels when use_flash_attention /
-use_fused_ffn are set.
+use_fused_ffn are set. Cross attention takes L0Drop's count softmax when the
+encoder state carries ``count`` (a compacted memory), on the composite.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def dec_layer_train(p, x, state, self_keep, mem_keep, cfg, rngs, tgt_mask):
                              cfg.num_heads, rng=rngs(),
                              drop=cfg.attention_dropout,
                              use_flash=cfg.use_flash_attention,
-                             pad_mask=mem_keep[:, 0, 0, :])["output"]
+                             pad_mask=mem_keep[:, 0, 0, :],
+                             count_weights=state.get("count"))["output"]
     x = nn.layer_norm(p.ln2, nn.residual_fn(x, y, rngs(),
                                             cfg.residual_dropout))
     y = nn.ffn(p.ffn, x, rngs(), cfg.relu_dropout, fused=cfg.use_fused_ffn)
@@ -90,7 +92,8 @@ def dec_layer_step(p, x_t, layer_state, state, cache, time, cfg):
                                         use_flash=cfg.use_flash_decode)
     x_t = nn.layer_norm(p.ln1, x_t + y)
     y = attention.cross_attn_step(p.cross, x_t, layer_state, state["mask"],
-                                  cfg.num_heads)
+                                  cfg.num_heads,
+                                  count_weights=state.get("count"))
     x_t = nn.layer_norm(p.ln2, x_t + y)
     y = nn.ffn(p.ffn, x_t)
     x_t = nn.layer_norm(p.ln3, x_t + y)

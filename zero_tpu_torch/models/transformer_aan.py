@@ -70,9 +70,7 @@ def init_dec_layer_cache(p, batch, max_len, cfg, dtype, device):
 
 def dec_layer_step(p, x_t, layer_state, state, cache, time, cfg):
     new_sum = cache["aan"] + x_t
-    # the step count in the compute dtype, as the JAX package divides
-    count = torch.tensor(float(time + 1)).to(x_t.dtype).item()
-    x_fwd = new_sum / count
+    x_fwd = new_sum / nn.aan_step_count(time, x_t.dtype)
     y = nn.ffn(p.aan_ffn, x_fwd) if cfg.use_ffn else x_fwd
     y = _gate(p, x_t, y)
     x_t = nn.layer_norm(p.ln1, x_t + y)

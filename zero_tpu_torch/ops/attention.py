@@ -2,8 +2,11 @@
 ``decode_prefix``) and static-cache decoding.
 
 Counterpart of ``zero_tpu/ops/attention.py`` for the post-LN Transformer:
-the softmax path, and ReLA's (``relu=True``: multiply-masked relu weights
-and the gated-RMSNorm epilogue ``post``). The decode KV cache is
+the softmax path, ReLA's (``relu=True``: multiply-masked relu weights and
+the gated-RMSNorm epilogue ``post``), the merged attention of
+transformer_fuse (cross attention plus the AAN cumulative average of the
+query side through the shared ``v`` projection; at decode an O(1) running
+sum) and L0Drop's count softmax (``count_weights``). The decode KV cache is
 PREALLOCATED at [B, T_max, hidden] and written at the current step -- in
 place here, where JAX returns an updated copy; validity is a ``position <=
 time`` mask. Softmax runs in fp32 regardless of the compute dtype.
@@ -56,11 +59,14 @@ class GatedRmsNorm(torch.nn.Module):
 
 
 def init_attention(gen, d_query: int, hidden: int, self_attention: bool,
-                   d_memory: Optional[int] = None, out_map: bool = True,
-                   bias: bool = True, weight_init=None,
-                   rela: bool = False) -> Attention:
-    """``rela`` adds the gated-RMSNorm epilogue ``post`` (scale ones, gate
-    from ``weight_init``)."""
+                   d_memory: Optional[int] = None, fuse: bool = False,
+                   out_map: bool = True, bias: bool = True, weight_init=None,
+                   out_init=None, rela: bool = False) -> Attention:
+    """``fuse`` adds no parameter (the merged attention reuses ``v`` on the
+    query side). ``out_init`` overrides the initializer of ``o`` (Fixup's
+    zeros). ``rela`` adds the gated-RMSNorm epilogue ``post`` (scale ones,
+    gate from ``weight_init``)."""
+    del fuse
     weight_init = weight_init or inits.variance_scaling(1.0, "uniform")
     proj = {}
     if self_attention:
@@ -76,7 +82,7 @@ def init_attention(gen, d_query: int, hidden: int, self_attention: bool,
                                    weight_init=weight_init)
     if out_map:
         proj["o"] = nn.init_linear(gen, hidden, hidden, bias=bias,
-                                   weight_init=weight_init)
+                                   weight_init=out_init or weight_init)
     if rela:
         proj["post"] = GatedRmsNorm(torch.ones(hidden),
                                     weight_init(gen, (hidden,)))
@@ -101,11 +107,13 @@ def _rpr_flash_ok(lq: int, lk: int, max_rel, causal, pad_mask) -> bool:
             and fa.rpr_supported(lq, lk, max_rel))
 
 
-def _out_map(params: Attention, o, relu=False):
-    """ReLA's epilogue (relu attention with ``post`` params), then the
-    output map."""
+def _out_map(params: Attention, o, relu=False, aan=None):
+    """ReLA's epilogue (relu attention with ``post`` params), the merged
+    attention's AAN add-on ``aan``, then the output map."""
     if relu and hasattr(params, "post"):
         o = gated_rms_norm(params.post, o)
+    if aan is not None:
+        o = o + aan
     return nn.linear(params.o, o) if hasattr(params, "o") else o
 
 
@@ -136,10 +144,13 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
-               rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False):
+               rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False,
+               count_weights=None):
     """Softmax attention on [B, L, hidden] projections, with dropout on the
     weights (8-bit threshold masks of ops/common.py:dropout). relu=True
     switches to ReLA's weights: logits times the keep-mask, then relu.
+    count_weights [B, Lk] multiplies the exp-logits before they are
+    normalised (L0Drop's count softmax over a compacted memory).
 
     keep_mask: broadcastable to [B, 1, Lq, Lk]; 1 = attend, 0 = block; or
     a callable that builds it (models/common.py's lazy causal mask).
@@ -174,6 +185,12 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
         if keep_mask is not None:
             logits = logits * keep_mask.float()
         weights = torch.relu(logits)
+    elif count_weights is not None:
+        if keep_mask is not None:
+            logits = torch.where(keep_mask > 0, logits, NEG_INF)
+        logits = logits - logits.amax(dim=-1, keepdim=True)
+        exp = torch.exp(logits) * count_weights.float()[:, None, None, :]
+        weights = exp / exp.sum(dim=-1, keepdim=True)
     else:
         if keep_mask is not None:
             logits = torch.where(keep_mask > 0, logits, NEG_INF)
@@ -194,7 +211,8 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
 def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
                rng=None, drop=None, use_flash=False, causal=False,
                pad_mask=None, rpr_tables=None, max_relative_position=None,
-               relu=False):
+               relu=False, fuse_weight=None, fuse_mask=None,
+               count_weights=None):
     """Full-sequence attention; memory=None -> self-attention through the
     fused qkv projection. keep_mask: [B or 1, 1, Lq, Lk] 1/0, or a callable
     that builds it (only the composite path calls it); the caller combines
@@ -213,8 +231,15 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     _attn_core runs; RPR never streams, so past fa.MAX_LK keys it takes
     _attn_core, as in JAX. ReLA (``relu``) keeps _attn_core at every
     length, use_flash or not, as the JAX package does; its epilogue runs
-    before the output map. Returns {'output', 'weights'} (weights None on
-    the kernel paths)."""
+    before the output map.
+
+    The merged attention (transformer_fuse) adds the AAN average of the
+    query side through the shared ``v`` projection before the output map:
+    ``fuse_mask`` is the raw [B, Lq] target pad mask (the O(L) masked
+    cumulative mean, nn.aan_cummean), ``fuse_weight`` a [B, Lq, Lq]
+    averaging matrix. count_weights (L0Drop's count softmax) keeps the
+    composite, as in the JAX package. Returns {'output', 'weights'}
+    (weights None on the kernel paths)."""
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
     else:
@@ -222,7 +247,7 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
     lq, lk = q.shape[1], k.shape[1]
-    use_flash = use_flash and not relu
+    use_flash = use_flash and not relu and count_weights is None
     if use_flash and rpr_tables is not None:
         use_flash = _rpr_flash_ok(lq, lk, max_relative_position, causal,
                                   pad_mask)
@@ -243,8 +268,16 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     else:
         o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
                                 drop=drop, rpr_tables=rpr_tables,
-                                rpr_max=max_relative_position, relu=relu)
-    return {"output": _out_map(params, o, relu), "weights": weights}
+                                rpr_max=max_relative_position, relu=relu,
+                                count_weights=count_weights)
+    aan = None
+    if fuse_mask is not None:
+        aan = nn.aan_cummean(nn.linear(params.v, query), fuse_mask,
+                             masked=True)
+    elif fuse_weight is not None:
+        v_q = nn.linear(params.v, query)
+        aan = torch.einsum("bqk,bkd->bqd", fuse_weight.to(v_q.dtype), v_q)
+    return {"output": _out_map(params, o, relu, aan), "weights": weights}
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +423,7 @@ def cross_attn_precompute(params: Attention, memory):
 
 def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
                     time=None, rpr_tables=None, max_relative_position=None,
-                    relu=False):
+                    relu=False, aan_sum=None, count_weights=None):
     """One-step cross attention over precomputed memory projections.
 
     The memory stays UNTILED at [B, S, hidden] while queries come per beam
@@ -398,7 +431,13 @@ def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
     so k/v are read once per sentence instead of once per beam.
     mem_keep: [B, S] 1/0 pad mask. rpr_tables: relative positions between
     decode step ``time`` and the memory positions. relu: ReLA's weights
-    and epilogue. Returns [B*K, 1, hidden]."""
+    and epilogue. count_weights: [B, S] exp-weights of L0Drop's count
+    softmax. Returns [B*K, 1, hidden].
+
+    aan_sum ([B*K, 1, hidden], the merged attention's running sum of the
+    query side's ``v`` projections) adds (aan_sum + v_q) / (time + 1),
+    divided in the compute dtype, and makes the return a pair (output,
+    the new running sum)."""
     q = nn.linear(params.q, x_t)
     mem_batch = mkv["mk"].shape[0]
     q_batch = q.shape[0]
@@ -412,6 +451,11 @@ def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
             time, mkv["mk"].shape[1], max_relative_position,
             q.device).repeat(q2.shape[1], 1)
     o, _ = _attn_core(q2, mkv["mk"], mkv["mv"], keep, num_heads,
-                      rpr_tables=rpr_tables, rpr_ids=rpr_ids, relu=relu)
+                      rpr_tables=rpr_tables, rpr_ids=rpr_ids, relu=relu,
+                      count_weights=count_weights)
     o = o.reshape(q_batch, q.shape[1], -1)
-    return _out_map(params, o, relu)
+    if aan_sum is None:
+        return _out_map(params, o, relu)
+    new_sum = aan_sum + nn.linear(params.v, x_t)
+    aan = new_sum / nn.aan_step_count(time, new_sum.dtype)
+    return _out_map(params, o, relu, aan), new_sum

@@ -31,6 +31,18 @@ def normal(stddev: float) -> Initializer:
     return init
 
 
+def zeros() -> Initializer:
+    def init(gen, shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+    return init
+
+
+def scale(factor: float, base: Initializer) -> Initializer:
+    def init(gen, shape, dtype=torch.float32):
+        return factor * base(gen, shape, dtype)
+    return init
+
+
 def _fans(shape) -> tuple:
     if len(shape) < 1:
         return 1.0, 1.0

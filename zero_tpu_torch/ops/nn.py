@@ -204,6 +204,13 @@ def aan_cummean(x, mask, masked: bool = True):
     return out.to(x.dtype)
 
 
+def aan_step_count(time: int, dtype) -> float:
+    """The decode step's count of positions, time + 1, rounded to the
+    compute dtype (the JAX package divides the running sum by it in that
+    dtype), as a host float: no host-to-device copy."""
+    return torch.tensor(float(time + 1)).to(dtype).item()
+
+
 def aan_weight(mask, dtype=torch.float32):
     """AAN weight matrix [B, L, L]: the row-normalised cumulative average
     over valid positions, w[i, j] = m[i, j] / sum_j m[i, j] with

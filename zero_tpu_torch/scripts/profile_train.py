@@ -19,7 +19,10 @@ use_flash_attention=true,use_fused_ffn=true`` profiles the fused kernels;
 (its attentions over more than 2m keys take the RPR kernels), and with
 ``--parameters model_name=transformer_rela`` transformer_rela (the
 composite attention, whatever the flags); ``--config
-configs/transformer_aan_wmt14.json`` transformer_aan. ``--max-len
+configs/transformer_aan_wmt14.json`` transformer_aan, and ``--config
+configs/deep_transformer_fuse_l0drop.json`` the deep config
+(transformer_fuse, 20+6 layers, ``use_remat``; ``model_name=`` its
+l0drop or fixup variant). ``--max-len
 16384 --parameters use_flash_attention=true`` profiles one long step: one
 row of that many source and target positions per microbatch (``max_len``
 set to match), so every attention streams (kernels #5-#7).
@@ -119,6 +122,7 @@ def main(argv=None):
         "model_name": cfg.model_name,
         "use_flash_attention": bool(cfg.use_flash_attention),
         "use_fused_ffn": bool(cfg.use_fused_ffn),
+        "use_remat": bool(cfg.use_remat), "remat_policy": cfg.remat_policy,
         "update_cycle": cycle, "rows": args.rows, "src_len": args.src_len,
         "tgt_len": args.tgt_len, "loss": loss, "wall_ms": wall_ms,
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
