@@ -10,7 +10,11 @@ ensemble``), train the deep config (configs/deep_transformer_fuse_l0drop.json:
 20+6 layers, use_remat) as transformer_fuse, transformer_l0drop and
 transformer_fixup and serve and score each, train, score and serve
 transformer-base on sequences past 8192 tokens (the streaming-attention
-kernels), and check these paths against the CPU on small models.
+kernels), train, serve and score the deep config with scan_layers,
+transformer_moe, transformer_multilingual with ROBT
+(configs/multilingual_robt_opus100.json) and transformer_clsr, decode an
+ensemble of the last two, and check these paths against the CPU on small
+models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -67,10 +71,12 @@ non-zero):
   reference  a small fp32 model decoded on the card (kernels) and on the
              CPU (plain versions): identical sequences, scores within 1e-4
   train      transformer-base (configs/transformer_base_wmt14.json: bf16,
-             dropout 0.1, token_size 4096, update_cycle 4) trained for
+             dropout 0.1, token_size 4096, update_cycle 4; at BASE_CUT's
+             3+3 layers, as rpr_train, rela_train and aan_train, for the
+             script's time) trained for
              TRAIN_STEPS steps on a synthetic corpus with both kernel flags
              on: ms/step, target tokens/s, loss and gnorm, model FLOPs and
-             MFU; launch counts = 18 attention and 12 FFN forwards and
+             MFU; launch counts = 9 attention and 6 FFN forwards and
              backwards per microbatch (the attention the tensor-core #1
              and #2), no plain version; then the same
              steps with both flags off (the PyTorch composite), and
@@ -100,7 +106,7 @@ non-zero):
              version, the composite the model runs with use_flash_attention
              off (_attn_core's one-hot form) and, as a floor, SDPA WITHOUT
              relative positions, beside the bound (the RPR terms counted)
-  rpr_train  transformer_rpr (configs/transformer_rpr_rela.json: 6+6
+  rpr_train  transformer_rpr (configs/transformer_rpr_rela.json at 3+3
              layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
              update_cycle 4) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn, which RPR ignores) on,
@@ -117,7 +123,7 @@ non-zero):
              card, loss within 1e-5; beam-4 decode card against CPU,
              identical sequences
   rela_train transformer_rela (configs/transformer_rpr_rela.json with
-             model_name=transformer_rela: 6+6 layers, 512/2048, bf16,
+             model_name=transformer_rela: 3+3 layers, 512/2048, bf16,
              dropout 0.1) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn) on: ms/step, tokens/s,
              MFU; no kernel launch (ReLA keeps the composite attention and
@@ -128,9 +134,9 @@ non-zero):
   rela_reference  a small fp32 transformer_rela: train_fn loss and grads
              card against CPU within 1e-4; beam 4 card (#8 relu) against
              CPU, identical sequences
-  aan_train  transformer_aan (configs/transformer_aan_wmt14.json: 6+6,
+  aan_train  transformer_aan (configs/transformer_aan_wmt14.json at 3+3,
              512/2048, bf16, dropout 0.1) trained TRAIN_STEPS steps with both
-             kernel flags on (launches 6 each of #1/#2 and #11/#12 forwards
+             kernel flags on (launches 3 each of #1/#2 and #11/#12 forwards
              and backwards per microbatch: the encoder; the AAN decoder's
              cross attention and FFN run the composite; no plain version),
              then off; then --mode test at beam 4 (the encoder's #1 and #11,
@@ -144,13 +150,14 @@ non-zero):
              decoder layer and step each; BLEU and sentences/s; then a small
              fp32 transformer + transformer_rela ensemble, card against CPU:
              identical sequences, scores within 1e-4
-  deep_train configs/deep_transformer_fuse_l0drop.json as written
-             (transformer_fuse, 20+6 layers, 512/2048, 8 heads,
+  deep_train configs/deep_transformer_fuse_l0drop.json (transformer_fuse;
+             at DEEP_CUT's 2+6 layers, 20+6 as written, for the script's
+             time; 512/2048, 8 heads,
              depth-scaled init, bf16, dropout 0.1, token_size 4096,
              update_cycle 4, use_remat) trained DEEP_STEPS steps with both
              kernel flags on: ms/step, tokens/s, MFU (model FLOPs: the
              recompute not counted), peak memory; launches per microbatch
-             = 40 #1 and #11 (20 encoder layers, twice: the recompute), 20
+             = 4 #1 and #11 (2 encoder layers, twice: the recompute), 2
              #2 and #12, the merged decoder none; then --mode test at beam
              4 (the encoder's #1 and #11, no decode kernel) and --mode
              score
@@ -159,7 +166,7 @@ non-zero):
              torch.cuda.max_memory_allocated and the median step; launches
              checked (forwards twice a layer under remat)
   l0drop_train the same config as transformer_l0drop, DEEP_STEPS steps:
-             launches per microbatch 64 #1, 32 #2, 52 #11, 26 #12; the
+             launches per microbatch 28 #1, 14 #2, 16 #11, 8 #12; the
              expected-L0 penalty beside the loss; served at beam 4 (#8, 6
              a decode step) and beam 1 (#10), at l0_compact_ratio 0 and
              0.5, and scored; then one batch at those widths whose gates
@@ -209,12 +216,50 @@ non-zero):
              card (the tensor-core forward #5 on both sides), dropout off
              and on: loss within 1e-2 relative, grads within 2e-2 of their
              scale
+  scan_train configs/deep_transformer_fuse_l0drop.json as
+             transformer_l0drop with scan_layers (each stack one module of
+             [L, ...] tensors), both kernel flags on, SCAN_STEPS steps:
+             ms/step, tokens/s, MFU, peak memory; launches per microbatch
+             as unrolled (64 #1, 32 #2, 52 #11, 26 #12); the stacked
+             checkpoint restored in a fresh process (params, Adam state,
+             EMA) equal to the file; --mode test at beam 4 (#8) and 1
+             (#10), --mode score
+  moe_train  configs/transformer_base_wmt14.json as transformer_moe (8
+             experts, top-1, capacity 1.25, einsum dispatch), both flags
+             on, MOE_STEPS steps: no training kernel; moe_aux beside the
+             loss, peak memory; MOE_TOP2_STEPS steps at top-2; one
+             full-width fp32 batch through the einsum and the scatter
+             dispatch, loss and grads within 1e-5 of their max (the gap
+             printed); --mode test at beam 4 (#10), --mode score
+  multilingual_train  configs/multilingual_robt_opus100.json as written
+             (6+6, 100 languages, ROBT; the model computes in fp32 and
+             ignores use_remat, as in the JAX package) plus both flags,
+             ML_STEPS steps on tagged synthetic data (the 100 tags at ids
+             3-102): launches per microbatch 18 #1, 12 #2, 18 #11, 12 #12
+             (CUDA cores) and 6 (L_src - 1) #10 (ROBT's greedy decode); the
+             main and back-translated losses, ms/step, peak memory; then
+             ML_OFF_STEPS steps with robt=false (6 of each); --mode test at
+             beam 4 on mixed tags (#10), --mode score
+  clsr_train the multilingual config as transformer_clsr, robt=false,
+             CLSR_STEPS steps: no training kernel; the budget loss, peak
+             memory; --mode test at beam 4 (#10), --mode score; --mode
+             ensemble of this checkpoint with multilingual_train's (#10 in
+             both decoders)
+  slice13_reference  small fp32 models card against CPU on the same seed
+             words: scan_layers transformer and transformer_l0drop (use_remat),
+             transformer_moe through both dispatches at top-1 and top-2,
+             transformer_multilingual with ROBT (one intermediate language
+             injected), transformer_clsr (one gate noise injected): loss
+             within 1e-6 relative, grads within 1e-5 of their max,
+             identical beam-4 sequences, exact launch counts; then the scan
+             transformer in bf16 with use_remat against without: gap 0
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import argparse
 import collections
+import contextlib
 import functools
 import json
 import math
@@ -261,7 +306,12 @@ TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 # (dW, dk/dv), so the relative part is 1e-4; bf16 as above
 TRAIN_TOLERANCE = {torch.float32: (1e-5, 1e-4),
                    torch.bfloat16: (1e-2, 2e-2)}
-TRAIN_STEPS = 12
+TRAIN_STEPS = 3
+# the earlier phases run at a cut depth (the script's time budget):
+# transformer-base's at 3+3 (6+6 as written), config 4's at 2+6 (20+6);
+# this slice's phases at the configs' own
+BASE_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
+DEEP_CUT = ",num_encoder_layer=2"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
 # the card spins this many cycles before each timed run (~0.25 s), so the
 # host enqueues the whole run first and events time device work only
@@ -269,7 +319,27 @@ SLEEP_CYCLES = 500_000_000
 L2_BYTES = 50 * 2 ** 20
 
 
+def overrides(extra):
+    """A ``--parameters`` string's values, parsed as the config parses
+    them (numbers and booleans as JSON, the rest as strings)."""
+    out = {}
+    for kv in extra.split(","):
+        if kv:
+            key, value = kv.split("=", 1)
+            try:
+                out[key] = json.loads(value)
+            except ValueError:
+                out[key] = value
+    return out
+
+
+_STARTED = time.time()
+
+
 def phase(label, **fields):
+    """One phase line; ``at_s`` is the seconds since the script started
+    (where the script's time goes)."""
+    fields["at_s"] = round(time.time() - _STARTED, 1)
     print("phase %-9s %s" % (label, json.dumps(fields)), flush=True)
 
 
@@ -1247,12 +1317,25 @@ def model_flops(shapes, cfg):
     d, f = cfg["hidden_size"], cfg["filter_size"]
     v = 32768
     b, ls, lt = stacked_shape(shapes)
+    name = cfg.get("model_name")
     rpr = 0
-    if cfg.get("model_name") == "transformer_rpr":
+    if name == "transformer_rpr":
         r = 2 * cfg["max_relative_position"] + 1
         rpr = 4 * r * d
+    # transformer_moe: each token's FFN runs in top_k experts (the routed
+    # tokens; the router's d x E product is left out); transformer_clsr:
+    # two d x d products (shared and per-language) per CLSR unit and
+    # token, 2 units an encoder layer, 3 a decoder layer;
+    # transformer_multilingual: LaLT's d x d product per target token, and
+    # under ROBT a second pass over the synthetic pair (its greedy decode
+    # is not counted)
+    ffn_k = int(cfg.get("moe_top_k", 1)) if name == "transformer_moe" else 1
+    clsr = 4 * d * d if name == "transformer_clsr" else 0
+    lalt = 2 * d * d if name == "transformer_multilingual" else 0
+    passes = 2 if (name == "transformer_multilingual"
+                   and str(cfg.get("robt", False)).lower() == "true") else 1
     total = 0
-    for _ in shapes:
+    for _ in range(passes * len(shapes)):
         ns, nt = b * ls, b * lt
         if cfg.get("model_name") == "transformer_aan":
             # average attention: the gate's [2d, 2d] product (and the
@@ -1264,12 +1347,13 @@ def model_flops(shapes, cfg):
         else:
             dec_self = 2 * nt * d * 4 * d + 4 * b * lt * lt * d
         enc = cfg["num_encoder_layer"] * (
-            2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * ls * ls * d
-            + rpr * ns)
+            2 * ns * d * 4 * d + 4 * ns * d * f * ffn_k
+            + 4 * b * ls * ls * d + rpr * ns + 2 * clsr * ns)
         dec = cfg["num_decoder_layer"] * (
             dec_self + 2 * nt * d * 2 * d + 2 * ns * d * 2 * d
-            + 4 * nt * d * f + 4 * b * lt * ls * d + 2 * rpr * nt)
-        logits = 2 * nt * d * v
+            + 4 * nt * d * f * ffn_k + 4 * b * lt * ls * d + 2 * rpr * nt
+            + 3 * clsr * nt)
+        logits = 2 * nt * d * v + lalt * nt
         total += 3 * (enc + dec + logits) + logits
     return total
 
@@ -1283,7 +1367,8 @@ def remat_forwards(cfg):
 
 def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
-    layer (18 at 6+6), one FFN per layer (12); forward (twice under
+    layer (18 at 6+6, 9 at BASE_CUT's 3+3), one FFN per layer (12, 6);
+    forward (twice under
     use_remat) and backward, the attention on the route forward_route
     picks. transformer_l0drop's layers are transformer's."""
     microbatches = cfg["update_cycle"] * summary["steps"]
@@ -1353,24 +1438,26 @@ def collect(counters):
 def train_phase(d, da, config=CONFIG, label="train",
                 expected=expected_launches, extra="",
                 flag_runs=("true", "false"), serving=None, steps=TRAIN_STEPS,
-                note=None):
+                note=None, peak=PEAK_BF16):
     """Train ``config`` (with the ``extra`` parameters) ``steps`` steps
     with both kernel flags on, then off (``flag_runs``); then serve
     (--mode test) and score the kernel run's checkpoint, whose launches
     ``serving(cfg, served, serve_launches, score_launches)`` checks where
     given (no plain version in any case); ``note`` is printed beside the
-    numbers. Returns the kernel run's results (its launch counts under
-    "launches") and the serving run's launch counts."""
+    numbers; ``peak`` is MFU's denominator (the peak rate of the dtype the
+    model computes in). Returns the kernel run's results (its launch
+    counts under "launches") and the serving run's launch counts."""
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
     cfg = load_config_file(config)
-    cfg.update(kv.split("=", 1) for kv in extra.split(",") if kv)
+    cfg.update(overrides(extra))
     counters = (fa.launches, ff.launches, da.launches)
     results = {}
     for flags in flag_runs:
         out = os.path.join(d, "%s_%s" % (label, flags))
+        torch.cuda.reset_peak_memory_stats()
         summary, launches = train_run(d, out, flags, counters, config, extra,
                                       steps)
         if summary["steps"] != steps:
@@ -1390,7 +1477,7 @@ def train_phase(d, da, config=CONFIG, label="train",
         flops = [model_flops(s, cfg) for s in summary["shapes"]]
         timed = sum(b - a for a, b in zip(ends[:-1], ends[1:]))
         tok_s = sum(tokens[1:]) / timed
-        mfu = sum(flops[1:]) / timed / PEAK_BF16
+        mfu = sum(flops[1:]) / timed / peak
         results[flags] = dict(
             kernels=flags == "true", steps=steps, ms_per_step_median=ms,
             ms_per_step_mean=1e3 * timed / (steps - 1),
@@ -1772,7 +1859,8 @@ def rpr_reference_phase(da):
 
 AAN_CONFIG = os.path.join(REPO, "configs", "transformer_aan_wmt14.json")
 # transformer_rela is configs/transformer_rpr_rela.json with these names
-RELA_EXTRA = ",model_name=transformer_rela,scope_name=transformer_rela"
+RELA_EXTRA = (",model_name=transformer_rela,scope_name=transformer_rela"
+              + BASE_CUT)
 TEST_BATCHES = 2    # the 64-sentence test set at eval_batch_size 32
 
 
@@ -1929,6 +2017,7 @@ def ensemble_phase(d, da):
 
     counters = (fa.launches, ff.launches, da.launches)
     cfg = load_config_file(CONFIG)
+    cfg.update(overrides(BASE_CUT))
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
             "test_output={0}/ensemble.txt,eval_batch_size=32,"
@@ -1991,11 +2080,13 @@ def ensemble_phase(d, da):
 
 
 DEEP_CONFIG = os.path.join(REPO, "configs", "deep_transformer_fuse_l0drop.json")
-DEEP_STEPS = 20      # deep_train and l0drop_train
-MEMORY_STEPS = 5     # deep_memory, each setting
-FIXUP_STEPS = 10
-L0DROP_EXTRA = ",model_name=transformer_l0drop,scope_name=transformer_l0drop"
-FIXUP_EXTRA = ",model_name=transformer_fixup,scope_name=transformer_fixup"
+DEEP_STEPS = 4       # deep_train and l0drop_train
+MEMORY_STEPS = 3     # deep_memory, each setting
+FIXUP_STEPS = 3
+L0DROP_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop"
+                + DEEP_CUT)
+FIXUP_EXTRA = (",model_name=transformer_fixup,scope_name=transformer_fixup"
+               + DEEP_CUT)
 # deep_memory's settings: remat off, then each remat_policy
 REMAT_SETTINGS = (("off", ",use_remat=false"),
                   ("nothing", ",remat_policy=nothing"),
@@ -2005,14 +2096,15 @@ MFU_NOTE = "model FLOPs (forward x3); use_remat's recompute not counted"
 
 
 def deep_train_phase(d, da):
-    """configs/deep_transformer_fuse_l0drop.json as written
-    (transformer_fuse, 20+6, use_remat) DEEP_STEPS steps with both kernel
+    """configs/deep_transformer_fuse_l0drop.json at DEEP_CUT's depth
+    (transformer_fuse, 2+6, use_remat) DEEP_STEPS steps with both kernel
     flags on: per microbatch the encoder's #1 and #11 twice a layer (the
     recompute) and #2 and #12 once; the merged decoder takes no kernel.
     Then --mode test at beam 4 and --mode score (the encoder's #1 and #11,
     no decode kernel). Returns the training results."""
     return train_phase(d, da, DEEP_CONFIG, "deep_train",
-                       encoder_expected_launches, flag_runs=("true",),
+                       encoder_expected_launches, DEEP_CUT,
+                       flag_runs=("true",),
                        serving=encoder_serving, steps=DEEP_STEPS,
                        note=MFU_NOTE)[0]
 
@@ -2028,8 +2120,9 @@ def deep_memory_phase(d, da):
     counters = (fa.launches, ff.launches, da.launches)
     out = {}
     for name, extra in REMAT_SETTINGS:
+        extra += DEEP_CUT
         cfg = load_config_file(DEEP_CONFIG)
-        cfg.update(kv.split("=", 1) for kv in extra.split(",") if kv)
+        cfg.update(overrides(extra))
         path = os.path.join(d, "deep_memory_" + name)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2076,13 +2169,13 @@ def l0drop_serving(cfg, served, serve_launches, score_launches):
 
 def l0drop_train_phase(d, da):
     """The deep config as transformer_l0drop DEEP_STEPS steps with both
-    kernel flags on (every attention and FFN: 64 #1, 32 #2, 52 #11, 26 #12
-    per microbatch at 20+6 under use_remat), the expected-L0 penalty of
-    each step beside its loss; served at beam 4 (#8) and beam 1 (#10), at
-    l0_compact_ratio 0 and 0.5 (the compacted memory's count softmax on
-    the composite), and scored; then one batch at the same widths whose
-    gates are forced closed on a row. Returns (training results, beam-4
-    serving launches, beam-1 serving launches)."""
+    kernel flags on (every attention and FFN: 28 #1, 14 #2, 16 #11, 8 #12
+    per microbatch at DEEP_CUT's 2+6 under use_remat), the expected-L0
+    penalty of each step beside its loss; served at beam 4 (#8) and beam
+    1 (#10), at l0_compact_ratio 0 and 0.5 (the compacted memory's count
+    softmax on the composite), and scored; then one batch at the same
+    widths whose gates are forced closed on a row. Returns (training
+    results, beam-4 serving launches, beam-1 serving launches)."""
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.models import transformer_l0drop as l0mod
     from zero_tpu_torch.ops.kernels import fused_attention as fa
@@ -2090,7 +2183,7 @@ def l0drop_train_phase(d, da):
 
     counters = (fa.launches, ff.launches, da.launches)
     cfg = load_config_file(DEEP_CONFIG)
-    cfg.update(kv.split("=", 1) for kv in L0DROP_EXTRA.split(",") if kv)
+    cfg.update(overrides(L0DROP_EXTRA))
     penalties = []
     real_penalty = l0mod.l0_penalty
 
@@ -2157,21 +2250,14 @@ def l0drop_closed_row(d, da):
 
     counters = (fa.launches, ff.launches, da.launches)
     values = load_config_file(DEEP_CONFIG)
-    values.update(model_name="transformer_l0drop", use_flash_attention=True,
-                  use_fused_ffn=True, update_cycle=1)
+    values.update(overrides(L0DROP_EXTRA))
+    values.update(use_flash_attention=True, use_fused_ffn=True,
+                  update_cycle=1)
     cfg = default_config().override_from_dict(values)
     cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
     model = get_model("transformer_l0drop")
     params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
-    rs = np.random.RandomState(SEED + 2)
-    src = rs.randint(3, 32768, (16, 48))
-    tgt = rs.randint(3, 32768, (16, 40))
-    for i, (ns, nt) in enumerate(zip(rs.randint(10, 49, 16),
-                                     rs.randint(10, 41, 16))):
-        src[i, ns:] = 0
-        tgt[i, nt:] = 0
-    feats = {"source": torch.as_tensor(src).cuda(),
-             "target": torch.as_tensor(tgt).cuda()}
+    feats = _full_width_batch()
     real_noise, real_gate = l0norm.uniform_noise, l0norm.hard_concrete_from_noise
     gates = []
 
@@ -3000,12 +3086,609 @@ def long_reference_bf16(model, gfeats, sa):
     return out
 
 
+# ---------------------------------------------------------------------------
+# scan_layers, transformer_moe, transformer_multilingual with ROBT,
+# transformer_clsr
+# ---------------------------------------------------------------------------
+
+ML_CONFIG = os.path.join(REPO, "configs", "multilingual_robt_opus100.json")
+SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
+              "scan_layers=true")
+SCAN_STEPS = 10
+MOE_EXTRA = ",model_name=transformer_moe,scope_name=transformer_moe"
+MOE_STEPS = 12
+MOE_TOP2_STEPS = 5
+ML_STEPS = 10
+ML_OFF_STEPS = 5
+CLSR_EXTRA = (",model_name=transformer_clsr,scope_name=transformer_clsr,"
+              "robt=false")
+CLSR_STEPS = 10
+ML_LANGUAGES = 100
+PEAK_FP32 = PEAK_FLOPS[torch.float32]
+FP32_NOTE = ("computes in fp32 whatever default_dtype says (as the JAX "
+             "package): MFU against the fp32 peak")
+# a stacked checkpoint restored in a fresh process: params, Adam state and
+# EMA against the file, tensor for tensor
+SCAN_RESTORE = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+sys.path.insert(0, sys.argv[1])
+from zero_tpu_torch.config import default_config, merge_params
+from zero_tpu_torch.models import get_model
+from zero_tpu_torch.saver import Saver, flat_from_module, load_checkpoint_file
+from zero_tpu_torch.train_step import init_train_state
+from zero_tpu_torch.vocab import Vocab
+
+cfg = merge_params(default_config(), "", "device=cpu", output_dir=sys.argv[2])
+cfg.src_vocab = cfg.tgt_vocab = Vocab(cfg.src_vocab_file)
+state = init_train_state(get_model(cfg.model_name), cfg, torch.Generator(),
+                         "cpu")
+trees = {"params": state.params, "opt": state.opt, "ema": state.ema}
+saver = Saver(output_dir=sys.argv[2])
+assert saver.restore(trees)
+want = load_checkpoint_file(saver.latest_path())
+got = {}
+for prefix, tree in trees.items():
+    if tree is not None:
+        got.update(flat_from_module(tree, prefix))
+print(json.dumps({
+    "tensors": len(got), "same_keys": sorted(got) == sorted(want),
+    "equal": all(np.array_equal(got[k], want[k]) for k in want),
+    "stacked": list(got["params/encoder/self/qkv/ws/0"].shape)}))
+"""
+
+
+def write_multilingual_corpus(d, words):
+    """The multilingual config's data in ``d``: a 32768-token vocabulary
+    whose 100 language tags <2l00> ... <2l99> take ids 3-102; 8000
+    training pairs of 10 to 100 tokens a side and a 64-sentence test set
+    of 20 to 60, each source line led by a random tag (the target
+    language). Made from SEED."""
+    os.makedirs(d)
+    tags = ["<2l%02d>" % i for i in range(ML_LANGUAGES)]
+    text = words[:32768 - 3 - ML_LANGUAGES]
+    with open(os.path.join(d, "vocab.txt"), "w") as w:
+        w.write("\n".join(tags + text) + "\n")
+    rs = np.random.RandomState(SEED + 3)
+    for split, n, lo, hi in (("train", 8000, 10, 101), ("test", 64, 20, 61)):
+        with open(os.path.join(d, split + ".src"), "w") as ws, \
+                open(os.path.join(d, split + ".tgt"), "w") as wt:
+            for _ in range(n):
+                for w, lead in ((ws, [tags[rs.randint(ML_LANGUAGES)]]),
+                                (wt, [])):
+                    toks = [text[i] for i in rs.randint(0, len(text),
+                                                        rs.randint(lo, hi))]
+                    w.write(" ".join(lead + toks) + "\n")
+
+
+@contextlib.contextmanager
+def recording_train_fn(name, record):
+    """The registered ``name``'s train_fn, with ``record(out)`` called on
+    each of its results (the losses the train step does not return)."""
+    from zero_tpu_torch.models import base
+
+    spec = base._REGISTRY[name]
+
+    def train_fn(*args, **kwargs):
+        out = spec.train_fn(*args, **kwargs)
+        record(out)
+        return out
+
+    with mock.patch.dict(base._REGISTRY,
+                         {name: spec._replace(train_fn=train_fn)}):
+        yield
+
+
+def decode_serving(label, kernel="decode_attention", encoder=False):
+    """A checker of a model's serving: ``kernel`` once per decoder layer
+    and decode step; with ``encoder`` the encoder's forward kernels once
+    a layer per test batch, in serving and in scoring (CUDA-core #1 and
+    #11: the model computes in fp32), else no other kernel."""
+    def check(cfg, served, serve_launches, score_launches):
+        enc = cfg["num_encoder_layer"] * TEST_BATCHES
+        forward = {"fused_attention": enc, "fused_ffn": enc} if encoder \
+            else {}
+        want = dict(forward, **{kernel: cfg["num_decoder_layer"]
+                                * served["steps"]})
+        if serve_launches != want or score_launches != forward:
+            raise AssertionError("%s: serving launched %s, expected %s; "
+                                 "scoring %s, expected %s"
+                                 % (label, serve_launches, want,
+                                    score_launches, forward))
+    return check
+
+
+def scan_train_phase(d, da):
+    """The deep config as transformer_l0drop with scan_layers (stacked
+    [20, ...] and [6, ...] layers) SCAN_STEPS steps, both kernel flags on:
+    launches per microbatch 64 #1, 32 #2, 52 #11, 26 #12 (use_remat), as
+    unrolled; served at beam 4 (#8) and beam 1 (#10), and scored; the
+    stacked checkpoint restored in a fresh process (params, Adam state,
+    EMA), which runs beside the next phases. Returns (training results,
+    beam-4 and beam-1 serving launches, a callable that waits for the
+    fresh process and checks that every tensor equals the file's)."""
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    results, served4 = train_phase(
+        d, da, DEEP_CONFIG, "scan_train", expected_launches, SCAN_EXTRA,
+        ("true",), l0drop_serving, steps=SCAN_STEPS, note=MFU_NOTE)
+    out = os.path.join(d, "scan_train_true")
+    proc = subprocess.Popen([sys.executable, "-c", SCAN_RESTORE, REPO, out],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ,
+                                                OMP_NUM_THREADS="2"))
+    cfg = load_config_file(DEEP_CONFIG)
+
+    def restore_check():
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            raise AssertionError("scan_train restore exited %d: %s"
+                                 % (proc.returncode, stderr[-2000:]))
+        restored = json.loads(stdout.strip().splitlines()[-1])
+        phase("scan_train", fresh_process_restore=restored)
+        if not (restored["same_keys"] and restored["equal"] and
+                restored["stacked"] == [cfg["num_encoder_layer"], 512,
+                                        1536]):
+            raise AssertionError("scan_train restore: %s" % restored)
+
+    try:
+        served1, launches1 = serve_checkpoint(d, "scan_train", counters,
+                                              beam=1)
+        enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+        want = {"fused_attention" + route_suffix(cfg): enc * TEST_BATCHES,
+                "fused_ffn": enc * TEST_BATCHES,
+                "decode_attention": dec * served1["steps"]}
+        phase("scan_train", beam=1, sentences_per_s=served1["sentences"]
+              / served1["seconds"], decode_steps=served1["steps"],
+              served_bleu=served1["bleu"], serve_launches=launches1)
+        if launches1 != want:
+            raise AssertionError("scan_train beam 1 launched %s, expected "
+                                 "%s" % (launches1, want))
+    except BaseException:
+        proc.kill()
+        raise
+    return results, served4, launches1, restore_check
+
+
+def moe_train_phase(d, da):
+    """configs/transformer_base_wmt14.json as transformer_moe (8 experts,
+    top-1, capacity 1.25, "auto" = einsum dispatch), both kernel flags on,
+    MOE_STEPS steps: no training kernel (the JAX layers pass none); moe_aux
+    beside the loss, peak memory; MOE_TOP2_STEPS steps at moe_top_k=2;
+    one full-width fp32 batch through einsum and scatter (loss and grads);
+    --mode test at beam 4 (#10) and --mode score (no kernel). Returns
+    (training results, serving launches)."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    aux = []
+    with recording_train_fn("transformer_moe",
+                            lambda out: aux.append(out["moe_aux"].detach())):
+        results, served = train_phase(
+            d, da, CONFIG, "moe_train", no_kernel, MOE_EXTRA, ("true",),
+            decode_serving("moe_train"), steps=MOE_STEPS,
+            note="model FLOPs count each token's FFN in top_k experts")
+        cycle = len(aux) // MOE_STEPS
+        per_step = [torch.stack(aux[i:i + cycle]).mean().item()
+                    for i in range(0, len(aux), cycle)]
+        phase("moe_train", loss_first=results["loss_first"],
+              loss_last=results["loss_last"], moe_aux_first=per_step[0],
+              moe_aux_last=per_step[-1], peak_gib=results["peak_gib"])
+        aux.clear()
+        out = os.path.join(d, "moe_top2")
+        torch.cuda.reset_peak_memory_stats()
+        summary, launches = train_run(d, out, "true", counters, CONFIG,
+                                      MOE_EXTRA + ",moe_top_k=2",
+                                      MOE_TOP2_STEPS)
+    ends = summary["step_end_times"]
+    step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
+    top2 = dict(moe_top_k=2, steps=summary["steps"],
+                ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+                loss_last=summary["losses"][-1],
+                moe_aux_last=torch.stack(aux[-cycle:]).mean().item(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=launches)
+    phase("moe_train", **top2)
+    shutil.rmtree(out)
+    if (summary["steps"] != MOE_TOP2_STEPS or launches
+            or not all(map(math.isfinite, summary["losses"]))):
+        raise AssertionError("moe_train top-2: %s" % top2)
+    moe_dispatch_check(d)
+    return results, served
+
+
+def moe_dispatch_check(d):
+    """transformer_moe at the base config's widths in fp32, one batch of 16
+    rows (source 48, target 40 positions, dropout on): train_fn through
+    the einsum and the scatter dispatch on the same seed words. The loss
+    and every grad agree within 1e-5 of their max; the share of (token,
+    slot) pairs the capacity keeps is printed."""
+    from zero_tpu_torch.config import default_config, load_config_file
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops import moe
+    from zero_tpu_torch.vocab import Vocab
+
+    values = load_config_file(CONFIG)
+    values.update(model_name="transformer_moe", default_dtype="float32")
+    cfg = default_config().override_from_dict(values)
+    cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
+    model = get_model("transformer_moe")
+    params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
+    feats = _full_width_batch()
+    kept = []
+    real_route = moe._route
+
+    def route(*args):
+        out = real_route(*args)
+        kept.append(out[1].float().mean().item())
+        return out
+
+    runs = {}
+    for dispatch in ("einsum", "scatter"):
+        cfg.moe_dispatch = dispatch
+        with mock.patch.object(moe, "_route", route):
+            loss = model.train_fn(params, feats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+        runs[dispatch] = (loss.item(), torch.autograd.grad(
+            loss, list(params.parameters())))
+    (le, ge), (ls, gs) = runs["einsum"], runs["scatter"]
+    top = max(g.abs().max().item() for g in ge)
+    gap = max((a - b).abs().max().item() for a, b in zip(ge, gs)) / top
+    out = dict(loss_einsum=le, loss_scatter=ls,
+               loss_rel_gap=abs(le - ls) / abs(le), grad_gap=gap,
+               kept_share=min(kept[:len(kept) // 2]))
+    phase("moe_dispatch", **out)
+    if not (out["loss_rel_gap"] <= 1e-5 and gap <= 1e-5
+            and out["kept_share"] < 1.0):
+        raise AssertionError("moe dispatch einsum vs scatter: %s" % out)
+    del params
+
+
+def _full_width_batch():
+    """16 rows of 48 source and 40 target positions, each row 10 or more
+    tokens, from SEED: a batch at full model width for the checks that
+    run train_fn directly."""
+    rs = np.random.RandomState(SEED + 2)
+    src = rs.randint(3, 32768, (16, 48))
+    tgt = rs.randint(3, 32768, (16, 40))
+    for i, (ns, nt) in enumerate(zip(rs.randint(10, 49, 16),
+                                     rs.randint(10, 41, 16))):
+        src[i, ns:] = 0
+        tgt[i, nt:] = 0
+    return {"source": torch.as_tensor(src).cuda(),
+            "target": torch.as_tensor(tgt).cuda()}
+
+
+def ml_expected_launches(cfg, summary):
+    """transformer_multilingual, flags on, per microbatch: the encoder's
+    #1 and #11 forwards in the main pass, ROBT's encode and the synthetic
+    pass (3 x 6), their backwards in the two training passes (2 x 6), and
+    ROBT's greedy decode one #10 per decoder layer and step, L_src - 1
+    steps at the step's stacked source length. Without ROBT 6 of each of
+    #1, #2, #11, #12. fp32: the CUDA-core routes."""
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    robt = str(cfg.get("robt", False)).lower() == "true"
+    micro = cfg["update_cycle"] * summary["steps"]
+    passes = 3 if robt else 1
+    out = {"fused_attention": passes * enc * micro,
+           "fused_attention_backward": (passes - robt) * enc * micro,
+           "fused_ffn": passes * enc * micro,
+           "fused_ffn_backward": (passes - robt) * enc * micro}
+    if robt:
+        out["decode_attention"] = sum(
+            len(shapes) * dec * (stacked_shape(shapes)[1] - 1)
+            for shapes in summary["shapes"])
+    return out
+
+
+def multilingual_train_phase(d, da):
+    """configs/multilingual_robt_opus100.json as written (6+6, 512/2048,
+    100 languages, ROBT with weight 1, use_remat, which the model ignores
+    as the JAX package does) plus both kernel flags, ML_STEPS steps:
+    launches per microbatch 18 #1, 12 #2, 18 #11, 12 #12 (fp32, CUDA
+    cores) and 6 (L_src - 1) #10; the main and the back-translated losses,
+    peak memory; then ML_OFF_STEPS steps with robt=false (6 of each); then
+    --mode test at beam 4 on test sentences of mixed tags (#10) and --mode
+    score. Returns (training results, serving launches, the robt=false
+    results)."""
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    losses = []
+    with recording_train_fn("transformer_multilingual",
+                            lambda out: losses.append(out["loss"].detach())):
+        results, served = train_phase(
+            d, da, ML_CONFIG, "multilingual_train", ml_expected_launches,
+            flag_runs=("true",), serving=decode_serving(
+                "multilingual_train", encoder=True),
+            steps=ML_STEPS, note=FP32_NOTE, peak=PEAK_FP32)
+    cycle = load_config_file(ML_CONFIG)["update_cycle"]
+    main = torch.stack(losses[0::2]).view(ML_STEPS, cycle).mean(1).tolist()
+    bt = torch.stack(losses[1::2]).view(ML_STEPS, cycle).mean(1).tolist()
+    phase("multilingual_train", main_loss_first=main[0],
+          main_loss_last=main[-1], bt_loss_first=bt[0], bt_loss_last=bt[-1],
+          peak_gib=results["peak_gib"])
+    if len(losses) != 2 * cycle * ML_STEPS:
+        raise AssertionError("multilingual_train: %d passes" % len(losses))
+    off = os.path.join(d, "multilingual_robt_off")
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches = train_run(d, off, "true", counters, ML_CONFIG,
+                                  ",robt=false", ML_OFF_STEPS)
+    cfg = load_config_file(ML_CONFIG)
+    cfg["robt"] = "false"
+    ends = summary["step_end_times"]
+    step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
+    timed = sum(b - a for a, b in zip(ends[:-1], ends[1:]))
+    robt_off = dict(robt=False, steps=summary["steps"],
+                    ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+                    target_tokens_per_s=sum(summary["target_tokens"][1:])
+                    / timed, loss_last=summary["losses"][-1],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    launches=launches)
+    phase("multilingual_train", **robt_off)
+    shutil.rmtree(off)
+    if (summary["steps"] != ML_OFF_STEPS
+            or launches != ml_expected_launches(cfg, summary)
+            or not all(map(math.isfinite, summary["losses"]))):
+        raise AssertionError("multilingual_train robt=false: %s, expected "
+                             "%s" % (robt_off,
+                                     ml_expected_launches(cfg, summary)))
+    return results, served, robt_off
+
+
+def clsr_train_phase(d, da):
+    """The multilingual config as transformer_clsr with robt=false, both
+    kernel flags on, CLSR_STEPS steps: no training kernel (the JAX layers
+    pass none); the budget loss, peak memory; --mode test at beam 4 (#10)
+    and --mode score (no kernel); then --mode ensemble of this checkpoint
+    with multilingual_train's (the multilingual encoder's #1 and #11, #10
+    in both decoders). Returns (training results, serving launches,
+    ensemble launches)."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.models import transformer_clsr as clsr_mod
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    budgets = []
+    real_budget = clsr_mod.budget_loss
+
+    def record(gate_sums, cfg):
+        out = real_budget(gate_sums, cfg)
+        budgets.append(out.detach())
+        return out
+
+    with mock.patch.object(clsr_mod, "budget_loss", record):
+        results, served = train_phase(
+            d, da, ML_CONFIG, "clsr_train", no_kernel, CLSR_EXTRA, ("true",),
+            decode_serving("clsr_train"), steps=CLSR_STEPS, note=FP32_NOTE,
+            peak=PEAK_FP32)
+    cfg = load_config_file(ML_CONFIG)
+    per_step = torch.stack(budgets).view(CLSR_STEPS, -1).mean(1).tolist()
+    phase("clsr_train", loss_first=results["loss_first"],
+          loss_last=results["loss_last"], budget_loss_first=per_step[0],
+          budget_loss_last=per_step[-1], peak_gib=results["peak_gib"])
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
+            "test_output={0}/ensemble.txt,eval_batch_size=32,"
+            "beam_size=4".format(d))
+    for c in counters:
+        c.clear()
+    summary = run.main(["--mode", "ensemble", "--ensemble_dirs",
+                        "{0}/multilingual_train_true;{0}/clsr_train_true"
+                        .format(d), "--parameters", spec])
+    launches = collect(counters)
+    enc = cfg["num_encoder_layer"] * TEST_BATCHES
+    want = {"fused_attention": enc, "fused_ffn": enc,
+            "decode_attention": 2 * cfg["num_decoder_layer"]
+            * summary["steps"]}
+    with open(os.path.join(d, "ensemble.txt")) as r:
+        lines = r.read().splitlines()
+    phase("clsr_train", ensemble="multilingual_train+clsr_train",
+          sentences=summary["sentences"], bleu=summary["bleu"],
+          sentences_per_s=summary["sentences"] / summary["seconds"],
+          decode_steps=summary["steps"], launches=launches)
+    if len(lines) != 64 or summary["sentences"] != 64 or launches != want:
+        raise AssertionError("clsr_train ensemble: %d lines, launches %s, "
+                             "expected %s" % (len(lines), launches, want))
+    return results, served, launches
+
+
+def _tagged_small_batch(languages):
+    """_small_batch with a language tag (ids 3 to 2 + languages) leading
+    every row but the all-pad one."""
+    feats = _small_batch()
+    src = feats["source"]
+    tags = torch.as_tensor(np.random.RandomState(SEED).randint(
+        3, 3 + languages, src.shape[0]))
+    src[:-1, 0] = tags[:-1]
+    return feats
+
+
+def _card_vs_cpu(label, model, cfg, feats, train, train_want, decode_want,
+                 counters):
+    """``train(params, feats)`` -> (loss, grads) on a CPU model and its
+    copy on the card: loss within 1e-6 relative, every grad within 1e-5 of
+    the largest |grad|; the card's training launches ``train_want``; beam 4
+    card against CPU, identical sequences, the card's decode launches
+    ``decode_want(steps)``."""
+    import copy
+
+    from zero_tpu_torch.search import beam_search
+
+    cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
+    gpu = copy.deepcopy(cpu).cuda()
+    gfeats = {k: v.cuda() for k, v in feats.items()}
+    lc, gc = train(cpu, feats)
+    for c in counters:
+        c.clear()
+    lg, gg = train(gpu, gfeats)
+    train_launches = collect(counters)
+    top = max(b.abs().max().item() for b in gc)
+    gap = max((a.cpu() - b).abs().max().item() for a, b in zip(gg, gc)) / top
+    loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+    cfg.beam_size = 4
+    inf = model.infer_fn(cfg)
+    with torch.inference_mode():
+        c = beam_search(cpu, feats["source"], inf, cfg)
+        for n in counters:
+            n.clear()
+        g = beam_search(gpu, gfeats["source"], inf, cfg)
+    decode_launches = collect(counters)
+    same = torch.equal(g["seq"].cpu(), c["seq"])
+    out = dict(case=label, loss_rel_err=loss_err, grad_gap=gap,
+               train_launches=train_launches, beam4_same_sequences=same,
+               beam4_steps=g["steps"], decode_launches=decode_launches)
+    phase("slice13_reference", **out)
+    if not (loss_err <= 1e-6 and gap <= 1e-5 and same
+            and train_launches == train_want
+            and decode_launches == decode_want(g["steps"])
+            and torch.isfinite(g["score"]).all()):
+        raise AssertionError("slice13_reference %s: %s, expected launches "
+                             "%s / %s" % (label, out, train_want,
+                                          decode_want(g["steps"])))
+    return out
+
+
+def slice13_reference_phase(da):
+    """Small fp32 models (_small_model: 2+2 layers, 64/128, 4 heads,
+    dropout 0.1), card against CPU on the same seed words (_card_vs_cpu):
+    scan_layers transformer and transformer_l0drop under use_remat (the
+    CUDA-core kernels, forwards twice); transformer_moe (4 experts at a
+    capacity that drops tokens) through einsum and scatter, top-1 and
+    top-2 (no kernel in training, #10 at decode); transformer_multilingual
+    with ROBT, one intermediate language injected on both sides, through
+    the train step's microbatch backward (the encoder's kernels, ROBT's
+    #10); transformer_clsr with one gate noise injected (no training
+    kernel). Then in bf16 on the card (tensor-core #1/#2, #11/#12) the
+    scan transformer with use_remat against without, on the same words:
+    the gap must be 0."""
+    from zero_tpu_torch import robt
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops import l0norm
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.train_step import make_micro_backward
+
+    counters = (fa.launches, ff.launches, da.launches)
+    n = 2   # layers a side of _small_model
+
+    def seeded(model, cfg):
+        def train(params, feats):
+            loss = model.train_fn(params, feats, cfg,
+                                  torch.Generator().manual_seed(SEED),
+                                  step=100)["loss"]
+            return loss, torch.autograd.grad(loss, list(params.parameters()))
+        return train
+
+    for name in ("transformer", "transformer_l0drop"):
+        cfg = _small_model(0.1, name)
+        cfg.scan_layers = cfg.use_remat = True
+        attn = 3 * n
+        _card_vs_cpu("scan_" + name, get_model(name), cfg, _small_batch(),
+                     seeded(get_model(name), cfg),
+                     {"fused_attention": 2 * attn,
+                      "fused_attention_backward": attn,
+                      "fused_ffn": 2 * 2 * n, "fused_ffn_backward": 2 * n},
+                     lambda steps: {"fused_attention": n, "fused_ffn": n,
+                                    "decode_pool_attention": n * steps},
+                     counters)
+    moe_model = get_model("transformer_moe")
+    for dispatch in ("einsum", "scatter"):
+        for top_k in (1, 2):
+            cfg = _small_model(0.1, "transformer_moe")
+            cfg.moe_num_experts, cfg.moe_capacity_factor = 4, 0.5
+            cfg.moe_dispatch, cfg.moe_top_k = dispatch, top_k
+            _card_vs_cpu("moe_%s_top%d" % (dispatch, top_k), moe_model, cfg,
+                         _small_batch(), seeded(moe_model, cfg), {},
+                         lambda steps: {"decode_attention": n * steps},
+                         counters)
+
+    ml_model = get_model("transformer_multilingual")
+    cfg = _small_model(0.1, "transformer_multilingual")
+    cfg.num_languages, cfg.robt = 4, True
+    feats = _tagged_small_batch(4)
+    z = torch.as_tensor(np.random.RandomState(SEED + 4).randint(
+        0, 4, (feats["source"].shape[0], 1)))
+    backward = make_micro_backward(ml_model, cfg)
+
+    def robt_train(params, batch):
+        with mock.patch.object(robt, "draw_languages",
+                               lambda gen, rows, langs, device: z.to(device)):
+            loss = backward(params, batch,
+                            torch.Generator().manual_seed(SEED), 100)
+        grads = [p.grad.clone() for p in params.parameters()]
+        for p in params.parameters():
+            p.grad = None
+        return loss, grads
+
+    ls = feats["source"].shape[1]
+    _card_vs_cpu("multilingual_robt", ml_model, cfg, feats, robt_train,
+                 {"fused_attention": 3 * n, "fused_attention_backward": 2 * n,
+                  "fused_ffn": 3 * n, "fused_ffn_backward": 2 * n,
+                  "decode_attention": n * (ls - 1)},
+                 lambda steps: {"fused_attention": n, "fused_ffn": n,
+                                "decode_attention": n * steps}, counters)
+
+    clsr_model = get_model("transformer_clsr")
+    cfg = _small_model(0.1, "transformer_clsr")
+    cfg.num_languages = 4
+    noise = {}
+
+    def injected(words, shape, device):
+        shape = tuple(shape)
+        if shape not in noise:
+            noise[shape] = torch.as_tensor(np.random.RandomState(
+                SEED + len(noise)).rand(*shape).astype(np.float32))
+        return noise[shape].to(device)
+
+    with mock.patch.object(l0norm, "uniform_noise", injected):
+        _card_vs_cpu("clsr", clsr_model, cfg, _tagged_small_batch(4),
+                     seeded(clsr_model, cfg), {},
+                     lambda steps: {"decode_attention": n * steps}, counters)
+
+    # bf16: the checkpointed stack against the plain one, same words
+    model = get_model("transformer")
+    cfg = _small_model(0.1)
+    cfg.scan_layers, cfg.default_dtype = True, "bfloat16"
+    params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
+    feats = {k: v.cuda() for k, v in _small_batch().items()}
+    runs = {}
+    for remat in (False, True):
+        cfg.use_remat = remat
+        for c in counters:
+            c.clear()
+        runs[remat] = seeded(model, cfg)(params, feats) + (
+            collect(counters),)
+    (l0, g0, k0), (l1, g1, k1) = runs[False], runs[True]
+    top = max(b.abs().max().item() for b in g0)
+    gap = max((a - b).abs().max().item() for a, b in zip(g1, g0)) / top
+    out = dict(case="scan_bf16_remat", loss_gap=abs(l1.item() - l0.item()),
+               grad_gap=gap, launches_remat=k1, launches_plain=k0)
+    phase("slice13_reference", **out)
+    if not (out["loss_gap"] == 0.0 and gap == 0.0
+            and k1["fused_attention_tc"] == 2 * k0["fused_attention_tc"]):
+        raise AssertionError("slice13_reference bf16 remat: %s" % out)
+    del params
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
           "aan_train", "aan_reference", "ensemble", "deep_train",
           "deep_memory", "l0drop_train", "fixup_train", "deep_reference",
-          "long_kernels", "long_train", "long_reference")
+          "long_kernels", "long_train", "long_reference", "scan_train",
+          "moe_train", "multilingual_train", "clsr_train",
+          "slice13_reference")
 
 
 def main(argv=None):
@@ -3030,6 +3713,9 @@ def main(argv=None):
     if "ensemble" in todo and not {"train", "rela_train"} <= todo:
         parser.error("ensemble decodes the checkpoints of the phases train "
                      "and rela_train: give them too")
+    if "clsr_train" in todo and "multilingual_train" not in todo:
+        parser.error("clsr_train's ensemble decodes multilingual_train's "
+                     "checkpoint: give it too")
     full = todo == set(PHASES)
     began = time.time()
     if not torch.cuda.is_available():
@@ -3124,19 +3810,20 @@ def main(argv=None):
             reference_phase(da)
         if todo & {"train", "rpr_train", "rela_train", "aan_train",
                    "deep_train", "deep_memory", "l0drop_train",
-                   "fixup_train"}:
+                   "fixup_train", "scan_train", "moe_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
-            launches.update(train_phase(d, da)[0]["launches"])
+            launches.update(train_phase(d, da, extra=BASE_CUT)[0]
+                            ["launches"])
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
-                                        rpr_expected_launches,
+                                        rpr_expected_launches, BASE_CUT,
                                         serving=rpr_serving)[0]["launches"])
         if "rela_train" in todo:
             rela_launches = rela_train_phase(d, da)
         if "aan_train" in todo:
             aan_launches = train_phase(d, da, AAN_CONFIG, "aan_train",
-                                       encoder_expected_launches,
+                                       encoder_expected_launches, BASE_CUT,
                                        serving=encoder_serving)[0]["launches"]
         if "ensemble" in todo:
             ensemble_launches = ensemble_phase(d, da)
@@ -3150,6 +3837,22 @@ def main(argv=None):
             l0drop_launches = l0drop_results["launches"]
         if "fixup_train" in todo:
             fixup_served = fixup_train_phase(d, da)
+        if "scan_train" in todo:
+            scan_results, scan_served4, scan_served1, scan_restore = \
+                scan_train_phase(d, da)
+        try:
+            if "moe_train" in todo:
+                moe_results, moe_served = moe_train_phase(d, da)
+        finally:
+            if "scan_train" in todo:
+                scan_restore()
+        if "multilingual_train" in todo:
+            ml_dir = os.path.join(d, "multilingual")
+            write_multilingual_corpus(ml_dir, words)
+            ml_results, ml_served, _ = multilingual_train_phase(ml_dir, da)
+        if "clsr_train" in todo:
+            clsr_results, clsr_served, clsr_ensemble = clsr_train_phase(
+                ml_dir, da)
         if "long_train" in todo:
             write_long_corpus(d, words)
             launches.update(long_train_phase(d, da))
@@ -3165,6 +3868,8 @@ def main(argv=None):
         deep_reference_phase(da)
     if "long_reference" in todo:
         long_reference_phase(da)
+    if "slice13_reference" in todo:
+        slice13_reference_phase(da)
     if "converge" in todo:
         with tempfile.TemporaryDirectory() as d:
             converge_phase(d)
@@ -3206,6 +3911,20 @@ def main(argv=None):
         "decode_pool_attention"]
     kernels[0]["fixup_serve_launches"] = fixup_served["decode_pool_attention"]
     kernels[1]["l0drop_serve_launches"] = l0drop_served1["decode_attention"]
+    # scan_layers' serving (l0drop, stacked) at beam 4 (#8) and 1 (#10);
+    # transformer_moe, transformer_multilingual and transformer_clsr decode
+    # through #10 at beam 4 (rows folded), the ensemble of the last two
+    # too, and ROBT's greedy decode in every multilingual training step
+    kernels[0]["scan_serve_launches"] = scan_served4["decode_pool_attention"]
+    kernels[1].update(
+        scan_serve_launches=scan_served1["decode_attention"],
+        moe_serve_launches=moe_served["decode_attention"],
+        multilingual_serve_launches=ml_served["decode_attention"],
+        clsr_serve_launches=clsr_served["decode_attention"],
+        multilingual_clsr_ensemble_launches=clsr_ensemble[
+            "decode_attention"],
+        multilingual_robt_train_launches=ml_results["launches"][
+            "decode_attention"])
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
     # attention at the encoder self-attention case, the FFN at N=4096 and
     # at the train phase's largest stacked shape; the library yardstick is
@@ -3241,6 +3960,13 @@ def main(argv=None):
         row["aan_train_launches"] = aan_launches[name]
         row["deep_train_launches"] = deep_launches[name]
         row["l0drop_train_launches"] = l0drop_launches[name]
+        # scan_layers (l0drop, stacked) runs this route; the multilingual
+        # encoder (fp32) the CUDA-core route of #1/#2, under the counter
+        # without the suffix; MoE and CLSR train with no kernel
+        row["scan_train_launches"] = scan_results["launches"][name]
+        row["multilingual_train_launches"] = ml_results["launches"][kernel]
+        row["moe_train_launches"] = moe_results["launches"].get(name, 0)
+        row["clsr_train_launches"] = clsr_results["launches"].get(name, 0)
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)

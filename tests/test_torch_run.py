@@ -93,9 +93,9 @@ def test_device_cuda_without_a_card_raises(corpus):
 
 
 # every mode is ported, but options of a later slice raise before any
-# work: scanned layers, and in training a mesh
-_LATER = {"train": ["--parameters", "device=cpu,scan_layers=true"],
-          "score": ["--parameters", "device=cpu,scan_layers=true"],
+# work: a model not ported yet, and in training a mesh
+_LATER = {"train": ["--parameters", "device=cpu,model_name=rnnsearch"],
+          "score": ["--parameters", "device=cpu,model_name=rnnsearch"],
           "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 
 

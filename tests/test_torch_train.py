@@ -113,12 +113,13 @@ def test_score_fn_matches_jax(model_setup):
 
 
 def test_remat_and_scan_layers_raise(model_setup):
-    """scan_layers is a later slice; use_remat is ported, and an unknown
-    remat_policy raises."""
+    """scan_layers is ported, but its pipeline over the stack (mesh_pipe)
+    is a later slice; use_remat is ported, and an unknown remat_policy
+    raises."""
     s = model_setup
     feats = {k: t(v) for k, v in s["feats"].items()}
-    pcfg = port_config(s["cfg"], scan_layers=True)
-    with pytest.raises(NotImplementedError, match="scan_layers"):
+    pcfg = port_config(s["cfg"], scan_layers=True, mesh_pipe=2)
+    with pytest.raises(NotImplementedError, match="mesh_pipe"):
         get_model("transformer").train_fn(
             _port_params(s, port_config(s["cfg"])), feats, pcfg, None)
     pcfg = port_config(s["cfg"], use_remat=True, remat_policy="bogus")

@@ -54,6 +54,14 @@ def parity_features():
     return {"source": src, "target": tgt}
 
 
+def tagged_features():
+    """parity_features with a language tag (ids 3-5) leading every source
+    row but the all-pad row 2 (the multilingual models)."""
+    feats = parity_features()
+    feats["source"][[0, 1, 3, 4], 0] = [3, 5, 4, 5]
+    return feats
+
+
 def jax_loss_and_grads(name, cfg, jparams, feats, step=0, score=False):
     """The JAX package's train_fn loss and grads (one jitted step) and,
     with ``score``, its score_fn."""

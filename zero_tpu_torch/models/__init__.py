@@ -1,16 +1,21 @@
 """Model zoo of the port: name registry of seq2seq models (counterpart of
 ``zero_tpu/models``). Importing this package registers every ported model:
 ``transformer``, ``transformer_rpr``, ``transformer_rela``,
-``transformer_aan``, ``transformer_fuse``, ``transformer_l0drop`` and
-``transformer_fixup`` (7 of the JAX package's 15)."""
+``transformer_aan``, ``transformer_fuse``, ``transformer_l0drop``,
+``transformer_fixup``, ``transformer_moe``, ``transformer_multilingual``
+and ``transformer_clsr`` (10 of the JAX package's 15; base.JAX_MODELS
+lists them, and the others raise NotImplementedError)."""
 
 from zero_tpu_torch.models.base import ModelSpec, get_model, model_register  # noqa: F401
 
 # import for registration side effects
 from zero_tpu_torch.models import transformer  # noqa: F401
 from zero_tpu_torch.models import transformer_aan  # noqa: F401
+from zero_tpu_torch.models import transformer_clsr  # noqa: F401
 from zero_tpu_torch.models import transformer_fixup  # noqa: F401
 from zero_tpu_torch.models import transformer_fuse  # noqa: F401
 from zero_tpu_torch.models import transformer_l0drop  # noqa: F401
+from zero_tpu_torch.models import transformer_moe  # noqa: F401
+from zero_tpu_torch.models import transformer_multilingual  # noqa: F401
 from zero_tpu_torch.models import transformer_rela  # noqa: F401
 from zero_tpu_torch.models import transformer_rpr  # noqa: F401

@@ -18,7 +18,7 @@ Counterpart of ``zero_tpu/models/base.py``. A model registers
       reorder_cache(cache, beam_indices [B, K], batch, beam_size, time,
                     span=1) -> cache
 
-  train_fn(params, features, cfg, gen, step=0) -> {'loss': scalar}
+  train_fn(params, features, cfg, gen, step=0) -> {'loss': scalar, ...}
       (features: {'source', 'target'} [B, L] int; gen: a torch.Generator
       seeding the dropout sites, or None for no dropout)
   score_fn(params, features, cfg)          -> {'score': [B]} (no dropout,
@@ -46,18 +46,41 @@ class ModelSpec(NamedTuple):
     train_fn: Callable
     score_fn: Callable
     infer_fn: Callable
+    # True: the eval modes cast the weights to the compute dtype once (the
+    # skeleton's models, which the JAX package casts on every call). False
+    # for models whose JAX counterpart never casts its weights (it computes
+    # in fp32 at eval, or casts at each op): their weights stay fp32
+    eval_cast: bool = True
 
 
 _REGISTRY = {}
 
+# the JAX package's registered models (zero_tpu/models): a name here that
+# the port has not registered is a later slice of the port
+JAX_MODELS = ("deepnmt", "rnnsearch", "rnnsearch_deepatt", "transformer",
+              "transformer_aan", "transformer_afs", "transformer_clsr",
+              "transformer_fixup", "transformer_fuse",
+              "transformer_ibdecoder", "transformer_l0drop",
+              "transformer_moe", "transformer_multilingual",
+              "transformer_rela", "transformer_rpr")
 
-def model_register(name: str, init_fn, train_fn, score_fn, infer_fn) -> None:
+
+def model_register(name: str, init_fn, train_fn, score_fn, infer_fn,
+                   eval_cast: bool = True) -> None:
     if name in _REGISTRY:
         raise ValueError("Model name %r is already registered" % name)
-    _REGISTRY[name] = ModelSpec(init_fn, train_fn, score_fn, infer_fn)
+    _REGISTRY[name] = ModelSpec(init_fn, train_fn, score_fn, infer_fn,
+                                eval_cast)
 
 
 def get_model(name: str) -> ModelSpec:
+    """The registered model ``name``. A model of the JAX package that the
+    port has not registered yet raises NotImplementedError; any other
+    unknown name ValueError."""
+    if name not in _REGISTRY and name in JAX_MODELS:
+        raise NotImplementedError(
+            "model %r is not ported to zero_tpu_torch yet: it comes with a "
+            "later slice (ported: %s)" % (name, sorted(_REGISTRY)))
     if name not in _REGISTRY:
         raise ValueError("Unknown model %r; registered: %s"
                          % (name, sorted(_REGISTRY)))

@@ -24,12 +24,21 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
     ``extra_init``/``extra_loss`` (L0Drop's gate projection and penalty)
     and ``zero_softmax`` (Fixup's zero softmax table)
 
-``scan_layers`` is a later slice: it raises, and so do the parallelism
-options in training (check_ported).
+  * ``scan_layers``: each stack's layers are one module whose tensors
+    carry a leading [L] axis (state-dict keys ``encoder.self.qkv.ws.0``
+    with no ``encoder.<l>.`` level, the JAX package's stacked paths);
+    layer l runs the stack's module through functional_call on the l-th
+    slice of each tensor, and in training the dropout seeds of every
+    layer are drawn before the stack runs, as the JAX package's scan
+    draws them
+
+The parallelism options raise in training (check_ported); so does the
+pipeline over a stack (``mesh_pipe``), which is one of them.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Callable, NamedTuple, Optional
 
@@ -89,16 +98,20 @@ class Layer(torch.nn.Module):
 class Seq2Seq(torch.nn.Module):
     """Parameters of a transformer-family model. State-dict keys are the
     JAX param paths with '/' turned into '.': ``embedding``, ``emb_bias``,
-    ``encoder.<l>....``, ``decoder.<l>....``, and the variants' extra
-    modules under their JAX keys (``source_pruning``, ``enc_post``,
-    ``dec_post``)."""
+    ``encoder.<l>....``, ``decoder.<l>....`` (under scan_layers
+    ``encoder....`` and ``decoder....`` with a leading [L] axis), and the
+    variants' extra modules under their JAX keys (``source_pruning``,
+    ``enc_post``, ``dec_post``). ``encoder``/``decoder``: a list of layer
+    modules, or one stacked module (stack_layers)."""
 
     def __init__(self, tables: dict, encoder, decoder, extra=None):
         super().__init__()
         for name, t in tables.items():
             self.register_parameter(name, torch.nn.Parameter(t))
-        self.encoder = torch.nn.ModuleList(encoder)
-        self.decoder = torch.nn.ModuleList(decoder)
+        self.encoder = (encoder if isinstance(encoder, torch.nn.Module)
+                        else torch.nn.ModuleList(encoder))
+        self.decoder = (decoder if isinstance(decoder, torch.nn.Module)
+                        else torch.nn.ModuleList(decoder))
         for name, module in (extra or {}).items():
             self.add_module(name, module)
 
@@ -106,6 +119,46 @@ class Seq2Seq(torch.nn.Module):
         """fn(self): lets torch.func.functional_call run a function of the
         module on substituted (compute-dtype) parameters."""
         return fn(self)
+
+
+def stack_layers(layers) -> torch.nn.Module:
+    """One module of the layers' structure whose every tensor is the
+    layers' tensors stacked on a new leading [L] axis (the JAX package's
+    scan_layers layout; values identical to the unrolled ones)."""
+    stacked = copy.deepcopy(layers[0])
+    per_layer = [dict(layer.named_parameters()) for layer in layers]
+    for name, _ in list(stacked.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = stacked.get_submodule(owner)
+        module._parameters[leaf] = torch.nn.Parameter(
+            torch.stack([p[name].detach() for p in per_layer]))
+    return stacked
+
+
+def _sliced(stack, l, fn, *args):
+    """fn(layer l, *args): the stacked module run on the l-th slice of
+    each of its tensors (slicing inside autograd, so the layer's grads
+    land in row l of the stacked grads)."""
+    tensors = {n: t[l] for n, t in stack.named_parameters()}
+    return torch.func.functional_call(stack, tensors, (fn,) + args)
+
+
+def stack_depth(stack) -> int:
+    """The number of layers of a stacked module."""
+    return next(iter(stack.parameters())).shape[0]
+
+
+def layer_calls(layers) -> list:
+    """Per-layer appliers ``call(fn, *args) -> fn(layer, *args)`` over a
+    list of layer modules or a stacked module (scan_layers)."""
+    if isinstance(layers, torch.nn.ModuleList):
+        return [functools.partial(_direct, p) for p in layers]
+    return [functools.partial(_sliced, layers, l)
+            for l in range(stack_depth(layers))]
+
+
+def _direct(layer, fn, *args):
+    return fn(layer, *args)
 
 
 def config_initializer(cfg):
@@ -221,21 +274,23 @@ def _key_source(keys):
     return draw
 
 
-def remat_layer(layer, context_fn, fn, *args):
+def remat_layer(layer, context_fn, fn, *args, tensors=None):
     """``fn(layer, *args)`` under a non-reentrant activation checkpoint.
 
     The layer's tensors go in as an input and the layer runs on them
     through functional_call: the loss casts the fp32 parameters inside a
     functional_call of its own, which has put the fp32 masters back by the
-    time the backward recomputes the layer. Dropout draws from seeds in
+    time the backward recomputes the layer. ``tensors`` (a stacked layer's
+    l-th slices) stand in for the layer's own. Dropout draws from seeds in
     ``args``, never from a torch generator, so the recompute needs no RNG
     state (``preserve_rng_state`` off)."""
     def call(tensors, *inputs):
         return torch.func.functional_call(layer, tensors, (fn,) + inputs)
 
-    return checkpoint(call, dict(layer.named_parameters()), *args,
-                      use_reentrant=False, preserve_rng_state=False,
-                      context_fn=context_fn)
+    if tensors is None:
+        tensors = dict(layer.named_parameters())
+    return checkpoint(call, tensors, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=context_fn)
 
 
 def output_logits(feature, softmax_table):
@@ -302,16 +357,12 @@ def parallel_options(cfg) -> list:
 
 
 def check_ported(cfg, training: bool = True):
-    """Raise on options of a later slice instead of ignoring them:
-    ``scan_layers`` always, and in training the parallelism options
-    (parallel_options), where the JAX package shards or raises. Evaluation
-    decodes on one device with a warning instead
-    (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
-    when the devices are too few."""
-    if bool(getattr(cfg, "scan_layers", False)):
-        raise NotImplementedError(
-            "scan_layers=true is not ported to zero_tpu_torch yet: it comes "
-            "with a later slice")
+    """Raise on options of a later slice instead of ignoring them: in
+    training the parallelism options (parallel_options), where the JAX
+    package shards or raises; ``mesh_pipe`` among them, and with it the
+    pipeline over a scan_layers stack. Evaluation decodes on one device
+    with a warning instead (train.py:_eval_on_one_device), as the JAX
+    package's _eval_mesh does when the devices are too few."""
     asked = parallel_options(cfg) if training else []
     if asked:
         raise NotImplementedError(
@@ -339,6 +390,8 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
                    for l in range(cfg.num_encoder_layer)]
         decoder = [hooks.init_dec_layer(gen, cfg, l)
                    for l in range(cfg.num_decoder_layer)]
+        if _scan_layers(cfg):
+            encoder, decoder = stack_layers(encoder), stack_layers(decoder)
         extra = {}
         if hooks.init_enc_post is not None:
             extra["enc_post"] = hooks.init_enc_post(gen, cfg)
@@ -351,11 +404,38 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
     def _use_remat(cfg, training):
         return bool(getattr(cfg, "use_remat", False)) and training
 
-    def _enc_layer_keys(p, x, src_keep, keys, cfg):
+    def _scan_layers(cfg):
+        return bool(getattr(cfg, "scan_layers", False))
+
+    def _stacked_keys(rngs, num_layers):
+        """Every layer's REMAT_KEYS seed pairs, drawn before the stack
+        runs (the JAX package's _stacked_keys, with or without remat), or
+        None when dropout is off. As there, the first draw only tests
+        whether the source is live, and is dropped."""
+        if rngs() is None:
+            return None
+        return [_draw_keys(rngs) for _ in range(num_layers)]
+
+    def _scan_stack(stack, layer_fn, x, args, keys, remat):
+        """The JAX package's _scan_stack as a loop: layer_fn(p, x, *args,
+        keys_l) on each layer's slices of the stacked tensors, under the
+        activation checkpoint when ``remat`` (a context_fn) is given.
+        keys None: dropout off."""
+        for l in range(stack_depth(stack)):
+            keys_l = [None] * REMAT_KEYS if keys is None else keys[l]
+            if remat is not None:
+                tensors = {n: t[l] for n, t in stack.named_parameters()}
+                x = remat_layer(stack, remat, layer_fn, x, *args, keys_l,
+                                tensors=tensors)
+            else:
+                x = _sliced(stack, l, layer_fn, x, *args, keys_l)
+        return x
+
+    def _enc_layer_keys(p, x, src_keep, cfg, keys):
         return hooks.enc_layer(p, x, src_keep, cfg, _key_source(keys))
 
-    def _dec_layer_keys(p, x, state, self_keep, mem_keep, tgt_mask, keys,
-                        cfg):
+    def _dec_layer_keys(p, x, state, self_keep, mem_keep, tgt_mask, cfg,
+                        keys):
         return hooks.dec_layer_train(p, x, state, self_keep, mem_keep, cfg,
                                      _key_source(keys), tgt_mask)
 
@@ -367,14 +447,20 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
         x = dropout(rngs(), x, cfg.dropout if training else None)
         src_keep = nn.masking_mask(mask)
         remat = remat_policy(cfg) if _use_remat(cfg, training) else None
-        for p in params.encoder:
-            if remat is not None:
-                # the seeds are drawn here, outside the checkpoint, so the
-                # recompute reads the forward's
-                x = remat_layer(p, remat, _enc_layer_keys, x, src_keep,
-                                _draw_keys(rngs), cfg)
-            else:
-                x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
+        if _scan_layers(cfg):
+            keys = (_stacked_keys(rngs, cfg.num_encoder_layer) if training
+                    else None)
+            x = _scan_stack(params.encoder, _enc_layer_keys, x,
+                            (src_keep, cfg), keys, remat)
+        else:
+            for p in params.encoder:
+                if remat is not None:
+                    # the seeds are drawn here, outside the checkpoint, so
+                    # the recompute reads the forward's
+                    x = remat_layer(p, remat, _enc_layer_keys, x, src_keep,
+                                    cfg, _draw_keys(rngs))
+                else:
+                    x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
         if hooks.enc_post is not None:
             x = hooks.enc_post(params.enc_post, x)
         state = {"encodes": x, "mask": mask}
@@ -396,14 +482,21 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
             nn.causal_mask, target.shape[1], device=target.device))
         mem_keep = nn.masking_mask(state["mask"])
         remat = remat_policy(cfg) if _use_remat(cfg, training) else None
-        for p in params.decoder:
-            if remat is not None:
-                x = remat_layer(p, remat, _dec_layer_keys, x, state,
-                                self_keep, mem_keep, mask, _draw_keys(rngs),
-                                cfg)
-            else:
-                x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep,
-                                          cfg, rngs, mask)
+        if _scan_layers(cfg):
+            keys = (_stacked_keys(rngs, cfg.num_decoder_layer) if training
+                    else None)
+            x = _scan_stack(params.decoder, _dec_layer_keys, x,
+                            (state, self_keep, mem_keep, mask, cfg), keys,
+                            remat)
+        else:
+            for p in params.decoder:
+                if remat is not None:
+                    x = remat_layer(p, remat, _dec_layer_keys, x, state,
+                                    self_keep, mem_keep, mask, cfg,
+                                    _draw_keys(rngs))
+                else:
+                    x = hooks.dec_layer_train(p, x, state, self_keep,
+                                              mem_keep, cfg, rngs, mask)
         if hooks.dec_post is not None:
             x = hooks.dec_post(params.dec_post, x)
         return x, soft_table, mask
@@ -449,8 +542,8 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
             state = _encode(params, source, cfg, RngGen(None), dtype, False)
             # per-layer beam-invariant decode state (cross mk/mv)
             state["layers"] = [
-                hooks.dec_layer_precompute(p, state["encodes"], cfg)
-                for p in params.decoder]
+                call(hooks.dec_layer_precompute, state["encodes"], cfg)
+                for call in layer_calls(params.decoder)]
             return state
 
         def _use_ancestry(beams, device):
@@ -477,9 +570,9 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
             device = state["mask"].device
             beams = max(batch // state["mask"].shape[0], 1)
             cache = {"layers": [
-                hooks.init_dec_layer_cache(p, batch, max_len, cfg, dtype,
-                                           device)
-                for p in params.decoder]}
+                call(hooks.init_dec_layer_cache, batch, max_len, cfg, dtype,
+                     device)
+                for call in layer_calls(params.decoder)]}
             if _use_ancestry(beams, device):
                 cache["ancestry"] = torch.zeros(
                     (batch // beams, beams, max_len), dtype=torch.int32,
@@ -499,12 +592,13 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
             x = _embed_step(params, prev_tok, time)
             anc = cache.get("ancestry")
             new_layer_caches = []
-            for p, lstate, lcache in zip(params.decoder, state["layers"],
-                                         cache["layers"]):
+            for call, lstate, lcache in zip(layer_calls(params.decoder),
+                                            state["layers"],
+                                            cache["layers"]):
                 if anc is not None:
                     lcache = dict(lcache, ancestry=anc)
-                x, new_c = hooks.dec_layer_step(p, x, lstate, state, lcache,
-                                                time, cfg)
+                x, new_c = call(hooks.dec_layer_step, x, lstate, state,
+                                lcache, time, cfg)
                 new_c.pop("ancestry", None)
                 new_layer_caches.append(new_c)
             if hooks.dec_post is not None:
@@ -553,9 +647,9 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
                                        device=tgt_buffer.device)
             mem_keep = nn.masking_mask(state["mask"])
             mask = torch.ones_like(tgt_buffer).to(dtype)
-            for p in params.decoder:
-                x = hooks.dec_layer_train(p, x, state, self_keep, mem_keep,
-                                          cfg, RngGen(None), mask)
+            for call in layer_calls(params.decoder):
+                x = call(hooks.dec_layer_train, x, state, self_keep,
+                         mem_keep, cfg, RngGen(None), mask)
             if hooks.dec_post is not None:
                 x = hooks.dec_post(params.dec_post, x)
             return output_logits(x[:, time], soft_table)

@@ -1,0 +1,77 @@
+"""Random online back-translation (ROBT) for zero-shot multilingual NMT.
+
+Counterpart of ``zero_tpu/robt.py``: for every training pair (x -> y),
+draw an intermediate language z uniformly, back-translate y into z with
+the current model by greedy decoding, and train on the synthetic pair
+(bt(y, z) -> y) too (train_step.py weighs the two losses). Needs a model
+whose source carries the leading target-language tag
+(transformer_multilingual). The back-translation runs without autograd,
+on the parameters from before the step's update, and keeps the batch's
+padded shapes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+F32_MIN = torch.finfo(torch.float32).min
+
+
+def greedy_decode(params, source, inference, cfg, out_len: int):
+    """Greedy (argmax) incremental decode to a fixed ``out_len``: position
+    0's input is <pad>, eos is blocked at the first step, and a stream
+    that emitted eos is pinned to <pad>. Runs all ``out_len`` steps, as the
+    JAX package's scan does. Returns [B, out_len] rows shaped like source
+    sentences (tokens, eos, pads), in source's dtype."""
+    batch = source.shape[0]
+    eos_id = cfg.tgt_vocab.eos()
+    state = inference.encode(params, source)
+    cache = inference.init_cache(params, state, batch, out_len)
+    prev = torch.zeros((batch, 1), dtype=source.dtype, device=source.device)
+    done = torch.zeros((batch,), dtype=torch.bool, device=source.device)
+    toks = []
+    for t in range(out_len):
+        logits, cache = inference.decode_step(params, prev, state, cache, t)
+        logits = logits.float()
+        if t < 1:
+            logits[:, eos_id] = F32_MIN
+        nxt = torch.argmax(logits, dim=-1).to(source.dtype)         # [B]
+        nxt = torch.where(done, torch.zeros_like(nxt), nxt)
+        done = done | (nxt == eos_id)
+        prev = nxt[:, None]
+        toks.append(nxt)
+    return torch.stack(toks, dim=1)
+
+
+def draw_languages(gen: torch.Generator, rows: int, num_languages: int,
+                   device) -> torch.Tensor:
+    """The intermediate language index of each row, uniform over
+    [0, num_languages), from the step's generator: [rows, 1] int64."""
+    return torch.randint(0, num_languages, (rows, 1),
+                         generator=gen).to(device)
+
+
+def make_augment(model, cfg):
+    """(params, feats, gen) -> the synthetic ROBT feature dict: per row,
+    the source [tag(z), y] is back-translated greedily, and the synthetic
+    tokens are paired with the row's ORIGINAL tag, so the model learns
+    z -> lang(y). Rows of padding (an all-pad target) stay all-pad."""
+    inference = model.infer_fn(cfg)
+    num_languages = int(cfg.num_languages)
+    lang_id_offset = int(cfg.lang_id_offset)
+
+    def augment(params, feats, gen):
+        src, tgt = feats["source"], feats["target"]
+        z_tag = (draw_languages(gen, src.shape[0], num_languages, src.device)
+                 + lang_id_offset).to(tgt.dtype)
+        bt_input = torch.cat([z_tag, tgt], dim=1)
+        with torch.no_grad():
+            synth = greedy_decode(params, bt_input, inference, cfg,
+                                  src.shape[1] - 1)
+        new_src = torch.cat([src[:, :1], synth.to(src.dtype)], dim=1)
+        real = (tgt != 0).sum(dim=1) > 0
+        out = dict(feats)
+        out["source"] = new_src * real[:, None].to(new_src.dtype)
+        return out
+
+    return augment

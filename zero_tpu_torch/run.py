@@ -24,6 +24,7 @@ import numpy as np
 from zero_tpu_torch import train as graph
 from zero_tpu_torch.config import (default_config, merge_params,
                                    save_parameters)
+from zero_tpu_torch.models import get_model
 from zero_tpu_torch.models.common import check_ported
 from zero_tpu_torch.recorder import Recorder
 from zero_tpu_torch.vocab import Vocab
@@ -93,6 +94,7 @@ def main(argv=None):
             params = merge_params(default_config(), args.config,
                                   args.parameters, output_dir=model_dir)
             params.output_dir = os.path.abspath(model_dir)
+            get_model(params.model_name)
             params = load_vocabs(params)
             log.info("Parameters of %d-th model", midx)
             print_parameters(params)
@@ -104,6 +106,7 @@ def main(argv=None):
     params = merge_params(params, args.config, args.parameters)
     if args.mode in ("train", "score"):
         check_ported(params, training=args.mode == "train")
+    get_model(params.model_name)    # a later slice's model raises here
     random.seed(params.random_seed)
     np.random.seed(params.random_seed)
     device = graph.device_of(params)

@@ -119,9 +119,14 @@ def save_checkpoint_file(directory: str, name: str, trees: dict) -> str:
     return path
 
 
-def load_checkpoint_file(path: str) -> Dict[str, np.ndarray]:
+def load_checkpoint_file(path: str,
+                         prefixes=None) -> Dict[str, np.ndarray]:
+    """The arrays of ``<path>`` by key; with ``prefixes``, only the keys
+    under them (an eval restore of the EMA weights reads neither the
+    parameters nor the Adam moments)."""
     with np.load(path, allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+        return {k: z[k] for k in z.files
+                if prefixes is None or k.split("/", 1)[0] in prefixes}
 
 
 class Saver:
@@ -215,7 +220,8 @@ class Saver:
             log.warning("No existing model detected")
             return False
         log.info("Restoring from %s", ckpt)
-        flat = load_checkpoint_file(ckpt)
+        flat = load_checkpoint_file(
+            ckpt, {p for p, tree in trees.items() if tree is not None})
         for prefix, tree in trees.items():
             if tree is not None:
                 load_flat(tree, flat, prefix)

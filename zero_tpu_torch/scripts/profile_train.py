@@ -26,7 +26,10 @@ l0drop or fixup variant). ``--max-len
 16384 --parameters use_flash_attention=true`` profiles one long step: one
 row of that many source and target positions per microbatch (``max_len``
 set to match), so every attention streams (kernels #5-#7).
-``--trace`` also writes the Chrome trace.
+``--config configs/multilingual_robt_opus100.json`` profiles
+transformer_multilingual with ROBT (``robt=false`` without; ``model_name=
+transformer_clsr`` CLSR): each source row then starts with a language tag
+drawn from the seed. ``--trace`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -88,6 +91,10 @@ def main(argv=None):
                                  for _ in range(cycle)]),
              "target": np.stack([_tokens(rs, args.rows, args.tgt_len)
                                  for _ in range(cycle)])}
+    if cfg.model_name in ("transformer_multilingual", "transformer_clsr"):
+        # the leading target-language tag of the multilingual models
+        batch["source"][:, :, 0] = cfg.lang_id_offset + rs.randint(
+            0, cfg.num_languages, (cycle, args.rows))
 
     def step():
         _, metrics = step_fn(state, batch, 1e-4,
@@ -123,6 +130,7 @@ def main(argv=None):
         "use_flash_attention": bool(cfg.use_flash_attention),
         "use_fused_ffn": bool(cfg.use_fused_ffn),
         "use_remat": bool(cfg.use_remat), "remat_policy": cfg.remat_policy,
+        "robt": bool(cfg.robt),
         "update_cycle": cycle, "rows": args.rows, "src_len": args.src_len,
         "tgt_len": args.tgt_len, "loss": loss, "wall_ms": wall_ms,
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30

@@ -157,9 +157,7 @@ def beam_search(params, source, inference, cfg,
             cache = inference.reorder_cache(cache, alive_beam, batch,
                                             beam_size, time)
         else:
-            cache = _tree_map(
-                lambda x: gather_beams(x, alive_beam, batch, beam_size),
-                cache)
+            cache = gather_cache(cache, alive_beam, batch, beam_size)
 
         # 4. finished: top-k of previous k + current 2k
         curr_fin_scores = topk_scores + (1.0 - curr_fin.float()) * F32_MIN
@@ -176,6 +174,13 @@ def beam_search(params, source, inference, cfg,
     seqs = torch.where(never_finished[:, None, None], alive_seq, fin_seq)
     scores = torch.where(never_finished[:, None], alive_scores, fin_scores)
     return {"seq": seqs[:, :, 1:], "score": scores, "steps": time}
+
+
+def gather_cache(cache, beam_indices, batch: int, beam_size: int):
+    """Reorder the beam axis of every tensor of a cache (a model without a
+    reorder_cache)."""
+    return _tree_map(
+        lambda x: gather_beams(x, beam_indices, batch, beam_size), cache)
 
 
 def _tree_map(fn, tree):

@@ -27,7 +27,7 @@ from zero_tpu_torch.models.base import Inference, get_model
 from zero_tpu_torch.models.common import parallel_options
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
-from zero_tpu_torch.search import beam_search
+from zero_tpu_torch.search import beam_search, gather_cache
 from zero_tpu_torch.train_step import (init_train_state, make_score_step,
                                        make_train_step, stack_microbatches)
 
@@ -247,13 +247,14 @@ def _train(params, preempted) -> dict:
                 _save_all(step)
 
             if params.sample_freq > 0 and step % params.sample_freq == 0:
-                _sample_decode(params, decode, _eval_weights(params, state),
-                               batch)
+                _sample_decode(params, decode,
+                               _eval_weights(params, model, state), batch)
                 window_start = time.time()
                 window_tokens = 0
 
             if params.eval_freq > 0 and step % params.eval_freq == 0:
-                bleu = _dev_eval(params, decode, _eval_weights(params, state),
+                bleu = _dev_eval(params, decode,
+                                 _eval_weights(params, model, state),
                                  dev_dataset,
                                  os.path.join(params.output_dir, "trans.txt"))
                 log.info("Step %d, BLEU %.4f, Best BLEU %.4f", step, bleu,
@@ -288,8 +289,8 @@ def _train(params, preempted) -> dict:
     summary["gnorms"] = [float(x) for x in summary["gnorms"]]
     _save_all(step)
     if not preempted["flag"] and params.src_dev_file:
-        bleu = _dev_eval(params, decode, _eval_weights(params, state),
-                         dev_dataset,
+        bleu = _dev_eval(params, decode,
+                         _eval_weights(params, model, state), dev_dataset,
                          os.path.join(params.output_dir, "trans.txt"))
         log.info("Final BLEU %.4f at step %d", bleu, step)
         _save_all(step, bleu)
@@ -315,15 +316,18 @@ def record_eval_score(recorder, step, bleu, estop_patience):
     return False
 
 
-def _eval_weights(params, state):
-    """A compute-dtype copy of the weights to decode with: the EMA weights
-    when ema_decay > 0, else the parameters."""
+def _eval_weights(params, model, state):
+    """A copy of the weights to decode with, in the compute dtype where the
+    model casts them (ModelSpec.eval_cast): the EMA weights when
+    ema_decay > 0, else the parameters."""
     weights = copy.deepcopy(state.params)
     if params.ema_decay > 0 and state.ema is not None:
         with torch.no_grad():
             for name, p in weights.named_parameters():
                 p.copy_(state.ema[name])
-    return dtypes.cast_to_compute(weights, params).eval()
+    if model.eval_cast:
+        weights = dtypes.cast_to_compute(weights, params)
+    return weights.eval()
 
 
 def _sample_decode(params, decode, weights, batch) -> None:
@@ -348,14 +352,16 @@ def _sample_decode(params, decode, weights, batch) -> None:
 
 def _restore_eval_params(params, model, device):
     """Random init from ``random_seed``, then the latest checkpoint (EMA
-    weights when ema_decay > 0), cast once to the compute dtype and moved
-    to ``device``."""
+    weights when ema_decay > 0), cast once to the compute dtype where the
+    model casts (ModelSpec.eval_cast) and moved to ``device``."""
     weights = model.init_fn(torch.Generator().manual_seed(params.random_seed),
                             params)
     saver = Saver(checkpoints=params.checkpoints,
                   output_dir=params.output_dir)
     saver.restore({"ema" if params.ema_decay > 0 else "params": weights})
-    return dtypes.cast_to_compute(weights, params).to(device).eval()
+    if model.eval_cast:
+        weights = dtypes.cast_to_compute(weights, params)
+    return weights.to(device).eval()
 
 
 def _eval_on_one_device(params) -> None:
@@ -437,8 +443,9 @@ def make_ensemble_inference(inferences) -> Inference:
     """Compose N models' inferences into one: at each step the fp32 mean
     of the models' softmaxes, then log(p + 1e-20). Parameters, states and
     caches are per-model lists; each model reorders its own cache (its own
-    cache mode: ancestry pools or the permuted cache; every ported model
-    has a reorder_cache)."""
+    cache mode: ancestry pools or the permuted cache), or, for a model
+    without a reorder_cache, the beam gather permutes every cache tensor
+    (the language ids of the multilingual models included)."""
 
     def _log_mean_prob(logits):
         probs = sum(torch.softmax(x.float(), dim=-1) for x in logits)
@@ -467,6 +474,8 @@ def make_ensemble_inference(inferences) -> Inference:
     def reorder_cache(caches, beam_indices, batch, beam_size, time, span=1):
         return [inf.reorder_cache(c, beam_indices, batch, beam_size, time,
                                   span=span)
+                if inf.reorder_cache is not None
+                else gather_cache(c, beam_indices, batch, beam_size)
                 for inf, c in zip(inferences, caches)]
 
     return Inference(encode=encode, init_cache=init_cache,

@@ -10,6 +10,9 @@ Counterpart of the single-device part of ``zero_tpu/parallel/train_step.py``:
   * optional EMA of the weights (``ema_decay > 0``)
   * ``safe_nan``: the update is skipped on the device (no host sync) when
     the loss or gnorm is not finite or gnorm >= ``gnorm_upper_bound``
+  * ``robt``: each microbatch also trains on its back-translated pair
+    (robt.py), and its loss is (loss + robt_weight * bt_loss) /
+    (1 + robt_weight)
 
 The state is updated in place (torch tensors are mutable; the JAX step
 returns a new state). Parameters and optimizer moments stay fp32; the loss
@@ -23,6 +26,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from zero_tpu_torch import robt as robt_lib
 
 
 @dataclass
@@ -66,6 +71,34 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
+def make_micro_backward(model, cfg):
+    """(params, feats, gen, step) -> one microbatch's detached loss, its
+    grads accumulated into the parameters' .grad. With ``robt`` the loss
+    is (loss + robt_weight * bt_loss) / (1 + robt_weight), as the JAX
+    package's loss_fn: the main pass's backward runs before the
+    back-translation, so its activations are freed first, and the z draw
+    and the synthetic pass's seeds follow the main pass's on ``gen``."""
+    robt_on = bool(getattr(cfg, "robt", False))
+    if robt_on:
+        augment = robt_lib.make_augment(model, cfg)
+        robt_weight = float(getattr(cfg, "robt_weight", 1.0))
+
+    def micro_backward(params, feats, gen, step):
+        loss = model.train_fn(params, feats, cfg, gen, step=step)["loss"]
+        if not robt_on:
+            loss.backward()
+            return loss.detach()
+        (loss / (1.0 + robt_weight)).backward()
+        bt_feats = augment(params, feats, gen)
+        bt_loss = model.train_fn(params, bt_feats, cfg, gen,
+                                 step=step)["loss"]
+        (bt_loss * (robt_weight / (1.0 + robt_weight))).backward()
+        return (loss.detach() + robt_weight * bt_loss.detach()) \
+            / (1.0 + robt_weight)
+
+    return micro_backward
+
+
 def make_train_step(model, cfg):
     """Build step(state, batch, lr, gen) -> (state, metrics).
 
@@ -78,6 +111,7 @@ def make_train_step(model, cfg):
     ema_decay = float(cfg.ema_decay)
     safe_nan = bool(cfg.safe_nan)
     gnorm_bound = float(cfg.gnorm_upper_bound)
+    micro_backward = make_micro_backward(model, cfg)
 
     def step_fn(state: TrainState, batch, lr: float, gen):
         params = state.params
@@ -90,10 +124,8 @@ def make_train_step(model, cfg):
         for c in range(cycles):
             feats = {k: torch.as_tensor(np.asarray(v[c]), device=device)
                      for k, v in batch.items()}
-            micro = model.train_fn(params, feats, cfg, gen,
-                                   step=state.step)["loss"]
-            micro.backward()
-            loss = micro.detach() if loss is None else loss + micro.detach()
+            micro = micro_backward(params, feats, gen, state.step)
+            loss = micro if loss is None else loss + micro
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for _, p in named]
         if cycles > 1:
