@@ -13,8 +13,10 @@ transformer-base on sequences past 8192 tokens (the streaming-attention
 kernels), train, serve and score the deep config with scan_layers,
 transformer_moe, transformer_multilingual with ROBT
 (configs/multilingual_robt_opus100.json) and transformer_clsr, decode an
-ensemble of the last two, and check these paths against the CPU on small
-models.
+ensemble of the last two, train, serve and score transformer_ibdecoder
+(the pair beam search) and speech translation (transformer_afs on
+configs/speech_afs_mustc.json, with CTC), and check these paths against
+the CPU on small models.
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -231,14 +233,15 @@ non-zero):
              full-width fp32 batch through the einsum and the scatter
              dispatch, loss and grads within 1e-5 of their max (the gap
              printed); --mode test at beam 4 (#10), --mode score
-  multilingual_train  configs/multilingual_robt_opus100.json as written
-             (6+6, 100 languages, ROBT; the model computes in fp32 and
-             ignores use_remat, as in the JAX package) plus both flags,
-             ML_STEPS steps on tagged synthetic data (the 100 tags at ids
-             3-102): launches per microbatch 18 #1, 12 #2, 18 #11, 12 #12
-             (CUDA cores) and 6 (L_src - 1) #10 (ROBT's greedy decode); the
+  multilingual_train  configs/multilingual_robt_opus100.json (at
+             ML_CUT's 3+3, 6+6 as written, for the script's time; 100
+             languages, ROBT; the model computes in fp32 and ignores
+             use_remat, as in the JAX package) plus both flags, ML_STEPS
+             steps on tagged synthetic data (the 100 tags at ids 3-102):
+             launches per microbatch 9 #1, 6 #2, 9 #11, 6 #12 (CUDA
+             cores) and 3 (L_src - 1) #10 (ROBT's greedy decode); the
              main and back-translated losses, ms/step, peak memory; then
-             ML_OFF_STEPS steps with robt=false (6 of each); --mode test at
+             ML_OFF_STEPS steps with robt=false (3 of each); --mode test at
              beam 4 on mixed tags (#10), --mode score
   clsr_train the multilingual config as transformer_clsr, robt=false,
              CLSR_STEPS steps: no training kernel; the budget loss, peak
@@ -253,6 +256,37 @@ non-zero):
              within 1e-6 relative, grads within 1e-5 of their max,
              identical beam-4 sequences, exact launch counts; then the scan
              transformer in bf16 with use_remat against without: gap 0
+  ib_train   configs/transformer_base_wmt14.json as transformer_ibdecoder
+             (6+6, bf16, both kernel flags) IB_STEPS steps: ms/step,
+             tokens/s, MFU (over the bf16 peak; the decoder computes in
+             fp32, promoted by its fp32 positions as in the JAX package);
+             launches per microbatch 6 tensor-core #1/#2 (encoder), 12
+             CUDA-core #1/#2 (decoder self- and cross attention, the
+             self-attention under the token-causal flag), 12 #11/#12;
+             --mode test at beam 4 and 1 (the pair search: pair steps,
+             sentences/s; the encoder's #1/#11, no decode kernel: the
+             pair step attends over two positions) and --mode score
+  speech_train  configs/speech_afs_mustc.json as written (6+6+6, bf16,
+             AFS tf, coarse CTC, use_flash_attention, the fused FFN off)
+             SPEECH_STEPS steps on a synthetic corpus the phase writes
+             (SPEECH_UTTERANCES .npy utterances of 300-2048 frames, 80
+             mels; 64 16 kHz .wav files to serve, so read_wav and logmel
+             run): loss, CTC term, AFS penalty, ms/step, target tokens/s
+             and raw frames/s, MFU, peak memory; launches 24 tensor-core
+             #1 and #2 a microbatch; --mode test at beam 4 and 1 at
+             l0_compact_ratio 0.3 (the share of frames compacted away;
+             the encoders' #1 and 6 #10 a decode step, the cross attention
+             on the composite), --mode score (18 #1 a batch), --mode
+             ensemble of the checkpoint with itself; then
+             SPEECH_CONTEXT_STEPS steps with st_context (30 #1/#2)
+  slice14_reference  small fp32 models card against CPU on the same seed
+             words: transformer_ibdecoder with the kernel flags off and
+             on; transformer_afs in modes tf (st_context) and t with
+             coarse CTC and compaction at decode, one gate noise injected,
+             and a noise that closes every gate of one row; loss within
+             1e-6 relative, grads within 1e-5 of their max, identical
+             beam-4 sequences, exact launch counts; the CTC port alone on
+             an infeasible row (3 frames, 4 labels)
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -1312,12 +1346,18 @@ def model_flops(shapes, cfg):
     self-attention (its cumulative mean is no matmul); transformer_fuse's
     the query side's v projection (its average is no matmul either).
     ReLA's, L0Drop's and Fixup's matmuls are transformer's (L0Drop's gate
-    projection, 2 * d FLOPs a source token, is left out). Model FLOPs:
+    projection, 2 * d FLOPs a source token, is left out);
+    transformer_ibdecoder's decoder runs over the interleaved target of
+    M + 2 (rounded up to even) positions. Model FLOPs:
     use_remat's recompute of the layers' forwards is not counted."""
     d, f = cfg["hidden_size"], cfg["filter_size"]
     v = 32768
     b, ls, lt = stacked_shape(shapes)
     name = cfg.get("model_name")
+    if name == "transformer_ibdecoder":
+        # the decoder and the softmax run over the interleaved target:
+        # both streams and their eos, M + 2 rounded up to even
+        lt = lt + 2 + lt % 2
     rpr = 0
     if name == "transformer_rpr":
         r = 2 * cfg["max_relative_position"] + 1
@@ -1438,7 +1478,7 @@ def collect(counters):
 def train_phase(d, da, config=CONFIG, label="train",
                 expected=expected_launches, extra="",
                 flag_runs=("true", "false"), serving=None, steps=TRAIN_STEPS,
-                note=None, peak=PEAK_BF16):
+                note=None, peak=PEAK_BF16, flops_fn=None):
     """Train ``config`` (with the ``extra`` parameters) ``steps`` steps
     with both kernel flags on, then off (``flag_runs``); then serve
     (--mode test) and score the kernel run's checkpoint, whose launches
@@ -1474,7 +1514,8 @@ def train_phase(d, da, config=CONFIG, label="train",
         step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
         ms = 1e3 * step_s[len(step_s) // 2]
         tokens = summary["target_tokens"]
-        flops = [model_flops(s, cfg) for s in summary["shapes"]]
+        flops = [(flops_fn or model_flops)(s, cfg)
+                 for s in summary["shapes"]]
         timed = sum(b - a for a, b in zip(ends[:-1], ends[1:]))
         tok_s = sum(tokens[1:]) / timed
         mfu = sum(flops[1:]) / timed / peak
@@ -3094,15 +3135,21 @@ def long_reference_bf16(model, gfeats, sa):
 ML_CONFIG = os.path.join(REPO, "configs", "multilingual_robt_opus100.json")
 SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
               "scan_layers=true")
-SCAN_STEPS = 10
+# steps cut for the script's time since the next slice's phases came (10,
+# 12, 5, 10, 5 and 10 before)
+SCAN_STEPS = 4
 MOE_EXTRA = ",model_name=transformer_moe,scope_name=transformer_moe"
-MOE_STEPS = 12
-MOE_TOP2_STEPS = 5
-ML_STEPS = 10
-ML_OFF_STEPS = 5
+MOE_STEPS = 4
+MOE_TOP2_STEPS = 3
+ML_STEPS = 3
+ML_OFF_STEPS = 3
+# the multilingual config's phases at 3+3 (6+6 as written) for the
+# script's time since the next slice's phases came: CLSR's checkpoints
+# (786M parameters at 6+6) dominated its phase
+ML_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
 CLSR_EXTRA = (",model_name=transformer_clsr,scope_name=transformer_clsr,"
-              "robt=false")
-CLSR_STEPS = 10
+              "robt=false" + ML_CUT)
+CLSR_STEPS = 4
 ML_LANGUAGES = 100
 PEAK_FP32 = PEAK_FLOPS[torch.float32]
 FP32_NOTE = ("computes in fp32 whatever default_dtype says (as the JAX "
@@ -3388,12 +3435,12 @@ def ml_expected_launches(cfg, summary):
 
 
 def multilingual_train_phase(d, da):
-    """configs/multilingual_robt_opus100.json as written (6+6, 512/2048,
+    """configs/multilingual_robt_opus100.json (at ML_CUT's 3+3, 512/2048,
     100 languages, ROBT with weight 1, use_remat, which the model ignores
     as the JAX package does) plus both kernel flags, ML_STEPS steps:
-    launches per microbatch 18 #1, 12 #2, 18 #11, 12 #12 (fp32, CUDA
-    cores) and 6 (L_src - 1) #10; the main and the back-translated losses,
-    peak memory; then ML_OFF_STEPS steps with robt=false (6 of each); then
+    launches per microbatch 9 #1, 6 #2, 9 #11, 6 #12 (fp32, CUDA cores)
+    and 3 (L_src - 1) #10; the main and the back-translated losses, peak
+    memory; then ML_OFF_STEPS steps with robt=false (3 of each); then
     --mode test at beam 4 on test sentences of mixed tags (#10) and --mode
     score. Returns (training results, serving launches, the robt=false
     results)."""
@@ -3407,7 +3454,7 @@ def multilingual_train_phase(d, da):
                             lambda out: losses.append(out["loss"].detach())):
         results, served = train_phase(
             d, da, ML_CONFIG, "multilingual_train", ml_expected_launches,
-            flag_runs=("true",), serving=decode_serving(
+            ML_CUT, flag_runs=("true",), serving=decode_serving(
                 "multilingual_train", encoder=True),
             steps=ML_STEPS, note=FP32_NOTE, peak=PEAK_FP32)
     cycle = load_config_file(ML_CONFIG)["update_cycle"]
@@ -3421,8 +3468,9 @@ def multilingual_train_phase(d, da):
     off = os.path.join(d, "multilingual_robt_off")
     torch.cuda.reset_peak_memory_stats()
     summary, launches = train_run(d, off, "true", counters, ML_CONFIG,
-                                  ",robt=false", ML_OFF_STEPS)
+                                  ML_CUT + ",robt=false", ML_OFF_STEPS)
     cfg = load_config_file(ML_CONFIG)
+    cfg.update(overrides(ML_CUT))
     cfg["robt"] = "false"
     ends = summary["step_end_times"]
     step_s = sorted(b - a for a, b in zip(ends[:-1], ends[1:]))
@@ -3473,6 +3521,7 @@ def clsr_train_phase(d, da):
             decode_serving("clsr_train"), steps=CLSR_STEPS, note=FP32_NOTE,
             peak=PEAK_FP32)
     cfg = load_config_file(ML_CONFIG)
+    cfg.update(overrides(ML_CUT))
     per_step = torch.stack(budgets).view(CLSR_STEPS, -1).mean(1).tolist()
     phase("clsr_train", loss_first=results["loss_first"],
           loss_last=results["loss_last"], budget_loss_first=per_step[0],
@@ -3515,16 +3564,21 @@ def _tagged_small_batch(languages):
 
 
 def _card_vs_cpu(label, model, cfg, feats, train, train_want, decode_want,
-                 counters):
+                 counters, search=None, source=None,
+                 name="slice13_reference"):
     """``train(params, feats)`` -> (loss, grads) on a CPU model and its
     copy on the card: loss within 1e-6 relative, every grad within 1e-5 of
     the largest |grad|; the card's training launches ``train_want``; beam 4
-    card against CPU, identical sequences, the card's decode launches
-    ``decode_want(steps)``."""
+    card against CPU (``search``, by default beam_search, over
+    ``source(feats)``, by default feats["source"]), identical sequences,
+    the card's decode launches ``decode_want(steps)``; printed under the
+    phase ``name``."""
     import copy
 
     from zero_tpu_torch.search import beam_search
 
+    search = search or beam_search
+    source = source or (lambda f: f["source"])
     cpu = model.init_fn(torch.Generator().manual_seed(SEED), cfg)
     gpu = copy.deepcopy(cpu).cuda()
     gfeats = {k: v.cuda() for k, v in feats.items()}
@@ -3539,23 +3593,23 @@ def _card_vs_cpu(label, model, cfg, feats, train, train_want, decode_want,
     cfg.beam_size = 4
     inf = model.infer_fn(cfg)
     with torch.inference_mode():
-        c = beam_search(cpu, feats["source"], inf, cfg)
+        c = search(cpu, source(feats), inf, cfg)
         for n in counters:
             n.clear()
-        g = beam_search(gpu, gfeats["source"], inf, cfg)
+        g = search(gpu, source(gfeats), inf, cfg)
     decode_launches = collect(counters)
     same = torch.equal(g["seq"].cpu(), c["seq"])
     out = dict(case=label, loss_rel_err=loss_err, grad_gap=gap,
                train_launches=train_launches, beam4_same_sequences=same,
                beam4_steps=g["steps"], decode_launches=decode_launches)
-    phase("slice13_reference", **out)
+    phase(name, **out)
     if not (loss_err <= 1e-6 and gap <= 1e-5 and same
             and train_launches == train_want
             and decode_launches == decode_want(g["steps"])
             and torch.isfinite(g["score"]).all()):
-        raise AssertionError("slice13_reference %s: %s, expected launches "
-                             "%s / %s" % (label, out, train_want,
-                                          decode_want(g["steps"])))
+        raise AssertionError("%s %s: %s, expected launches %s / %s"
+                             % (name, label, out, train_want,
+                                decode_want(g["steps"])))
     return out
 
 
@@ -3681,6 +3735,493 @@ def slice13_reference_phase(da):
     del params
 
 
+# ---------------------------------------------------------------------------
+# slice 14: transformer_ibdecoder, then speech translation (transformer_afs)
+# ---------------------------------------------------------------------------
+
+IB_EXTRA = ",model_name=transformer_ibdecoder,scope_name=transformer_ibdecoder"
+IB_STEPS = 4
+IB_NOTE = ("MFU over the bf16 peak; the decoder computes in fp32 (its fp32 "
+           "positions promote it, as in the JAX package)")
+SPEECH_CONFIG = os.path.join(REPO, "configs", "speech_afs_mustc.json")
+SPEECH_STEPS = 6
+SPEECH_CONTEXT_STEPS = 2
+SPEECH_UTTERANCES = 600
+# the config's own settings: the fused FFN off, no sample decode (a speech
+# batch's frames fail its source print, as in the JAX package)
+SPEECH_EXTRA = ",use_fused_ffn=false"
+
+
+def ib_expected_launches(cfg, summary):
+    """transformer_ibdecoder per microbatch: the encoder's attention and FFN
+    on the config dtype's route (bf16: the tensor-core #1/#2), the
+    decoder's two attentions a layer in fp32 (CUDA cores: its fp32
+    positions promote it, as in the JAX package) and its FFN; forward and
+    backward."""
+    m = cfg["update_cycle"] * summary["steps"]
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    sfx = route_suffix(cfg)
+    return {"fused_attention" + sfx: enc * m,
+            "fused_attention_backward" + sfx: enc * m,
+            "fused_attention": 2 * dec * m,
+            "fused_attention_backward": 2 * dec * m,
+            "fused_ffn": (enc + dec) * m,
+            "fused_ffn_backward": (enc + dec) * m}
+
+
+def ib_serving(cfg, served, serve_launches, score_launches):
+    """Serving runs the encoder's #1 and #11 once a layer per test batch
+    and no decode kernel (the pair step attends over two positions, on the
+    composite); scoring every attention's #1 (the decoder's in fp32) and
+    every FFN's #11."""
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    sfx = route_suffix(cfg)
+    want = {"fused_attention" + sfx: enc * TEST_BATCHES,
+            "fused_ffn": enc * TEST_BATCHES}
+    score_want = {"fused_attention" + sfx: enc * TEST_BATCHES,
+                  "fused_attention": 2 * dec * TEST_BATCHES,
+                  "fused_ffn": (enc + dec) * TEST_BATCHES}
+    if serve_launches != want or score_launches != score_want:
+        raise AssertionError("ib_train: serving launched %s, expected %s; "
+                             "scoring %s, expected %s"
+                             % (serve_launches, want, score_launches,
+                                score_want))
+
+
+def ib_train_phase(d, da):
+    """configs/transformer_base_wmt14.json as transformer_ibdecoder (6+6,
+    bf16) with both kernel flags on, IB_STEPS steps: ms/step, tokens/s,
+    MFU, launches (ib_expected_launches); --mode test of the checkpoint at
+    beam 4 (the pair search: pair steps and sentences/s), --mode score,
+    then beam 1. Returns (training results, beam-4 and beam-1 serving
+    launches)."""
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    results, served4 = train_phase(d, da, CONFIG, "ib_train",
+                                   ib_expected_launches, IB_EXTRA, ("true",),
+                                   ib_serving, steps=IB_STEPS, note=IB_NOTE)
+    cfg = load_config_file(CONFIG)
+    served, served1 = serve_checkpoint(d, "ib_train", counters, beam=1)
+    phase("ib_train", beam=1, sentences_per_s=served["sentences"]
+          / served["seconds"], pair_steps=served["steps"],
+          served_bleu=served["bleu"], serve_launches=served1)
+    want = {"fused_attention" + route_suffix(cfg):
+            cfg["num_encoder_layer"] * TEST_BATCHES,
+            "fused_ffn": cfg["num_encoder_layer"] * TEST_BATCHES}
+    if served1 != want:
+        raise AssertionError("ib_train beam 1 launched %s, expected %s"
+                             % (served1, want))
+    return results, served4, served1
+
+
+def write_wav(path, samples, rate=16000):
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(samples.astype(np.int16).tobytes())
+
+
+def write_speech_corpus(d, words):
+    """The speech config's data in ``d`` (the manifests under the text
+    phases' file names): the vocabulary; train.src, a manifest of
+    SPEECH_UTTERANCES .npy log-mel-like features [T, 80], T from 300 to
+    2048 frames, with transcripts and translations of 10-60 words, and
+    train.tgt its translations; test.src, a manifest of 64 16 kHz .wav
+    files of 3-10 s (read_wav and logmel run at test time), and test.tgt
+    its references. Made from SEED."""
+    os.makedirs(d)
+    with open(os.path.join(d, "vocab.txt"), "w") as w:
+        w.write("\n".join(words) + "\n")
+    rng = np.random.default_rng(SEED + 5)
+
+    def text():
+        return " ".join(words[i] for i in rng.integers(
+            0, len(words), rng.integers(10, 61)))
+
+    for split, n in (("train", SPEECH_UTTERANCES), ("test", 64)):
+        with open(os.path.join(d, split + ".src"), "w") as manifest, \
+                open(os.path.join(d, split + ".tgt"), "w") as refs:
+            for i in range(n):
+                if split == "train":
+                    name = "train%d.npy" % i
+                    frames = int(rng.integers(300, 2049))
+                    np.save(os.path.join(d, name), rng.standard_normal(
+                        (frames, 80), dtype=np.float32) - 4.0)
+                else:
+                    name = "test%d.wav" % i
+                    samples = int(rng.integers(48000, 160001))
+                    write_wav(os.path.join(d, name),
+                              3000.0 * rng.standard_normal(samples))
+                translation = text()
+                manifest.write("%s\t%s\t%s\n" % (name, text(), translation))
+                refs.write(translation + "\n")
+
+
+def speech_expected_launches(cfg, summary, context=False):
+    """transformer_afs per microbatch: ASR encoder, ST encoder, decoder
+    self- and cross attention, one #1 and one #2 a layer each (24 at
+    6+6+6; st_context adds the context's ASR encoder), on the config
+    dtype's route; no FFN kernel (the config leaves use_fused_ffn off)."""
+    m = cfg["update_cycle"] * summary["steps"]
+    asr = cfg["num_encoder_layer"] * (2 if context else 1)
+    n = (asr + cfg["num_st_encoder_layer"] + 2 * cfg["num_decoder_layer"]) * m
+    sfx = route_suffix(cfg)
+    return {"fused_attention" + sfx: n, "fused_attention_backward" + sfx: n}
+
+
+def speech_flops(shapes, cfg):
+    """Matmul FLOPs of one transformer_afs step at its stacked shape
+    (frames stacked by audio_frame_stride): the frontend, the ASR and ST
+    encoder layers over the stacked frames (no compaction in training),
+    the decoder, the CTC head and the tied softmax; forward x 3, plus the
+    chunked CE's recomputed logits. The gates' products (2 d a frame) and
+    the context's ASR encoder are left out."""
+    d, f = cfg["hidden_size"], cfg["filter_size"]
+    k = max(int(cfg["audio_frame_stride"]), 1)
+    mels = cfg["audio_num_mel_bins"]
+    ctc_classes = int(cfg["coarse_label_base"]) + 3
+    v = 32768
+    b = max(s[0][0] for s in shapes)
+    frames = max(s[0][1] for s in shapes) // k
+    lt = max(s[1][1] for s in shapes)
+    ns, nt = b * frames, b * lt
+    enc_layer = 2 * ns * d * 4 * d + 4 * ns * d * f + 4 * b * frames ** 2 * d
+    enc = (cfg["num_encoder_layer"] + cfg["num_st_encoder_layer"]) * enc_layer
+    dec = cfg["num_decoder_layer"] * (
+        2 * nt * d * 4 * d + 4 * b * lt * lt * d + 2 * nt * d * 2 * d
+        + 2 * ns * d * 2 * d + 4 * nt * d * f + 4 * b * lt * frames * d)
+    front = 2 * ns * mels * k * d
+    ctc = 2 * ns * d * ctc_classes
+    logits = 2 * nt * d * v
+    return len(shapes) * (3 * (front + enc + dec + ctc + logits) + logits)
+
+
+@contextlib.contextmanager
+def recording_afs(record):
+    """transformer_afs with its raw frame counts (``record['frames']``, the
+    frontend's mask sums), AFS penalties (``'penalty'``) and CTC terms
+    (``'ctc'``) recorded as device scalars."""
+    from zero_tpu_torch.models import transformer_afs as afs_mod
+
+    frontend, gate, ctc_loss = (afs_mod._frontend, afs_mod._afs_gate,
+                                afs_mod._ctc_loss)
+
+    def rec_frontend(params, audio, mask, *args):
+        record.setdefault("frames", []).append(mask.sum().detach())
+        return frontend(params, audio, mask, *args)
+
+    def rec_gate(*args):
+        out = gate(*args)
+        record.setdefault("penalty", []).append(out[2].detach())
+        return out
+
+    def rec_ctc(*args):
+        out = ctc_loss(*args)
+        record.setdefault("ctc", []).append(out.detach())
+        return out
+
+    with mock.patch.object(afs_mod, "_frontend", rec_frontend), \
+            mock.patch.object(afs_mod, "_afs_gate", rec_gate), \
+            mock.patch.object(afs_mod, "_ctc_loss", rec_ctc):
+        yield
+
+
+@contextlib.contextmanager
+def recording_compaction(record):
+    """transformer_afs's eval compaction with the valid frames before it
+    and the kept ones after it recorded (``record['total']``,
+    ``record['kept']``)."""
+    from zero_tpu_torch.models import transformer_afs as afs_mod
+
+    compact = afs_mod.compact_encodings
+
+    def rec(encodes, mask, keep_score, ratio):
+        out = compact(encodes, mask, keep_score, ratio)
+        record.setdefault("total", []).append(mask.sum().detach())
+        record.setdefault("kept", []).append(out[1][:, 1:].sum().detach())
+        return out
+
+    with mock.patch.object(afs_mod, "compact_encodings", rec):
+        yield
+
+
+def speech_serving(cfg, served, serve_launches, score_launches):
+    """Serving: the ASR and ST encoders' #1 once a layer per test batch
+    (the ST encoder over the compacted frames), #10 once per decoder layer
+    and decode step (beam rows folded over the classic cache); scoring the
+    encoders' and the decoder self-attention's #1, the cross attention on
+    the composite (the compacted memory's count softmax)."""
+    sfx = route_suffix(cfg)
+    enc = cfg["num_encoder_layer"] + cfg["num_st_encoder_layer"]
+    want = {"fused_attention" + sfx: enc * TEST_BATCHES,
+            "decode_attention": cfg["num_decoder_layer"] * served["steps"]}
+    score_want = {"fused_attention" + sfx:
+                  (enc + cfg["num_decoder_layer"]) * TEST_BATCHES}
+    if serve_launches != want or score_launches != score_want:
+        raise AssertionError("speech_train: serving launched %s, expected "
+                             "%s; scoring %s, expected %s"
+                             % (serve_launches, want, score_launches,
+                                score_want))
+
+
+def speech_train_phase(d, da):
+    """configs/speech_afs_mustc.json as written (6+6+6, bf16, AFS tf,
+    coarse CTC, use_flash_attention) SPEECH_STEPS steps on the synthetic
+    corpus (write_speech_corpus): loss, the CTC term and the AFS penalty,
+    ms/step, target tokens/s and frames/s, MFU, peak memory, launches
+    (speech_expected_launches); --mode test at beam 4 (the saved beam) and
+    beam 1 with l0_compact_ratio 0.3 (the share of frames compacted away),
+    --mode score, --mode ensemble of the checkpoint with itself; then
+    SPEECH_CONTEXT_STEPS steps with st_context. Returns (training results,
+    beam-4, beam-1 and ensemble serving launches)."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch.config import load_config_file
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    cfg = load_config_file(SPEECH_CONFIG)
+    rec, compacted = {}, {}
+    with recording_afs(rec), recording_compaction(compacted):
+        results, served4 = train_phase(
+            d, da, SPEECH_CONFIG, "speech_train", speech_expected_launches,
+            SPEECH_EXTRA, ("true",), speech_serving, steps=SPEECH_STEPS,
+            flops_fn=speech_flops)
+    cycle = int(cfg["update_cycle"])
+    m = SPEECH_STEPS * cycle
+    frames = torch.stack(rec["frames"][:m]).view(SPEECH_STEPS, cycle).sum(1)
+    ctc = torch.stack(rec["ctc"][:m]).view(SPEECH_STEPS, cycle).mean(1)
+    penalty = torch.stack(rec["penalty"][:m]).view(SPEECH_STEPS,
+                                                    cycle).mean(1)
+    shares = [1.0 - (k / t).item() for k, t in zip(compacted["kept"],
+                                                   compacted["total"])]
+    # frames/s over the steps after the first, as the phase's tokens/s
+    frames_s = frames[1:].sum().item() / (
+        (results["ms_per_step_mean"] / 1e3) * (SPEECH_STEPS - 1))
+    phase("speech_train", loss_first=results["loss_first"],
+          loss_last=results["loss_last"], ctc_first=ctc[0].item(),
+          ctc_last=ctc[-1].item(), afs_penalty_first=penalty[0].item(),
+          afs_penalty_last=penalty[-1].item(), frames_per_s=frames_s,
+          raw_frames_per_step=frames.tolist(),
+          compacted_away_share_beam4=sum(shares) / len(shares))
+    if not all(map(math.isfinite, ctc.tolist() + penalty.tolist())):
+        raise AssertionError("speech_train: ctc %s, penalty %s"
+                             % (ctc.tolist(), penalty.tolist()))
+    compacted.clear()
+    with recording_compaction(compacted):
+        served, served1 = serve_checkpoint(d, "speech_train", counters,
+                                           beam=1)
+    want1 = {"fused_attention" + route_suffix(cfg):
+             (cfg["num_encoder_layer"] + cfg["num_st_encoder_layer"])
+             * TEST_BATCHES,
+             "decode_attention": cfg["num_decoder_layer"] * served["steps"]}
+    shares = [1.0 - (k / t).item() for k, t in zip(compacted["kept"],
+                                                   compacted["total"])]
+    phase("speech_train", beam=1, sentences_per_s=served["sentences"]
+          / served["seconds"], decode_steps=served["steps"],
+          served_bleu=served["bleu"], compacted_away_share=sum(shares)
+          / len(shares), serve_launches=served1)
+    if served1 != want1:
+        raise AssertionError("speech_train beam 1 launched %s, expected %s"
+                             % (served1, want1))
+    # the checkpoint with itself through --mode ensemble
+    spec = checkpoint_spec(d, "speech_train", "ensemble")
+    spec = ",".join(kv for kv in spec.split(",")
+                    if not kv.startswith("output_dir="))
+    for c in counters:
+        c.clear()
+    summary = run.main(["--mode", "ensemble", "--ensemble_dirs",
+                        "{0}/speech_train_true;{0}/speech_train_true"
+                        .format(d), "--parameters", spec])
+    ensemble = collect(counters)
+    want = {k: 2 * v for k, v in speech_expected_enc(cfg).items()}
+    want["decode_attention"] = 2 * cfg["num_decoder_layer"] * summary["steps"]
+    phase("speech_train", ensemble="speech_train x 2",
+          sentences=summary["sentences"], bleu=summary["bleu"],
+          sentences_per_s=summary["sentences"] / summary["seconds"],
+          decode_steps=summary["steps"], launches=ensemble)
+    if summary["sentences"] != 64 or ensemble != want:
+        raise AssertionError("speech_train ensemble: %d sentences, launches "
+                             "%s, expected %s" % (summary["sentences"],
+                                                  ensemble, want))
+    # st_context: the previous utterance's frames through the ASR stack
+    out = os.path.join(d, "speech_context")
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches = train_run(d, out, "true", counters, SPEECH_CONFIG,
+                                  SPEECH_EXTRA + ",st_context=true",
+                                  SPEECH_CONTEXT_STEPS)
+    want = speech_expected_launches(cfg, summary, context=True)
+    ends = summary["step_end_times"]
+    context = dict(st_context=True, steps=summary["steps"],
+                   ms_per_step=1e3 * (ends[-1] - ends[0])
+                   / max(len(ends) - 1, 1),
+                   loss_last=summary["losses"][-1],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=launches)
+    phase("speech_train", **context)
+    shutil.rmtree(out)
+    if (summary["steps"] != SPEECH_CONTEXT_STEPS or launches != want
+            or not all(map(math.isfinite, summary["losses"]))):
+        raise AssertionError("speech_train st_context: %s, expected %s"
+                             % (context, want))
+    return results, served4, served1, ensemble
+
+
+def speech_expected_enc(cfg):
+    """The encoders' #1 of one --mode test pass over the test set."""
+    return {"fused_attention" + route_suffix(cfg):
+            (cfg["num_encoder_layer"] + cfg["num_st_encoder_layer"])
+            * TEST_BATCHES}
+
+
+def _small_afs(mode="tf", context=False):
+    """_small_model (2+2 layers, 64/128, 4 heads, dropout 0.1, both kernel
+    flags) as transformer_afs: 2 ST encoder layers, 80 mels stacked by 3,
+    coarse CTC (base 5), l0_compact_ratio 0.3."""
+    cfg = _small_model(0.1, "transformer_afs")
+    for k, v in dict(data_kind="speech", audio_num_mel_bins=80,
+                     audio_frame_stride=3, num_st_encoder_layer=2,
+                     afs_mode=mode, st_context=context, ctc_enable=True,
+                     ctc_alpha=0.3, coarse_label_base=5, afs_l0_scalar=0.5,
+                     l0_compact_ratio=0.3).items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _small_speech_batch():
+    """6 utterances of 50 to 12 frames (lengths off the stride) and an
+    all-pad row; targets, coarse transcripts short enough to be feasible,
+    and a previous segment whose first row is all zero (mask zero)."""
+    rs = np.random.RandomState(SEED)
+    lens = [50, 44, 31, 20, 13, 0]
+    mask = (np.arange(50)[None] < np.asarray(lens)[:, None]).astype(
+        np.float32)
+    audio = (rs.randn(6, 50, 80) * mask[..., None]).astype(np.float32)
+    ctx_mask = np.ones((6, 20), np.float32)
+    ctx_mask[0] = 0.0
+    context = (rs.randn(6, 20, 80) * ctx_mask[..., None]).astype(np.float32)
+    tgt = rs.randint(3, 43, (6, 9))
+    transcript = rs.randint(3, 8, (6, 4))
+    for i, (nt, nc) in enumerate(zip([9, 7, 5, 4, 2, 0], [4, 4, 3, 2, 1, 0])):
+        tgt[i, nt:] = 0
+        transcript[i, nc:] = 0
+    return {k: torch.as_tensor(v) for k, v in dict(
+        audio=audio, audio_mask=mask, target=tgt, transcript=transcript,
+        context=context, context_mask=ctx_mask).items()}
+
+
+def _speech_source(feats):
+    return {"audio": feats["audio"], "mask": feats["audio_mask"],
+            "context": feats["context"],
+            "context_mask": feats["context_mask"]}
+
+
+def slice14_reference_phase(da):
+    """Small fp32 models card against CPU on the same seed words
+    (_card_vs_cpu: loss within 1e-6 relative, grads within 1e-5 of their
+    max, identical beam-4 sequences, exact launch counts):
+    transformer_ibdecoder with the kernel flags off and on (R1: the
+    token-causal flag on; the pair search; no decode kernel);
+    transformer_afs in modes tf (st_context) and t, with coarse CTC and
+    l0_compact_ratio 0.3 at decode, the gate noise injected, and once with
+    noise that closes every gate of one row (the ST encoder and the cross
+    attention see a row with no valid key); then the CTC port alone on an
+    infeasible row (3 frames, 4 labels)."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops import ctc as ctc_mod
+    from zero_tpu_torch.ops import l0norm
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.search import ib_beam_search
+
+    counters = (fa.launches, ff.launches, da.launches)
+    n = 2   # layers a stack of _small_model
+
+    def seeded(model, cfg):
+        def train(params, feats):
+            loss = model.train_fn(params, feats, cfg,
+                                  torch.Generator().manual_seed(SEED),
+                                  step=100)["loss"]
+            return loss, torch.autograd.grad(loss, list(params.parameters()))
+        return train
+
+    ib_model = get_model("transformer_ibdecoder")
+    for flags in (False, True):
+        cfg = _small_model(0.1, "transformer_ibdecoder")
+        cfg.use_flash_attention = cfg.use_fused_ffn = flags
+        want = ({"fused_attention": 3 * n, "fused_attention_backward": 3 * n,
+                 "fused_ffn": 2 * n, "fused_ffn_backward": 2 * n}
+                if flags else {})
+        enc = {"fused_attention": n, "fused_ffn": n} if flags else {}
+        _card_vs_cpu("ibdecoder_flags_%s" % ("on" if flags else "off"),
+                     ib_model, cfg, _small_batch(), seeded(ib_model, cfg),
+                     want, lambda steps, enc=enc: enc, counters,
+                     search=ib_beam_search, name="slice14_reference")
+
+    noises = {}
+
+    def injected(closed_row):
+        def noise(words, shape, device):
+            key = (tuple(shape), closed_row)
+            if key not in noises:
+                u = np.random.RandomState(SEED + sum(shape)).rand(*shape)
+                if closed_row is not None and len(shape) == 3:
+                    u[closed_row] = 0.0
+                noises[key] = torch.as_tensor(u.astype(np.float32))
+            return noises[key].to(device)
+        return noise
+
+    afs_model = get_model("transformer_afs")
+    for label, mode, context, closed in (("afs_tf_context", "tf", True, None),
+                                         ("afs_t", "t", False, None),
+                                         ("afs_closed_row", "tf", False, 0)):
+        cfg = _small_afs(mode, context)
+        asr = n * (2 if context else 1)
+        attn = asr + n + 2 * n
+        ffn = asr + n + n
+        want = {"fused_attention": attn, "fused_attention_backward": attn,
+                "fused_ffn": ffn, "fused_ffn_backward": ffn}
+        enc = {"fused_attention": asr + n, "fused_ffn": asr + n}
+        with mock.patch.object(l0norm, "uniform_noise", injected(closed)):
+            out = _card_vs_cpu(
+                label, afs_model, cfg, _small_speech_batch(),
+                seeded(afs_model, cfg), want,
+                lambda steps, enc=enc: dict(enc, decode_attention=n * steps),
+                counters, source=_speech_source, name="slice14_reference")
+        if not math.isfinite(out["loss_rel_err"]):
+            raise AssertionError("slice14_reference %s: %s" % (label, out))
+
+    # the CTC port alone: an infeasible row (3 frames, 4 labels) beside a
+    # feasible one, card against CPU
+    rs = np.random.RandomState(SEED)
+    logits = torch.as_tensor((2.0 * rs.randn(2, 9, 8)).astype(np.float32))
+    logit_pad = torch.zeros(2, 9)
+    logit_pad[1, 3:] = 1.0
+    labels = torch.as_tensor([[4, 1, 6, 0, 0], [3, 4, 5, 6, 0]])
+    label_pad = (labels == 0).float()
+    runs = []
+    for device in ("cpu", "cuda"):
+        x = logits.to(device).clone().requires_grad_(True)
+        loss = ctc_mod.ctc_loss(x, logit_pad.to(device), labels.to(device),
+                                label_pad.to(device))
+        (grad,) = torch.autograd.grad(loss.sum(), [x])
+        runs.append((loss.detach().cpu(), grad.cpu()))
+    (lc, gc), (lg, gg) = runs
+    out = dict(case="ctc_infeasible", loss_cpu=lc.tolist(),
+               loss_rel_err=((lg - lc).abs() / lc.abs()).max().item(),
+               grad_gap=(gg - gc).abs().max().item() / gc.abs().max().item())
+    phase("slice14_reference", **out)
+    if not (lc[1] > 1e5 and out["loss_rel_err"] <= 1e-6
+            and out["grad_gap"] <= 1e-5):
+        raise AssertionError("slice14_reference ctc: %s" % out)
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -3688,7 +4229,8 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "deep_memory", "l0drop_train", "fixup_train", "deep_reference",
           "long_kernels", "long_train", "long_reference", "scan_train",
           "moe_train", "multilingual_train", "clsr_train",
-          "slice13_reference")
+          "slice13_reference", "ib_train", "speech_train",
+          "slice14_reference")
 
 
 def main(argv=None):
@@ -3810,7 +4352,7 @@ def main(argv=None):
             reference_phase(da)
         if todo & {"train", "rpr_train", "rela_train", "aan_train",
                    "deep_train", "deep_memory", "l0drop_train",
-                   "fixup_train", "scan_train", "moe_train"}:
+                   "fixup_train", "scan_train", "moe_train", "ib_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
@@ -3853,6 +4395,13 @@ def main(argv=None):
         if "clsr_train" in todo:
             clsr_results, clsr_served, clsr_ensemble = clsr_train_phase(
                 ml_dir, da)
+        if "ib_train" in todo:
+            ib_results, ib_served4, ib_served1 = ib_train_phase(d, da)
+        if "speech_train" in todo:
+            speech_dir = os.path.join(d, "speech")
+            write_speech_corpus(speech_dir, words)
+            speech_results, speech_served4, speech_served1, \
+                speech_ensemble = speech_train_phase(speech_dir, da)
         if "long_train" in todo:
             write_long_corpus(d, words)
             launches.update(long_train_phase(d, da))
@@ -3870,6 +4419,8 @@ def main(argv=None):
         long_reference_phase(da)
     if "slice13_reference" in todo:
         slice13_reference_phase(da)
+    if "slice14_reference" in todo:
+        slice14_reference_phase(da)
     if "converge" in todo:
         with tempfile.TemporaryDirectory() as d:
             converge_phase(d)
@@ -3924,7 +4475,15 @@ def main(argv=None):
         multilingual_clsr_ensemble_launches=clsr_ensemble[
             "decode_attention"],
         multilingual_robt_train_launches=ml_results["launches"][
-            "decode_attention"])
+            "decode_attention"],
+        # transformer_afs serves through #10 at beam 4 (rows folded over
+        # the classic cache) and beam 1, and in its ensemble with itself;
+        # transformer_ibdecoder's pair step takes no decode kernel
+        speech_serve_launches=speech_served4["decode_attention"],
+        speech_serve_beam1_launches=speech_served1["decode_attention"],
+        speech_ensemble_launches=speech_ensemble["decode_attention"],
+        ib_serve_launches=ib_served4.get("decode_attention", 0)
+        + ib_served1.get("decode_attention", 0))
     # training kernels: bf16 at rate 0.1, as the train phase runs them;
     # attention at the encoder self-attention case, the FFN at N=4096 and
     # at the train phase's largest stacked shape; the library yardstick is
@@ -3967,6 +4526,15 @@ def main(argv=None):
         row["multilingual_train_launches"] = ml_results["launches"][kernel]
         row["moe_train_launches"] = moe_results["launches"].get(name, 0)
         row["clsr_train_launches"] = clsr_results["launches"].get(name, 0)
+        # transformer_ibdecoder: its bf16 encoder on this route, its fp32
+        # decoder on the CUDA-core route (the counter without the suffix);
+        # transformer_afs (the config's fused FFN off) on this route
+        row["ib_train_launches"] = ib_results["launches"][name]
+        if name != kernel:
+            row["ib_train_cuda_core_launches"] = ib_results["launches"][
+                kernel]
+        row["speech_train_launches"] = speech_results["launches"].get(name,
+                                                                      0)
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)

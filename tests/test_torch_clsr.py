@@ -179,7 +179,7 @@ def test_checkpoint_round_trips_across_the_packages(setup, tmp_path):
     check_checkpoint_round_trip(NAME, s["cfg"], s["jparams"], str(tmp_path))
 
 
-@pytest.mark.parametrize("name", ["transformer_ibdecoder", "rnnsearch"])
+@pytest.mark.parametrize("name", ["deepnmt", "rnnsearch"])
 def test_a_model_of_a_later_slice_raises(name):
     """The JAX package has it, the port not yet: NotImplementedError
     naming the model, before any work (no files are given); a name

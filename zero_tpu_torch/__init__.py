@@ -5,11 +5,12 @@ imports). Module names mirror the JAX package so that each counterpart is
 easy to find:
   config.py / vocab.py           config & vocabulary (copies)
   data.py / pipeline.py          host data pipeline (copies)
+  audio.py                       log-mel frontend, speech dataset (copy)
   dtypes.py                      precision policy
   ops/                           tensor ops; ops/kernels + csrc/ hold the
                                  hand-written CUDA kernels
   models/                        model zoo (registry by name)
-  search.py                      beam search
+  search.py                      beam search (and the pair search)
   train_step.py lrs.py           train step (Adam, clipping, EMA), LR
                                  schedules
   saver.py recorder.py           checkpoints in the JAX npz layout, resume
@@ -17,8 +18,9 @@ easy to find:
   train.py evalu.py metric.py    train/eval/score loops, decode loop, BLEU
   run.py                         CLI (``--mode train|test|score``)
 
-Ported so far: training, scoring and serving of the post-LN Transformer on
-one device. Importing the package registers its models.
+Ported so far: training, scoring and serving of twelve of the JAX
+package's fifteen models on one device (models/__init__.py). Importing
+the package registers them.
 """
 
 from zero_tpu_torch import models  # noqa: F401  (registers the models)

@@ -2,18 +2,21 @@
 ``zero_tpu/models``). Importing this package registers every ported model:
 ``transformer``, ``transformer_rpr``, ``transformer_rela``,
 ``transformer_aan``, ``transformer_fuse``, ``transformer_l0drop``,
-``transformer_fixup``, ``transformer_moe``, ``transformer_multilingual``
-and ``transformer_clsr`` (10 of the JAX package's 15; base.JAX_MODELS
-lists them, and the others raise NotImplementedError)."""
+``transformer_fixup``, ``transformer_moe``, ``transformer_multilingual``,
+``transformer_clsr``, ``transformer_ibdecoder`` and ``transformer_afs``
+(12 of the JAX package's 15; base.JAX_MODELS lists them, and the others
+raise NotImplementedError)."""
 
 from zero_tpu_torch.models.base import ModelSpec, get_model, model_register  # noqa: F401
 
 # import for registration side effects
 from zero_tpu_torch.models import transformer  # noqa: F401
 from zero_tpu_torch.models import transformer_aan  # noqa: F401
+from zero_tpu_torch.models import transformer_afs  # noqa: F401
 from zero_tpu_torch.models import transformer_clsr  # noqa: F401
 from zero_tpu_torch.models import transformer_fixup  # noqa: F401
 from zero_tpu_torch.models import transformer_fuse  # noqa: F401
+from zero_tpu_torch.models import transformer_ibdecoder  # noqa: F401
 from zero_tpu_torch.models import transformer_l0drop  # noqa: F401
 from zero_tpu_torch.models import transformer_moe  # noqa: F401
 from zero_tpu_torch.models import transformer_multilingual  # noqa: F401

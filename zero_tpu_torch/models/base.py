@@ -18,9 +18,16 @@ Counterpart of ``zero_tpu/models/base.py``. A model registers
       reorder_cache(cache, beam_indices [B, K], batch, beam_size, time,
                     span=1) -> cache
 
+  (transformer_ibdecoder's IBInference has decode_pair, two positions a
+  step, in place of decode_step; search.py:ib_beam_search drives it; the
+  speech models' encode takes {'audio', 'mask'[, 'context',
+  'context_mask']})
+
   train_fn(params, features, cfg, gen, step=0) -> {'loss': scalar, ...}
-      (features: {'source', 'target'} [B, L] int; gen: a torch.Generator
-      seeding the dropout sites, or None for no dropout)
+      (features: {'source', 'target'} [B, L] int, or for speech 'audio'
+      [B, T, mels], 'audio_mask', 'target', 'transcript' and the context;
+      gen: a torch.Generator seeding the dropout sites, or None for no
+      dropout)
   score_fn(params, features, cfg)          -> {'score': [B]} (no dropout,
                                               no label smoothing)
 

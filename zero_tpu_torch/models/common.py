@@ -293,6 +293,15 @@ def remat_layer(layer, context_fn, fn, *args, tensors=None):
                       preserve_rng_state=False, context_fn=context_fn)
 
 
+def compute_call(params, dtype, body):
+    """body(params) with every tensor of ``params`` cast to ``dtype``
+    differentiably (through functional_call), so the grads reach the fp32
+    masters: the JAX package's cast_to_compute inside a loss. ``params``
+    is a module whose forward(fn) returns fn(self)."""
+    cast = {name: p.to(dtype) for name, p in params.named_parameters()}
+    return torch.func.functional_call(params, cast, (body,))
+
+
 def output_logits(feature, softmax_table):
     """Weight-tied softmax logits: product in the compute dtype, then fp32."""
     logits = torch.matmul(feature, softmax_table.to(feature.dtype).t())
@@ -522,8 +531,7 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
                 loss = loss + extra_loss(cparams, state, cfg, step)
             return loss, per_sample
 
-        cast = {name: p.to(dtype) for name, p in params.named_parameters()}
-        return torch.func.functional_call(params, cast, (body,))
+        return compute_call(params, dtype, body)
 
     def train_fn(params, features, cfg, gen, step=0):
         loss, _ = _loss(params, features, cfg, gen, step, True,

@@ -143,6 +143,16 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
+def promote(q, k, v):
+    """q, k and v in the widest of their dtypes, as the JAX package's
+    products of mixed dtypes promote: transformer_ibdecoder's decoder runs
+    in fp32 under a bf16 compute dtype (its fp32 positions promote the
+    embeddings) over a bf16 encoder memory and a bf16 decode cache."""
+    dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                v.dtype)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
 def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
                rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False,
                count_weights=None):
@@ -158,6 +168,7 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     form (ops/rpr.py); ``rpr_ids`` without ``rpr_max`` (decode rows) and
     shapes whose one-hot constant would be oversized take the gathered
     form. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
+    q, k, v = promote(q, k, v)
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
     vh = split_heads(v, num_heads)
@@ -246,6 +257,7 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         q = nn.linear(params.q, query)
         k = nn.linear(params.k, memory)
         v = nn.linear(params.v, memory)
+    q, k, v = promote(q, k, v)
     lq, lk = q.shape[1], k.shape[1]
     use_flash = use_flash and not relu and count_weights is None
     if use_flash and rpr_tables is not None:

@@ -29,7 +29,12 @@ set to match), so every attention streams (kernels #5-#7).
 ``--config configs/multilingual_robt_opus100.json`` profiles
 transformer_multilingual with ROBT (``robt=false`` without; ``model_name=
 transformer_clsr`` CLSR): each source row then starts with a language tag
-drawn from the seed. ``--trace`` also writes the Chrome trace.
+drawn from the seed. ``--config configs/speech_afs_mustc.json`` (a config
+with ``data_kind=speech``) profiles transformer_afs on random log-mel-like
+frames: ``--src-len`` counts frames (each row 60-100% full), the target
+and the transcript (coarse labels under ``coarse_label_base``) have
+``--tgt-len`` tokens, and ``st_context`` adds the previous segment's
+frames. ``--trace`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -56,6 +61,31 @@ def _tokens(rs, rows, length):
     for row, n in enumerate(rs.randint(int(0.6 * length), length + 1, rows)):
         x[row, n:] = 0
     return x
+
+
+def _speech_batch(rs, cfg, cycle, rows, frames, tgt_len):
+    """``cycle`` speech microbatches: frames [C, rows, frames, mels] under
+    their mask, the target, the transcript and, under st_context, the
+    previous segment's frames (a quarter as many)."""
+    mels = int(cfg.audio_num_mel_bins)
+    labels = (int(cfg.coarse_label_base) + 3
+              if int(cfg.coarse_label_base) > 0 else VOCAB)
+
+    def audio(n):
+        mask = np.stack([(_tokens(rs, rows, n) != 0) for _ in range(cycle)])
+        x = rs.randn(cycle, rows, n, mels) * mask[..., None]
+        return x.astype(np.float32), mask.astype(np.float32)
+
+    batch = {}
+    batch["audio"], batch["audio_mask"] = audio(frames)
+    batch["target"] = np.stack([_tokens(rs, rows, tgt_len)
+                                for _ in range(cycle)])
+    transcript = np.stack([_tokens(rs, rows, tgt_len) for _ in range(cycle)])
+    batch["transcript"] = np.where(transcript != 0,
+                                   3 + transcript % (labels - 3), 0)
+    if cfg.st_context:
+        batch["context"], batch["context_mask"] = audio(max(frames // 4, 1))
+    return batch
 
 
 def main(argv=None):
@@ -91,6 +121,9 @@ def main(argv=None):
                                  for _ in range(cycle)]),
              "target": np.stack([_tokens(rs, args.rows, args.tgt_len)
                                  for _ in range(cycle)])}
+    if getattr(cfg, "data_kind", "text") == "speech":
+        batch = _speech_batch(rs, cfg, cycle, args.rows, args.src_len,
+                              args.tgt_len)
     if cfg.model_name in ("transformer_multilingual", "transformer_clsr"):
         # the leading target-language tag of the multilingual models
         batch["source"][:, :, 0] = cfg.lang_id_offset + rs.randint(
@@ -131,6 +164,7 @@ def main(argv=None):
         "use_fused_ffn": bool(cfg.use_fused_ffn),
         "use_remat": bool(cfg.use_remat), "remat_policy": cfg.remat_policy,
         "robt": bool(cfg.robt),
+        "data_kind": getattr(cfg, "data_kind", "text"),
         "update_cycle": cycle, "rows": args.rows, "src_len": args.src_len,
         "tgt_len": args.tgt_len, "loss": loss, "wall_ms": wall_ms,
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30

@@ -7,7 +7,10 @@ resume from ``record.json`` by skipping consumed batches, dev-BLEU-driven
 best checkpointing and early stop, the EMA weight swap for eval, a SIGTERM
 checkpoint-and-exit, and the final save and dev eval; plus the ``--mode
 test`` (``evaluate``), ``--mode score`` (``scorer``) and ``--mode
-ensemble`` (``ensemble``) entry points.
+ensemble`` (``ensemble``) entry points. ``data_kind=speech`` reads TSV
+manifests (audio.py:SpeechDataset) in every mode and feeds the models the
+frames, their mask, the transcript and the context as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -22,12 +25,14 @@ import numpy as np
 import torch
 
 from zero_tpu_torch import dtypes, evalu, lrs
+from zero_tpu_torch.audio import SpeechDataset
 from zero_tpu_torch.data import Dataset
 from zero_tpu_torch.models.base import Inference, get_model
 from zero_tpu_torch.models.common import parallel_options
+from zero_tpu_torch.models.transformer_ibdecoder import unfold
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
-from zero_tpu_torch.search import beam_search, gather_cache
+from zero_tpu_torch.search import beam_search, gather_cache, ib_beam_search
 from zero_tpu_torch.train_step import (init_train_state, make_score_step,
                                        make_train_step, stack_microbatches)
 
@@ -45,10 +50,31 @@ def device_of(params) -> torch.device:
     return device
 
 
+def _is_speech(params) -> bool:
+    return getattr(params, "data_kind", "text") == "speech"
+
+
 def _make_dataset(params, src, tgt, train=False):
     """Training batches by the configured batch or token budget; eval
     batches padded to eval_batch_size rows. Lengths snap to
-    pad_seq_multiple, as the JAX package pads them."""
+    pad_seq_multiple, as the JAX package pads them. Speech: ``src`` is the
+    TSV manifest (features, transcript, translation), ``tgt`` still names
+    the reference translations for BLEU, and the token budget counts
+    frames."""
+    if _is_speech(params):
+        return SpeechDataset(
+            src, params.src_vocab, params.tgt_vocab,
+            max_len=params.max_len if train else params.eval_max_len,
+            max_frame_len=params.max_frame_len,
+            batch_or_token=params.batch_or_token if train else "batch",
+            data_leak_ratio=params.data_leak_ratio,
+            num_mels=params.audio_num_mel_bins,
+            pad_seq_multiple=params.pad_seq_multiple,
+            pad_batch_multiple=params.pad_batch_multiple if train else 1,
+            pad_batch_to=0 if train else params.eval_batch_size,
+            coarse_label_base=params.coarse_label_base,
+            context=params.st_context,
+            context_max_frame_len=params.context_max_frame_len)
     return Dataset(src, tgt, params.src_vocab, params.tgt_vocab,
                    max_len=params.max_len if train else params.eval_max_len,
                    batch_or_token=params.batch_or_token if train else "batch",
@@ -59,24 +85,59 @@ def _make_dataset(params, src, tgt, train=False):
                    pad_batch_to=0 if train else params.eval_batch_size)
 
 
+def _batch_source(batch, device):
+    """Dataset batch dict -> the model's encode input: the token matrix,
+    or the speech dict {'audio', 'mask'[, 'context', 'context_mask']}."""
+    if "src_mask" in batch:
+        source = {"audio": batch["src"], "mask": batch["src_mask"]}
+        if "context" in batch:
+            source["context"] = batch["context"]
+            source["context_mask"] = batch["context_mask"]
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in source.items()}
+    return torch.as_tensor(batch["src"], device=device).long()
+
+
 def _batch_features(params, batch):
-    """Dataset batch dict -> training/scoring feature dict."""
+    """Dataset batch dict -> training/scoring feature dict (speech: the
+    frames, their mask, the target, the transcript and the context)."""
+    if "src_mask" in batch:
+        feats = {"audio": batch["src"], "audio_mask": batch["src_mask"],
+                 "target": batch["tgt"]}
+        for key in ("transcript", "context", "context_mask"):
+            if key in batch:
+                feats[key] = batch[key]
+        return feats
     return {"source": batch["src"], "target": batch["tgt"]}
 
 
 def make_decode_fn(params, model=None, inference=None):
     """Beam-search callable over dataset batch dicts; returns numpy
-    'seq' [B, K, T] and 'score' [B, K], and the int 'steps'."""
+    'seq' [B, K, T] and 'score' [B, K], and the int 'steps'.
+    transformer_ibdecoder runs the pair search and unfolds each
+    hypothesis on the host ('steps' counts pair steps)."""
     model = model or get_model(params.model_name)
     inference = inference or model.infer_fn(params)
     device = device_of(params)
+    pairs = params.model_name == "transformer_ibdecoder"
 
     @torch.inference_mode()
     def decode(weights, batch):
-        source = torch.as_tensor(batch["src"], device=device).long()
-        out = beam_search(weights, source, inference, params)
-        return {"seq": out["seq"].cpu().numpy(),
-                "score": out["score"].cpu().numpy(),
+        source = _batch_source(batch, device)
+        if not pairs:
+            out = beam_search(weights, source, inference, params)
+            return {"seq": out["seq"].cpu().numpy(),
+                    "score": out["score"].cpu().numpy(),
+                    "steps": out["steps"]}
+        out = ib_beam_search(weights, source, inference, params)
+        z = out["seq"].cpu().numpy()
+        y = np.zeros(z.shape, np.int64)
+        eos = params.tgt_vocab.eos()
+        for bi in range(z.shape[0]):
+            for ki in range(z.shape[1]):
+                toks = unfold(z[bi, ki], eos)
+                y[bi, ki, :len(toks)] = toks
+        return {"seq": y, "score": out["score"].cpu().numpy(),
                 "steps": out["steps"]}
     return decode
 
@@ -331,7 +392,9 @@ def _eval_weights(params, model, state):
 
 
 def _sample_decode(params, decode, weights, batch) -> None:
-    """Decode a handful of training sentences for human inspection."""
+    """Decode a handful of training sentences for human inspection. The
+    source rows go through decode_target_token as in the JAX package,
+    which a speech batch's frames do not pass (a ValueError there too)."""
     n = min(5, len(batch["raw"]))
     small = {k: (v[:n] if hasattr(v, "__getitem__")
                  and not isinstance(v, dict) else v)
@@ -489,6 +552,13 @@ def ensemble(all_params) -> dict:
     beam and decode settings drive the search. Returns _decode_test_set's
     summary."""
     default = all_params[0]
+    for p in all_params:
+        if p.model_name == "transformer_ibdecoder":
+            # the pair search has no ensemble form (the JAX package fails
+            # there too: its ensemble inference has no decode_pair)
+            raise ValueError("--mode ensemble cannot decode %s (%s): its "
+                             "pair search has no ensemble form"
+                             % (p.model_name, p.output_dir))
     device = device_of(default)
     _eval_on_one_device(default)
     models = [get_model(p.model_name) for p in all_params]
