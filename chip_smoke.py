@@ -15,8 +15,10 @@ transformer_moe, transformer_multilingual with ROBT
 (configs/multilingual_robt_opus100.json) and transformer_clsr, decode an
 ensemble of the last two, train, serve and score transformer_ibdecoder
 (the pair beam search) and speech translation (transformer_afs on
-configs/speech_afs_mustc.json, with CTC), and check these paths against
-the CPU on small models.
+configs/speech_afs_mustc.json, with CTC), train, serve and score the RNN
+models rnnsearch, deepnmt and rnnsearch_deepatt and decode an ensemble of
+two, check these paths against the CPU on small models, and run the host
+side (the native tokeniser, forked tokeniser workers, the metric CLI).
 
   python3 chip_smoke.py                 # every phase (the smoke test)
   python3 chip_smoke.py --phases build,train_kernels   # a subset, no
@@ -222,11 +224,13 @@ non-zero):
              transformer_l0drop with scan_layers (each stack one module of
              [L, ...] tensors), both kernel flags on, SCAN_STEPS steps:
              ms/step, tokens/s, MFU, peak memory; launches per microbatch
-             as unrolled (64 #1, 32 #2, 52 #11, 26 #12); the stacked
+             as unrolled (at DEEP_CUT's 2+6: 28 #1, 14 #2, 16 #11, 8
+             #12); the stacked
              checkpoint restored in a fresh process (params, Adam state,
              EMA) equal to the file; --mode test at beam 4 (#8) and 1
              (#10), --mode score
-  moe_train  configs/transformer_base_wmt14.json as transformer_moe (8
+  moe_train  configs/transformer_base_wmt14.json at BASE_CUT's 3+3 as
+             transformer_moe (8
              experts, top-1, capacity 1.25, einsum dispatch), both flags
              on, MOE_STEPS steps: no training kernel; moe_aux beside the
              loss, peak memory; MOE_TOP2_STEPS steps at top-2; one
@@ -234,14 +238,14 @@ non-zero):
              dispatch, loss and grads within 1e-5 of their max (the gap
              printed); --mode test at beam 4 (#10), --mode score
   multilingual_train  configs/multilingual_robt_opus100.json (at
-             ML_CUT's 3+3, 6+6 as written, for the script's time; 100
+             ML_CUT's 2+2, 6+6 as written, for the script's time; 100
              languages, ROBT; the model computes in fp32 and ignores
              use_remat, as in the JAX package) plus both flags, ML_STEPS
              steps on tagged synthetic data (the 100 tags at ids 3-102):
-             launches per microbatch 9 #1, 6 #2, 9 #11, 6 #12 (CUDA
-             cores) and 3 (L_src - 1) #10 (ROBT's greedy decode); the
+             launches per microbatch 6 #1, 4 #2, 6 #11, 4 #12 (CUDA
+             cores) and 2 (L_src - 1) #10 (ROBT's greedy decode); the
              main and back-translated losses, ms/step, peak memory; then
-             ML_OFF_STEPS steps with robt=false (3 of each); --mode test at
+             ML_OFF_STEPS steps with robt=false (2 of each); --mode test at
              beam 4 on mixed tags (#10), --mode score
   clsr_train the multilingual config as transformer_clsr, robt=false,
              CLSR_STEPS steps: no training kernel; the budget loss, peak
@@ -257,28 +261,30 @@ non-zero):
              identical beam-4 sequences, exact launch counts; then the scan
              transformer in bf16 with use_remat against without: gap 0
   ib_train   configs/transformer_base_wmt14.json as transformer_ibdecoder
-             (6+6, bf16, both kernel flags) IB_STEPS steps: ms/step,
+             (at BASE_CUT's 3+3, 6+6 as written; bf16, both kernel flags)
+             IB_STEPS steps: ms/step,
              tokens/s, MFU (over the bf16 peak; the decoder computes in
              fp32, promoted by its fp32 positions as in the JAX package);
-             launches per microbatch 6 tensor-core #1/#2 (encoder), 12
+             launches per microbatch 3 tensor-core #1/#2 (encoder), 6
              CUDA-core #1/#2 (decoder self- and cross attention, the
-             self-attention under the token-causal flag), 12 #11/#12;
+             self-attention under the token-causal flag), 6 #11/#12;
              --mode test at beam 4 and 1 (the pair search: pair steps,
              sentences/s; the encoder's #1/#11, no decode kernel: the
              pair step attends over two positions) and --mode score
-  speech_train  configs/speech_afs_mustc.json as written (6+6+6, bf16,
+  speech_train  configs/speech_afs_mustc.json at 3+3+3 (6+6+6 as
+             written, for the script's time; bf16,
              AFS tf, coarse CTC, use_flash_attention, the fused FFN off)
              SPEECH_STEPS steps on a synthetic corpus the phase writes
              (SPEECH_UTTERANCES .npy utterances of 300-2048 frames, 80
              mels; 64 16 kHz .wav files to serve, so read_wav and logmel
              run): loss, CTC term, AFS penalty, ms/step, target tokens/s
-             and raw frames/s, MFU, peak memory; launches 24 tensor-core
+             and raw frames/s, MFU, peak memory; launches 12 tensor-core
              #1 and #2 a microbatch; --mode test at beam 4 and 1 at
              l0_compact_ratio 0.3 (the share of frames compacted away;
              the encoders' #1 and 6 #10 a decode step, the cross attention
-             on the composite), --mode score (18 #1 a batch), --mode
+             on the composite), --mode score (9 #1 a batch), --mode
              ensemble of the checkpoint with itself; then
-             SPEECH_CONTEXT_STEPS steps with st_context (30 #1/#2)
+             SPEECH_CONTEXT_STEPS steps with st_context (15 #1/#2)
   slice14_reference  small fp32 models card against CPU on the same seed
              words: transformer_ibdecoder with the kernel flags off and
              on; transformer_afs in modes tf (st_context) and t with
@@ -287,6 +293,37 @@ non-zero):
              1e-6 relative, grads within 1e-5 of their max, identical
              beam-4 sequences, exact launch counts; the CTC port alone on
              an infeasible row (3 frames, 4 labels)
+  rnn_train  rnnsearch at the default config's RNN widths (cell atr, the
+             CAEncoder, hidden 1000, embed 620, 8 heads) with
+             default_dtype=bfloat16 (the model computes in fp32, as in the
+             JAX package), dropout 0.1, token_size 4096, update_cycle 4,
+             both kernel flags on (ignored), RNN_STEPS steps: ms/step,
+             target tokens/s, MFU over the fp32 peak (rnn_flops: matmul
+             FLOPs at each step's stacked shape), peak memory; no launch of
+             #1-#12 in training, --mode test at beam 4 and 1 and --mode
+             score; then the CUDA launches of a microbatch at 4 x 8 x 8 and
+             4 x 16 x 16 (torch.profiler), their slope a time step, and
+             the dtypes computed in (fp32 only)
+  deepnmt_train  deepnmt the same way, served at beam 4 (cell lstm, no
+             CAEncoder, use_deep_att, layer_norm: the per-input LayerNorm
+             runs; 2+2 layers, 6+6 by default, for the script's time);
+             then --mode ensemble at beam 4 of rnn_train's and this
+             checkpoint
+  deepatt_train  rnnsearch_deepatt as deepnmt_train (cell gru; 2 encoder
+             stacks and 2 decoder stages, 6+6 by default)
+  rnn_reference  small fp32 models of the three (RNN_REFERENCE: all six
+             cells, the CAEncoder on and off, use_deep_att, layer_norm,
+             embed_size != hidden_size) with dropout 0.1, card against CPU
+             on the same seed words: loss within 1e-6 relative, grads
+             within 1e-5 of their max, identical beam-4 sequences, no
+             kernel launch
+  host       the native tokeniser (g++ into zero_tpu_torch/_build/) with
+             HOST_WORKERS threads, the python path and process_num=
+             HOST_WORKERS forked workers (train.py's dataset) over the
+             8000-pair training corpus: identical ids, tokens/s of each,
+             the native counter +1 exactly where the native path ran; the
+             metric CLI (OTEM, UTEM, BLEU; detokenized BLEU) and the chrF
+             script on rnn_train's beam-4 output
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -340,10 +377,11 @@ TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 # (dW, dk/dv), so the relative part is 1e-4; bf16 as above
 TRAIN_TOLERANCE = {torch.float32: (1e-5, 1e-4),
                    torch.bfloat16: (1e-2, 2e-2)}
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # the earlier phases run at a cut depth (the script's time budget):
-# transformer-base's at 3+3 (6+6 as written), config 4's at 2+6 (20+6);
-# this slice's phases at the configs' own
+# transformer-base's at 3+3 (6+6 as written; MoE and IBDecoder too),
+# config 4's at 2+6 (20+6; scan_layers too), the multilingual config's at
+# 2+2, config 5's at 3+3+3; the RNN phases at the default config's widths
 BASE_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
 DEEP_CUT = ",num_encoder_layer=2"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
@@ -2121,9 +2159,9 @@ def ensemble_phase(d, da):
 
 
 DEEP_CONFIG = os.path.join(REPO, "configs", "deep_transformer_fuse_l0drop.json")
-DEEP_STEPS = 4       # deep_train and l0drop_train
-MEMORY_STEPS = 3     # deep_memory, each setting
-FIXUP_STEPS = 3
+DEEP_STEPS = 3       # deep_train and l0drop_train
+MEMORY_STEPS = 2     # deep_memory, each setting
+FIXUP_STEPS = 2
 L0DROP_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop"
                 + DEEP_CUT)
 FIXUP_EXTRA = (",model_name=transformer_fixup,scope_name=transformer_fixup"
@@ -2522,7 +2560,7 @@ CROSS_CASES = ((32, 4, 64), (4, 4, 16384))
 # all S positions), split over S; 5 beams (two beam groups, the second of
 # one beam) and one beam
 CROSS_CHECK_CASES = ((3, 5, 3000), (2, 1, 700))
-LONG_STEPS = 3
+LONG_STEPS = 2
 LONG_PARAMS = ("use_flash_attention=true,max_len=16384,token_size=16384,"
                "pad_seq_multiple=128")
 
@@ -3133,23 +3171,26 @@ def long_reference_bf16(model, gfeats, sa):
 # ---------------------------------------------------------------------------
 
 ML_CONFIG = os.path.join(REPO, "configs", "multilingual_robt_opus100.json")
+# config 4 at DEEP_CUT's 2+6 (20+6 as written) since the RNN phases came
 SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
-              "scan_layers=true")
-# steps cut for the script's time since the next slice's phases came (10,
-# 12, 5, 10, 5 and 10 before)
-SCAN_STEPS = 4
-MOE_EXTRA = ",model_name=transformer_moe,scope_name=transformer_moe"
-MOE_STEPS = 4
-MOE_TOP2_STEPS = 3
-ML_STEPS = 3
-ML_OFF_STEPS = 3
-# the multilingual config's phases at 3+3 (6+6 as written) for the
-# script's time since the next slice's phases came: CLSR's checkpoints
-# (786M parameters at 6+6) dominated its phase
-ML_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
+              "scan_layers=true" + DEEP_CUT)
+# steps cut for the script's time as later slices' phases came (10, 12,
+# 5, 10, 5 and 10, then 4, 4, 3, 3, 3 and 4 before)
+SCAN_STEPS = 3
+# the base config at BASE_CUT's 3+3 since the RNN phases came
+MOE_EXTRA = (",model_name=transformer_moe,scope_name=transformer_moe"
+             + BASE_CUT)
+MOE_STEPS = 3
+MOE_TOP2_STEPS = 2
+ML_STEPS = 2
+ML_OFF_STEPS = 2
+# the multilingual config's phases at 2+2 (6+6 as written; 3+3 before the
+# RNN phases came) for the script's time: CLSR's checkpoints (786M
+# parameters at 6+6) dominated its phase
+ML_CUT = ",num_encoder_layer=2,num_decoder_layer=2"
 CLSR_EXTRA = (",model_name=transformer_clsr,scope_name=transformer_clsr,"
               "robt=false" + ML_CUT)
-CLSR_STEPS = 4
+CLSR_STEPS = 3
 ML_LANGUAGES = 100
 PEAK_FP32 = PEAK_FLOPS[torch.float32]
 FP32_NOTE = ("computes in fp32 whatever default_dtype says (as the JAX "
@@ -3270,6 +3311,7 @@ def scan_train_phase(d, da):
                             text=True, env=dict(os.environ,
                                                 OMP_NUM_THREADS="2"))
     cfg = load_config_file(DEEP_CONFIG)
+    cfg.update(overrides(SCAN_EXTRA))
 
     def restore_check():
         stdout, stderr = proc.communicate()
@@ -3739,17 +3781,21 @@ def slice13_reference_phase(da):
 # slice 14: transformer_ibdecoder, then speech translation (transformer_afs)
 # ---------------------------------------------------------------------------
 
-IB_EXTRA = ",model_name=transformer_ibdecoder,scope_name=transformer_ibdecoder"
-IB_STEPS = 4
+# the base config at BASE_CUT's 3+3 (6+6 before the RNN phases came)
+IB_EXTRA = (",model_name=transformer_ibdecoder,"
+            "scope_name=transformer_ibdecoder" + BASE_CUT)
+IB_STEPS = 3
 IB_NOTE = ("MFU over the bf16 peak; the decoder computes in fp32 (its fp32 "
            "positions promote it, as in the JAX package)")
 SPEECH_CONFIG = os.path.join(REPO, "configs", "speech_afs_mustc.json")
-SPEECH_STEPS = 6
+SPEECH_STEPS = 3
 SPEECH_CONTEXT_STEPS = 2
 SPEECH_UTTERANCES = 600
 # the config's own settings: the fused FFN off, no sample decode (a speech
-# batch's frames fail its source print, as in the JAX package)
-SPEECH_EXTRA = ",use_fused_ffn=false"
+# batch's frames fail its source print, as in the JAX package); 3+3+3
+# layers (6+6+6 as written) since the RNN phases came
+SPEECH_EXTRA = (",use_fused_ffn=false,num_encoder_layer=3,"
+                "num_st_encoder_layer=3,num_decoder_layer=3")
 
 
 def ib_expected_launches(cfg, summary):
@@ -3804,6 +3850,7 @@ def ib_train_phase(d, da):
                                    ib_expected_launches, IB_EXTRA, ("true",),
                                    ib_serving, steps=IB_STEPS, note=IB_NOTE)
     cfg = load_config_file(CONFIG)
+    cfg.update(overrides(IB_EXTRA))
     served, served1 = serve_checkpoint(d, "ib_train", counters, beam=1)
     phase("ib_train", beam=1, sentences_per_s=served["sentences"]
           / served["seconds"], pair_steps=served["steps"],
@@ -3987,6 +4034,7 @@ def speech_train_phase(d, da):
 
     counters = (fa.launches, ff.launches, da.launches)
     cfg = load_config_file(SPEECH_CONFIG)
+    cfg.update(overrides(SPEECH_EXTRA))
     rec, compacted = {}, {}
     with recording_afs(rec), recording_compaction(compacted):
         results, served4 = train_phase(
@@ -4222,6 +4270,396 @@ def slice14_reference_phase(da):
         raise AssertionError("slice14_reference ctc: %s" % out)
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the RNN models and the host side
+# ---------------------------------------------------------------------------
+
+# the default config's RNN widths (1000 hidden, 620 embed, 8 heads) at the
+# transformer-base training settings; bf16 asked for, fp32 computed
+RNN_SETTINGS = dict(default_dtype="bfloat16", dropout=0.1, token_size=4096,
+                    update_cycle=4, hidden_size=1000, embed_size=620,
+                    num_heads=8)
+RNN_MODELS = {
+    "rnn_train": dict(model_name="rnnsearch", scope_name="rnnsearch",
+                      cell="atr", caencoder=True),
+    # depth cut from the default 6+6 to 2+2 for the script's time; the
+    # widths are the config's
+    "deepnmt_train": dict(model_name="deepnmt", scope_name="deepnmt",
+                          cell="lstm", caencoder=False, use_deep_att=True,
+                          layer_norm=True, num_encoder_layer=2,
+                          num_decoder_layer=2),
+    "deepatt_train": dict(model_name="rnnsearch_deepatt",
+                          scope_name="rnnsearch_deepatt", cell="gru",
+                          num_encoder_layer=2, num_decoder_layer=2),
+}
+RNN_STEPS = {"rnn_train": 3, "deepnmt_train": 2, "deepatt_train": 2}
+RNN_NOTE = ("MFU over the fp32 peak (67 TFLOP/s, TF32 off): the RNN models "
+            "compute in fp32 under default_dtype=bfloat16, as in the JAX "
+            "package; rnn_flops: matmul FLOPs at each step's stacked shape "
+            "(forward x 3 and the chunked CE's recompute)")
+HOST_WORKERS = 4
+RNN_PROFILE_ROWS = 4
+
+
+def rnn_config(d, label):
+    """The phase's settings as a config file in ``d``."""
+    path = os.path.join(d, label + ".json")
+    with open(path, "w") as w:
+        json.dump(dict(RNN_SETTINGS, **RNN_MODELS[label]), w)
+    return path
+
+
+def no_kernel_serving(cfg, served, serve_launches, score_launches):
+    """No JAX RNN path reaches a Pallas kernel: serving and scoring launch
+    none of #1-#12."""
+    if serve_launches or score_launches:
+        raise AssertionError("%s: serving launched %s, scoring %s, expected "
+                             "no kernel" % (cfg["model_name"], serve_launches,
+                                            score_launches))
+
+
+# per cell: the fetched inputs' width and the hidden products' width, in
+# units of hidden_size (rnns/__init__.py: gru gate_x 2d + hide_x d, gate_h
+# 2d + hide_h d; lstm 3d + d, 3d + d; sru 4d, none; atr d, d; lrn 3d,
+# none; olrn 4d, none)
+CELL_WIDTHS = {"gru": (3, 3), "lstm": (4, 4), "sru": (4, 0), "atr": (1, 1),
+               "lrn": (3, 0), "olrn": (4, 0)}
+
+
+def rnn_flops(shapes, cfg, vocab=32768):
+    """Matmul FLOPs of one training step of an RNN model (``cfg`` a config
+    file's values over the defaults): each microbatch at the step's stacked
+    shape, forward x 3 for forward and backward, plus the chunked CE's
+    recomputed logits."""
+    fwd, logits = rnn_forward_flops(stacked_shape(shapes), cfg, vocab)
+    return (3 * fwd + logits) * len(shapes)
+
+
+def rnn_forward_flops(shape, cfg, vocab=32768):
+    """(forward matmul FLOPs of one microbatch of [rows, ls, lt], those of
+    its softmax logits): the time loops run over every padded position;
+    the additive attention's products are the query projection, the logits
+    (per-head depth -> 1 over [B, H, K, S]) and the weighted sum
+    (feed_memory is never run); the chunked CE's logits run over the rows
+    padded to a whole chunk."""
+    from zero_tpu_torch.config import default_config
+
+    c = default_config().override_from_dict(dict(cfg))
+    b, ls, lt = shape
+    d, e = c.hidden_size, c.embed_size
+    kx, kh = CELL_WIDTHS[c.cell]
+    mult = 2 if c.cell in ("lstm", "sru") else 1
+    ns, nt = b * ls, b * lt
+
+    def cell(n, d_in):              # fetch + step products over n positions
+        return 2 * n * d_in * kx * d + 2 * n * d * kh * d
+
+    def attention(n, length, dm, s):    # per query position over s keys
+        return 2 * n * d * dm + 4 * b * length * s * dm
+
+    def cond(n, length, d_in, dm, one2one):
+        flops = cell(n, d_in) + cell(n, dm)
+        if not one2one:
+            flops += 2 * ns * dm * dm + attention(n, length, dm, ls)
+        return flops
+
+    name = c.model_name
+    if name == "rnnsearch":
+        enc_dim = d if c.caencoder else 2 * d
+        enc = cell(ns, e) + (cond(ns, ls, e, d, True) if c.caencoder
+                             else cell(ns, e))
+        fwd = (enc + 2 * b * enc_dim * d * mult
+               + cond(nt, lt, e, enc_dim, False)
+               + 2 * nt * (d + enc_dim + e) * e)
+    elif name == "deepnmt":
+        fwd = 0
+        for layer in range(c.num_encoder_layer):
+            fwd += cell(ns, e)
+            y_dim = d
+            if layer == 0:
+                if c.caencoder:
+                    fwd += cond(ns, ls, e, d, True)
+                else:
+                    fwd += cell(ns, e)
+                    y_dim = 2 * d
+            fwd += 2 * ns * y_dim * e
+        if e != d:
+            fwd += 2 * ns * e * d
+        z_dim = 2 * d if (c.num_encoder_layer == 1 and not c.caencoder) \
+            else d
+        fwd += c.num_decoder_layer * 2 * b * z_dim * d * mult
+        for layer in range(c.num_decoder_layer):
+            if layer == 0 or c.use_deep_att:
+                fwd += cond(nt, lt, e, d, False)
+            elif c.caencoder:
+                fwd += cond(nt, lt, e, d, True)
+            else:
+                fwd += cell(nt, e + d)
+            fwd += 2 * nt * d * e
+        if c.dl4mt_redict:
+            fwd += 2 * nt * (e + d) * e
+    elif name == "rnnsearch_deepatt":
+        depth = c.num_decoder_layer
+        fwd = (cell(ns, e) + c.num_encoder_layer * cond(ns, ls, e, d, True)
+               + 2 * b * d * d * mult + cell(nt, e) + 2 * ns * d * d
+               + depth * (attention(nt, lt, d, ls) + cell(nt, d))
+               + 2 * nt * (d + depth * d + e) * e)
+    else:
+        raise ValueError("not an RNN model: %s" % name)
+    chunk = int(c.loss_chunk_tokens or 0)
+    rows = -(-nt // chunk) * chunk if chunk > 0 else nt
+    logits = 2 * rows * e * vocab
+    return fwd + logits, (logits if chunk > 0 else 0)
+
+
+def rnn_launches(d, config, lengths=(8, 16), rows=RNN_PROFILE_ROWS):
+    """CUDA kernels that one microbatch's forward and backward launch
+    (torch.profiler) at ``rows`` x L x L for each L of ``lengths``; the
+    time loops make them linear in L, and their count does not depend on
+    the rows. Also the dtypes of the parameters and of the encoder's
+    output. The phase's model at its config, random weights from SEED."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zero_tpu_torch.config import default_config, load_config_file
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.vocab import Vocab
+
+    cfg = default_config().override_from_dict(load_config_file(config))
+    cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
+    model = get_model(cfg.model_name)
+    params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
+    rs = np.random.RandomState(SEED)
+    counts = {}
+    for length in lengths:
+        feats = {k: torch.as_tensor(rs.randint(3, 32768, (rows, length)),
+                                    device="cuda")
+                 for k in ("source", "target")}
+
+        def microbatch():
+            loss = model.train_fn(params, feats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+            loss.backward()
+            for p in params.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+
+        microbatch()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            microbatch()
+        counts[length] = sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA)
+    with torch.no_grad():
+        encodes = model.infer_fn(cfg).encode(params, feats["source"])[
+            "encodes"]
+    seen = sorted({str(p.dtype) for p in params.parameters()}
+                  | {str(encodes.dtype)})
+    return counts, seen
+
+
+def rnn_train_phase(d, da, label):
+    """One of this slice's RNN models (RNN_MODELS[label], full width) with
+    both kernel flags on, which it ignores, RNN_STEPS steps: ms/step,
+    target tokens/s, MFU over the fp32 peak (rnn_flops), peak memory, no
+    launch of #1-#12; --mode test at beam 4 (rnnsearch also at beam 1) and
+    --mode score (no kernel); then the CUDA launches a time step
+    (rnn_launches) and the dtypes computed in. Returns the training
+    results."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    config = rnn_config(d, label)
+    results, served4 = train_phase(
+        d, da, config, label, no_kernel, "", ("true",), no_kernel_serving,
+        steps=RNN_STEPS[label], note=RNN_NOTE, peak=PEAK_FLOPS[torch.float32],
+        flops_fn=rnn_flops)
+    beam1 = {}
+    if label == "rnn_train":
+        served, served1 = serve_checkpoint(
+            d, label, (fa.launches, ff.launches, da.launches), beam=1)
+        if served1:
+            raise AssertionError("%s beam 1 launched %s" % (label, served1))
+        beam1 = dict(beam=1, sentences_per_s=served["sentences"]
+                     / served["seconds"], decode_steps=served["steps"],
+                     served_bleu=served["bleu"], serve_launches=served1)
+    counts, seen = rnn_launches(d, config)
+    (l0, k0), (l1, k1) = sorted(counts.items())
+    per_step = (k1 - k0) / (l1 - l0)
+    phase(label, cuda_launches_per_microbatch={
+        "%dx%dx%d" % (RNN_PROFILE_ROWS, n, n): k for n, k in counts.items()},
+        cuda_launches_per_time_step=per_step, dtypes=seen, **beam1)
+    if seen != ["torch.float32"]:
+        raise AssertionError("%s computes in %s, expected fp32" % (label,
+                                                                   seen))
+    results.update(served_beam4=served4, launches_per_time_step=per_step)
+    return results
+
+
+def rnn_ensemble(d, da):
+    """--mode ensemble at beam 4 over rnn_train's and deepnmt_train's
+    checkpoints (the beam gather permutes both caches): 64 lines, no
+    kernel."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    for c in counters:
+        c.clear()
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
+            "test_output={0}/rnn_ensemble.txt,eval_batch_size=32,"
+            "beam_size=4".format(d))
+    summary = run.main(["--mode", "ensemble", "--ensemble_dirs",
+                        "{0}/rnn_train_true;{0}/deepnmt_train_true".format(d),
+                        "--parameters", spec])
+    launches = collect(counters)
+    with open(os.path.join(d, "rnn_ensemble.txt")) as r:
+        lines = r.read().splitlines()
+    phase("deepnmt_train", ensemble=["rnnsearch", "deepnmt"],
+          sentences=summary["sentences"], bleu=summary["bleu"],
+          sentences_per_s=summary["sentences"] / summary["seconds"],
+          decode_steps=summary["steps"], launches=launches)
+    if len(lines) != 64 or summary["sentences"] != 64 or launches:
+        raise AssertionError("rnn ensemble: %d lines, launches %s"
+                             % (len(lines), launches))
+
+
+def _small_rnn(name, dropout, **over):
+    """_small_model (64 wide, 2+2 layers, 4 heads) as an RNN model."""
+    cfg = _small_model(dropout, name)
+    for k, v in over.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+# small fp32 models, all six cells: (label, model, overrides)
+RNN_REFERENCE = (
+    ("rnnsearch_gru_caencoder", "rnnsearch", dict(cell="gru")),
+    ("rnnsearch_lstm", "rnnsearch", dict(cell="lstm", caencoder=False)),
+    ("deepnmt_sru_xmap_ln", "deepnmt",
+     dict(cell="sru", caencoder=True, embed_size=48, layer_norm=True)),
+    ("deepnmt_lrn_deep_att", "deepnmt",
+     dict(cell="lrn", caencoder=False, use_deep_att=True)),
+    ("deepatt_olrn", "rnnsearch_deepatt", dict(cell="olrn")),
+    ("deepatt_atr_ln", "rnnsearch_deepatt", dict(cell="atr",
+                                                 layer_norm=True)),
+)
+
+
+def rnn_reference_phase(da):
+    """Small fp32 models of the three RNN models over the six cells
+    (RNN_REFERENCE) with dropout 0.1, card against CPU on the same seed
+    words (_card_vs_cpu: loss within 1e-6 relative, grads within 1e-5 of
+    their max, identical beam-4 sequences, no kernel launch)."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    counters = (fa.launches, ff.launches, da.launches)
+    for label, name, over in RNN_REFERENCE:
+        model = get_model(name)
+        cfg = _small_rnn(name, 0.1, **over)
+
+        def train(params, feats, model=model, cfg=cfg):
+            loss = model.train_fn(params, feats, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+            grads = torch.autograd.grad(loss, list(params.parameters()),
+                                        allow_unused=True)
+            return loss, [torch.zeros_like(p) if g is None else g
+                          for p, g in zip(params.parameters(), grads)]
+
+        _card_vs_cpu(label, model, cfg, _small_batch(), train, {},
+                     lambda steps: {}, counters, name="rnn_reference")
+
+
+def _tokenise_s(make):
+    t0 = time.perf_counter()
+    ds = make()
+    ds.tokenize()
+    return ds._id_cache, time.perf_counter() - t0
+
+
+def host_phase(d):
+    """The native tokeniser built with g++ into zero_tpu_torch/_build/, the
+    python path, process_num=HOST_WORKERS forked workers (train.py's
+    dataset) and the native path with as many threads on the 8000-pair
+    training corpus: identical ids, tokens/s of each, the native counter
+    exactly +1 where the native path ran and +0 where not; then the metric
+    CLI and the chrF script on rnn_train's beam-4 output."""
+    import contextlib
+    import io
+
+    from zero_tpu_torch import metric, native, train
+    from zero_tpu_torch.config import default_config
+    from zero_tpu_torch.data import Dataset
+    from zero_tpu_torch.scripts import chrf
+    from zero_tpu_torch.vocab import Vocab
+
+    if not native.available():
+        raise AssertionError("host: the native tokeniser did not build")
+    vocab_file = os.path.join(d, "vocab.txt")
+    vocab = Vocab(vocab_file)
+    src, tgt = os.path.join(d, "train.src"), os.path.join(d, "train.tgt")
+    params = default_config().parse(
+        "process_num=%d,native_tokenizer=false,src_vocab_file=%s,"
+        "tgt_vocab_file=%s,max_len=100" % (HOST_WORKERS, vocab_file,
+                                           vocab_file))
+    params.src_vocab = params.tgt_vocab = vocab
+
+    def python_path():
+        return Dataset(src, tgt, vocab, vocab, max_len=100, use_native=False)
+
+    def native_path():
+        return Dataset(src, tgt, vocab, vocab, max_len=100,
+                       num_workers=HOST_WORKERS,
+                       vocab_files=(vocab_file, vocab_file))
+
+    runs = {}
+    for label, make in (("python", python_path),
+                        ("forked", lambda: train._make_dataset(
+                            params, src, tgt, train=True)),
+                        ("native", native_path)):
+        before = native.calls["encode_corpus"]
+        ids, seconds = _tokenise_s(make)
+        runs[label] = (ids, seconds, native.calls["encode_corpus"] - before)
+    want = [(list(s), list(t)) for s, t in runs["python"][0]]
+    with open(src) as r:
+        lines = sum(1 for _ in r)
+    tokens = sum(len(s) + len(t) for s, t in want)
+    same = {label: [(list(s), list(t)) for s, t in ids] == want
+            for label, (ids, _, _) in runs.items()}
+    counted = {label: n for label, (_, _, n) in runs.items()}
+
+    def cli(main, argv):
+        out = io.StringIO()
+        saved = sys.argv
+        sys.argv = argv
+        try:
+            with contextlib.redirect_stdout(out):
+                main()
+        finally:
+            sys.argv = saved
+        return out.getvalue().strip()
+
+    hyp = os.path.join(d, "rnn_train_trained.txt")
+    ref = os.path.join(d, "test.tgt")
+    scores = {"otem_utem_bleu": cli(metric.main, ["metric", hyp, ref]),
+              "detok_bleu": cli(metric.main, ["metric", "--detok", hyp, ref]),
+              "chrf": cli(chrf.main, ["chrf", "-H", hyp, "-R", ref])}
+    phase("host", library=os.path.relpath(native._load()._name, REPO),
+          pairs=len(want), tokens=tokens,
+          tokens_per_s={label: tokens / s for label, (_, s, _) in
+                        runs.items()},
+          workers=HOST_WORKERS, same_ids=same, native_calls=counted,
+          metrics=scores)
+    if not (all(same.values()) and counted == {"python": 0, "forked": 0,
+                                               "native": 1}
+            and all(scores.values()) and len(want) == lines):
+        raise AssertionError("host: ids equal %s, native calls %s, metrics "
+                             "%s" % (same, counted, scores))
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -4230,7 +4668,8 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "long_kernels", "long_train", "long_reference", "scan_train",
           "moe_train", "multilingual_train", "clsr_train",
           "slice13_reference", "ib_train", "speech_train",
-          "slice14_reference")
+          "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
+          "rnn_reference", "host")
 
 
 def main(argv=None):
@@ -4258,6 +4697,9 @@ def main(argv=None):
     if "clsr_train" in todo and "multilingual_train" not in todo:
         parser.error("clsr_train's ensemble decodes multilingual_train's "
                      "checkpoint: give it too")
+    if todo & {"deepnmt_train", "host"} and "rnn_train" not in todo:
+        parser.error("deepnmt_train's ensemble and host's metrics read "
+                     "rnn_train's checkpoint and output: give it too")
     full = todo == set(PHASES)
     began = time.time()
     if not torch.cuda.is_available():
@@ -4352,7 +4794,8 @@ def main(argv=None):
             reference_phase(da)
         if todo & {"train", "rpr_train", "rela_train", "aan_train",
                    "deep_train", "deep_memory", "l0drop_train",
-                   "fixup_train", "scan_train", "moe_train", "ib_train"}:
+                   "fixup_train", "scan_train", "moe_train", "ib_train",
+                   "rnn_train", "deepatt_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
@@ -4402,6 +4845,14 @@ def main(argv=None):
             write_speech_corpus(speech_dir, words)
             speech_results, speech_served4, speech_served1, \
                 speech_ensemble = speech_train_phase(speech_dir, da)
+        rnn_results = {}
+        for label in ("rnn_train", "deepnmt_train", "deepatt_train"):
+            if label in todo:
+                rnn_results[label] = rnn_train_phase(d, da, label)
+            if label == "deepnmt_train" and label in todo:
+                rnn_ensemble(d, da)
+        if "host" in todo:
+            host_phase(d)
         if "long_train" in todo:
             write_long_corpus(d, words)
             launches.update(long_train_phase(d, da))
@@ -4421,6 +4872,8 @@ def main(argv=None):
         slice13_reference_phase(da)
     if "slice14_reference" in todo:
         slice14_reference_phase(da)
+    if "rnn_reference" in todo:
+        rnn_reference_phase(da)
     if "converge" in todo:
         with tempfile.TemporaryDirectory() as d:
             converge_phase(d)
@@ -4589,6 +5042,13 @@ def main(argv=None):
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], composite_ms=r["composite_ms"],
         splits=r["splits"], wired=False))
+    # this slice's RNN models launch none of #1-#12 in training, serving
+    # and scoring (the phases fail on any launch)
+    for row in kernels:
+        row["rnn_launches"] = sum(
+            r["launches"].get(row["name"], 0)
+            + r["served_beam4"].get(row["name"], 0)
+            for r in rnn_results.values())
     print(json.dumps({"kernels": kernels}))
     phase("total", seconds=time.time() - began)
     print(smi)

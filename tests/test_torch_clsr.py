@@ -4,8 +4,9 @@ on gate noise that JAX drew, injected on both sides by patching inside
 the tests; mean gates at eval); then the model: train_fn loss (with the
 budget loss) and grads, score_fn, beam search at beam 4 and 1, cache
 decode against dev mode, an ensemble with transformer_multilingual, and a
-checkpoint across the two packages. And a model of a later slice raises
-NotImplementedError."""
+checkpoint across the two packages. And every model of the JAX package
+resolves, while a name that stands for a model of a later slice (patched
+into JAX_MODELS) raises NotImplementedError."""
 
 import contextlib
 from unittest import mock
@@ -29,6 +30,7 @@ from zero_tpu.ops import l0norm as jl0  # noqa: E402
 from zero_tpu.ops.common import RngGen as JRngGen  # noqa: E402
 from zero_tpu_torch import run, train  # noqa: E402
 from zero_tpu_torch.models import get_model  # noqa: E402
+from zero_tpu_torch.models import base  # noqa: E402
 from zero_tpu_torch.models import transformer_clsr as clsr_mod  # noqa: E402
 from zero_tpu_torch.ops import l0norm  # noqa: E402
 from zero_tpu_torch.search import beam_search  # noqa: E402
@@ -180,14 +182,20 @@ def test_checkpoint_round_trips_across_the_packages(setup, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["deepnmt", "rnnsearch"])
-def test_a_model_of_a_later_slice_raises(name):
-    """The JAX package has it, the port not yet: NotImplementedError
-    naming the model, before any work (no files are given); a name
-    neither package has stays a ValueError."""
-    with pytest.raises(NotImplementedError, match="%s.*later slice" % name):
-        get_model(name)
-    with pytest.raises(NotImplementedError, match=name):
+def test_a_model_of_a_later_slice_raises(name, monkeypatch):
+    """``name`` resolves now, as every model of the JAX package does. A
+    model the JAX package has and the port not (``name + "_later"``
+    patched into JAX_MODELS) raises NotImplementedError naming it, before
+    any work (no files are given); a name neither package has stays a
+    ValueError."""
+    assert get_model(name).infer_fn is not None
+    assert all(get_model(n) is not None for n in base.JAX_MODELS)
+    later = name + "_later"
+    monkeypatch.setattr(base, "JAX_MODELS", base.JAX_MODELS + (later,))
+    with pytest.raises(NotImplementedError, match="%s.*later slice" % later):
+        get_model(later)
+    with pytest.raises(NotImplementedError, match=later):
         run.main(["--mode", "test", "--parameters",
-                  "device=cpu,model_name=" + name])
+                  "device=cpu,model_name=" + later])
     with pytest.raises(ValueError, match="Unknown model"):
         get_model(name + "_x")

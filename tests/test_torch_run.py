@@ -22,6 +22,7 @@ from zero_tpu.saver import Saver as JSaver  # noqa: E402
 from zero_tpu.search import beam_search as jbeam_search  # noqa: E402
 from zero_tpu.vocab import Vocab as JVocab  # noqa: E402
 from zero_tpu_torch import run  # noqa: E402
+from zero_tpu_torch.models import base  # noqa: E402
 from zero_tpu_torch.scripts.profile_decode import _busy_us  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,15 +93,19 @@ def test_device_cuda_without_a_card_raises(corpus):
                   corpus[1] + ",device=cuda"])
 
 
-# every mode is ported, but options of a later slice raise before any
-# work: a model not ported yet, and in training a mesh
-_LATER = {"train": ["--parameters", "device=cpu,model_name=rnnsearch"],
-          "score": ["--parameters", "device=cpu,model_name=rnnsearch"],
+# every mode and every model of the JAX package is ported, but options of
+# a later slice raise before any work: in training several processes and a
+# mesh, and a model the JAX package has and the port not (a name patched
+# into JAX_MODELS stands for one)
+LATER_MODEL = "transformer_of_a_later_slice"
+_LATER = {"train": ["--parameters", "device=cpu,dist_num_processes=2"],
+          "score": ["--parameters", "device=cpu,model_name=" + LATER_MODEL],
           "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 
 
 @pytest.mark.parametrize("mode", ["train", "score", "train_mesh"])
-def test_modes_of_later_slices_raise(mode):
+def test_modes_of_later_slices_raise(mode, monkeypatch):
+    monkeypatch.setattr(base, "JAX_MODELS", base.JAX_MODELS + (LATER_MODEL,))
     with pytest.raises(NotImplementedError, match="slice"):
         run.main(["--mode", mode.split("_")[0]] + _LATER[mode])
 
@@ -122,6 +127,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "zero_tpu")]
     assert len(files) > 15 and not bad, bad
+    # the scan reaches the native tokeniser's wrapper, the RNN package and
+    # the scripts
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    for want in ("zero_tpu_torch/native/__init__.py",
+                 "zero_tpu_torch/rnns/__init__.py",
+                 "zero_tpu_torch/scripts/checkpoint_averaging.py",
+                 "zero_tpu_torch/scripts/make_synth_mt.py"):
+        assert want in scanned, want
 
 
 def test_profile_busy_time_is_the_union_of_kernel_intervals():

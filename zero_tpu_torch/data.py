@@ -1,8 +1,10 @@
 """Host-side dataset: streaming, bucket-sorting, batching, shape discipline.
 
-A copy of the python tokeniser path of ``zero_tpu/data.py`` (the port
-imports nothing of the JAX package; the C++ tokeniser and the forked
-tokeniser workers come with a later slice). Reference pipeline semantics:
+A copy of ``zero_tpu/data.py`` (the port imports nothing of the JAX
+package): the first pass over a corpus tokenises with the C++ library
+(native/, ``use_native`` with the ``vocab_files``), else with forked
+python workers (``num_workers`` > 1, the ``process_num`` option), else
+in-process; the three give the same ids. Reference pipeline semantics:
 buffer-sort by max(src,tgt) length, batch- or token-count bucketing,
 shuffled bucket order, per-batch max padding into int32 matrices, and the
 leak buffer deferring undersized tail batches.
@@ -22,9 +24,42 @@ change no loss (``sentence_mean_loss`` leaves them out), only the work.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+import itertools
+import multiprocessing
+import sys
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+# ---------------------------------------------------------------------------
+# Forked tokeniser workers: the vocabulary lookups of the first pass are
+# GIL-bound, so threads cannot help. The workers run the pure-python
+# tokenise step only: data.py imports neither torch nor CUDA, so a child
+# touches no device state of its parent; everything stateful stays in the
+# parent.
+# ---------------------------------------------------------------------------
+
+_TOK_STATE: dict = {}
+
+
+def _tok_init(src_vocab, tgt_vocab, max_len):
+    _TOK_STATE["sv"] = src_vocab
+    _TOK_STATE["tv"] = tgt_vocab
+    _TOK_STATE["ml"] = max_len
+
+
+def _tok_chunk(chunk):
+    sv, tv, ml = _TOK_STATE["sv"], _TOK_STATE["tv"], _TOK_STATE["ml"]
+    return [(sv.to_id(s.split()[:ml]), tv.to_id(t.split()[:ml]))
+            for s, t in chunk]
+
+
+def _chunked(it, n):
+    while True:
+        chunk = list(itertools.islice(it, n))
+        if not chunk:
+            return
+        yield chunk
 
 
 def batch_indexer(datasize: int, batch_size: int) -> List[List[int]]:
@@ -103,7 +138,10 @@ class Dataset:
                  data_leak_ratio: float = 0.5,
                  pad_seq_multiple: int = 1,
                  pad_batch_multiple: int = 1,
-                 pad_batch_to: int = 0):
+                 pad_batch_to: int = 0,
+                 num_workers: int = 0,
+                 vocab_files: Optional[Tuple[str, str]] = None,
+                 use_native: bool = True):
         self.source = src_file
         self.target = tgt_file
         self.src_vocab = src_vocab
@@ -116,6 +154,12 @@ class Dataset:
         # pad every batch up to this many rows (eval: one batch shape per
         # sequence bucket instead of one per tail-batch size)
         self.pad_batch_to = pad_batch_to
+        # >1: tokenise the first pass with that many forked workers
+        self.num_workers = int(num_workers)
+        # the C++ tokeniser reads the vocabulary FILES (it builds its own
+        # maps); used when both are known and the library builds
+        self.vocab_files = vocab_files
+        self.use_native = use_native
         self._id_cache = None
         self.leak_buffer: List[Tuple[int, List[int], List[int]]] = []
 
@@ -126,13 +170,32 @@ class Dataset:
         if self._id_cache is not None:
             yield from self._id_cache
             return
+        if self.use_native and self.vocab_files is not None:
+            from zero_tpu_torch import native
+            pairs = native.encode_corpus(
+                self.source, self.target, self.vocab_files[0],
+                self.vocab_files[1], self.max_len,
+                n_threads=max(self.num_workers, 0))
+            if pairs is not None:
+                self._id_cache = pairs
+                yield from pairs
+                return
+        if self.num_workers > 1 and sys.platform.startswith("linux"):
+            source = self._tokenize_parallel()
+        else:
+            source = self._tokenize_serial()
         collected = []
-        for src_line, tgt_line in self._raw_pairs():
-            pair = (self.src_vocab.to_id(src_line.split()[:self.max_len]),
-                    self.tgt_vocab.to_id(tgt_line.split()[:self.max_len]))
+        for pair in source:
             collected.append(pair)
             yield pair
         self._id_cache = collected
+
+    def tokenize(self) -> None:
+        """Run the first pass now (the forked workers, if any, start from
+        the calling thread), so later passes replay the cached ids."""
+        if self._id_cache is None:
+            for _ in self.load_data():
+                pass
 
     def _raw_pairs(self) -> Iterator[Tuple[str, str]]:
         """Stream stripped non-blank (src_line, tgt_line) string pairs."""
@@ -147,6 +210,23 @@ class Dataset:
                 if src_line == "" or tgt_line == "":
                     continue
                 yield (src_line, tgt_line)
+
+    def _tokenize_serial(self):
+        for src_line, tgt_line in self._raw_pairs():
+            yield (self.src_vocab.to_id(src_line.split()[:self.max_len]),
+                   self.tgt_vocab.to_id(tgt_line.split()[:self.max_len]))
+
+    def _tokenize_parallel(self, chunk_lines: int = 2000):
+        """Tokenise with a fork pool, in corpus order (imap), so batching
+        and resume see what the serial path gives. fork, not spawn: the
+        vocabularies reach the workers by page sharing, not pickling."""
+        ctx = multiprocessing.get_context("fork")
+        with ctx.Pool(self.num_workers, initializer=_tok_init,
+                      initargs=(self.src_vocab, self.tgt_vocab,
+                                self.max_len)) as pool:
+            chunks = _chunked(self._raw_pairs(), chunk_lines)
+            for out in pool.imap(_tok_chunk, chunks, chunksize=1):
+                yield from out
 
     def to_matrix(self, batch, token_size: int = 0):
         """Pad a list of (idx, src_ids, tgt_ids) into int32 matrices.

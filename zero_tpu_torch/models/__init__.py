@@ -3,13 +3,16 @@
 ``transformer``, ``transformer_rpr``, ``transformer_rela``,
 ``transformer_aan``, ``transformer_fuse``, ``transformer_l0drop``,
 ``transformer_fixup``, ``transformer_moe``, ``transformer_multilingual``,
-``transformer_clsr``, ``transformer_ibdecoder`` and ``transformer_afs``
-(12 of the JAX package's 15; base.JAX_MODELS lists them, and the others
-raise NotImplementedError)."""
+``transformer_clsr``, ``transformer_ibdecoder``, ``transformer_afs`` and
+the RNN models ``rnnsearch``, ``deepnmt`` and ``rnnsearch_deepatt``: all
+15 of base.JAX_MODELS, the JAX package's models."""
 
 from zero_tpu_torch.models.base import ModelSpec, get_model, model_register  # noqa: F401
 
 # import for registration side effects
+from zero_tpu_torch.models import deepnmt  # noqa: F401
+from zero_tpu_torch.models import rnnsearch  # noqa: F401
+from zero_tpu_torch.models import rnnsearch_deepatt  # noqa: F401
 from zero_tpu_torch.models import transformer  # noqa: F401
 from zero_tpu_torch.models import transformer_aan  # noqa: F401
 from zero_tpu_torch.models import transformer_afs  # noqa: F401

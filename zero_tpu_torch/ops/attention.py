@@ -471,3 +471,57 @@ def cross_attn_step(params: Attention, x_t, mkv, mem_keep, num_heads, *,
     new_sum = aan_sum + nn.linear(params.v, x_t)
     aan = new_sum / nn.aan_step_count(time, new_sum.dtype)
     return _out_map(params, o, relu, aan), new_sum
+
+
+# ---------------------------------------------------------------------------
+# additive (Bahdanau) attention of the RNN decoders
+# ---------------------------------------------------------------------------
+
+class AdditiveAttention(torch.nn.Module):
+    """``feed_memory`` (unused where the caller passes the memory's
+    projection, as every RNN model does), ``feed_query`` and
+    ``feed_logits`` (per-head depth -> 1)."""
+
+    def __init__(self, feed_memory, feed_query, feed_logits):
+        super().__init__()
+        self.feed_memory = feed_memory
+        self.feed_query = feed_query
+        self.feed_logits = feed_logits
+
+
+def init_additive_attention(gen, d_query: int, d_memory: int, hidden: int,
+                            num_heads: int = 1,
+                            weight_init=None) -> AdditiveAttention:
+    return AdditiveAttention(
+        nn.init_linear(gen, d_memory, hidden, weight_init=weight_init),
+        nn.init_linear(gen, d_query, hidden, weight_init=weight_init),
+        nn.init_linear(gen, hidden // num_heads, 1, weight_init=weight_init))
+
+
+def additive_attention(params: AdditiveAttention, query, memory, mem_mask,
+                       num_heads: int = 1, *, proj_memory=None, rng=None,
+                       drop=None):
+    """Bahdanau attention, ``zero_tpu/ops/attention.py:additive_attention``.
+
+    query: [B, d] or [B*K, d] against the untiled memory [B, S, dm] (the
+    K beams fold into a query axis, so the memory is read once a row);
+    mem_mask: [B, S]. Pads get logit -1e9 in fp32, so an all-pad row
+    averages every position. Returns {'output': [B(*K), dm], 'weights':
+    [B(*K), H, S], 'cache_state': the projected memory}."""
+    if proj_memory is None:
+        proj_memory = nn.linear(params.feed_memory, memory)
+    mem_batch = memory.shape[0]
+    beams = query.shape[0] // mem_batch
+    q = nn.linear(params.feed_query, query).reshape(mem_batch, beams, -1)
+    qh = split_heads(q, num_heads)                     # [B, H, K, hidden/H]
+    pmh = split_heads(proj_memory, num_heads)          # [B, H, S, hidden/H]
+    value = torch.tanh(qh[:, :, :, None, :] + pmh[:, :, None, :, :])
+    logits = nn.linear(params.feed_logits, value)[..., 0].float()
+    logits = logits.masked_fill(mem_mask[:, None, None, :] <= 0, -1e9)
+    weights = torch.softmax(logits, dim=-1)            # [B, H, K, S]
+    dweights = common.dropout(rng, weights, drop)
+    mh = split_heads(memory, num_heads)                # [B, H, S, dm/H]
+    out = torch.einsum("bhks,bhsd->bkhd", dweights.to(memory.dtype), mh)
+    out = out.reshape(query.shape[0], -1)              # [B*K, dm]
+    weights = weights.transpose(1, 2).reshape(query.shape[0], num_heads, -1)
+    return {"weights": weights, "output": out, "cache_state": proj_memory}

@@ -3,9 +3,9 @@ and AAN's cumulative average.
 
 Counterparts of ``zero_tpu/ops/nn.py``. Each primitive is an (init_*, *)
 pair as there: ``init_*`` builds a parameter module whose state-dict names
-follow the JAX param paths (``ws.0``, ``b``, ``scale``, ``offset``,
-``enlarge``, ``output``), and the apply function is a plain function of
-(module, inputs).
+follow the JAX param paths (``ws.0``, ``b``, ``lns.0.scale``, ``scale``,
+``offset``, ``enlarge``, ``output``), and the apply function is a plain
+function of (module, inputs).
 """
 
 from __future__ import annotations
@@ -26,32 +26,41 @@ from zero_tpu_torch.ops.kernels import fused_ffn as fused_ffn_mod
 
 class Linear(torch.nn.Module):
     """Multi-input dense layer: one [in_i, out] weight per input in ``ws``
-    (summed; equivalent to one weight over the concatenated inputs) and an
-    optional bias ``b``."""
+    (summed; equivalent to one weight over the concatenated inputs), an
+    optional bias ``b`` and, for the RNN models' variant, one LayerNorm
+    per input in ``lns`` (no ``lns`` key without it)."""
 
-    def __init__(self, ws: Sequence[torch.Tensor], b=None):
+    def __init__(self, ws: Sequence[torch.Tensor], b=None, lns=None):
         super().__init__()
         self.ws = torch.nn.ParameterList(
             [torch.nn.Parameter(w) for w in ws])
         self.b = None if b is None else torch.nn.Parameter(b)
+        self.lns = None if lns is None else torch.nn.ModuleList(lns)
 
 
 def init_linear(gen, in_sizes: Union[int, Sequence[int]], out_size: int,
-                bias: bool = True, weight_init=None) -> Linear:
+                bias: bool = True, weight_init=None,
+                ln: bool = False) -> Linear:
+    """``ln=True`` adds a LayerNorm per input projection, applied before
+    the sum (``linear(..., ln=True)``)."""
     if isinstance(in_sizes, int):
         in_sizes = [in_sizes]
     weight_init = weight_init or inits.variance_scaling(1.0, "uniform")
     ws = [weight_init(gen, (isz, out_size)) for isz in in_sizes]
-    return Linear(ws, torch.zeros(out_size) if bias else None)
+    lns = [init_layer_norm(out_size) for _ in in_sizes] if ln else None
+    return Linear(ws, torch.zeros(out_size) if bias else None, lns)
 
 
-def linear(params: Linear, xs):
-    """Apply a (possibly multi-input) dense layer; xs is a tensor or list."""
+def linear(params: Linear, xs, ln: bool = False, eps: float = 1e-8):
+    """Apply a (possibly multi-input) dense layer; xs is a tensor or list.
+    ``ln``: each input's projection is layer-normed before the sum."""
     if not isinstance(xs, (list, tuple)):
         xs = [xs]
     o = None
-    for x, w in zip(xs, params.ws):
+    for i, (x, w) in enumerate(zip(xs, params.ws)):
         y = torch.matmul(x, w.to(x.dtype))
+        if ln:
+            y = fused_layer_norm(params.lns[i], y, eps=eps)
         o = y if o is None else o + y
     if params.b is not None:
         o = o + params.b.to(o.dtype)
@@ -80,6 +89,16 @@ def layer_norm(params: LayerNorm, x, eps: float = 1e-8):
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
     out = params.scale.float() * normed + params.offset.float()
+    return out.to(x.dtype)
+
+
+def fused_layer_norm(params: LayerNorm, x, eps: float = 1e-8):
+    """layer_norm's formula (biased variance, statistics in fp32) as torch's
+    one-kernel layer norm: the RNN models run a per-input norm in every
+    time step's products, where launches set the step's time."""
+    out = torch.nn.functional.layer_norm(x.float(), x.shape[-1:],
+                                         params.scale.float(),
+                                         params.offset.float(), eps)
     return out.to(x.dtype)
 
 

@@ -34,7 +34,10 @@ with ``data_kind=speech``) profiles transformer_afs on random log-mel-like
 frames: ``--src-len`` counts frames (each row 60-100% full), the target
 and the transcript (coarse labels under ``coarse_label_base``) have
 ``--tgt-len`` tokens, and ``st_context`` adds the previous segment's
-frames. ``--trace`` also writes the Chrome trace.
+frames. ``--config "" --parameters model_name=rnnsearch`` (or
+``deepnmt``, ``rnnsearch_deepatt``) profiles an RNN model at the default
+config's widths (hidden 1000, embed 620). ``--trace`` also writes the
+Chrome trace.
 """
 
 from __future__ import annotations

@@ -82,7 +82,14 @@ def _make_dataset(params, src, tgt, train=False):
                    pad_seq_multiple=params.pad_seq_multiple,
                    pad_batch_multiple=params.pad_batch_multiple if train
                    else 1,
-                   pad_batch_to=0 if train else params.eval_batch_size)
+                   pad_batch_to=0 if train else params.eval_batch_size,
+                   # process_num forked tokeniser workers for the first pass
+                   # over the training corpus; the C++ tokeniser (native/)
+                   # where native_tokenizer is on and the library builds
+                   num_workers=params.process_num if train else 0,
+                   vocab_files=(params.src_vocab_file,
+                                params.tgt_vocab_file),
+                   use_native=params.native_tokenizer)
 
 
 def _batch_source(batch, device):
@@ -188,6 +195,11 @@ def _train(params, preempted) -> dict:
     device = device_of(params)
     train_dataset = _make_dataset(params, params.src_train_file,
                                   params.tgt_train_file, train=True)
+    if isinstance(train_dataset, Dataset):
+        # the first pass runs here, in the main thread, before any device
+        # state or prefetch thread exists: process_num's forked workers run
+        # pure python and touch neither torch nor the card
+        train_dataset.tokenize()
     dev_dataset = _make_dataset(params, params.src_dev_file,
                                 params.tgt_dev_file)
 
