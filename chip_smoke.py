@@ -69,7 +69,7 @@ non-zero):
              beside the bound
   serve      beam 4: random transformer-base weights from a seed saved
              through the port's saver, a synthetic 32768-token vocabulary
-             and a 64-sentence test set; counts prove the decode went
+             and a 32-sentence test set; counts prove the decode went
              through decode_pool_attention and never a plain version
   serve      beam 1: the same through decode_attention
   reference  a small fp32 model decoded on the card (kernels) and on the
@@ -150,7 +150,7 @@ non-zero):
              1e-4; beam 4 card against CPU, identical sequences
   ensemble   --mode ensemble at beam 4 over the checkpoints train and
              rela_train saved (transformer-base and transformer_rela), on the
-             64-sentence test set: #8 in softmax and in relu mode, once per
+             32-sentence test set: #8 in softmax and in relu mode, once per
              decoder layer and step each; BLEU and sentences/s; then a small
              fp32 transformer + transformer_rela ensemble, card against CPU:
              identical sequences, scores within 1e-4
@@ -276,7 +276,7 @@ non-zero):
              AFS tf, coarse CTC, use_flash_attention, the fused FFN off)
              SPEECH_STEPS steps on a synthetic corpus the phase writes
              (SPEECH_UTTERANCES .npy utterances of 300-2048 frames, 80
-             mels; 64 16 kHz .wav files to serve, so read_wav and logmel
+             mels; 32 16 kHz .wav files to serve, so read_wav and logmel
              run): loss, CTC term, AFS penalty, ms/step, target tokens/s
              and raw frames/s, MFU, peak memory; launches 12 tensor-core
              #1 and #2 a microbatch; --mode test at beam 4 and 1 at
@@ -324,6 +324,27 @@ non-zero):
              the native counter +1 exactly where the native path ran; the
              metric CLI (OTEM, UTEM, BLEU; detokenized BLEU) and the chrF
              script on rnn_train's beam-4 output
+  dp_train   data parallelism across processes (zero_tpu_torch/parallel/):
+             configs/transformer_base_wmt14.json at BASE_CUT's 3+3 (bf16,
+             both kernel flags, dropout 0.1, update_cycle 4) DP_STEPS
+             steps through --mode train, first as a world of one over NCCL
+             (dist_coordinator=127.0.0.1:<port>: the gradient all-reduce
+             runs), then as two ranks sharing the card, each a subprocess
+             with its own gloo group (NCCL refuses two ranks on one
+             device): ms/step, global target tokens/s, peak memory, the
+             all-reduce's ms and bytes a step, the launches of #1/#2/#11/
+             #12 per rank (checked as in train), a checksum of every
+             rank's parameters (equal) and the dev BLEU of the final
+             data-sharded eval on every rank (equal). Two gloo ranks on
+             one card measure correctness, not NCCL bandwidth
+  dp_reference  a small fp32 model on the card, kernels on: two gloo ranks
+             (an all-pad row on one: unequal valid rows) against one
+             process on the concatenated global batch, dropout off and on
+             (the global-row draws): loss within 1e-6 relative, the summed
+             grads and the parameters after one Adam step within 1e-5 of
+             their max; then #1-#7 and #11/#12 (fp32 and bf16, both
+             routes) against their plain versions at a row base of 3
+             (rows 3-6 of a global batch of 8), dropout 0.1
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -337,6 +358,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -378,6 +400,10 @@ TOLERANCE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 TRAIN_TOLERANCE = {torch.float32: (1e-5, 1e-4),
                    torch.bfloat16: (1e-2, 2e-2)}
 TRAIN_STEPS = 2
+# the test set that every serving, scoring and ensemble run decodes, one
+# batch at eval_batch_size 32 (64 sentences, two batches, before the
+# data-parallel phases came)
+TEST_SENTENCES = 32
 # the earlier phases run at a cut depth (the script's time budget):
 # transformer-base's at 3+3 (6+6 as written; MoE and IBDecoder too),
 # config 4's at 2+6 (20+6; scan_layers too), the multilingual config's at
@@ -674,7 +700,7 @@ def kernels_phase(da):
 
 
 def write_corpus(d):
-    """A 32768-token vocabulary and a 64-sentence test set of 20 to 60
+    """A 32768-token vocabulary and a 32-sentence test set of 20 to 60
     tokens, made from SEED; returns the vocabulary's words."""
     rs = np.random.RandomState(SEED)
     words = ["w%d" % i for i in range(32768 - 3)]   # + pad, unk, eos
@@ -682,7 +708,7 @@ def write_corpus(d):
         w.write("\n".join(words) + "\n")
     for name in ("test.src", "test.tgt"):
         with open(os.path.join(d, name), "w") as w:
-            for _ in range(64):
+            for _ in range(TEST_SENTENCES):
                 n = rs.randint(20, 61)
                 w.write(" ".join(words[i] for i in rs.randint(0, len(words),
                                                               n)) + "\n")
@@ -709,7 +735,7 @@ def serve_phase(da, d, beam, kernel):
     with open(os.path.join(d, "trans%d.txt" % beam)) as r:
         lines = r.read().splitlines()
     layers = load_config_file(CONFIG)["num_decoder_layer"]
-    if len(lines) != 64 or summary["sentences"] != 64:
+    if len(lines) != TEST_SENTENCES or summary["sentences"] != TEST_SENTENCES:
         raise AssertionError("served %d lines" % len(lines))
     if launches.get(kernel, 0) != layers * summary["steps"]:
         raise AssertionError("%s launched %s times, expected %d layers x %d "
@@ -1579,7 +1605,7 @@ def train_phase(d, da, config=CONFIG, label="train",
     scores, ppl = run.main(["--mode", "score", "--parameters",
                             checkpoint_spec(d, label, "scores")])
     score_launches = collect(counters)
-    if len(scores) != 64 or not all(map(math.isfinite, scores)):
+    if len(scores) != TEST_SENTENCES or not all(map(math.isfinite, scores)):
         raise AssertionError("scored %d sentences: %s" % (len(scores),
                                                           scores[:4]))
     plain = [n for n in list(serve_launches) + list(score_launches)
@@ -1601,7 +1627,7 @@ def train_phase(d, da, config=CONFIG, label="train",
 
 def checkpoint_spec(d, label, output, beam=None):
     """--parameters of --mode test/score over the kernel run's checkpoint
-    of ``label`` on the 64-sentence test set, writing ``output``."""
+    of ``label`` on the 32-sentence test set, writing ``output``."""
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_test_file={0}/test.src,tgt_test_file={0}/test.tgt,"
             "output_dir={0}/{1}_true,test_output={0}/{1}_{2}.txt,"
@@ -1623,7 +1649,7 @@ def serve_checkpoint(d, label, counters, beam=None, extra="", tag=""):
     launches = collect(counters)
     with open(os.path.join(d, "%s_%s.txt" % (label, output))) as r:
         lines = r.read().splitlines()
-    if len(lines) != 64 or served["sentences"] != 64:
+    if len(lines) != TEST_SENTENCES or served["sentences"] != TEST_SENTENCES:
         raise AssertionError("served %d lines of the trained model"
                              % len(lines))
     return served, launches
@@ -1940,7 +1966,7 @@ AAN_CONFIG = os.path.join(REPO, "configs", "transformer_aan_wmt14.json")
 # transformer_rela is configs/transformer_rpr_rela.json with these names
 RELA_EXTRA = (",model_name=transformer_rela,scope_name=transformer_rela"
               + BASE_CUT)
-TEST_BATCHES = 2    # the 64-sentence test set at eval_batch_size 32
+TEST_BATCHES = TEST_SENTENCES // 32    # at eval_batch_size 32
 
 
 def no_kernel(cfg, summary):
@@ -2081,7 +2107,7 @@ def aan_reference_phase(da):
 
 def ensemble_phase(d, da):
     """--mode ensemble at beam 4 over the checkpoints that train
-    (transformer-base) and rela_train saved, on the 64-sentence test set:
+    (transformer-base) and rela_train saved, on the 32-sentence test set:
     #8 in both modes, once per decoder layer and step each; then a small
     fp32 transformer + transformer_rela ensemble on the card against the
     CPU. Returns the ensemble run's launches."""
@@ -2116,7 +2142,8 @@ def ensemble_phase(d, da):
     want = {"fused_attention" + route_suffix(cfg): enc, "fused_ffn": enc,
             "decode_pool_attention": steps,
             "decode_pool_attention_relu": steps}
-    if len(lines) != 64 or summary["sentences"] != 64 or launches != want:
+    if len(lines) != TEST_SENTENCES or summary["sentences"] \
+            != TEST_SENTENCES or launches != want:
         raise AssertionError("ensemble: %d lines, launches %s, expected %s"
                              % (len(lines), launches, want))
 
@@ -2159,7 +2186,8 @@ def ensemble_phase(d, da):
 
 
 DEEP_CONFIG = os.path.join(REPO, "configs", "deep_transformer_fuse_l0drop.json")
-DEEP_STEPS = 3       # deep_train and l0drop_train
+# deep_train and l0drop_train (3 before the data-parallel phases came)
+DEEP_STEPS = 2
 MEMORY_STEPS = 2     # deep_memory, each setting
 FIXUP_STEPS = 2
 L0DROP_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop"
@@ -3175,12 +3203,13 @@ ML_CONFIG = os.path.join(REPO, "configs", "multilingual_robt_opus100.json")
 SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
               "scan_layers=true" + DEEP_CUT)
 # steps cut for the script's time as later slices' phases came (10, 12,
-# 5, 10, 5 and 10, then 4, 4, 3, 3, 3 and 4 before)
-SCAN_STEPS = 3
+# 5, 10, 5 and 10, then 4, 4, 3, 3, 3 and 4, then 3 each before the
+# data-parallel phases)
+SCAN_STEPS = 2
 # the base config at BASE_CUT's 3+3 since the RNN phases came
 MOE_EXTRA = (",model_name=transformer_moe,scope_name=transformer_moe"
              + BASE_CUT)
-MOE_STEPS = 3
+MOE_STEPS = 2
 MOE_TOP2_STEPS = 2
 ML_STEPS = 2
 ML_OFF_STEPS = 2
@@ -3190,7 +3219,7 @@ ML_OFF_STEPS = 2
 ML_CUT = ",num_encoder_layer=2,num_decoder_layer=2"
 CLSR_EXTRA = (",model_name=transformer_clsr,scope_name=transformer_clsr,"
               "robt=false" + ML_CUT)
-CLSR_STEPS = 3
+CLSR_STEPS = 2
 ML_LANGUAGES = 100
 PEAK_FP32 = PEAK_FLOPS[torch.float32]
 FP32_NOTE = ("computes in fp32 whatever default_dtype says (as the JAX "
@@ -3231,7 +3260,7 @@ print(json.dumps({
 def write_multilingual_corpus(d, words):
     """The multilingual config's data in ``d``: a 32768-token vocabulary
     whose 100 language tags <2l00> ... <2l99> take ids 3-102; 8000
-    training pairs of 10 to 100 tokens a side and a 64-sentence test set
+    training pairs of 10 to 100 tokens a side and a 32-sentence test set
     of 20 to 60, each source line led by a random tag (the target
     language). Made from SEED."""
     os.makedirs(d)
@@ -3240,7 +3269,8 @@ def write_multilingual_corpus(d, words):
     with open(os.path.join(d, "vocab.txt"), "w") as w:
         w.write("\n".join(tags + text) + "\n")
     rs = np.random.RandomState(SEED + 3)
-    for split, n, lo, hi in (("train", 8000, 10, 101), ("test", 64, 20, 61)):
+    for split, n, lo, hi in (("train", 8000, 10, 101),
+                             ("test", TEST_SENTENCES, 20, 61)):
         with open(os.path.join(d, split + ".src"), "w") as ws, \
                 open(os.path.join(d, split + ".tgt"), "w") as wt:
             for _ in range(n):
@@ -3588,7 +3618,8 @@ def clsr_train_phase(d, da):
           sentences=summary["sentences"], bleu=summary["bleu"],
           sentences_per_s=summary["sentences"] / summary["seconds"],
           decode_steps=summary["steps"], launches=launches)
-    if len(lines) != 64 or summary["sentences"] != 64 or launches != want:
+    if len(lines) != TEST_SENTENCES or summary["sentences"] \
+            != TEST_SENTENCES or launches != want:
         raise AssertionError("clsr_train ensemble: %d lines, launches %s, "
                              "expected %s" % (len(lines), launches, want))
     return results, served, launches
@@ -3784,11 +3815,11 @@ def slice13_reference_phase(da):
 # the base config at BASE_CUT's 3+3 (6+6 before the RNN phases came)
 IB_EXTRA = (",model_name=transformer_ibdecoder,"
             "scope_name=transformer_ibdecoder" + BASE_CUT)
-IB_STEPS = 3
+IB_STEPS = 2     # 3 before the data-parallel phases came
 IB_NOTE = ("MFU over the bf16 peak; the decoder computes in fp32 (its fp32 "
            "positions promote it, as in the JAX package)")
 SPEECH_CONFIG = os.path.join(REPO, "configs", "speech_afs_mustc.json")
-SPEECH_STEPS = 3
+SPEECH_STEPS = 2     # 3 before the data-parallel phases came
 SPEECH_CONTEXT_STEPS = 2
 SPEECH_UTTERANCES = 600
 # the config's own settings: the fused FFN off, no sample decode (a speech
@@ -3879,7 +3910,7 @@ def write_speech_corpus(d, words):
     phases' file names): the vocabulary; train.src, a manifest of
     SPEECH_UTTERANCES .npy log-mel-like features [T, 80], T from 300 to
     2048 frames, with transcripts and translations of 10-60 words, and
-    train.tgt its translations; test.src, a manifest of 64 16 kHz .wav
+    train.tgt its translations; test.src, a manifest of 32 16 kHz .wav
     files of 3-10 s (read_wav and logmel run at test time), and test.tgt
     its references. Made from SEED."""
     os.makedirs(d)
@@ -3891,7 +3922,7 @@ def write_speech_corpus(d, words):
         return " ".join(words[i] for i in rng.integers(
             0, len(words), rng.integers(10, 61)))
 
-    for split, n in (("train", SPEECH_UTTERANCES), ("test", 64)):
+    for split, n in (("train", SPEECH_UTTERANCES), ("test", TEST_SENTENCES)):
         with open(os.path.join(d, split + ".src"), "w") as manifest, \
                 open(os.path.join(d, split + ".tgt"), "w") as refs:
             for i in range(n):
@@ -4094,7 +4125,7 @@ def speech_train_phase(d, da):
           sentences=summary["sentences"], bleu=summary["bleu"],
           sentences_per_s=summary["sentences"] / summary["seconds"],
           decode_steps=summary["steps"], launches=ensemble)
-    if summary["sentences"] != 64 or ensemble != want:
+    if summary["sentences"] != TEST_SENTENCES or ensemble != want:
         raise AssertionError("speech_train ensemble: %d sentences, launches "
                              "%s, expected %s" % (summary["sentences"],
                                                   ensemble, want))
@@ -4292,7 +4323,8 @@ RNN_MODELS = {
                           scope_name="rnnsearch_deepatt", cell="gru",
                           num_encoder_layer=2, num_decoder_layer=2),
 }
-RNN_STEPS = {"rnn_train": 3, "deepnmt_train": 2, "deepatt_train": 2}
+# rnn_train 3 before the data-parallel phases came
+RNN_STEPS = {"rnn_train": 2, "deepnmt_train": 2, "deepatt_train": 2}
 RNN_NOTE = ("MFU over the fp32 peak (67 TFLOP/s, TF32 off): the RNN models "
             "compute in fp32 under default_dtype=bfloat16, as in the JAX "
             "package; rnn_flops: matmul FLOPs at each step's stacked shape "
@@ -4497,7 +4529,7 @@ def rnn_train_phase(d, da, label):
 
 def rnn_ensemble(d, da):
     """--mode ensemble at beam 4 over rnn_train's and deepnmt_train's
-    checkpoints (the beam gather permutes both caches): 64 lines, no
+    checkpoints (the beam gather permutes both caches): every test line, no
     kernel."""
     from zero_tpu_torch import run
     from zero_tpu_torch.ops.kernels import fused_attention as fa
@@ -4520,7 +4552,8 @@ def rnn_ensemble(d, da):
           sentences=summary["sentences"], bleu=summary["bleu"],
           sentences_per_s=summary["sentences"] / summary["seconds"],
           decode_steps=summary["steps"], launches=launches)
-    if len(lines) != 64 or summary["sentences"] != 64 or launches:
+    if len(lines) != TEST_SENTENCES or summary["sentences"] \
+            != TEST_SENTENCES or launches:
         raise AssertionError("rnn ensemble: %d lines, launches %s"
                              % (len(lines), launches))
 
@@ -4660,6 +4693,360 @@ def host_phase(d):
                              "%s" % (same, counted, scores))
 
 
+DP_STEPS = 2
+DP_WORLD = 2
+DP_DEV = 8       # dev sentences: the final eval's BLEU, equal on every rank
+DP_NOTE = ("two gloo ranks share the one card: they measure correctness "
+           "(one state and one BLEU on every rank), not NCCL bandwidth")
+DP_TRAIN_KERNELS = ("fused_attention", "fused_attention_backward",
+                    "fused_ffn", "fused_ffn_backward")
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dp_train_run(d, out, extra):
+    """One process's --mode train of the base config (BASE_CUT, both
+    kernel flags) with the final dev eval; its state is kept through the
+    training loop's init_train_state. Returns its numbers, launch counts
+    and a checksum of its parameters (the float64 sum and sum of
+    squares)."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch import train as train_mod
+    from zero_tpu_torch.ops.kernels import decode_attention as da
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    held = {}
+    real = train_mod.init_train_state
+
+    def keep(*args, **kwargs):
+        held["state"] = real(*args, **kwargs)
+        return held["state"]
+
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
+            "src_dev_file={0}/dev.src,tgt_dev_file={0}/dev.tgt,"
+            "eval_batch_size={2},output_dir={1},use_flash_attention=true,"
+            "use_fused_ffn=true,max_training_steps={3},disp_freq=1,"
+            "save_freq=0,eval_freq=0,sample_freq=0,epoches=100{4}"
+            .format(d, out, DP_DEV, DP_STEPS, extra))
+    counters = (fa.launches, ff.launches, da.launches)
+    for c in counters:
+        c.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_mod, "init_train_state", keep):
+        summary = run.main(["--mode", "train", "--config", CONFIG,
+                            "--parameters", spec])
+    launches = collect(counters)
+    params = [p.detach().double() for p in held["state"].params.parameters()]
+    ends = summary["step_end_times"]
+    reduce = summary["allreduce"]
+    return dict(
+        steps=summary["steps"], shapes=summary["shapes"],
+        losses=summary["losses"], step_s=[b - a for a, b in
+                                          zip(ends[:-1], ends[1:])],
+        tokens=summary["target_tokens"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        allreduce_ms_per_step=reduce["ms"] / summary["steps"],
+        allreduce_bytes_per_step=reduce["bytes"] // summary["steps"],
+        allreduce_calls_per_step=reduce["calls"] / summary["steps"],
+        train_launches={k: launches.get(k + "_tc" if k.startswith(
+            "fused_attention") else k, 0) for k in DP_TRAIN_KERNELS},
+        launches=launches, bleu=summary["bleu"],
+        checksum=[float(sum(p.sum() for p in params)),
+                  float(sum((p * p).sum() for p in params))])
+
+
+def dp_reference_run(rank, world):
+    """The small fp32 model on the card, both kernel flags on, dropout off
+    and on: this process's rows of dp_batch (every row without a process
+    group). Returns {rate: (loss, grads summed over the processes,
+    parameters after one Adam step, launches)}."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel import distributed as dist
+    from zero_tpu_torch.train_step import (global_batch, init_train_state,
+                                           make_train_step)
+
+    model = get_model("transformer")
+    # _small_batch's six rows: the all-pad one in the second process's slot
+    feats = _small_batch()
+    rows = feats["source"].shape[0] // world
+    local = {k: v[rank * rows:(rank + 1) * rows].cuda()
+             for k, v in feats.items()}
+    out = {}
+    for rate in (0.0, 0.1):
+        cfg = _small_model(rate)
+        # Adam's epsilon: a gradient of rounding noise (a key bias's) would
+        # move its weight by +-lr at 1e-9, whichever sign the noise took
+        cfg.epsilon = 1e-6
+        cfg.device = "cuda"
+        fa.launches.clear()
+        ff.launches.clear()
+        params = model.init_fn(torch.Generator().manual_seed(SEED),
+                               cfg).cuda()
+        with global_batch(rows):
+            loss = model.train_fn(params, local, cfg,
+                                  torch.Generator().manual_seed(SEED))["loss"]
+            grads = [g.contiguous() for g in torch.autograd.grad(
+                loss, list(params.parameters()))]
+        if dist.active():
+            dist.all_reduce_sum_(grads)
+        state = init_train_state(model, cfg,
+                                 torch.Generator().manual_seed(SEED), "cuda")
+        make_train_step(model, cfg)(
+            state, {k: v[None] for k, v in local.items()}, 1e-3,
+            torch.Generator().manual_seed(SEED))
+        out[rate] = (loss.item(), [g.cpu() for g in grads],
+                     [p.detach().cpu() for p in state.params.parameters()],
+                     collect((fa.launches, ff.launches)))
+    return out
+
+
+def dp_worker(spec_path):
+    """One rank of the two that share the card (chip_smoke.py --dp-worker
+    SPEC): its own gloo group, then dp_train's run and dp_reference's;
+    writes their results (torch.save)."""
+    import torch.distributed as tdist
+
+    with open(spec_path) as r:
+        spec = json.load(r)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tdist.init_process_group(
+        "gloo", init_method="tcp://127.0.0.1:%d" % spec["port"],
+        world_size=spec["world"], rank=spec["rank"])
+    out = {}
+    try:
+        if "train" in spec["tasks"]:
+            out["train"] = dp_train_run(spec["d"], spec["out"],
+                                        spec["extra"])
+        if "reference" in spec["tasks"]:
+            out["reference"] = dp_reference_run(spec["rank"], spec["world"])
+    finally:
+        tdist.destroy_process_group()
+    torch.save(out, spec["result"])
+    return 0
+
+
+def dp_workers(d, tasks):
+    """Run ``tasks`` on DP_WORLD gloo ranks sharing the card, each a
+    subprocess of this script; returns their results in rank order."""
+    port, procs, results = free_port(), [], []
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    for rank in range(DP_WORLD):
+        spec = dict(port=port, world=DP_WORLD, rank=rank, tasks=tasks, d=d,
+                    out=os.path.join(d, "dp_gloo"),
+                    extra=BASE_CUT + ",dist_num_processes=%d,"
+                    "dist_process_id=%d" % (DP_WORLD, rank),
+                    result=os.path.join(d, "dp_rank%d.pt" % rank))
+        path = os.path.join(d, "dp_rank%d.json" % rank)
+        with open(path, "w") as w:
+            json.dump(spec, w)
+        results.append(spec["result"])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", path],
+            env=env))
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(codes):
+        raise AssertionError("dp workers exited %s" % codes)
+    return [torch.load(r, weights_only=False) for r in results]
+
+
+def dp_numbers(runs, cfg):
+    """ms/step (median over the ranks' steps after the first), global
+    target tokens/s, peak memory, the all-reduce's ms and bytes a step,
+    and the launch counts of one or more ranks' runs; their launches are
+    held to expected_launches plus the final dev eval's encoder (one
+    batch: #1 and #11 once a layer)."""
+    for r in runs:
+        if r["steps"] != DP_STEPS or not all(map(math.isfinite,
+                                                 r["losses"])):
+            raise AssertionError("dp_train: steps %d, losses %s"
+                                 % (r["steps"], r["losses"]))
+        want = expected_launches(cfg, r)
+        for name in want:
+            if name in ("fused_attention_tc", "fused_ffn"):
+                want[name] += cfg["num_encoder_layer"]
+        got = {k + ("_tc" if k.startswith("fused_attention") else ""): v
+               for k, v in r["train_launches"].items()}
+        if got != want or any(k.endswith("_ref") for k in r["launches"]):
+            raise AssertionError("dp_train launches %s, expected %s"
+                                 % (r["launches"], want))
+    step_s = sorted(s for r in runs for s in r["step_s"])
+    timed = max(sum(r["step_s"]) for r in runs)
+    return dict(
+        ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+        global_target_tokens_per_s=sum(sum(r["tokens"][1:])
+                                       for r in runs) / timed,
+        peak_gib=[r["peak_gib"] for r in runs],
+        allreduce_ms_per_step=[r["allreduce_ms_per_step"] for r in runs],
+        allreduce_bytes_per_step=runs[0]["allreduce_bytes_per_step"],
+        allreduce_calls_per_step=runs[0]["allreduce_calls_per_step"],
+        launches_per_rank=[r["launches"] for r in runs],
+        checksums=[r["checksum"] for r in runs],
+        bleu=[r["bleu"] for r in runs],
+        losses=runs[0]["losses"])
+
+
+def dp_train_phase(d, todo):
+    """dp_train: a world of one over NCCL in this process, then two gloo
+    ranks on the card (and dp_reference's work in the same ranks when
+    asked). Returns (the world of one's launches, each rank's, the ranks'
+    dp_reference results or None)."""
+    from zero_tpu_torch.config import load_config_file
+
+    for side in ("src", "tgt"):
+        with open(os.path.join(d, "test." + side)) as r, \
+                open(os.path.join(d, "dev." + side), "w") as w:
+            w.writelines(r.readlines()[:DP_DEV])
+    cfg = load_config_file(CONFIG)
+    cfg.update(overrides(BASE_CUT))
+    one = dp_train_run(d, os.path.join(d, "dp_nccl"), BASE_CUT
+                       + ",dist_coordinator=127.0.0.1:%d,dist_num_processes"
+                       "=1,dist_process_id=0" % free_port())
+    numbers = dp_numbers([one], cfg)
+    if not (one["allreduce_calls_per_step"] > 0 and one["bleu"] is not None
+            and math.isfinite(one["bleu"])):
+        raise AssertionError("dp_train world of one: all-reduce %s, BLEU %s"
+                             % (one["allreduce_calls_per_step"], one["bleu"]))
+    phase("dp_train", world=1, backend="nccl", steps=DP_STEPS, **numbers)
+    tasks = ["train"] + (["reference"] if "dp_reference" in todo else [])
+    ranks = dp_workers(d, tasks)
+    numbers = dp_numbers([r["train"] for r in ranks], cfg)
+    if len(set(map(tuple, numbers["checksums"]))) != 1 \
+            or len(set(numbers["bleu"])) != 1 or numbers["bleu"][0] is None:
+        raise AssertionError("dp_train ranks differ: checksums %s, BLEU %s"
+                             % (numbers["checksums"], numbers["bleu"]))
+    phase("dp_train", world=DP_WORLD, backend="gloo", steps=DP_STEPS,
+          note=DP_NOTE, **numbers)
+    return (one["train_launches"],
+            [r["train"]["train_launches"] for r in ranks],
+            [r["reference"] for r in ranks] if "reference" in tasks
+            else None)
+
+
+def dp_kernel_checks():
+    """Every dropout kernel against its plain version on rows 3-6 of a
+    global batch of 8 (ops/common.py:global_batch), rate 0.1: #1/#2 and
+    #3/#4 (causal and not), #5-#7, #11/#12, in fp32 (CUDA cores) and bf16
+    (tensor cores), forward outputs and input grads. A launch that
+    dropped its row base would draw row 0's masks; the outputs inside the
+    batch must also differ from those at base 0. Returns {case: max |kernel
+    - plain|}."""
+    import types
+
+    from zero_tpu_torch.ops import common
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, h, lq, lk, dh, m = 4, 2, 40, 40, 64, 3
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v = (rand(b, h, lq, dh).requires_grad_() for _ in range(3))
+        pad = torch.ones(b, lk, device="cuda")
+        pad[1, 30:] = 0.0
+        tables = types.SimpleNamespace(keys=rand(2 * m + 1, dh),
+                                       values=rand(2 * m + 1, dh))
+        x = rand(b * 10, 64).requires_grad_()
+        w1, b1, w2, b2 = rand(64, 128) * 0.1, rand(128), rand(128, 64) * 0.1, \
+            rand(64)
+        cases = {}
+        for causal in (False, True):
+            cases["fused_causal%d" % causal] = (
+                lambda c=causal: fa.fused_attention(
+                    q, k, v, pad, causal=c, dropout_rate=0.1,
+                    rng=SEED_WORDS),
+                lambda c=causal: fa.fused_attention_ref(
+                    q, k, v, pad, c, 0.1, SEED_WORDS), (q, k, v))
+            cases["rpr_causal%d" % causal] = (
+                lambda c=causal: fa.fused_attention(
+                    q, k, v, pad, causal=c, dropout_rate=0.1,
+                    rng=SEED_WORDS, rpr_tables=tables,
+                    max_relative_position=m),
+                lambda c=causal: fa.fused_attention_rpr_ref(
+                    q, k, v, pad, tables.keys, tables.values, m, c, 0.1,
+                    SEED_WORDS), (q, k, v))
+            cases["streaming_causal%d" % causal] = (
+                lambda c=causal: sa.streaming_attention(
+                    q, k, v, pad, causal=c, dropout_rate=0.1,
+                    rng=SEED_WORDS),
+                lambda c=causal: sa.streaming_attention_ref(
+                    q, k, v, pad, c, 0.1, SEED_WORDS), (q, k, v))
+        cases["ffn"] = (lambda: ff.fused_ffn(x, w1, b1, w2, b2, SEED_WORDS,
+                                             0.1),
+                        lambda: ff.fused_ffn_ref(x, w1, b1, w2, b2,
+                                                 SEED_WORDS, 0.1), (x,))
+        for name, (kernel, plain, inputs) in cases.items():
+            base0 = kernel().detach()
+            with common.global_batch(3, 4, 8):
+                got, want = kernel(), plain()
+                dout = torch.ones_like(want)
+                g_got = torch.autograd.grad(got, inputs, dout)
+                g_want = torch.autograd.grad(want, inputs, dout)
+            key = "%s_%s" % (name, str(dtype).split(".")[-1])
+            out[key] = max(check(key, a, c, dtype, TRAIN_TOLERANCE)
+                           for a, c in zip((got,) + g_got,
+                                           (want,) + g_want))
+            if torch.equal(base0, got.detach()):
+                raise AssertionError("%s: the same masks at row base 0 and "
+                                     "inside the global batch" % key)
+    return out
+
+
+def dp_reference_phase(d, ranks):
+    """dp_reference: the ranks' results (from dp_train's workers, or
+    workers of its own) against one process on the global batch."""
+    if ranks is None:
+        ranks = [r["reference"] for r in dp_workers(d, ["reference"])]
+    one = dp_reference_run(0, 1)
+    report = {}
+    for rate, (loss, grads, params, launches) in one.items():
+        for rank, got in enumerate(ranks):
+            g_loss, g_grads, g_params, g_launches = got[rate]
+            g_scale = max(float(g.abs().max()) for g in grads)
+            p_scale = max(float(p.abs().max()) for p in params)
+            errs = dict(
+                loss_rel_err=abs(g_loss - loss) / abs(loss),
+                grad_err=max(float((a - b).abs().max())
+                             for a, b in zip(g_grads, grads)) / g_scale,
+                param_err=max(float((a - b).abs().max())
+                              for a, b in zip(g_params, params)) / p_scale)
+            report["p=%g rank %d" % (rate, rank)] = dict(
+                errs, launches=g_launches)
+            ran = all(k.get(n, 0) for k in (launches, g_launches)
+                      for n in ("fused_attention_backward",
+                                "fused_ffn_backward"))
+            if not (errs["loss_rel_err"] <= 1e-6 and errs["grad_err"] <= 1e-5
+                    and errs["param_err"] <= 1e-5 and ran):
+                raise AssertionError("dp_reference p=%g rank %d: %s, "
+                                     "launches %s, one process %s"
+                                     % (rate, rank, errs, g_launches,
+                                        launches))
+    phase("dp_reference", world=DP_WORLD, one_process_launches={
+        "p=%g" % r: v[3] for r, v in one.items()},
+          row_base_max_abs_err=dp_kernel_checks(), **report)
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -4669,7 +5056,7 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "moe_train", "multilingual_train", "clsr_train",
           "slice13_reference", "ib_train", "speech_train",
           "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
-          "rnn_reference", "host")
+          "rnn_reference", "host", "dp_train", "dp_reference")
 
 
 def main(argv=None):
@@ -4683,7 +5070,10 @@ def main(argv=None):
                         "another commit) instead of this checkout, to time "
                         "its decode kernels on the same inputs; phases "
                         "build, kernels and long_kernels (#9 only) only")
+    parser.add_argument("--dp-worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
     todo = set(args.phases.split(","))
     unknown = todo - set(PHASES)
     if unknown:
@@ -4795,11 +5185,16 @@ def main(argv=None):
         if todo & {"train", "rpr_train", "rela_train", "aan_train",
                    "deep_train", "deep_memory", "l0drop_train",
                    "fixup_train", "scan_train", "moe_train", "ib_train",
-                   "rnn_train", "deepatt_train"}:
+                   "rnn_train", "deepatt_train", "dp_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
                             ["launches"])
+        dp_ranks = None
+        if "dp_train" in todo:
+            dp_launches, dp_rank_launches, dp_ranks = dp_train_phase(d, todo)
+        if "dp_reference" in todo:
+            dp_reference_phase(d, dp_ranks)
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches, BASE_CUT,
@@ -4988,6 +5383,10 @@ def main(argv=None):
                 kernel]
         row["speech_train_launches"] = speech_results["launches"].get(name,
                                                                       0)
+        # data parallelism: the world of one over NCCL, and each of the two
+        # gloo ranks on the card (dp_train)
+        row["dp_train_launches"] = dp_launches[kernel]
+        row["dp_train_rank_launches"] = [r[kernel] for r in dp_rank_launches]
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)

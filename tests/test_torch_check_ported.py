@@ -23,12 +23,22 @@ from zero_tpu_torch.models.common import check_ported  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("option", [
-    "mesh_model=2", "mesh_seq=2", "mesh_pipe=2", "mesh_expert=2",
-    "mesh_data=2", "zero_stage=1", "dist_num_processes=2"])
-def test_parallel_options_raise_in_training(option):
-    """Each raises before any work (no files are given), naming itself."""
-    with pytest.raises(NotImplementedError, match="%s.*later slice" % option):
+@pytest.mark.parametrize("option,error,match", [
+    ("mesh_model=2", NotImplementedError, "mesh_model=2.*later slice"),
+    ("mesh_seq=2", NotImplementedError, "mesh_seq=2.*later slice"),
+    ("mesh_pipe=2", NotImplementedError, "mesh_pipe=2.*later slice"),
+    ("mesh_expert=2", NotImplementedError, "mesh_expert=2.*later slice"),
+    ("zero_stage=1", NotImplementedError, "zero_stage=1.*later slice"),
+    ("sharded_checkpoint=true", NotImplementedError,
+     "sharded_checkpoint=true.*later slice"),
+    ("model_name=transformer_moe,dist_num_processes=2", NotImplementedError,
+     "transformer_moe under data parallelism.*later slice"),
+    # one device a process: the 'data' degree is the number of processes
+    ("mesh_data=2", ValueError, "make_mesh needs.*mesh_data")])
+def test_parallel_options_raise_in_training(option, error, match):
+    """Each raises before any work (no files are given), naming itself;
+    mesh_data and dist_num_processes run (data parallelism)."""
+    with pytest.raises(error, match=match):
         run.main(["--mode", "train", "--parameters", "device=cpu," + option])
 
 

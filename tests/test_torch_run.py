@@ -98,7 +98,7 @@ def test_device_cuda_without_a_card_raises(corpus):
 # mesh, and a model the JAX package has and the port not (a name patched
 # into JAX_MODELS stands for one)
 LATER_MODEL = "transformer_of_a_later_slice"
-_LATER = {"train": ["--parameters", "device=cpu,dist_num_processes=2"],
+_LATER = {"train": ["--parameters", "device=cpu,zero_stage=1"],
           "score": ["--parameters", "device=cpu,model_name=" + LATER_MODEL],
           "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 
@@ -127,11 +127,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "zero_tpu")]
     assert len(files) > 15 and not bad, bad
-    # the scan reaches the native tokeniser's wrapper, the RNN package and
-    # the scripts
+    # the scan reaches the native tokeniser's wrapper, the RNN package,
+    # the data-parallel package and the scripts
     scanned = {os.path.relpath(f, REPO) for f in files}
     for want in ("zero_tpu_torch/native/__init__.py",
                  "zero_tpu_torch/rnns/__init__.py",
+                 "zero_tpu_torch/parallel/__init__.py",
+                 "zero_tpu_torch/parallel/distributed.py",
                  "zero_tpu_torch/scripts/checkpoint_averaging.py",
                  "zero_tpu_torch/scripts/make_synth_mt.py"):
         assert want in scanned, want

@@ -316,8 +316,10 @@ def default_config() -> Config:
         # all-reduced every N steps and every host checkpoints+exits at
         # the same step (the checkpoint path is collective)
         preempt_sync_freq=10,
-        # multi-host training (jax.distributed): coordinator "host:port";
-        # empty = single process. The reference has no multi-node support.
+        # data parallelism across processes (parallel/distributed.py:
+        # torch.distributed, NCCL on cards, gloo on the CPU; one device a
+        # process): coordinator "host:port"; empty = single process. The
+        # reference has no multi-node support.
         dist_coordinator="",
         dist_num_processes=1,
         dist_process_id=0,
@@ -364,7 +366,7 @@ def default_config() -> Config:
 
         # -- observability (rebuild extension; SURVEY §5: the reference
         # has no tracing -- only wall-clock step logs)
-        profiler_dir="",          # write a jax.profiler trace here
+        profiler_dir="",          # write a torch.profiler trace here
         profiler_start_step=10,   # trace window [start, stop)
         profiler_stop_step=15,
 

@@ -39,7 +39,7 @@
 //     dropout on too. Kernel 1 writes delta and dq; kernel 2 gives each
 //     block its own keys' dk/dv, reducing over every query row inside the
 //     block: no atomics, no split partial sums, deterministic.
-//   * Dropout: element (row r = bh * Lq + i, key j) keeps iff
+//   * Dropout: element (row r = row_base + bh * Lq + i, key j) keeps iff
 //     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (zt::row_seed,
 //     zt::keep_key), the 32-bit test of _dropout_keep, with scale
 //     1/(1 - rate): the streaming kernels' rule, a per-row seed word hashed
@@ -500,7 +500,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* pad, int heads, int lq, int lk, int dh,
                    int causal, float scale, int dropout,
                    unsigned int threshold, float drop_scale,
-                   unsigned int s0, unsigned int s1) {
+                   unsigned int s0, unsigned int s1,
+                   unsigned int row_base) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -517,6 +518,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.drop_scale = drop_scale;
   p.s0 = s0;
   p.s1 = s1;
+  p.row_base = row_base;
   return p;
 }
 
@@ -526,9 +528,10 @@ extern "C" int zt_attention_forward(
     const void* q, const void* k, const void* v, const void* pad, void* o,
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1);
+                         dropout, threshold, drop_scale, s0, s1, row_base);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -541,9 +544,9 @@ extern "C" int zt_attention_backward(
     void* delta, void* dq, void* dk, void* dv, int dtype, int batch,
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
-    unsigned int s1, void* stream) {
+    unsigned int s1, unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1);
+                         dropout, threshold, drop_scale, s0, s1, row_base);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -561,9 +564,10 @@ extern "C" int zt_attention_forward_tc(
     const void* q, const void* k, const void* v, const void* pad, void* o,
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1);
+                         dropout, threshold, drop_scale, s0, s1, row_base);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -579,9 +583,9 @@ extern "C" int zt_attention_backward_tc(
     void* delta, void* dq, void* dk, void* dv, int dtype, int batch,
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
-    unsigned int s1, void* stream) {
+    unsigned int s1, unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1);
+                         dropout, threshold, drop_scale, s0, s1, row_base);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;

@@ -61,7 +61,7 @@
 //   * An all-pad row has uniform weights, so its bucket sums and Tv term are
 //     not zero and dTv gets its share; ds is zero there, so dq, dk and dTk
 //     get nothing from it.
-//   * Dropout: element (row r = bh * Lq + i, key j) keeps iff
+//   * Dropout: element (row r = row_base + bh * Lq + i, key j) keeps iff
 //     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (a per-row seed
 //     word hashed once per row, zt::row_seed / zt::keep_key), scale
 //     1/(1 - rate), as in kernels #1/#2 and #5-#7; bucket sums are taken
@@ -117,14 +117,14 @@ struct Params {
   float* part_tv;
   int heads, lq, lk, dh, rel, buckets, causal, dropout;
   float scale, drop_scale;
-  uint32_t threshold, s0, s1;
+  uint32_t threshold, s0, s1, row_base;
 };
 
 // The seed word of query row i of head bh (0 when dropout is off).
 __device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
   if (!p.dropout) return 0u;
-  return zt::row_seed((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0,
-                      p.s1);
+  return zt::row_seed(
+      p.row_base + (uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0, p.s1);
 }
 
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed,
@@ -707,7 +707,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* pad, const void* tk, const void* tv, int heads,
                    int lq, int lk, int dh, int rel, int causal, float scale,
                    int dropout, unsigned int threshold, float drop_scale,
-                   unsigned int s0, unsigned int s1) {
+                   unsigned int s0, unsigned int s1,
+                   unsigned int row_base) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -728,6 +729,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.drop_scale = drop_scale;
   p.s0 = s0;
   p.s1 = s1;
+  p.row_base = row_base;
   return p;
 }
 
@@ -738,7 +740,8 @@ zt::AttnParams tc_params(const void* q, const void* k, const void* v,
                          const void* m, const void* l, int heads, int lq,
                          int lk, int dh, int rel, int causal, float scale,
                          int dropout, unsigned int threshold,
-                         float drop_scale, unsigned int s0, unsigned int s1) {
+                         float drop_scale, unsigned int s0, unsigned int s1,
+                   unsigned int row_base) {
   zt::AttnParams p = {};
   p.q = q;
   p.k = k;
@@ -757,6 +760,7 @@ zt::AttnParams tc_params(const void* q, const void* k, const void* v,
   p.threshold = threshold;
   p.s0 = s0;
   p.s1 = s1;
+  p.row_base = row_base;
   p.tk = tk;
   p.tv = tv;
   p.rel = rel;
@@ -774,9 +778,11 @@ extern "C" int zt_attention_rpr_forward(
     const void* tk, const void* tv, void* o, void* m, void* l, int dtype,
     int batch, int heads, int lq, int lk, int dh, int rel, int causal,
     float scale, int dropout, unsigned int threshold, float drop_scale,
-    unsigned int s0, unsigned int s1, void* stream) {
+    unsigned int s0, unsigned int s1, unsigned int row_base,
+    void* stream) {
   Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -790,9 +796,11 @@ extern "C" int zt_attention_rpr_backward(
     void* part_tk, void* part_tv, void* dq, void* dk, void* dv, void* dtk,
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
     int rel, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -816,11 +824,12 @@ extern "C" int zt_attention_rpr_forward_tc(
     const void* tk, const void* tv, void* o, void* m, void* l, int dtype,
     int batch, int heads, int lq, int lk, int dh, int rel, int causal,
     float scale, int dropout, unsigned int threshold, float drop_scale,
-    unsigned int s0, unsigned int s1, void* stream) {
+    unsigned int s0, unsigned int s1, unsigned int row_base,
+    void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
                                rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1);
+                               drop_scale, s0, s1, row_base);
   p.out = o;
   return zt::tc::run_forward<true, zt::tc::Rpr>(p, dtype, batch * heads,
                                                  stream);
@@ -837,12 +846,13 @@ extern "C" int zt_attention_rpr_backward_tc(
     void* part_tk, void* part_tv, void* dq, void* dk, void* dv, void* dtk,
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
     int rel, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   const int bh = batch * heads, nb = 2 * rel + 1;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
                                rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1);
+                               drop_scale, s0, s1, row_base);
   p.o = o;
   p.dout = dout;
   p.out = dq;

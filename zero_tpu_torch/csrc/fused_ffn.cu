@@ -73,9 +73,11 @@
 // unrounded dh, dx and dW1 take dh rounded.
 //
 // Dropout: keep bit of hidden element (row, col) is
-// (hash_bits(row * filter + col, s0, s1) & 255) < t, scale 256/t: the same
-// mask as zero_tpu/ops/common.py:dropout draws over the [N, filter] hidden
-// tensor from the same two key words. It depends on the element only, so
+// (hash_bits(index_base + row * filter + col, s0, s1) & 255) < t, scale
+// 256/t: the same mask as zero_tpu/ops/common.py:dropout draws over the
+// [N, filter] hidden tensor from the same two key words (index_base: the
+// elements of the global batch before this launch's under data
+// parallelism, 0 in one process). It depends on the element only, so
 // forward and backward need no shared tiling; the tensor-core epilogues
 // compute it where each accumulator fragment's (row, col) is known.
 //
@@ -113,6 +115,7 @@ struct Params {
   int n, din, f, dout, dropout, t;
   float inv;
   uint32_t s0, s1;
+  uint32_t index_base;  // the global index of hidden element 0
 };
 
 template <typename T>
@@ -128,7 +131,8 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
 
 // keep bit of hidden element `index` = row * f + col (dropout on)
 __device__ __forceinline__ bool keep_index(const Params& p, uint32_t index) {
-  return (zt::hash_bits(index, p.s0, p.s1) & 255u) < (uint32_t)p.t;
+  return (zt::hash_bits(p.index_base + index, p.s0, p.s1) & 255u) <
+         (uint32_t)p.t;
 }
 
 __device__ __forceinline__ bool ffn_keep(const Params& p, int row, int col) {
@@ -916,7 +920,7 @@ cudaError_t backward_f32(const Params& p, float* db1, float* db2,
 Params make_params(const void* x, const void* w1, const void* b1,
                    const void* w2, int n, int din, int f, int dout,
                    int dropout, int t, float inv, unsigned int s0,
-                   unsigned int s1) {
+                   unsigned int s1, unsigned int index_base) {
   Params p = {};
   p.x = x;
   p.w1 = w1;
@@ -931,6 +935,7 @@ Params make_params(const void* x, const void* w1, const void* b1,
   p.inv = inv;
   p.s0 = s0;
   p.s1 = s1;
+  p.index_base = index_base;
   return p;
 }
 
@@ -942,9 +947,9 @@ extern "C" int zt_ffn_forward(const void* x, const void* w1, const void* b1,
                               void* hd, int dtype, int n, int din, int f,
                               int dout, int dropout, int t, float inv,
                               unsigned int s0, unsigned int s1,
-                              void* stream) {
+                              unsigned int index_base, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1);
+                         s1, index_base);
   p.b2 = b2;
   p.y = y;
   p.hd = hd;
@@ -961,9 +966,9 @@ extern "C" int zt_ffn_backward(
     const void* dy, void* dx, void* hd, void* dh, void* db1_part, void* dw1,
     void* db1, void* dw2, void* db2, int dtype, int n, int din, int f,
     int dout, int dropout, int t, float inv, unsigned int s0,
-    unsigned int s1, void* stream) {
+    unsigned int s1, unsigned int index_base, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1);
+                         s1, index_base);
   p.dy = dy;
   p.y = dx;
   p.hd = hd;

@@ -37,13 +37,13 @@
 //     TPU kernel stores lse = m + log l, which rounds to -1e30 on such a row
 //     and gives weight 1 instead of 1/Lk; here such a row gets zero dq and
 //     dk and a 1/Lk share of dO in dv, as softmax does.
-//   * Dropout bits are 64-bit safe: element (row r = bh*Lq + i, key j) keeps
-//     iff hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (zt::row_seed,
-//     zt::keep_key; kernels #1-#4 draw the same). A per-row seed word, hashed
-//     once per row, then the key index: no B*H*Lq*Lk linear index that wraps
-//     at 2^32 (it does at B=2, H=8, L=16384). The bit depends on the element
-//     only, so forward and backward agree, and the plain PyTorch version
-//     (streaming_attention_ref) reproduces it.
+//   * Dropout bits are 64-bit safe: element (row r = row_base + bh*Lq + i,
+//     key j) keeps iff hash_bits(j, hash_bits(r, s0, s1), s1) < threshold
+//     (zt::row_seed, zt::keep_key; kernels #1-#4 draw the same). A per-row
+//     seed word, hashed once per row, then the key index: no B*H*Lq*Lk
+//     linear index that wraps at 2^32 (it does at B=2, H=8, L=16384). The
+//     bit depends on the element only, so forward and backward agree, and
+//     the plain PyTorch version (streaming_attention_ref) reproduces it.
 //   * No atomics and no split over keys or queries: every sum runs in a
 //     fixed order, so dq, dk and dv are the same from run to run.
 //
@@ -517,7 +517,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* pad, const void* m, const void* l, int heads,
                    int lq, int lk, int dh, int causal, float scale,
                    int dropout, unsigned int threshold, float drop_scale,
-                   unsigned int s0, unsigned int s1) {
+                   unsigned int s0, unsigned int s1,
+                   unsigned int row_base) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -536,6 +537,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.drop_scale = drop_scale;
   p.s0 = s0;
   p.s1 = s1;
+  p.row_base = row_base;
   return p;
 }
 
@@ -546,9 +548,11 @@ extern "C" int zt_streaming_forward(
     const void* q, const void* k, const void* v, const void* pad, void* o,
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.out = o;
   return run(p, dtype, batch * heads, kForward, stream);
 }
@@ -558,9 +562,11 @@ extern "C" int zt_streaming_backward_dq(
     const void* o, const void* dout, const void* m, const void* l,
     void* delta, void* dq, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -573,9 +579,11 @@ extern "C" int zt_streaming_backward_dkdv(
     const void* dout, const void* m, const void* l, const void* delta,
     void* dk, void* dv, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;
@@ -589,9 +597,11 @@ extern "C" int zt_streaming_forward_tc(
     const void* q, const void* k, const void* v, const void* pad, void* o,
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.out = o;
   return zt::tc::run_forward<false>(p, dtype, batch * heads, stream);
 }
@@ -601,9 +611,11 @@ extern "C" int zt_streaming_backward_dq_tc(
     const void* o, const void* dout, const void* m, const void* l,
     void* delta, void* dq, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -617,9 +629,11 @@ extern "C" int zt_streaming_backward_dkdv_tc(
     const void* dout, const void* m, const void* l, const void* delta,
     void* dk, void* dv, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1, void* stream) {
+    float drop_scale, unsigned int s0, unsigned int s1,
+    unsigned int row_base, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
-                         scale, dropout, threshold, drop_scale, s0, s1);
+                         scale, dropout, threshold, drop_scale, s0, s1,
+                         row_base);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;

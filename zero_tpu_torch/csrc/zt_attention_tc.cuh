@@ -112,6 +112,9 @@ struct AttnParams {
   int heads, lq, lk, dh, causal, dropout;
   float scale, drop_scale;
   uint32_t threshold, s0, s1;
+  // the global row of this launch's row 0 (data parallelism: the rows
+  // of the processes before this one)
+  uint32_t row_base;
   // Shaw RPR (the Rpr policy; fused_attention_rpr.cu): tables tk, tv [R,
   // Dh] bf16, R = 2 rel + 1; for dq_tc and dkdv_tc, fp32 scratch qd [B*H,
   // Lq, R] of pairs (q.Tk^T, do.Tv^T) and fp32 table-gradient partials
@@ -128,7 +131,8 @@ struct AttnParams {
 __device__ __forceinline__ uint32_t row_seed(const AttnParams& p, int bh,
                                              int i) {
   if (!p.dropout) return 0u;
-  return row_seed((uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0, p.s1);
+  return row_seed(p.row_base + (uint32_t)bh * (uint32_t)p.lq + (uint32_t)i,
+                  p.s0, p.s1);
 }
 
 namespace tc {

@@ -61,8 +61,9 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t index, uint32_t s0,
 }
 
 // Attention dropout, shared by every attention kernel (#1-#7): element (row
-// r = bh * Lq + i, key j) keeps iff hash_bits(j, row_seed(r), s1) <
-// threshold. A per-row seed word, then the key index: no B*H*Lq*Lk linear
+// r = row_base + bh * Lq + i, key j) keeps iff hash_bits(j, row_seed(r), s1)
+// < threshold, row_base the rows (b * H * Lq) of the global batch before
+// this launch's (data parallelism; 0 in one process). A per-row seed word, then the key index: no B*H*Lq*Lk linear
 // index that wraps at 2^32. A kernel hashes each row's seed once and keeps
 // it beside the row.
 __device__ __forceinline__ uint32_t row_seed(uint32_t row, uint32_t s0,

@@ -44,6 +44,7 @@ from zero_tpu_torch.models import common
 from zero_tpu_torch.models import transformer as base
 from zero_tpu_torch.models.base import Inference, model_register
 from zero_tpu_torch.models.transformer_l0drop import compact_encodings
+from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.ops import ctc, l0norm, nn
 from zero_tpu_torch.ops.common import RngGen, dropout
 
@@ -133,8 +134,7 @@ def _afs_gate(params, x, mask, cfg, rngs, training):
         pen_t = (pen_t * maskf).sum(dim=-1) / torch.clamp(
             maskf.sum(dim=-1), min=1.0)
         valid = (maskf.sum(dim=-1) > 0).float()
-        penalty = penalty + (pen_t * valid).sum() / torch.clamp(
-            valid.sum(), min=1.0)
+        penalty = penalty + ops_common.masked_mean(pen_t, valid)
     else:
         g_t = l0norm.hard_concrete_mean(log_alpha_t)
 
@@ -143,8 +143,12 @@ def _afs_gate(params, x, mask, cfg, rngs, training):
     if cfg.afs_mode == "tf" and hasattr(params, "afs_feature"):
         log_alpha_f = params.afs_feature.float()
         if training:
-            g_f = l0norm.hard_concrete_sample(rngs(), log_alpha_f)
-            penalty = penalty + l0norm.l0_norm(log_alpha_f).mean()
+            # one gate a feature, no batch row: the same noise and the
+            # same penalty on every process, as a replicated JAX array
+            with ops_common.replicated_draws():
+                g_f = l0norm.hard_concrete_sample(rngs(), log_alpha_f)
+            penalty = penalty + ops_common.shared_term(
+                l0norm.l0_norm(log_alpha_f).mean())
         else:
             g_f = l0norm.hard_concrete_mean(log_alpha_f)
         x = x * g_f.to(x.dtype)[None, None, :]
@@ -226,7 +230,7 @@ def _ctc_loss(params, state, transcript, cfg):
     valid = label_len > 0
     per_seq = torch.where(valid, per_seq / torch.clamp(label_len, min=1.0),
                           torch.zeros_like(per_seq))
-    return per_seq.sum() / torch.clamp(valid.float().sum(), min=1.0)
+    return ops_common.masked_mean(per_seq, valid.float())
 
 
 def _features_state(params, features, cfg, rngs, training):

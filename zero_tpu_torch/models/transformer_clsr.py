@@ -30,6 +30,7 @@ from zero_tpu_torch.models.base import Inference, model_register
 from zero_tpu_torch.models.transformer_multilingual import (
     init_lang_cache, lang_from_source, lang_matmul)
 from zero_tpu_torch.ops import attention, l0norm, nn
+from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.ops.common import RngGen, dropout
 
 
@@ -159,9 +160,10 @@ def _decode_train(params, target, state, cfg, rngs, training, gate_sums):
 
 
 def budget_loss(gate_sums, cfg):
-    """|mean gate over every unit's positions - clsr_budget|."""
-    total_g = sum(s for s, _ in gate_sums)
-    total_n = sum(n for _, n in gate_sums)
+    """|mean gate over every unit's positions - clsr_budget|, the
+    positions of the global batch under data parallelism."""
+    total_g = ops_common.global_sum(sum(s for s, _ in gate_sums))
+    total_n = ops_common.global_count(sum(n for _, n in gate_sums))
     return torch.abs(total_g / max(total_n, 1.0) - cfg.clsr_budget)
 
 

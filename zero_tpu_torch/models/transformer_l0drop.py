@@ -24,6 +24,7 @@ import torch
 from zero_tpu_torch.models import common
 from zero_tpu_torch.models import transformer as base
 from zero_tpu_torch.models.base import model_register
+from zero_tpu_torch.ops import common as common_ops
 from zero_tpu_torch.ops import l0norm, nn
 from zero_tpu_torch.search import top_k
 
@@ -65,14 +66,14 @@ def extra_init(gen, cfg):
 
 def l0_penalty(log_alpha, mask):
     """The expected-L0 penalty: per-sentence mean over the valid positions,
-    then the mean over the sentences that have one. log_alpha [B, S, 1]
-    fp32, mask [B, S]."""
+    then the mean over the sentences that have one (of the global batch
+    under data parallelism). log_alpha [B, S, 1] fp32, mask [B, S]."""
     penalty = l0norm.l0_norm(log_alpha)[..., 0]
     maskf = mask.float()
     penalty = (penalty * maskf).sum(dim=-1) / torch.clamp(
         maskf.sum(dim=-1), min=1.0)
     valid = (maskf.sum(dim=-1) > 0).float()
-    return (penalty * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return common_ops.masked_mean(penalty, valid)
 
 
 def post_encode(params, state, cfg, rngs, training):

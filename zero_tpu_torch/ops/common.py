@@ -9,12 +9,20 @@ each element's linear index with the key's two raw u32 words
 host ``torch.Generator``, and the kernels take the pair by value, so a
 train step needs no device-to-host copy for seeds. Given the same words,
 ``_hash_bits`` and ``dropout`` are bit-identical to the JAX package's.
+
+The global batch. Under data parallelism (parallel/distributed.py) each
+process holds rows [offset, offset + rows) of a global batch of ``total``
+rows, as the JAX package's GSPMD step holds one global array.
+``global_batch`` says so for a microbatch; within it every draw indexed by
+batch row takes the global row (``index_base``: the JAX iota is global),
+and ``global_sum`` makes a batch statistic of the loss global.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -38,6 +46,62 @@ class RngGen:
         return int(s0), int(s1)
 
 
+# the microbatch's place in the global batch (global_batch)
+_BATCH = {"offset": 0, "rows": 0, "total": 0, "reduce": None}
+
+
+@contextlib.contextmanager
+def global_batch(offset: int, rows: int, total: int,
+                 reduce: Optional[Callable] = None):
+    """Within: this process's microbatch is rows [offset, offset + rows) of
+    a global batch of ``total`` rows; ``reduce(x)`` (the processes' sum,
+    distributed.global_sum) makes a batch statistic global."""
+    saved = dict(_BATCH)
+    _BATCH.update(offset=int(offset), rows=int(rows), total=int(total),
+                  reduce=reduce)
+    try:
+        yield
+    finally:
+        _BATCH.update(saved)
+
+
+@contextlib.contextmanager
+def replicated_draws():
+    """Within a global batch: draws over a tensor that no batch row
+    indexes (a parameter's gates) are the same on every process, as a
+    replicated JAX array's; global_sum still reduces."""
+    with global_batch(0, 0, 0, _BATCH["reduce"]):
+        yield
+
+
+def global_rows() -> Tuple[int, int, int]:
+    """(offset, rows, total) of the microbatch in its global batch; (0, 0,
+    0) outside global_batch."""
+    return _BATCH["offset"], _BATCH["rows"], _BATCH["total"]
+
+
+def index_base(n: int) -> int:
+    """The global linear index (mod 2^32) of the first element of a
+    batch-major tensor of ``n`` elements: the elements of the rows before
+    this process's. 0 outside global_batch. A tensor whose element count
+    is not a multiple of the rows is not batch-major and raises."""
+    offset, rows, _ = global_rows()
+    if not rows:
+        return 0
+    if n % rows:
+        raise ValueError("a draw over %d elements under a global batch of "
+                         "%d-row slices: not batch-major" % (n, rows))
+    return (offset * (n // rows)) & _U32
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """A batch statistic made global: its sum over the processes as the
+    value, its own gradient (``x`` itself outside global_batch or in one
+    process without a group)."""
+    reduce = _BATCH["reduce"]
+    return x if reduce is None else reduce(x)
+
+
 def _mul32(x: torch.Tensor, mult: int) -> torch.Tensor:
     """(x * mult) mod 2^32 for int64 x in [0, 2^32), without int64
     overflow: the multiplier is split into 16-bit halves."""
@@ -54,10 +118,12 @@ def _mix32(x: torch.Tensor, mult: int) -> torch.Tensor:
 def _hash_bits(words: Words, shape, device=None) -> torch.Tensor:
     """Uniform u32 draws (held in int64) from the murmur3 fmix32 finalizer
     over each element's linear index, seeded by the two key words:
-    ``zero_tpu/ops/common.py:_hash_bits``, bit for bit."""
+    ``zero_tpu/ops/common.py:_hash_bits``, bit for bit. Within a global
+    batch the index is the element's in the global tensor (index_base)."""
     s0, s1 = int(words[0]) & _U32, int(words[-1]) & _U32
     n = math.prod(shape)
-    x = (torch.arange(max(n, 1), dtype=torch.int64, device=device) & _U32)
+    x = ((torch.arange(max(n, 1), dtype=torch.int64, device=device)
+          + index_base(n)) & _U32)
     x = x[:n].reshape(shape)
     x = _mix32(x ^ s0, 0x85EBCA6B)
     x = _mix32(x, 0xC2B2AE35)
@@ -153,13 +219,39 @@ def smoothed_centropy_reduced(logits: torch.Tensor, labels: torch.Tensor,
 def sentence_mean_loss(centropy: torch.Tensor, mask: torch.Tensor):
     """Per-sentence mean, then batch mean over the sentences that have a
     token (all-pad rows contribute 0 and are left out). Returns (scalar
-    loss, per-sentence loss [B])."""
+    loss, per-sentence loss [B]). Within a global batch both sums are the
+    global batch's (global_sum)."""
     mask = mask.float()
     msum = mask.sum(dim=-1)
     per_sample = (centropy * mask).sum(dim=-1) / torch.clamp(msum, min=1.0)
     valid = (msum > 0).float()
-    loss = (per_sample * valid).sum() / torch.clamp(valid.sum(), min=1.0)
-    return loss, per_sample
+    return masked_mean(per_sample, valid), per_sample
+
+
+def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """sum(values * valid) / max(sum(valid), 1), both sums over the global
+    batch (global_sum): the mean over the valid rows."""
+    return global_sum((values * valid).sum()) / torch.clamp(
+        global_sum(valid.sum()), min=1.0)
+
+
+def shared_term(x: torch.Tensor) -> torch.Tensor:
+    """A loss term no batch row enters (a penalty on a parameter): its
+    value as it is and, within a global batch, 1/W of its gradient on each
+    of the W processes, so that their sum is its gradient."""
+    offset, rows, total = global_rows()
+    if _BATCH["reduce"] is None or not rows:
+        return x
+    return x.detach() + (x - x.detach()) * (rows / total)
+
+
+def global_count(n: float) -> float:
+    """A count of elements of this process's microbatch -> the global
+    batch's (the processes' slices have one shape)."""
+    _, rows, total = global_rows()
+    if _BATCH["reduce"] is None or not rows:
+        return n
+    return n * total / rows
 
 
 def label_smooth_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -165,7 +165,7 @@ def _library():
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_void_p])
+                       ctypes.c_uint, ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwds = []
     for name in ("zt_attention_backward", "zt_attention_backward_tc"):
@@ -173,7 +173,7 @@ def _library():
         bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                           ctypes.c_void_p])
+                           ctypes.c_uint, ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         bwds.append(bwd)
     fwd_tc = lib.zt_attention_forward_tc
@@ -186,7 +186,7 @@ def _library():
 def _rpr_library():
     lib = cuda_build.load("fused_attention_rpr")
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
-            ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fns = []
     for name, pointers in (("zt_attention_rpr_forward", 9),
                            ("zt_attention_rpr_backward", 20),
@@ -200,10 +200,12 @@ def _rpr_library():
 
 
 def _dropout_args(rate: float, words):
+    """The launch's dropout arguments from ``words`` = (s0, s1[, row
+    base]) (sa.kernel_words)."""
     if rate > 0.0:
-        return (1, sa.dropout_threshold(rate), 1.0 / (1.0 - rate),
-                int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF)
-    return 0, 0, 1.0, 0, 0
+        return (1, sa.dropout_threshold(rate),
+                1.0 / (1.0 - rate)) + sa.launch_words(words)
+    return 0, 0, 1.0, 0, 0, 0
 
 
 def _raise_on(err: int, what: str):
@@ -450,7 +452,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = pad_mask.float().contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    words = tuple(rng) if rate else (0, 0)
+    # the kernels' seed words and the global row of row 0 (data
+    # parallelism: ops/common.py:index_base)
+    words = sa.kernel_words(rng, q.shape, rate)
     tables = None
     if rpr_tables is not None:
         if max_relative_position is None:

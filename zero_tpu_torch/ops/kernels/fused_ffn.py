@@ -86,20 +86,21 @@ def _library():
     fwd = lib.zt_ffn_forward
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_void_p])
+                       ctypes.c_uint, ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.zt_ffn_backward
     bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_void_p])
+                       ctypes.c_uint, ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _seeds(words):
+    """(s0, s1, index base) of a launch from (s0, s1[, index base])."""
     if words is None:
-        return 0, 0
-    return int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF
+        return 0, 0, 0
+    return tuple(int(w) & 0xFFFFFFFF for w in (tuple(words) + (0,))[:3])
 
 
 def _raise_on(err: int, what: str):
@@ -208,7 +209,11 @@ def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
     else:
         _check(x2, w1, b1, w2, b2)
         t, inv = _drop_args(rate, rng, x.dtype)
+        # the seed words and the global index of hidden element 0 (data
+        # parallelism: ops/common.py:index_base)
+        words = ((rng[0], rng[-1],
+                  common.index_base(x2.shape[0] * w1.shape[1]))
+                 if t < 256 else None)
         y = _FusedFFN.apply(_aligned(x2), _aligned(w1), b1.contiguous(),
-                            _aligned(w2), b2.contiguous(), t, inv,
-                            tuple(rng) if t < 256 else None)
+                            _aligned(w2), b2.contiguous(), t, inv, words)
     return y.reshape(*lead, w2.shape[1])

@@ -112,13 +112,33 @@ def _fmix(x: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
     return x ^ (x >> 16) ^ s1
 
 
+def kernel_words(rng, shape, rate: float):
+    """The kernels' (s0, s1, row base) of a launch over q [B, H, Lq, Dh]:
+    the seed words and the global row of row 0, (0, 0, 0) without
+    dropout."""
+    if not rate:
+        return 0, 0, 0
+    b, h, lq = shape[:3]
+    return (int(rng[0]) & 0xFFFFFFFF, int(rng[-1]) & 0xFFFFFFFF,
+            common.index_base(b * h * lq))
+
+
+def launch_words(words):
+    """(s0, s1, row base) as u32 launch arguments from (s0, s1[, row
+    base]); the base defaults to 0 (one process)."""
+    return tuple(int(w) & 0xFFFFFFFF for w in (tuple(words) + (0,))[:3])
+
+
 def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
               device=None) -> torch.Tensor:
-    """The dropout keep mask [B*H, len(rows), Lk] of query rows ``rows``."""
+    """The dropout keep mask [B*H, len(rows), Lk] of query rows ``rows``;
+    within a global batch the rows are the global batch's
+    (ops/common.py:index_base)."""
     s0, s1 = int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF
     row = (torch.arange(bh, dtype=torch.int64, device=device)[:, None] * lq
            + torch.arange(rows.start, rows.stop, dtype=torch.int64,
-                          device=device)[None, :]) & 0xFFFFFFFF
+                          device=device)[None, :]
+           + common.index_base(bh * lq)) & 0xFFFFFFFF
     seeds = _fmix(row, s0, s1)
     keys = torch.arange(lk, dtype=torch.int64, device=device)
     return _fmix(keys[None, None, :] ^ seeds[:, :, None], 0, s1) \
@@ -183,7 +203,7 @@ def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
 
 _TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                               ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                              ctypes.c_void_p]
+                              ctypes.c_uint, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,13 +225,13 @@ def _library():
 
 def _args(q, k, causal, rate, words):
     """The launch's trailing arguments: dtype, shape, causal flag, scale,
-    dropout words, stream."""
+    dropout words and row base (kernel_words), stream."""
     b, h, lq, dh = q.shape
     if rate > 0.0:
-        drop = (1, dropout_threshold(rate), 1.0 / (1.0 - rate),
-                int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF)
+        drop = (1, dropout_threshold(rate),
+                1.0 / (1.0 - rate)) + launch_words(words)
     else:
-        drop = (0, 0, 1.0, 0, 0)
+        drop = (0, 0, 1.0, 0, 0, 0)
     return (_DTYPES[q.dtype], b, h, lq, k.shape[2], dh, int(causal),
             float(dh) ** -0.5) + drop + (
                 torch.cuda.current_stream(q.device).cuda_stream,)
@@ -378,7 +398,7 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = pad_mask.float().contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    words = tuple(rng) if rate else (0, 0)
+    words = kernel_words(rng, q.shape, rate)
     which = route(q.device.type, q.dtype, q.shape[-1])
     if which == "plain":
         return streaming_attention_ref(q, k, v, pad, causal, rate, rng)

@@ -29,8 +29,8 @@ ZETA = 1.1
 
 def uniform_noise(words, shape, device) -> torch.Tensor:
     """Uniform fp32 noise in [0, 1) from the seed words: the low 24 bits
-    of each element's counter hash (ops/common.py:_hash_bits), exact in
-    fp32."""
+    of each element's counter hash (ops/common.py:_hash_bits, by the
+    global batch row under data parallelism), exact in fp32."""
     bits = common._hash_bits(words, shape, device) & 0xFFFFFF
     return bits.to(torch.float32) * (1.0 / 2 ** 24)
 

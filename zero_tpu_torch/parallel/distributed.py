@@ -1,0 +1,294 @@
+"""Data parallelism across processes, one device a process.
+
+Counterpart of ``zero_tpu/parallel/distributed.py``. The JAX package joins
+its processes with ``jax.distributed.initialize``, shards the global batch
+over a mesh and lets GSPMD insert the collectives. Here each process
+drives one device (``cuda:<rank % device_count>``, or the CPU) and holds
+the whole model, its moments and its EMA; the collectives are explicit:
+
+  * the training step sums the gradients over the processes once a step
+    (``all_reduce_sum_``, a few flat fp32 buckets), and every batch
+    statistic of the loss is made global (``global_sum``): each process's
+    loss is then the global batch's, and the sum of their gradients its
+    gradient;
+  * ``any_flag`` agrees on a host flag (the preemption signal);
+  * eval batches, identical on every process, are split by rows
+    (``put_eval_batch``) and their decodes gathered
+    (``fetch_decode_output``).
+
+Config knobs: dist_coordinator ("host:port", empty = one process),
+dist_num_processes, dist_process_id. A caller that has set up the default
+process group itself (two ranks sharing one card over gloo, say) keeps it:
+``maybe_initialize`` then does nothing.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+log = logging.getLogger("zero_tpu_torch.distributed")
+
+# the gradient all-reduce's flat fp32 buckets hold at most this many bytes
+BUCKET_BYTES = 64 << 20
+
+# the gradient all-reduce's calls, bytes and time since the last
+# take_stats(): CUDA event pairs on a card, host seconds on the CPU
+_stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
+
+
+def active() -> bool:
+    """Whether a default process group exists (a world of one included)."""
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def process_count() -> int:
+    return tdist.get_world_size() if active() else 1
+
+
+def process_index() -> int:
+    return tdist.get_rank() if active() else 0
+
+
+def is_primary() -> bool:
+    return process_index() == 0
+
+
+def local_device(params) -> torch.device:
+    """This process's device: ``params.device``, and on a card
+    ``cuda:<rank % device_count>`` (the rank of the group, or
+    dist_process_id before one exists)."""
+    device = torch.device(params.device)
+    if device.type != "cuda" or device.index is not None \
+            or not torch.cuda.is_available():
+        return device
+    rank = process_index() if active() else int(params.dist_process_id)
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def maybe_initialize(params) -> bool:
+    """Join the training job: NCCL on a CUDA device, gloo on the CPU. A
+    no-op without ``dist_coordinator`` and when a default group exists.
+    Returns whether it made the group (its maker destroys it)."""
+    if active():
+        log.info("distributed: keeping the existing %s group, process "
+                 "%d/%d", tdist.get_backend(), process_index(),
+                 process_count())
+        return False
+    coordinator = getattr(params, "dist_coordinator", "")
+    if not coordinator:
+        return False
+    device = local_device(params)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    tdist.init_process_group(backend, init_method="tcp://" + coordinator,
+                             world_size=int(params.dist_num_processes),
+                             rank=int(params.dist_process_id))
+    log.info("distributed: process %d/%d over %s on %s", process_index(),
+             process_count(), backend, device)
+    return True
+
+
+def destroy() -> None:
+    """Leave the job (at exit of the CLI, which made the group)."""
+    if active():
+        tdist.destroy_process_group()
+
+
+def data_degree(params) -> int:
+    """The mesh's 'data' degree (``zero_tpu/parallel/mesh.py:make_mesh``):
+    one device a process, so the world size. ``mesh_data`` -1 or 0 means
+    every device; any other value must be the world size."""
+    world = process_count()
+    data = int(getattr(params, "mesh_data", -1))
+    if data <= 0:
+        return world
+    if data != world:
+        raise ValueError(mesh_message(data, world, params.device))
+    return data
+
+
+def mesh_message(data: int, world: int, platform) -> str:
+    """make_mesh's error, for a 'data' degree that is not the number of
+    devices (one a process)."""
+    return ("make_mesh needs data*model*seq*pipe*expert = %s*1*1*1*1 = %s "
+            "devices but %d are available on platform %r (one device a "
+            "process: mesh_data must be -1, 0 or the number of processes). "
+            "Set mesh_data/mesh_model/mesh_seq/mesh_pipe/mesh_expert to fit "
+            "the hardware." % (data, data, world, str(platform)))
+
+
+def _comm_device(t: torch.Tensor) -> torch.device:
+    """Where a collective runs: the tensor's device under NCCL, the CPU
+    under gloo."""
+    if tdist.get_backend() == "nccl":
+        return t.device
+    return torch.device("cpu")
+
+
+def _all_reduce(t: torch.Tensor, op) -> None:
+    """All-reduce ``t`` in place; under gloo a card's tensor goes through
+    the host."""
+    dev = _comm_device(t)
+    if dev == t.device:
+        tdist.all_reduce(t, op=op)
+        return
+    host = t.to(dev)
+    tdist.all_reduce(host, op=op)
+    t.copy_(host)
+
+
+def all_reduce_sum_(tensors) -> None:
+    """Sum fp32 tensors in place over the processes, packed into flat
+    buckets of at most BUCKET_BYTES, one call a bucket. COLLECTIVE: every
+    process calls it with tensors of the same shapes, in the same order."""
+    bucket, size = [], 0
+    for t in tensors:
+        nbytes = t.numel() * 4
+        if bucket and size + nbytes > BUCKET_BYTES:
+            _reduce_bucket(bucket)
+            bucket, size = [], 0
+        bucket.append(t)
+        size += nbytes
+    if bucket:
+        _reduce_bucket(bucket)
+
+
+def _reduce_bucket(bucket) -> None:
+    flat = torch.cat([t.reshape(-1).float() for t in bucket])
+    cuda = flat.is_cuda
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    else:
+        begin = time.perf_counter()
+    _all_reduce(flat, tdist.ReduceOp.SUM)
+    offset = 0
+    for t in bucket:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+    if cuda:
+        end.record()
+        _stats["events"].append((start, end))
+    else:
+        _stats["seconds"] += time.perf_counter() - begin
+    _stats["calls"] += 1
+    _stats["bytes"] += flat.numel() * 4
+
+
+def take_stats() -> dict:
+    """{'calls', 'bytes', 'ms'} of the gradient all-reduce since the last
+    call (waits for the card's events), and resets them."""
+    seconds = _stats["seconds"]
+    for start, end in _stats["events"]:
+        end.synchronize()
+        seconds += start.elapsed_time(end) / 1000.0
+    out = {"calls": _stats["calls"], "bytes": _stats["bytes"],
+           "ms": seconds * 1000.0}
+    _stats.update(calls=0, bytes=0, seconds=0.0, events=[])
+    return out
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the processes as its value, ``x``'s own
+    gradient: "global value, local gradient". A loss built of such sums
+    has the global batch's value on every process, and the sum of the
+    processes' gradients is the global loss's gradient (for ratios of sums
+    and non-linear terms alike). COLLECTIVE."""
+    total = x.detach().clone()
+    _all_reduce(total, tdist.ReduceOp.SUM)
+    return total + (x - x.detach())
+
+
+def any_flag(flag: bool) -> bool:
+    """Whether ``flag`` is set on any process (a MAX all-reduce).
+    COLLECTIVE."""
+    if not active():
+        return bool(flag)
+    return bool(_max_ints([int(bool(flag))])[0])
+
+
+def host_fetchable(tree):
+    """Make every tensor of ``tree`` safe to fetch on this process. Each
+    process holds the whole state (no ZeRO yet), so the tree comes back
+    as it is. COLLECTIVE by contract, as in the JAX package: every process
+    calls it at the same point, even where only the primary consumes the
+    result (a checkpoint write), so a sharded state can gather here."""
+    return tree
+
+
+def put_global_batch(batch, device):
+    """This process's stacked feature dict -> its tensors on ``device``.
+    The global batch is the concatenation over the processes, in process
+    order, of their batches (each padded to the group's shape, so they
+    agree); no process builds it. Its rows before this process's are
+    ``process_index() * rows`` (``train_step``)."""
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def put_eval_batch(source, rows: int):
+    """This process's rows of an eval batch: every process builds the same
+    dev/test stream, pads each batch to a multiple of the process count
+    (``rows`` of them) and decodes its contiguous slice of rows.
+    COLLECTIVE under several processes: all must call it and the
+    consuming decode at the same point (``fetch_decode_output``)."""
+    n = process_count()
+    per = rows // n
+    lo = process_index() * per
+
+    def take(x):
+        return x[lo:lo + per]
+    if isinstance(source, dict):
+        return {k: take(v) for k, v in source.items()}
+    return take(source)
+
+
+def fetch_decode_output(out: dict) -> dict:
+    """Decode outputs of this process's rows -> those of every row, on
+    every process: each array is padded to the largest shape over the
+    processes and gathered along its rows, in process order; an int (the
+    search's step count) takes the largest. COLLECTIVE."""
+    if process_count() == 1:
+        return out
+    gathered = {}
+    for key, value in out.items():
+        if isinstance(value, (int, np.integer)):
+            gathered[key] = int(_max_ints([int(value)])[0])
+            continue
+        arr = np.asarray(value)
+        shape = _max_ints(list(arr.shape))
+        pad = [(0, s - d) for s, d in zip(shape, arr.shape)]
+        local = torch.from_numpy(np.ascontiguousarray(np.pad(arr, pad)))
+        local = local.to(_host_comm_device())
+        parts = [torch.empty_like(local) for _ in range(process_count())]
+        tdist.all_gather(parts, local)
+        gathered[key] = torch.cat(parts).cpu().numpy()
+    return gathered
+
+
+def _host_comm_device() -> torch.device:
+    """Where a collective over host values runs: the current card under
+    NCCL, the CPU under gloo."""
+    if tdist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _max_ints(values):
+    """The element-wise maximum over the processes of a list of ints."""
+    t = torch.tensor(values, dtype=torch.int64, device=_host_comm_device())
+    tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+    return t.cpu().tolist()
+
+
+def lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(max(a, 1), max(b, 1))

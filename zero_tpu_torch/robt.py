@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from zero_tpu_torch.ops import common
+
 F32_MIN = torch.finfo(torch.float32).min
 
 
@@ -46,9 +48,14 @@ def greedy_decode(params, source, inference, cfg, out_len: int):
 def draw_languages(gen: torch.Generator, rows: int, num_languages: int,
                    device) -> torch.Tensor:
     """The intermediate language index of each row, uniform over
-    [0, num_languages), from the step's generator: [rows, 1] int64."""
-    return torch.randint(0, num_languages, (rows, 1),
-                         generator=gen).to(device)
+    [0, num_languages), from the step's generator: [rows, 1] int64. Within
+    a global batch (ops/common.py:global_batch) the draw covers the global
+    rows and this process keeps its own."""
+    offset, local, total = common.global_rows()
+    if not local:
+        offset, total = 0, rows
+    z = torch.randint(0, num_languages, (total, 1), generator=gen)
+    return z[offset:offset + rows].to(device)
 
 
 def make_augment(model, cfg):

@@ -9,6 +9,11 @@ Counterpart of ``zero_tpu/run.py``. Merge priority: command line > saved
 param.json > config file > defaults; ``--mode ensemble`` merges each
 model directory's param.json under the command line. Runs on ``device``
 (default "cuda"; ``--parameters device=cpu`` for the CPU).
+
+Data parallelism: start W processes, each with
+``dist_coordinator=<host>:<port>,dist_num_processes=W,dist_process_id=<i>``
+(NCCL on the cards, gloo with ``device=cpu``); process i takes
+``cuda:<i % device_count>``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from zero_tpu_torch.config import (default_config, merge_params,
                                    save_parameters)
 from zero_tpu_torch.models import get_model
 from zero_tpu_torch.models.common import check_ported
+from zero_tpu_torch.parallel import distributed as dist
 from zero_tpu_torch.recorder import Recorder
 from zero_tpu_torch.vocab import Vocab
 
@@ -109,18 +115,25 @@ def main(argv=None):
     get_model(params.model_name)    # a later slice's model raises here
     random.seed(params.random_seed)
     np.random.seed(params.random_seed)
-    device = graph.device_of(params)
-    log.info("zero_tpu_torch on %s", device)
-
-    params = load_vocabs(params)
-    print_parameters(params)
-    if args.mode == "train":
-        save_parameters(params, params.output_dir)
-        params = setup_recorder(params)
-        return graph.train(params)
-    if args.mode == "score":
-        return graph.scorer(params)
-    return graph.evaluate(params)
+    graph.device_of(params)     # "cuda" without a card raises here
+    # several processes: join them before any device state exists (the
+    # init is a rendezvous: every process has read param.json by then)
+    joined = dist.maybe_initialize(params)
+    try:
+        log.info("zero_tpu_torch on %s", graph.device_of(params))
+        params = load_vocabs(params)
+        print_parameters(params)
+        if args.mode == "train":
+            if dist.is_primary():
+                save_parameters(params, params.output_dir)
+            params = setup_recorder(params)
+            return graph.train(params)
+        if args.mode == "score":
+            return graph.scorer(params)
+        return graph.evaluate(params)
+    finally:
+        if joined:
+            dist.destroy()
 
 
 if __name__ == "__main__":

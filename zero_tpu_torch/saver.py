@@ -17,15 +17,26 @@ restores in the other, training state included:
 
 The port's parameter modules name their tensors so that the state-dict key
 is the path with '/' turned into '.'; the bridge (``params_from_flat``) is
-therefore a rename. The sharded multi-host format is a later slice.
+therefore a rename. The port writes the npz members with a fixed time
+stamp, so one state gives one file, byte for byte.
+
+``Saver(async_save=True)`` (``async_checkpoint``) snapshots the state on
+its device and writes it on a worker thread; ``wait()`` joins the write
+and raises its error. The JAX package's sharded multi-host format
+(``model-<step>.shard<pid>.npz`` beside ``model-<step>.shardmeta.json``,
+"sharded-v1") restores here on one device: every leaf is assembled from
+all the shard files. Writing it comes with ZeRO, a later slice.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
 import shutil
+import threading
+import zipfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -106,17 +117,39 @@ def _write_index(directory: str, names: List[str]) -> None:
                   indent=2)
 
 
-def save_checkpoint_file(directory: str, name: str, trees: dict) -> str:
-    """Write ``{prefix: tree or None}`` as ``<directory>/<name>.npz``."""
-    os.makedirs(directory, exist_ok=True)
+def flat_tensors(trees: dict) -> Dict[str, torch.Tensor]:
+    """``{prefix: tree or None}`` -> {checkpoint key: tensor}."""
     flat = {}
     for prefix, tree in trees.items():
         if tree is not None:
-            flat.update(flat_from_module(tree, prefix))
+            flat.update({prefix + "/" + k: t
+                         for k, t in tensors_of(tree).items()})
+    return flat
+
+
+# the time stamp of every npz member: one state, one file
+_ZIP_TIME = (1980, 1, 1, 0, 0, 0)
+
+
+def write_checkpoint_file(directory: str, name: str,
+                          flat: Dict[str, torch.Tensor]) -> str:
+    """Write {key: tensor} as ``<directory>/<name>.npz``: np.savez's
+    layout (one ``<key>.npy`` member each, stored), fixed time stamps."""
+    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, name + ".npz")
-    with open(path, "wb") as f:
-        np.savez(f, **flat)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        for key, t in flat.items():
+            info = zipfile.ZipInfo(key + ".npy", date_time=_ZIP_TIME)
+            with z.open(info, "w", force_zip64=True) as member:
+                np.lib.format.write_array(member, _numpy(t),
+                                          allow_pickle=False)
     return path
+
+
+def save_checkpoint_file(directory: str, name: str, trees: dict) -> str:
+    """Write ``{prefix: tree or None}`` as ``<directory>/<name>.npz``."""
+    return write_checkpoint_file(directory, name, flat_tensors(trees))
 
 
 def load_checkpoint_file(path: str,
@@ -129,18 +162,66 @@ def load_checkpoint_file(path: str,
                 if prefixes is None or k.split("/", 1)[0] in prefixes}
 
 
+def load_sharded_checkpoint(base: str,
+                            prefixes=None) -> Dict[str, np.ndarray]:
+    """The arrays of the sharded-v1 checkpoint ``base`` (its path without
+    extension), each leaf assembled from every ``<base>.shard*.npz``: a
+    bare key is read as it is; ``key@a:b,c:d`` index keys are placed into
+    a zero array of the shape ``<base>.shardmeta.json`` gives
+    (``zero_tpu/saver.py:_load_sharded_leaf``). A key with no entry is
+    left out, so load_flat keeps the template's value with its warning."""
+    with open(base + ".shardmeta.json") as r:
+        shapes = json.load(r)["keys"]
+    pieces: Dict[str, list] = {}
+    bare: Dict[str, np.ndarray] = {}
+    for fname in sorted(glob.glob(glob.escape(base) + ".shard*.npz")):
+        with np.load(fname, allow_pickle=False) as z:
+            for member in z.files:
+                key, _, index = member.partition("@")
+                if key not in shapes or (prefixes is not None and
+                                         key.split("/", 1)[0] not in prefixes):
+                    continue
+                if index:
+                    pieces.setdefault(key, []).append((index, z[member]))
+                else:
+                    bare[key] = z[member]
+    flat = dict(bare)
+    for key, parts in pieces.items():
+        if key in flat:
+            continue
+        full = np.zeros(shapes[key], parts[0][1].dtype)
+        for index, arr in parts:
+            full[tuple(slice(*map(int, span.split(":")))
+                       for span in index.split(","))] = arr
+        flat[key] = full
+    return flat
+
+
+def _checkpoint_files(directory: str, name: str) -> List[str]:
+    """Every file of checkpoint ``name``: its npz, or its shard files and
+    meta."""
+    base = os.path.join(directory, name)
+    return ([base + ".npz", base + ".shardmeta.json"]
+            + glob.glob(glob.escape(base) + ".shard*.npz"))
+
+
 class Saver:
     """Latest-k + best-k checkpoint manager over the JAX package's file
-    layout."""
+    layout. With ``async_save`` the index and top-k bookkeeping run in
+    ``save`` and the npz writes on a worker thread, over a snapshot of the
+    state taken on its device; at most one write is in flight."""
 
     def __init__(self, checkpoints: int = 5,
                  output_dir: Optional[str] = None, best_score: float = -1.0,
-                 best_checkpoints: int = 1):
+                 best_checkpoints: int = 1, async_save: bool = False):
         self.output_dir = output_dir or "./output"
         self.output_best_dir = os.path.join(self.output_dir, "best")
         self.max_keep = checkpoints
         self.best_checkpoints = best_checkpoints
         self.best_score = best_score
+        self.async_save = async_save
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         metric_path = os.path.join(self.output_best_dir, "metric.log")
         if os.path.exists(metric_path):
             with open(metric_path) as r:
@@ -155,18 +236,45 @@ class Saver:
                     name, score = line.strip().split("\t")
                     self.topk_scores.append((name, float(score)))
 
+    def wait(self) -> None:
+        """Block until a pending async write has finished; raise the error
+        it met, if any."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise RuntimeError("the async checkpoint write failed") \
+                from error
+
+    def _write(self, directories, name, flat) -> None:
+        try:
+            for directory in directories:
+                write_checkpoint_file(directory, name, flat)
+        except BaseException as e:      # surfaces at the next wait()
+            if not self.async_save:
+                raise
+            self._error = e
+
     def save(self, trees: dict, step: int,
              metric_score: Optional[float] = None) -> str:
         """trees: {'params': module, 'opt': adam state or None, 'ema': ...}.
-        With a dev ``metric_score``, also updates best/."""
+        With a dev ``metric_score``, also updates best/. Returns the path
+        of the checkpoint (written once wait() returns, when async)."""
+        self.wait()
         os.makedirs(self.output_best_dir, exist_ok=True)
         name = "model-%d" % int(step)
-        path = save_checkpoint_file(self.output_dir, name, trees)
+        path = os.path.join(self.output_dir, name + ".npz")
+        flat = flat_tensors(trees)
+        if self.async_save:
+            # the on-device snapshot: training goes on updating in place
+            flat = {k: t.detach().clone() for k, t in flat.items()}
+        directories = [self.output_dir]
         names = [n for n in _read_index(self.output_dir) if n != name] + [name]
         while len(names) > self.max_keep:
-            victim = os.path.join(self.output_dir, names.pop(0) + ".npz")
-            if os.path.exists(victim):
-                os.remove(victim)
+            for victim in _checkpoint_files(self.output_dir, names.pop(0)):
+                if os.path.exists(victim):
+                    os.remove(victim)
         _write_index(self.output_dir, names)
 
         if metric_score is not None and metric_score > self.best_score:
@@ -181,10 +289,11 @@ class Saver:
                                                              metric_score))
 
         if self._topk_admit(name, metric_score):
-            save_checkpoint_file(self.output_best_dir, name, trees)
+            directories.append(self.output_best_dir)
             keep = {n for n, _ in self.topk_scores}
             for fname in os.listdir(self.output_best_dir):
-                if fname.endswith(".npz") and fname[:-4] not in keep:
+                if fname.endswith(".npz") and \
+                        fname[:-4].split(".shard")[0] not in keep:
                     os.remove(os.path.join(self.output_best_dir, fname))
             _write_index(self.output_best_dir,
                          [n for n, _ in self.topk_scores])
@@ -192,6 +301,13 @@ class Saver:
                       "w") as w:
                 for n, s in self.topk_scores:
                     w.write("{}\t{}\n".format(n, s))
+        if self.async_save:
+            self._pending = threading.Thread(
+                target=self._write, args=(directories, name, flat),
+                daemon=True)
+            self._pending.start()
+        else:
+            self._write(directories, name, flat)
         return path
 
     def _topk_admit(self, name: str, metric_score) -> bool:
@@ -205,23 +321,35 @@ class Saver:
         return True
 
     def latest_path(self, path: Optional[str] = None) -> Optional[str]:
+        """The latest checkpoint of ``path`` (or output_dir): its npz, or
+        the meta file of a sharded one."""
         check_dir = path if (path and os.path.exists(path)) else self.output_dir
         names = _read_index(check_dir)
         if not names:
             return None
-        return os.path.join(check_dir, names[-1] + ".npz")
+        base = os.path.join(check_dir, names[-1])
+        if not os.path.exists(base + ".npz") and \
+                os.path.exists(base + ".shardmeta.json"):
+            return base + ".shardmeta.json"
+        return base + ".npz"
 
     def restore(self, trees: dict, path: Optional[str] = None) -> bool:
         """Load the latest checkpoint of ``path`` (or output_dir) into
-        ``{prefix: tree}`` in place; returns False (trees unchanged) when
-        there is none."""
+        ``{prefix: tree}`` in place, a sharded one assembled on this
+        device; returns False (trees unchanged) when there is none."""
+        self.wait()
         ckpt = self.latest_path(path)
         if ckpt is None:
             log.warning("No existing model detected")
             return False
-        log.info("Restoring from %s", ckpt)
-        flat = load_checkpoint_file(
-            ckpt, {p for p, tree in trees.items() if tree is not None})
+        prefixes = {p for p, tree in trees.items() if tree is not None}
+        if ckpt.endswith(".shardmeta.json"):
+            log.info("Restoring from sharded checkpoint %s", ckpt)
+            flat = load_sharded_checkpoint(
+                ckpt[:-len(".shardmeta.json")], prefixes)
+        else:
+            log.info("Restoring from %s", ckpt)
+            flat = load_checkpoint_file(ckpt, prefixes)
         for prefix, tree in trees.items():
             if tree is not None:
                 load_flat(tree, flat, prefix)

@@ -1,13 +1,18 @@
-"""Training, evaluation and scoring loops on one device.
+"""Training, evaluation and scoring loops: one device a process, data
+parallelism across processes.
 
-Counterpart of ``zero_tpu/train.py`` without meshes, multiple hosts, ZeRO,
+Counterpart of ``zero_tpu/train.py`` without ZeRO, tensor parallelism,
 pipelines or rings: the epoch/step loop with update_cycle grouping, NaN
 abort (or the safe_nan skip), periodic display/save/sample/eval, mid-epoch
 resume from ``record.json`` by skipping consumed batches, dev-BLEU-driven
 best checkpointing and early stop, the EMA weight swap for eval, a SIGTERM
-checkpoint-and-exit, and the final save and dev eval; plus the ``--mode
-test`` (``evaluate``), ``--mode score`` (``scorer``) and ``--mode
-ensemble`` (``ensemble``) entry points. ``data_kind=speech`` reads TSV
+checkpoint-and-exit, a profiler window, and the final save and dev eval;
+plus the ``--mode test`` (``evaluate``), ``--mode score`` (``scorer``) and
+``--mode ensemble`` (``ensemble``) entry points, which decode on one
+device. Under several processes (parallel/distributed.py) each takes its
+slot of every group of host batches, the primary saves and samples, and
+the dev eval decodes each process's rows of every batch and gathers
+them. ``data_kind=speech`` reads TSV
 manifests (audio.py:SpeechDataset) in every mode and feeds the models the
 frames, their mask, the transcript and the context as the JAX package
 does.
@@ -15,6 +20,7 @@ does.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -28,8 +34,9 @@ from zero_tpu_torch import dtypes, evalu, lrs
 from zero_tpu_torch.audio import SpeechDataset
 from zero_tpu_torch.data import Dataset
 from zero_tpu_torch.models.base import Inference, get_model
-from zero_tpu_torch.models.common import parallel_options
+from zero_tpu_torch.models.common import check_ported, parallel_options
 from zero_tpu_torch.models.transformer_ibdecoder import unfold
+from zero_tpu_torch.parallel import distributed as dist
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
 from zero_tpu_torch.search import beam_search, gather_cache, ib_beam_search
@@ -40,27 +47,31 @@ log = logging.getLogger("zero_tpu_torch.train")
 
 
 def device_of(params) -> torch.device:
-    """The configured torch device; "cuda" without a GPU raises (no silent
-    move to the CPU)."""
+    """The configured torch device, on a card this process's
+    (``cuda:<rank % device_count>``); "cuda" without a GPU raises (no
+    silent move to the CPU)."""
     device = torch.device(params.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device=%s but torch sees no CUDA device; pass "
             "--parameters device=cpu to run on the CPU" % params.device)
-    return device
+    return dist.local_device(params)
 
 
 def _is_speech(params) -> bool:
     return getattr(params, "data_kind", "text") == "speech"
 
 
-def _make_dataset(params, src, tgt, train=False):
-    """Training batches by the configured batch or token budget; eval
-    batches padded to eval_batch_size rows. Lengths snap to
-    pad_seq_multiple, as the JAX package pads them. Speech: ``src`` is the
-    TSV manifest (features, transcript, translation), ``tgt`` still names
-    the reference translations for BLEU, and the token budget counts
-    frames."""
+def _make_dataset(params, src, tgt, train=False, data_par: int = 1):
+    """Training batches by the configured batch or token budget, their
+    rows padded to a multiple of lcm(pad_batch_multiple, data_par); eval
+    batches padded to lcm(eval_batch_size, data_par) rows, so the 'data'
+    degree divides them. Lengths snap to pad_seq_multiple, as the JAX
+    package pads them. Speech: ``src`` is the TSV manifest (features,
+    transcript, translation), ``tgt`` still names the reference
+    translations for BLEU, and the token budget counts frames."""
+    bmult = dist.lcm(params.pad_batch_multiple, data_par) if train else 1
+    eval_rows = dist.lcm(params.eval_batch_size, data_par)
     if _is_speech(params):
         return SpeechDataset(
             src, params.src_vocab, params.tgt_vocab,
@@ -70,8 +81,8 @@ def _make_dataset(params, src, tgt, train=False):
             data_leak_ratio=params.data_leak_ratio,
             num_mels=params.audio_num_mel_bins,
             pad_seq_multiple=params.pad_seq_multiple,
-            pad_batch_multiple=params.pad_batch_multiple if train else 1,
-            pad_batch_to=0 if train else params.eval_batch_size,
+            pad_batch_multiple=bmult,
+            pad_batch_to=0 if train else eval_rows,
             coarse_label_base=params.coarse_label_base,
             context=params.st_context,
             context_max_frame_len=params.context_max_frame_len)
@@ -80,9 +91,8 @@ def _make_dataset(params, src, tgt, train=False):
                    batch_or_token=params.batch_or_token if train else "batch",
                    data_leak_ratio=params.data_leak_ratio,
                    pad_seq_multiple=params.pad_seq_multiple,
-                   pad_batch_multiple=params.pad_batch_multiple if train
-                   else 1,
-                   pad_batch_to=0 if train else params.eval_batch_size,
+                   pad_batch_multiple=bmult,
+                   pad_batch_to=0 if train else eval_rows,
                    # process_num forked tokeniser workers for the first pass
                    # over the training corpus; the C++ tokeniser (native/)
                    # where native_tokenizer is on and the library builds
@@ -118,11 +128,33 @@ def _batch_features(params, batch):
     return {"source": batch["src"], "target": batch["tgt"]}
 
 
-def make_decode_fn(params, model=None, inference=None):
+def _pad_rows(source, mult: int):
+    """Pad the rows (axis 0) of a source tensor, or of each tensor of a
+    speech source dict, with zeros up to a multiple of ``mult``; all-pad
+    rows are legal everywhere. Returns (padded source, original rows)."""
+    first = next(iter(source.values())) if isinstance(source, dict) \
+        else source
+    rows = int(first.shape[0])
+    extra = -rows % mult
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+    if not extra:
+        return source, rows
+    if isinstance(source, dict):
+        return {k: pad(v) for k, v in source.items()}, rows
+    return pad(source), rows
+
+
+def make_decode_fn(params, model=None, inference=None, sharded=False):
     """Beam-search callable over dataset batch dicts; returns numpy
     'seq' [B, K, T] and 'score' [B, K], and the int 'steps'.
     transformer_ibdecoder runs the pair search and unfolds each
-    hypothesis on the host ('steps' counts pair steps)."""
+    hypothesis on the host ('steps' counts pair steps). ``sharded``: the
+    data-sharded decode of ``zero_tpu/train.py:_mesh_decode`` -- each
+    process decodes its rows of the batch (padded to a multiple of the
+    process count) and every process gets every row's output.
+    COLLECTIVE under several processes."""
     model = model or get_model(params.model_name)
     inference = inference or model.infer_fn(params)
     device = device_of(params)
@@ -131,6 +163,16 @@ def make_decode_fn(params, model=None, inference=None):
     @torch.inference_mode()
     def decode(weights, batch):
         source = _batch_source(batch, device)
+        if not sharded or dist.process_count() == 1:
+            return run(weights, source)
+        source, rows = _pad_rows(source, dist.process_count())
+        padded = rows + -rows % dist.process_count()
+        out = dist.fetch_decode_output(
+            run(weights, dist.put_eval_batch(source, padded)))
+        return {k: (v[:rows] if getattr(v, "ndim", 0) > 0 else v)
+                for k, v in out.items()}
+
+    def run(weights, source):
         if not pairs:
             out = beam_search(weights, source, inference, params)
             return {"seq": out["seq"].cpu().numpy(),
@@ -185,40 +227,144 @@ def _step_generator(params, step: int) -> torch.Generator:
         (int(params.random_seed) + 7) * 1000003 + int(step))
 
 
+def _pad_group_batch(batch, host_group):
+    """Pad a host batch to the shape of its group of process batches
+    (``zero_tpu/train.py:_pad_group_batch``): every array of two or more
+    axes to the group's largest rows (axis 0) and length (axis 1), so the
+    processes' slices of the global batch share one shape. Zero rows and
+    columns are ordinary padding (all-pad rows are legal)."""
+    out = dict(batch)
+
+    def pad_to(x, length, axis):
+        width = [(0, 0)] * x.ndim
+        width[axis] = (0, length - x.shape[axis])
+        return np.pad(x, width) if length > x.shape[axis] else x
+
+    for key, val in batch.items():
+        if not (hasattr(val, "shape") and getattr(val, "ndim", 0) >= 2):
+            continue
+        rows = max(b[key].shape[0] for b in host_group)
+        length = max(b[key].shape[1] for b in host_group)
+        out[key] = pad_to(pad_to(val, length, 1), rows, 0)
+    return out
+
+
+def _state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _ProfileWindow:
+    """A torch.profiler trace of steps [profiler_start_step,
+    profiler_stop_step) into ``profiler_dir`` as Chrome JSON
+    (``zero_tpu/train.py:475-487``); ``profiler_dir=""`` keeps it off. The
+    device is synchronised at the stop step. Each step in the window is
+    one ``zero_tpu_torch.train_step`` range. Under data parallelism only
+    the primary traces, as the JAX trace is one host's."""
+
+    def __init__(self, params, device):
+        self.dir = params.profiler_dir if dist.is_primary() else ""
+        self.start = int(params.profiler_start_step)
+        self.stop = int(params.profiler_stop_step)
+        self.device = device
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if self.dir and step == self.start and self.prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+            log.info("profiler trace started -> %s", self.dir)
+
+    def step(self):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("zero_tpu_torch.train_step")
+
+    def after(self, step: int) -> None:
+        if self.prof is not None and step >= self.stop:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace_steps%d-%d.json"
+                            % (self.start, self.stop))
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        log.info("profiler trace stopped -> %s", path)
+
+
 def _train(params, preempted) -> dict:
     """Returns {'steps', 'seconds', 'step_end_times', 'losses', 'gnorms',
-    'target_tokens', 'shapes', 'bleu'}: per-step host-clock end times
-    (device-synchronised when the step displays), losses, gnorms, target
-    tokens and the [C] (src, tgt) batch shapes of every step, and the final
-    dev BLEU (None without a dev set or after a preemption)."""
+    'target_tokens', 'shapes', 'bleu', 'allreduce'}: per-step host-clock
+    end times (device-synchronised when the step displays), losses,
+    gnorms, this process's target tokens and the [C] (src, tgt) batch
+    shapes of every step, the final dev BLEU (None without a dev set or
+    after a preemption) and the gradient all-reduce's {'calls', 'bytes',
+    'ms'} over the run (zeros without a process group)."""
     model = get_model(params.model_name)
     device = device_of(params)
+    nproc, pid = dist.process_count(), dist.process_index()
+    # the 'data' degree: one device a process (parallel/distributed.py)
+    data_par = dist.data_degree(params)
+    check_ported(params, world=data_par)
+    if nproc > 1:
+        log.info("data parallelism: process %d of %d on %s", pid, nproc,
+                 device)
+    # every process builds the same batch stream (the seeds of run.py),
+    # takes its slot of each group of nproc host batches and pads it to
+    # the group's shape: the global batch needs no communication
     train_dataset = _make_dataset(params, params.src_train_file,
-                                  params.tgt_train_file, train=True)
+                                  params.tgt_train_file, train=True,
+                                  data_par=max(data_par // nproc, 1))
     if isinstance(train_dataset, Dataset):
         # the first pass runs here, in the main thread, before any device
         # state or prefetch thread exists: process_num's forked workers run
         # pure python and touch neither torch nor the card
         train_dataset.tokenize()
     dev_dataset = _make_dataset(params, params.src_dev_file,
-                                params.tgt_dev_file)
+                                params.tgt_dev_file, data_par=data_par)
 
     gen = torch.Generator().manual_seed(int(params.random_seed))
     state = init_train_state(model, params, gen, device)
     num_params = sum(p.numel() for p in state.params.parameters())
     log.info("Total trainable variables size: %d", num_params)
+    mb = 1024.0 * 1024.0
+    log.info("Per-chip state: params %.1f MB, optimizer %.1f MB, "
+             "EMA %.1f MB (zero_stage=%d)",
+             _state_bytes(state.params.parameters()) / mb,
+             _state_bytes([state.opt["count"]]
+                          + list(state.opt["mu"].values())
+                          + list(state.opt["nu"].values())) / mb,
+             _state_bytes((state.ema or {}).values()) / mb,
+             int(getattr(params, "zero_stage", 0)))
 
     step_fn = make_train_step(model, params)
-    decode = make_decode_fn(params, model)
+    # the dev eval decodes each process's rows of every batch; sampling
+    # decodes the primary's own last batch on its own
+    decode = make_decode_fn(params, model, sharded=True)
+    decode_local = make_decode_fn(params, model)
     saver = Saver(checkpoints=params.checkpoints,
                   output_dir=params.output_dir,
-                  best_checkpoints=params.best_checkpoints)
+                  best_checkpoints=params.best_checkpoints,
+                  async_save=bool(params.async_checkpoint))
     recorder = params.recorder
 
     def _save_all(step, bleu=None):
-        saver.save({"params": state.params, "opt": state.opt,
-                    "ema": state.ema}, step, bleu)
-        recorder.save_to_json(os.path.join(params.output_dir, "record.json"))
+        """Checkpoint and recorder, written by the primary: every process
+        holds the same state. COLLECTIVE by contract (host_fetchable)."""
+        trees = dist.host_fetchable({"params": state.params,
+                                     "opt": state.opt, "ema": state.ema})
+        if dist.is_primary():
+            saver.save(trees, step, bleu)
+            recorder.save_to_json(
+                os.path.join(params.output_dir, "record.json"))
 
     trees = {"params": state.params, "opt": state.opt, "ema": state.ema}
     if params.pretrained_model:
@@ -233,6 +379,8 @@ def _train(params, preempted) -> dict:
     should_stop = False
     summary = {"step_end_times": [], "losses": [], "gnorms": [],
                "target_tokens": [], "shapes": [], "bleu": None}
+    profile = _ProfileWindow(params, device)
+    dist.take_stats()
     begin = time.time()
 
     for epoch in range(recorder.epoch, params.epoches + 1):
@@ -249,17 +397,25 @@ def _train(params, preempted) -> dict:
             maxsize=params.output_queue_size)
 
         def grouped_batches():
-            """update_cycle grouping and stacking, on the feed thread;
-            skips the batches a resumed run has consumed."""
-            group = []
+            """Process grouping, update_cycle grouping, stacking and the
+            copy to the device, on the feed thread (no collective runs
+            here); skips the groups a resumed run has consumed."""
+            group, host_group = [], []
             for lidx, batch in enumerate(host_queue):
+                host_group.append(batch)
+                if len(host_group) < nproc:
+                    continue
+                mine = host_group[pid]
+                if nproc > 1:
+                    mine = _pad_group_batch(mine, host_group)
+                host_group = []
                 if epoch == resume_epoch and lidx <= resume_lidx:
                     continue
-                group.append(batch)
+                group.append(mine)
                 if len(group) < cycle:
                     continue
-                stacked = stack_microbatches(
-                    [_batch_features(params, b) for b in group])
+                stacked = dist.put_global_batch(stack_microbatches(
+                    [_batch_features(params, b) for b in group]), device)
                 tokens = int(sum((b["tgt"] > 0).sum() for b in group))
                 shapes = [(tuple(b["src"].shape), tuple(b["tgt"].shape))
                           for b in group]
@@ -273,9 +429,12 @@ def _train(params, preempted) -> dict:
         for stacked, token_count, shapes, lidx, batch in feed:
             adapt_lr.step(step)
             lr = adapt_lr.get_lr()
-            _, metrics = step_fn(state, stacked, lr,
-                                 _step_generator(params, step))
+            profile.before(step)
+            with profile.step():
+                _, metrics = step_fn(state, stacked, lr,
+                                     _step_generator(params, step))
             step += 1
+            profile.after(step)
             window_tokens += token_count
             summary["losses"].append(metrics["loss"])
             summary["gnorms"].append(metrics["gnorm"])
@@ -291,6 +450,7 @@ def _train(params, preempted) -> dict:
                 rate = window_tokens / max(duration, 1e-6)
                 window_start = now
                 window_tokens = 0
+                # the loss is the global batch's: every process stops
                 if not params.safe_nan and not np.isfinite(loss):
                     log.error("Nan or Inf raised at step %d; abort training",
                               step)
@@ -309,7 +469,16 @@ def _train(params, preempted) -> dict:
             recorder.lrate = float(lr)
             recorder.epoch = epoch
 
-            if preempted["flag"]:
+            # SIGTERM may reach the processes at different steps, or only
+            # some, and _save_all is collective: the flags are agreed on
+            # every preempt_sync_freq steps, so all take the
+            # checkpoint-and-exit branch at the same step
+            preempt_now = preempted["flag"] if nproc == 1 else False
+            if nproc > 1 and step % max(
+                    int(getattr(params, "preempt_sync_freq", 10)), 1) == 0:
+                preempt_now = dist.any_flag(preempted["flag"])
+            if preempt_now:
+                preempted["flag"] = True
                 log.warning("SIGTERM received: checkpointing at step %d "
                             "and exiting for preemption", step)
                 _save_all(step)
@@ -320,16 +489,21 @@ def _train(params, preempted) -> dict:
                 _save_all(step)
 
             if params.sample_freq > 0 and step % params.sample_freq == 0:
-                _sample_decode(params, decode,
-                               _eval_weights(params, model, state), batch)
+                if dist.is_primary():
+                    _sample_decode(params, decode_local,
+                                   _eval_weights(params, model, state), batch)
                 window_start = time.time()
                 window_tokens = 0
 
             if params.eval_freq > 0 and step % params.eval_freq == 0:
+                # every process decodes its rows and gathers the rest, so
+                # all compute one BLEU: the lr schedule and early stop
+                # agree with no broadcast
                 bleu = _dev_eval(params, decode,
                                  _eval_weights(params, model, state),
                                  dev_dataset,
-                                 os.path.join(params.output_dir, "trans.txt"))
+                                 os.path.join(params.output_dir, "trans.txt")
+                                 if dist.is_primary() else "")
                 log.info("Step %d, BLEU %.4f, Best BLEU %.4f", step, bleu,
                          max(saver.best_score, bleu))
                 stop_now = record_eval_score(recorder, step, float(bleu),
@@ -354,20 +528,28 @@ def _train(params, preempted) -> dict:
         adapt_lr.after_epoch(eidx=epoch)
         recorder.epoch = epoch + 1
 
+    profile.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     summary["seconds"] = time.time() - begin
     summary["steps"] = len(summary["losses"])
     summary["losses"] = [float(x) for x in summary["losses"]]
     summary["gnorms"] = [float(x) for x in summary["gnorms"]]
+    summary["allreduce"] = dist.take_stats()
+    # a SIGTERM after the last agreement must not let one process skip
+    # the collective final eval that the others enter
+    if nproc > 1:
+        preempted["flag"] = dist.any_flag(preempted["flag"])
     _save_all(step)
     if not preempted["flag"] and params.src_dev_file:
         bleu = _dev_eval(params, decode,
                          _eval_weights(params, model, state), dev_dataset,
-                         os.path.join(params.output_dir, "trans.txt"))
+                         os.path.join(params.output_dir, "trans.txt")
+                         if dist.is_primary() else "")
         log.info("Final BLEU %.4f at step %d", bleu, step)
         _save_all(step, bleu)
         summary["bleu"] = bleu
+    saver.wait()
     log.info("Training finished at step %d", step)
     return summary
 

@@ -1,9 +1,18 @@
-"""The single-device training step: grads, accumulation, clipping, Adam,
-EMA; and the scoring step.
+"""The training step: grads, accumulation, the data-parallel gradient sum,
+clipping, Adam, EMA; and the scoring step.
 
-Counterpart of the single-device part of ``zero_tpu/parallel/train_step.py``:
+Counterpart of ``zero_tpu/parallel/train_step.py`` on one device a process:
   * gradient accumulation over the ``update_cycle`` stacked microbatches
     (the final grad and loss are means over the cycles)
+  * data parallelism across processes (parallel/distributed.py): each
+    microbatch is this process's slice of a global batch
+    (ops/common.py:global_batch), whose loss every process computes
+    through global sums; the accumulated gradients are summed over the
+    processes once a step, so every process applies the global batch's
+    update. No DistributedDataParallel: the loss runs through
+    ``functional_call``, not the module's forward, and DDP's mean of the
+    processes' means is not the global batch's mean once their valid rows
+    differ (all-pad rows, token buckets)
   * clipping by global norm (``clip_grad_norm``)
   * Adam as ``optax.scale_by_adam(b1, b2, eps)`` followed by
     ``p - lr * u``, with the learning rate passed from the host each step
@@ -24,10 +33,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import contextlib
+
 import numpy as np
 import torch
 
 from zero_tpu_torch import robt as robt_lib
+from zero_tpu_torch.ops import common as ops_common
+from zero_tpu_torch.parallel import distributed as dist
 
 
 @dataclass
@@ -99,13 +112,26 @@ def make_micro_backward(model, cfg):
     return micro_backward
 
 
+def global_batch(rows: int):
+    """The global batch that a microbatch of ``rows`` rows belongs to:
+    under a process group, the concatenation of every process's slice in
+    process order (their slices share one shape); else none."""
+    if not dist.active():
+        return contextlib.nullcontext()
+    world, pid = dist.process_count(), dist.process_index()
+    return ops_common.global_batch(pid * rows, rows, world * rows,
+                                   dist.global_sum)
+
+
 def make_train_step(model, cfg):
     """Build step(state, batch, lr, gen) -> (state, metrics).
 
-    ``batch`` values are [C, B, L] integer arrays with C = update_cycle;
-    ``gen`` (a torch.Generator) seeds every dropout site of the C
-    microbatches in turn. metrics holds device scalars {'loss', 'gnorm',
-    'pnorm'}; reading them is the caller's host sync."""
+    ``batch`` values are [C, B, L] integer arrays (or tensors) with C =
+    update_cycle; ``gen`` (a torch.Generator) seeds every dropout site of
+    the C microbatches in turn. metrics holds device scalars {'loss',
+    'gnorm', 'pnorm'}; reading them is the caller's host sync. Under a
+    process group each process passes its slice of the global batch and
+    the same ``gen``, and all apply the same update."""
     b1, b2, eps = float(cfg.beta1), float(cfg.beta2), float(cfg.epsilon)
     clip_norm = float(cfg.clip_grad_norm or 0.0)
     ema_decay = float(cfg.ema_decay)
@@ -117,17 +143,21 @@ def make_train_step(model, cfg):
         params = state.params
         named = _names_params(params)
         device = named[0][1].device
-        cycles = int(next(iter(batch.values())).shape[0])
+        cycles, rows = next(iter(batch.values())).shape[:2]
         for _, p in named:
             p.grad = None
         loss = None
-        for c in range(cycles):
-            feats = {k: torch.as_tensor(np.asarray(v[c]), device=device)
+        for c in range(int(cycles)):
+            feats = {k: torch.as_tensor(v[c], device=device)
                      for k, v in batch.items()}
-            micro = micro_backward(params, feats, gen, state.step)
+            with global_batch(int(rows)):
+                micro = micro_backward(params, feats, gen, state.step)
             loss = micro if loss is None else loss + micro
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for _, p in named]
+        if dist.active():
+            # once a step: the global batch's gradient on every process
+            dist.all_reduce_sum_(grads)
         if cycles > 1:
             grads = [g / cycles for g in grads]
             loss = loss / cycles
