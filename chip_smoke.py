@@ -229,7 +229,7 @@ non-zero):
              checkpoint restored in a fresh process (params, Adam state,
              EMA) equal to the file; --mode test at beam 4 (#8) and 1
              (#10), --mode score
-  moe_train  configs/transformer_base_wmt14.json at BASE_CUT's 3+3 as
+  moe_train  configs/transformer_base_wmt14.json at 2+2 (MOE_EXTRA) as
              transformer_moe (8
              experts, top-1, capacity 1.25, einsum dispatch), both flags
              on, MOE_STEPS steps: no training kernel; moe_aux beside the
@@ -238,14 +238,14 @@ non-zero):
              dispatch, loss and grads within 1e-5 of their max (the gap
              printed); --mode test at beam 4 (#10), --mode score
   multilingual_train  configs/multilingual_robt_opus100.json (at
-             ML_CUT's 2+2, 6+6 as written, for the script's time; 100
+             ML_CUT's 1+1, 6+6 as written, for the script's time; 100
              languages, ROBT; the model computes in fp32 and ignores
              use_remat, as in the JAX package) plus both flags, ML_STEPS
              steps on tagged synthetic data (the 100 tags at ids 3-102):
-             launches per microbatch 6 #1, 4 #2, 6 #11, 4 #12 (CUDA
-             cores) and 2 (L_src - 1) #10 (ROBT's greedy decode); the
+             launches per microbatch 3 #1, 2 #2, 3 #11, 2 #12 (CUDA
+             cores) and L_src - 1 #10 (ROBT's greedy decode); the
              main and back-translated losses, ms/step, peak memory; then
-             ML_OFF_STEPS steps with robt=false (2 of each); --mode test at
+             ML_OFF_STEPS steps with robt=false (1 of each); --mode test at
              beam 4 on mixed tags (#10), --mode score
   clsr_train the multilingual config as transformer_clsr, robt=false,
              CLSR_STEPS steps: no training kernel; the budget loss, peak
@@ -271,20 +271,20 @@ non-zero):
              --mode test at beam 4 and 1 (the pair search: pair steps,
              sentences/s; the encoder's #1/#11, no decode kernel: the
              pair step attends over two positions) and --mode score
-  speech_train  configs/speech_afs_mustc.json at 3+3+3 (6+6+6 as
+  speech_train  configs/speech_afs_mustc.json at 2+2+2 (6+6+6 as
              written, for the script's time; bf16,
              AFS tf, coarse CTC, use_flash_attention, the fused FFN off)
              SPEECH_STEPS steps on a synthetic corpus the phase writes
              (SPEECH_UTTERANCES .npy utterances of 300-2048 frames, 80
              mels; 32 16 kHz .wav files to serve, so read_wav and logmel
              run): loss, CTC term, AFS penalty, ms/step, target tokens/s
-             and raw frames/s, MFU, peak memory; launches 12 tensor-core
+             and raw frames/s, MFU, peak memory; launches 8 tensor-core
              #1 and #2 a microbatch; --mode test at beam 4 and 1 at
              l0_compact_ratio 0.3 (the share of frames compacted away;
-             the encoders' #1 and 6 #10 a decode step, the cross attention
-             on the composite), --mode score (9 #1 a batch), --mode
+             the encoders' #1 and 2 #10 a decode step, the cross attention
+             on the composite), --mode score (6 #1 a batch), --mode
              ensemble of the checkpoint with itself; then
-             SPEECH_CONTEXT_STEPS steps with st_context (15 #1/#2)
+             SPEECH_CONTEXT_STEPS steps with st_context (10 #1/#2)
   slice14_reference  small fp32 models card against CPU on the same seed
              words: transformer_ibdecoder with the kernel flags off and
              on; transformer_afs in modes tf (st_context) and t with
@@ -345,6 +345,28 @@ non-zero):
              their max; then #1-#7 and #11/#12 (fp32 and bf16, both
              routes) against their plain versions at a row base of 3
              (rows 3-6 of a global batch of 8), dropout 0.1
+  zero_train ZeRO (zero_stage 1, 2, 3) in the same two gloo ranks, one
+             stage after another: dp_train's run with the EMA on, each
+             stage's ms/step, every rank's bytes of parameters, moments
+             and EMA against stage 0's (the moments and EMA from stage 1,
+             the parameters at stage 3 at most ZERO_SHARE of them), peak
+             memory, reduce-scatter and all-gather ms and bytes a step,
+             the launches of #1/#2/#11/#12 a rank (checked as in train),
+             equal checksums and BLEU on the ranks, the parameter
+             checksums and step losses within ZERO_SAME of dp_train's;
+             stage 3 writes the sharded checkpoint (sharded_checkpoint
+             auto: a shard file a rank and the meta), a restart resumes
+             from it reading each rank's own slices, and --mode test
+             decodes it on one card (beam 4, #8)
+  zero_reference  the small fp32 model, kernels on, dropout 0 and 0.1, EMA
+             on: stages 1-3 on two ranks against stage 0 on two ranks,
+             losses of two Adam steps within 1e-6 relative, moments,
+             parameters and EMA after them within 1e-5 of their max
+  moe_dp     transformer_moe as moe_train runs it (2+2, 8 experts), fp32,
+             dropout 0.1: two gloo ranks (the all-pad row on one) against
+             one process on the global batch, dp_reference's tolerances
+             (the load-balance statistics and the expert FFN's dropout
+             over the global batch)
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -405,9 +427,9 @@ TRAIN_STEPS = 2
 # data-parallel phases came)
 TEST_SENTENCES = 32
 # the earlier phases run at a cut depth (the script's time budget):
-# transformer-base's at 3+3 (6+6 as written; MoE and IBDecoder too),
+# transformer-base's at 3+3 (6+6 as written; IBDecoder too, MoE at 2+2),
 # config 4's at 2+6 (20+6; scan_layers too), the multilingual config's at
-# 2+2, config 5's at 3+3+3; the RNN phases at the default config's widths
+# 1+1, config 5's at 2+2+2; the RNN phases at the default config's widths
 BASE_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
 DEEP_CUT = ",num_encoder_layer=2"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
@@ -3206,17 +3228,18 @@ SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
 # 5, 10, 5 and 10, then 4, 4, 3, 3, 3 and 4, then 3 each before the
 # data-parallel phases)
 SCAN_STEPS = 2
-# the base config at BASE_CUT's 3+3 since the RNN phases came
-MOE_EXTRA = (",model_name=transformer_moe,scope_name=transformer_moe"
-             + BASE_CUT)
+# the base config at 2+2 (3+3 since the RNN phases came, until the ZeRO
+# phases did)
+MOE_EXTRA = (",model_name=transformer_moe,scope_name=transformer_moe,"
+             "num_encoder_layer=2,num_decoder_layer=2")
 MOE_STEPS = 2
 MOE_TOP2_STEPS = 2
 ML_STEPS = 2
 ML_OFF_STEPS = 2
-# the multilingual config's phases at 2+2 (6+6 as written; 3+3 before the
-# RNN phases came) for the script's time: CLSR's checkpoints (786M
-# parameters at 6+6) dominated its phase
-ML_CUT = ",num_encoder_layer=2,num_decoder_layer=2"
+# the multilingual config's phases at 1+1 (6+6 as written; 3+3 before the
+# RNN phases came, 2+2 before the ZeRO phases) for the script's time:
+# CLSR's checkpoints (786M parameters at 6+6) dominated its phase
+ML_CUT = ",num_encoder_layer=1,num_decoder_layer=1"
 CLSR_EXTRA = (",model_name=transformer_clsr,scope_name=transformer_clsr,"
               "robt=false" + ML_CUT)
 CLSR_STEPS = 2
@@ -3507,7 +3530,7 @@ def ml_expected_launches(cfg, summary):
 
 
 def multilingual_train_phase(d, da):
-    """configs/multilingual_robt_opus100.json (at ML_CUT's 3+3, 512/2048,
+    """configs/multilingual_robt_opus100.json (at ML_CUT's 1+1, 512/2048,
     100 languages, ROBT with weight 1, use_remat, which the model ignores
     as the JAX package does) plus both kernel flags, ML_STEPS steps:
     launches per microbatch 9 #1, 6 #2, 9 #11, 6 #12 (fp32, CUDA cores)
@@ -3823,10 +3846,10 @@ SPEECH_STEPS = 2     # 3 before the data-parallel phases came
 SPEECH_CONTEXT_STEPS = 2
 SPEECH_UTTERANCES = 600
 # the config's own settings: the fused FFN off, no sample decode (a speech
-# batch's frames fail its source print, as in the JAX package); 3+3+3
-# layers (6+6+6 as written) since the RNN phases came
-SPEECH_EXTRA = (",use_fused_ffn=false,num_encoder_layer=3,"
-                "num_st_encoder_layer=3,num_decoder_layer=3")
+# batch's frames fail its source print, as in the JAX package); 2+2+2
+# layers (6+6+6 as written; 3+3+3 from the RNN phases to the ZeRO phases)
+SPEECH_EXTRA = (",use_fused_ffn=false,num_encoder_layer=2,"
+                "num_st_encoder_layer=2,num_decoder_layer=2")
 
 
 def ib_expected_launches(cfg, summary):
@@ -4313,7 +4336,9 @@ RNN_SETTINGS = dict(default_dtype="bfloat16", dropout=0.1, token_size=4096,
 RNN_MODELS = {
     "rnn_train": dict(model_name="rnnsearch", scope_name="rnnsearch",
                       cell="atr", caencoder=True),
-    # depth cut from the default 6+6 to 2+2 for the script's time; the
+    # depth cut from the default 6+6 to 2+2 for the script's time: the
+    # least at which use_deep_att, deepnmt's upper encoder layers and
+    # rnnsearch_deepatt's alternating stack and later stages run; the
     # widths are the config's
     "deepnmt_train": dict(model_name="deepnmt", scope_name="deepnmt",
                           cell="lstm", caencoder=False, use_deep_att=True,
@@ -4713,21 +4738,29 @@ def free_port():
 def dp_train_run(d, out, extra):
     """One process's --mode train of the base config (BASE_CUT, both
     kernel flags) with the final dev eval; its state is kept through the
-    training loop's init_train_state. Returns its numbers, launch counts
-    and a checksum of its parameters (the float64 sum and sum of
-    squares)."""
+    training loop's init_train_state. Returns its numbers, launch counts,
+    its bytes of parameters, moments and EMA (its shards under ZeRO)
+    beside the whole state's, ZeRO's reduce-scatter and all-gather a step
+    and a checksum of the whole parameters (the float64 sum, sum of
+    squares and sum of |change| since init; gathered under ZeRO-3,
+    COLLECTIVE)."""
     from zero_tpu_torch import run
     from zero_tpu_torch import train as train_mod
     from zero_tpu_torch.ops.kernels import decode_attention as da
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel import distributed as dist
+    from zero_tpu_torch.parallel.mesh import per_rank_bytes
 
     held = {}
     real = train_mod.init_train_state
 
     def keep(*args, **kwargs):
-        held["state"] = real(*args, **kwargs)
-        return held["state"]
+        state = held["state"] = real(*args, **kwargs)
+        # the initial whole parameters, on the host (every rank is here)
+        held["init"] = [p.detach().cpu() for p in dist.host_fetchable(
+            {"params": state.params}, state.layout)["params"].parameters()]
+        return state
 
     spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
@@ -4744,10 +4777,29 @@ def dp_train_run(d, out, extra):
         summary = run.main(["--mode", "train", "--config", CONFIG,
                             "--parameters", spec])
     launches = collect(counters)
-    params = [p.detach().double() for p in held["state"].params.parameters()]
+    state = held["state"]
+    # the whole parameters: under ZeRO-3 each rank holds shards (a
+    # collective: every rank gathers)
+    whole = dist.host_fetchable({"params": state.params},
+                                state.layout)["params"]
+    params = [p.detach().double() for p in whole.parameters()]
+    whole_bytes = sum(p.numel() * 4 for p in whole.parameters())
+    del whole
     ends = summary["step_end_times"]
     reduce = summary["allreduce"]
+    steps = max(summary["steps"], 1)
     return dict(
+        zero_stage=state.zero_stage,
+        per_rank_bytes={"params": per_rank_bytes(state.params),
+                        "moments": per_rank_bytes(state.opt),
+                        "ema": per_rank_bytes(state.ema)},
+        # stage 0's: the whole parameters, moments (and Adam's count), EMA
+        whole_bytes={"params": whole_bytes, "moments": 2 * whole_bytes + 4,
+                     "ema": whole_bytes if state.ema is not None else 0},
+        reduce_scatter_per_step={k: reduce["reduce_scatter"][k] / steps
+                                 for k in ("calls", "bytes", "ms")},
+        all_gather_per_step={k: reduce["all_gather"][k] / steps
+                             for k in ("calls", "bytes", "ms")},
         steps=summary["steps"], shapes=summary["shapes"],
         losses=summary["losses"], step_s=[b - a for a, b in
                                           zip(ends[:-1], ends[1:])],
@@ -4760,7 +4812,11 @@ def dp_train_run(d, out, extra):
             "fused_attention") else k, 0) for k in DP_TRAIN_KERNELS},
         launches=launches, bleu=summary["bleu"],
         checksum=[float(sum(p.sum() for p in params)),
-                  float(sum((p * p).sum() for p in params))])
+                  float(sum((p * p).sum() for p in params)),
+                  # the update's own size, which the other two barely
+                  # show at the first steps' learning rate
+                  float(sum((p - p0.to(p.device, torch.float64)).abs().sum()
+                            for p, p0 in zip(params, held["init"])))])
 
 
 def dp_reference_run(rank, world):
@@ -4812,8 +4868,9 @@ def dp_reference_run(rank, world):
 
 def dp_worker(spec_path):
     """One rank of the two that share the card (chip_smoke.py --dp-worker
-    SPEC): its own gloo group, then dp_train's run and dp_reference's;
-    writes their results (torch.save)."""
+    SPEC): its own gloo group, then the runs of dp_train, dp_reference,
+    zero_train, zero_reference and moe_dp that SPEC's tasks name; writes
+    their results (torch.save)."""
     import torch.distributed as tdist
 
     with open(spec_path) as r:
@@ -4831,6 +4888,13 @@ def dp_worker(spec_path):
                                         spec["extra"])
         if "reference" in spec["tasks"]:
             out["reference"] = dp_reference_run(spec["rank"], spec["world"])
+        if "zero_train" in spec["tasks"]:
+            out["zero_train"] = zero_train_worker(spec["d"], spec["extra"])
+        if "zero_reference" in spec["tasks"]:
+            out["zero_reference"] = zero_reference_run()
+        if "moe_dp" in spec["tasks"]:
+            out["moe_dp"] = moe_dp_run(spec["d"], spec["rank"],
+                                       spec["world"])
     finally:
         tdist.destroy_process_group()
     torch.save(out, spec["result"])
@@ -4902,11 +4966,21 @@ def dp_numbers(runs, cfg):
         losses=runs[0]["losses"])
 
 
+DP_PHASES = {"dp_train", "dp_reference", "zero_train", "zero_reference",
+             "moe_dp"}
+DP_TASKS = (("dp_train", "train"), ("dp_reference", "reference"),
+            ("zero_train", "zero_train"), ("zero_reference",
+                                           "zero_reference"),
+            ("moe_dp", "moe_dp"))
+
+
 def dp_train_phase(d, todo):
     """dp_train: a world of one over NCCL in this process, then two gloo
-    ranks on the card (and dp_reference's work in the same ranks when
-    asked). Returns (the world of one's launches, each rank's, the ranks'
-    dp_reference results or None)."""
+    ranks on the card, which also run the work of the other data-parallel
+    phases asked for (dp_reference, zero_train, zero_reference, moe_dp),
+    one after another in the same two processes. Returns (the world of
+    one's launches and each rank's, or None without dp_train; the ranks'
+    results)."""
     from zero_tpu_torch.config import load_config_file
 
     for side in ("src", "tgt"):
@@ -4915,17 +4989,22 @@ def dp_train_phase(d, todo):
             w.writelines(r.readlines()[:DP_DEV])
     cfg = load_config_file(CONFIG)
     cfg.update(overrides(BASE_CUT))
-    one = dp_train_run(d, os.path.join(d, "dp_nccl"), BASE_CUT
-                       + ",dist_coordinator=127.0.0.1:%d,dist_num_processes"
-                       "=1,dist_process_id=0" % free_port())
-    numbers = dp_numbers([one], cfg)
-    if not (one["allreduce_calls_per_step"] > 0 and one["bleu"] is not None
-            and math.isfinite(one["bleu"])):
-        raise AssertionError("dp_train world of one: all-reduce %s, BLEU %s"
-                             % (one["allreduce_calls_per_step"], one["bleu"]))
-    phase("dp_train", world=1, backend="nccl", steps=DP_STEPS, **numbers)
-    tasks = ["train"] + (["reference"] if "dp_reference" in todo else [])
-    ranks = dp_workers(d, tasks)
+    one = None
+    if "dp_train" in todo:
+        one = dp_train_run(d, os.path.join(d, "dp_nccl"), BASE_CUT
+                           + ",dist_coordinator=127.0.0.1:%d,"
+                           "dist_num_processes=1,dist_process_id=0"
+                           % free_port())
+        numbers = dp_numbers([one], cfg)
+        if not (one["allreduce_calls_per_step"] > 0
+                and one["bleu"] is not None and math.isfinite(one["bleu"])):
+            raise AssertionError("dp_train world of one: all-reduce %s, "
+                                 "BLEU %s" % (one["allreduce_calls_per_step"],
+                                              one["bleu"]))
+        phase("dp_train", world=1, backend="nccl", steps=DP_STEPS, **numbers)
+    ranks = dp_workers(d, [task for name, task in DP_TASKS if name in todo])
+    if one is None:
+        return None, None, ranks
     numbers = dp_numbers([r["train"] for r in ranks], cfg)
     if len(set(map(tuple, numbers["checksums"]))) != 1 \
             or len(set(numbers["bleu"])) != 1 or numbers["bleu"][0] is None:
@@ -4934,9 +5013,7 @@ def dp_train_phase(d, todo):
     phase("dp_train", world=DP_WORLD, backend="gloo", steps=DP_STEPS,
           note=DP_NOTE, **numbers)
     return (one["train_launches"],
-            [r["train"]["train_launches"] for r in ranks],
-            [r["reference"] for r in ranks] if "reference" in tasks
-            else None)
+            [r["train"]["train_launches"] for r in ranks], ranks)
 
 
 def dp_kernel_checks():
@@ -5013,11 +5090,9 @@ def dp_kernel_checks():
     return out
 
 
-def dp_reference_phase(d, ranks):
-    """dp_reference: the ranks' results (from dp_train's workers, or
-    workers of its own) against one process on the global batch."""
-    if ranks is None:
-        ranks = [r["reference"] for r in dp_workers(d, ["reference"])]
+def dp_reference_phase(ranks):
+    """dp_reference: the ranks' results against one process on the global
+    batch."""
     one = dp_reference_run(0, 1)
     report = {}
     for rate, (loss, grads, params, launches) in one.items():
@@ -5047,6 +5122,311 @@ def dp_reference_phase(d, ranks):
           row_base_max_abs_err=dp_kernel_checks(), **report)
 
 
+ZERO_STAGES = (1, 2, 3)
+# the EMA on (the base config keeps it off), so that its shards show
+ZERO_EXTRA = ",ema_decay=0.9999"
+# ZeRO's per-rank bytes at W = 2 against stage 0's (the whole state): the
+# moments and the EMA from stage 1, the parameters at stage 3
+ZERO_SHARE = 0.55
+# each stage's parameter checksums (dp_train_run's: the sum, the sum of
+# squares and the sum of |change| since init) and step losses against
+# dp_train's (stage 0 on the same ranks, batches, seeds and weights),
+# relative: a sum of two operands does not depend on its order, Adam is
+# elementwise, and only the gnorm's order differs (stages 2-3), which the
+# first step's m/sqrt(v) does not see. At the first steps' learning rate
+# (~1.7e-7 and twice that) the update moves each parameter by about that
+# much, so one 512-wide row updated wrongly moves the sum of |change| by
+# ~1e-5 of it
+ZERO_SAME = 1e-9
+
+
+def zero_train_worker(d, extra):
+    """zero_train on one of the two ranks: dp_train_run at zero_stage 1, 2
+    and 3 in turn (each its own output directory; stage 3 writes the
+    sharded checkpoint, sharded_checkpoint=auto), then stage 3 resumed
+    from it for one more step, no dev eval; the restore's own-file
+    slices are counted (saver.load_own_shards). Returns {stage: run} and
+    the resume's {'steps', 'own_keys', 'files'}."""
+    from zero_tpu_torch import saver as saver_mod
+
+    runs = {}
+    for stage in ZERO_STAGES:
+        runs[stage] = dp_train_run(d, os.path.join(d, "zero%d" % stage),
+                                   extra + ZERO_EXTRA
+                                   + ",zero_stage=%d" % stage)
+    out = os.path.join(d, "zero3")
+    files = sorted(f for f in os.listdir(out) if f.startswith("model-"))
+    own = []
+    real = saver_mod.load_own_shards
+
+    def counting(*args, **kwargs):
+        got = real(*args, **kwargs)
+        own.append(len(got))
+        return got
+
+    with mock.patch.object(saver_mod, "load_own_shards", counting):
+        resumed = dp_train_run(d, out, extra + ZERO_EXTRA
+                               + ",zero_stage=3,src_dev_file="
+                               ",max_training_steps=%d" % (DP_STEPS + 1))
+    return runs, dict(steps=resumed["steps"], own_keys=own, files=files)
+
+
+def zero_reference_run():
+    """The small fp32 model on the card, both kernel flags, dropout 0 and
+    0.1, EMA on: this rank's rows of _small_batch, two Adam steps at each
+    zero_stage 0-3 (every stage from the same seeds). Returns {(rate,
+    stage): (losses, the whole moments, parameters and EMA after the
+    steps, launches)}; the gather is COLLECTIVE."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel import distributed as dist
+    from zero_tpu_torch.saver import flat_tensors
+    from zero_tpu_torch.train_step import init_train_state, make_train_step
+
+    model = get_model("transformer")
+    world, rank = dist.process_count(), dist.process_index()
+    feats = _small_batch()
+    rows = feats["source"].shape[0] // world
+    local = {k: v[rank * rows:(rank + 1) * rows][None].cuda()
+             for k, v in feats.items()}
+    out = {}
+    for rate in (0.0, 0.1):
+        for stage in (0,) + ZERO_STAGES:
+            cfg = _small_model(rate)
+            cfg.epsilon = 1e-6
+            cfg.ema_decay = 0.9
+            cfg.zero_stage = stage
+            cfg.device = "cuda"
+            fa.launches.clear()
+            ff.launches.clear()
+            state = init_train_state(model, cfg,
+                                     torch.Generator().manual_seed(SEED),
+                                     "cuda")
+            step_fn = make_train_step(model, cfg)
+            losses = []
+            for s, lr in enumerate((1e-3, 2e-3)):
+                _, m = step_fn(state, local, lr,
+                               torch.Generator().manual_seed(SEED + s))
+                losses.append(float(m["loss"]))
+            trees = dist.host_fetchable({"params": state.params,
+                                         "opt": state.opt,
+                                         "ema": state.ema}, state.layout)
+            out[(rate, stage)] = (
+                losses, {k: t.detach().cpu().clone()
+                         for k, t in flat_tensors(trees).items()},
+                collect((fa.launches, ff.launches)))
+    return out
+
+
+def moe_config(d):
+    """transformer_moe as moe_train runs it (the base config at MOE_EXTRA's
+    2+2, 8 experts, top-1, einsum dispatch) in fp32, dropout 0.1 (the
+    expert FFN's too), Adam's epsilon 1e-6."""
+    from zero_tpu_torch.config import default_config, load_config_file
+    from zero_tpu_torch.vocab import Vocab
+
+    values = load_config_file(CONFIG)
+    values.update(overrides(MOE_EXTRA))
+    values.update(default_dtype="float32", epsilon=1e-6, device="cuda")
+    cfg = default_config().override_from_dict(values)
+    cfg.src_vocab = cfg.tgt_vocab = Vocab(os.path.join(d, "vocab.txt"))
+    return cfg
+
+
+def moe_pass(cfg, feats, rows=None):
+    """loss, grads and the parameters after one Adam step of
+    transformer_moe from SEED on ``feats``: the rows of this rank's slice
+    of a global batch (the gradients summed over the ranks), or, with
+    ``rows`` None, the whole batch in one process."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.parallel import distributed as dist
+    from zero_tpu_torch.train_step import (global_batch, init_train_state,
+                                           make_train_step)
+
+    model = get_model("transformer_moe")
+    params = model.init_fn(torch.Generator().manual_seed(SEED), cfg).cuda()
+    with (global_batch(rows) if rows else contextlib.nullcontext()):
+        loss = model.train_fn(params, feats, cfg,
+                              torch.Generator().manual_seed(SEED))["loss"]
+        grads = [g.contiguous() for g in torch.autograd.grad(
+            loss, list(params.parameters()))]
+    if rows:
+        dist.all_reduce_sum_(grads)
+    del params
+    state = init_train_state(model, cfg, torch.Generator().manual_seed(SEED),
+                             "cuda")
+    make_train_step(model, cfg)(state, {k: v[None] for k, v in feats.items()},
+                                1e-3, torch.Generator().manual_seed(SEED))
+    return loss.item(), grads, [p.detach() for p in
+                                state.params.parameters()]
+
+
+def moe_dp_run(d, rank, world):
+    """moe_dp on one of the two ranks: this rank's rows of
+    _full_width_batch (its last row all pad, in rank 1's slot) through
+    moe_pass; rank 0 then runs the whole batch as one process (the group
+    out of reach: no collective) and compares. Returns rank 0's errors and
+    every rank's launches."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel import distributed as dist
+
+    cfg = moe_config(d)
+    feats = _full_width_batch()
+    for v in feats.values():
+        v[-1] = 0
+    rows = feats["source"].shape[0] // world
+    fa.launches.clear()
+    ff.launches.clear()
+    loss, grads, params = moe_pass(
+        cfg, {k: v[rank * rows:(rank + 1) * rows] for k, v in feats.items()},
+        rows)
+    launches = collect((fa.launches, ff.launches))
+    if rank:
+        return dict(launches=launches)
+    with mock.patch.object(dist, "active", lambda: False):
+        one_loss, one_grads, one_params = moe_pass(cfg, feats)
+    g_scale = max(float(g.abs().max()) for g in one_grads)
+    p_scale = max(float(p.abs().max()) for p in one_params)
+    return dict(
+        launches=launches, loss=loss, one_process_loss=one_loss,
+        loss_rel_err=abs(loss - one_loss) / abs(one_loss),
+        grad_err=max(float((a - b).abs().max())
+                     for a, b in zip(grads, one_grads)) / g_scale,
+        param_err=max(float((a - b).abs().max())
+                      for a, b in zip(params, one_params)) / p_scale)
+
+
+def zero_train_phase(d, ranks, dp_ranks, cfg, counters):
+    """zero_train: each stage's numbers from the two ranks (dp_numbers'
+    checks: steps, launches, equal checksums and BLEU), its bytes against
+    stage 0's, its parameter checksums and step losses against dp_train's
+    gloo ranks (the same batches, seeds and weights: ZERO_SAME), the
+    sharded checkpoint and its resume;
+    then --mode test of the stage-3 checkpoint in this process, on one
+    card. Returns each stage's launches a rank."""
+    from zero_tpu_torch import run
+
+    launches = {}
+    for stage in ZERO_STAGES:
+        per = [r["zero_train"][0][stage] for r in ranks]
+        numbers = dp_numbers(per, cfg)
+        if len(set(map(tuple, numbers["checksums"]))) != 1 \
+                or len(set(numbers["bleu"])) != 1:
+            raise AssertionError("zero_train stage %d ranks differ: %s, %s"
+                                 % (stage, numbers["checksums"],
+                                    numbers["bleu"]))
+        share = {k: max(r["per_rank_bytes"][k] for r in per)
+                 / per[0]["whole_bytes"][k] for k in ("params", "moments",
+                                                       "ema")}
+        want = {"moments": ZERO_SHARE, "ema": ZERO_SHARE}
+        if stage == 3:
+            want["params"] = ZERO_SHARE
+        low = {k: share[k] <= v for k, v in want.items()}
+        gathered = all(r["all_gather_per_step"]["calls"] > 0 for r in per)
+        scattered = all((r["reduce_scatter_per_step"]["calls"] > 0)
+                        == (stage >= 2) for r in per)
+        # the parameters after the steps, and every step's loss (the
+        # second the first update's), against stage 0's on the same ranks
+        diff = max(abs(a - b) / abs(b) for z, s in zip(per, dp_ranks)
+                   for a, b in zip(z["checksum"] + z["losses"],
+                                   s["train"]["checksum"]
+                                   + s["train"]["losses"]))
+        same = len(dp_ranks) == len(per) and diff <= ZERO_SAME
+        phase("zero_train", zero_stage=stage, world=DP_WORLD,
+              backend="gloo", steps=DP_STEPS, note=DP_NOTE,
+              per_rank_bytes=[r["per_rank_bytes"] for r in per],
+              whole_bytes=per[0]["whole_bytes"], share_of_stage0=share,
+              reduce_scatter_per_step=[r["reduce_scatter_per_step"]
+                                       for r in per],
+              all_gather_per_step=[r["all_gather_per_step"] for r in per],
+              dp_train_checksums=[r["train"]["checksum"] for r in dp_ranks],
+              dp_train_losses=dp_ranks[0]["train"]["losses"],
+              rel_diff_from_dp_train=diff, **numbers)
+        if not (all(low.values()) and gathered and scattered and same):
+            raise AssertionError(
+                "zero_train stage %d: bytes under %g %s, all-gather %s, "
+                "reduce-scatter %s, checksums and losses within %g of "
+                "dp_train's %s (%g)" % (stage, ZERO_SHARE, low, gathered,
+                                        scattered, ZERO_SAME, same, diff))
+        launches[stage] = [r["train_launches"] for r in per]
+    resumes = [r["zero_train"][1] for r in ranks]
+    want_files = ["model-%d.shard%d.npz" % (DP_STEPS, i)
+                  for i in range(DP_WORLD)] + [
+        "model-%d.shardmeta.json" % DP_STEPS]
+    for r in resumes:
+        if r["files"] != sorted(want_files) or r["steps"] != 1 \
+                or not r["own_keys"] or not all(r["own_keys"]):
+            raise AssertionError("zero_train sharded checkpoint and resume: "
+                                 "%s (expected files %s)" % (r, want_files))
+    for c in counters:
+        c.clear()
+    out = os.path.join(d, "zero_test.txt")
+    served = run.main(["--mode", "test", "--parameters",
+                       "src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/"
+                       "vocab.txt,src_test_file={0}/test.src,tgt_test_file="
+                       "{0}/test.tgt,output_dir={0}/zero3,test_output={1},"
+                       "eval_batch_size=32,beam_size=4,dist_coordinator=,"
+                       "dist_num_processes=1".format(d, out)])
+    served_launches = collect(counters)
+    with open(out) as r:
+        lines = r.read().splitlines()
+    phase("zero_train", mode="test", checkpoint="sharded (stage 3)",
+          resume=resumes, sentences=served["sentences"],
+          bleu=served["bleu"], seconds=served["seconds"],
+          launches=served_launches)
+    if not (len(lines) == TEST_SENTENCES == served["sentences"]
+            and math.isfinite(served["bleu"])
+            and served_launches.get("decode_pool_attention")):
+        raise AssertionError("zero_train --mode test of the sharded "
+                             "checkpoint: %d lines, %s, launches %s"
+                             % (len(lines), served, served_launches))
+    return launches
+
+
+def zero_reference_phase(ranks):
+    """zero_reference: stages 1-3 on two ranks against stage 0 on two
+    ranks: losses within 1e-6 relative, the moments and parameters (and
+    the EMA) after two Adam steps within 1e-5 of their max."""
+    report = {}
+    for rank, got in enumerate(r["zero_reference"] for r in ranks):
+        for (rate, stage), (losses, state, launches) in got.items():
+            if not stage:
+                continue
+            ref_losses, ref, _ = got[(rate, 0)]
+            errs = dict(loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                         zip(losses, ref_losses)))
+            for group in ("opt/.mu", "opt/.nu", "params", "ema"):
+                keys = [k for k in ref if k.startswith(group + "/")]
+                scale = max(float(ref[k].abs().max()) for k in keys)
+                errs[group.split(".")[-1] + "_err"] = max(
+                    float((state[k] - ref[k]).abs().max())
+                    for k in keys) / scale
+            ran = all(launches.get(n, 0) for n in (
+                "fused_attention_backward", "fused_ffn_backward"))
+            report["p=%g stage %d rank %d" % (rate, stage, rank)] = dict(
+                errs, launches=launches)
+            if not (errs["loss_rel_err"] <= 1e-6 and ran
+                    and all(v <= 1e-5 for k, v in errs.items()
+                            if k != "loss_rel_err")):
+                raise AssertionError("zero_reference p=%g stage %d rank %d: "
+                                     "%s, launches %s" % (rate, stage, rank,
+                                                          errs, launches))
+    phase("zero_reference", world=DP_WORLD, **report)
+
+
+def moe_dp_phase(ranks):
+    """moe_dp: two ranks of transformer_moe against one process on the
+    global batch, dp_reference's tolerances."""
+    got = ranks[0]["moe_dp"]
+    phase("moe_dp", world=DP_WORLD, rank_launches=[r["moe_dp"]["launches"]
+                                                  for r in ranks], **got)
+    if not (got["loss_rel_err"] <= 1e-6 and got["grad_err"] <= 1e-5
+            and got["param_err"] <= 1e-5):
+        raise AssertionError("moe_dp: %s" % got)
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -5056,7 +5436,8 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "moe_train", "multilingual_train", "clsr_train",
           "slice13_reference", "ib_train", "speech_train",
           "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
-          "rnn_reference", "host", "dp_train", "dp_reference")
+          "rnn_reference", "host", "dp_train", "dp_reference", "zero_train",
+          "zero_reference", "moe_dp")
 
 
 def main(argv=None):
@@ -5087,6 +5468,9 @@ def main(argv=None):
     if "clsr_train" in todo and "multilingual_train" not in todo:
         parser.error("clsr_train's ensemble decodes multilingual_train's "
                      "checkpoint: give it too")
+    if "zero_train" in todo and "dp_train" not in todo:
+        parser.error("zero_train holds its stages to dp_train's two ranks: "
+                     "give it too")
     if todo & {"deepnmt_train", "host"} and "rnn_train" not in todo:
         parser.error("deepnmt_train's ensemble and host's metrics read "
                      "rnn_train's checkpoint and output: give it too")
@@ -5185,16 +5569,28 @@ def main(argv=None):
         if todo & {"train", "rpr_train", "rela_train", "aan_train",
                    "deep_train", "deep_memory", "l0drop_train",
                    "fixup_train", "scan_train", "moe_train", "ib_train",
-                   "rnn_train", "deepatt_train", "dp_train"}:
+                   "rnn_train", "deepatt_train", "dp_train", "zero_train"}:
             write_train_corpus(d, words)
         if "train" in todo:
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
                             ["launches"])
-        dp_ranks = None
-        if "dp_train" in todo:
-            dp_launches, dp_rank_launches, dp_ranks = dp_train_phase(d, todo)
-        if "dp_reference" in todo:
-            dp_reference_phase(d, dp_ranks)
+        if todo & DP_PHASES:
+            dp_launches, dp_rank_launches, ranks = dp_train_phase(d, todo)
+            if "dp_reference" in todo:
+                dp_reference_phase([r["reference"] for r in ranks])
+            if "zero_train" in todo:
+                from zero_tpu_torch.ops.kernels import fused_attention as fa
+                from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+                zero_cfg = load_config_file(CONFIG)
+                zero_cfg.update(overrides(BASE_CUT))
+                zero_launches = zero_train_phase(
+                    d, ranks, [r for r in ranks if "train" in r], zero_cfg,
+                    (fa.launches, ff.launches, da.launches))
+            if "zero_reference" in todo:
+                zero_reference_phase(ranks)
+            if "moe_dp" in todo:
+                moe_dp_phase(ranks)
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches, BASE_CUT,
@@ -5387,6 +5783,10 @@ def main(argv=None):
         # gloo ranks on the card (dp_train)
         row["dp_train_launches"] = dp_launches[kernel]
         row["dp_train_rank_launches"] = [r[kernel] for r in dp_rank_launches]
+        # ZeRO stages 1-3 on the two gloo ranks (zero_train)
+        row["zero_train_rank_launches"] = {
+            "stage%d" % stage: [r[kernel] for r in per]
+            for stage, per in zero_launches.items()}
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)

@@ -1,5 +1,6 @@
 """zero_tpu_torch refuses what it has not ported instead of ignoring it:
-the parallelism options raise in ``--mode train`` (the defaults do not),
+the mesh axes other than 'data' raise in ``--mode train`` (the defaults,
+ZeRO, the sharded checkpoint and MoE over processes do not),
 and ``--mode test`` with a mesh decodes on the one device with the JAX
 package's warning. And ``decode_split_sweep.py --package DIR`` imports
 DIR's zero_tpu_torch in a fresh process."""
@@ -28,18 +29,28 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("mesh_seq=2", NotImplementedError, "mesh_seq=2.*later slice"),
     ("mesh_pipe=2", NotImplementedError, "mesh_pipe=2.*later slice"),
     ("mesh_expert=2", NotImplementedError, "mesh_expert=2.*later slice"),
-    ("zero_stage=1", NotImplementedError, "zero_stage=1.*later slice"),
-    ("sharded_checkpoint=true", NotImplementedError,
-     "sharded_checkpoint=true.*later slice"),
-    ("model_name=transformer_moe,dist_num_processes=2", NotImplementedError,
-     "transformer_moe under data parallelism.*later slice"),
     # one device a process: the 'data' degree is the number of processes
     ("mesh_data=2", ValueError, "make_mesh needs.*mesh_data")])
 def test_parallel_options_raise_in_training(option, error, match):
     """Each raises before any work (no files are given), naming itself;
-    mesh_data and dist_num_processes run (data parallelism)."""
+    mesh_data and dist_num_processes run (data parallelism), with ZeRO,
+    the sharded checkpoint and transformer_moe."""
     with pytest.raises(error, match=match):
         run.main(["--mode", "train", "--parameters", "device=cpu," + option])
+
+
+@pytest.mark.parametrize("option", [
+    "zero_stage=1", "sharded_checkpoint=true",
+    "model_name=transformer_moe,dist_num_processes=2"],
+    ids=["zero_stage=1", "sharded_checkpoint=true",
+         "model_name=transformer_moe,dist_num_processes=2"])
+def test_zero_sharded_checkpoint_and_moe_run_in_data_parallel_training(
+        option):
+    """ZeRO, the sharded checkpoint's write side and transformer_moe under
+    data parallelism are ported: two processes pass."""
+    cfg = default_config()
+    cfg.parse("device=cpu," + option)
+    check_ported(cfg, world=2)
 
 
 @pytest.mark.parametrize("option", ["", "mesh_data=-1", "mesh_data=0",

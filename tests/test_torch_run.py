@@ -98,7 +98,7 @@ def test_device_cuda_without_a_card_raises(corpus):
 # mesh, and a model the JAX package has and the port not (a name patched
 # into JAX_MODELS stands for one)
 LATER_MODEL = "transformer_of_a_later_slice"
-_LATER = {"train": ["--parameters", "device=cpu,zero_stage=1"],
+_LATER = {"train": ["--parameters", "device=cpu,mesh_pipe=2"],
           "score": ["--parameters", "device=cpu,model_name=" + LATER_MODEL],
           "train_mesh": ["--parameters", "device=cpu,mesh_model=2"]}
 

@@ -368,50 +368,32 @@ def parallel_options(cfg) -> list:
     return asked
 
 
-def _sharded_checkpoint(cfg) -> bool:
-    """Whether ``sharded_checkpoint`` asks for the sharded format: true
-    asks; "auto" means multi-host with ZeRO, which raises by itself."""
-    value = getattr(cfg, "sharded_checkpoint", "auto")
-    return value is True or str(value).lower() in ("true", "1")
-
-
 def check_ported(cfg, training: bool = True,
                  world: Optional[int] = None):
     """Raise on options of a later slice instead of ignoring them: in
     training a mesh axis other than 'data' above 1 (``mesh_pipe`` among
-    them, and with it the pipeline over a scan_layers stack), ZeRO
-    (``zero_stage``), the sharded checkpoint's write side
-    (``sharded_checkpoint=true``), and transformer_moe under data
-    parallelism, whose capacity the JAX package takes over the global
-    token set. Data parallelism across ``world`` processes (by default
-    the process group's, or ``dist_num_processes`` before one exists)
-    runs; a ``mesh_data`` other than -1, 0 or the world size raises
-    make_mesh's ValueError. Evaluation decodes on one
-    device with a warning instead (train.py:_eval_on_one_device), as the
-    JAX package's _eval_mesh does when the devices are too few."""
+    them, and with it the pipeline over a scan_layers stack). Data
+    parallelism across ``world`` processes (by default the process
+    group's, or ``dist_num_processes`` before one exists) runs, with ZeRO
+    (``zero_stage``), the sharded checkpoint and every model; a
+    ``mesh_data`` other than -1, 0 or the world size raises make_mesh's
+    ValueError. Evaluation decodes on one device with a warning instead
+    (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
+    when the devices are too few."""
     if not training:
         return
     asked = ["%s=%s" % (key, getattr(cfg, key))
              for key in ("mesh_model", "mesh_seq", "mesh_pipe",
                          "mesh_expert")
              if int(getattr(cfg, key, 1)) > 1]
-    if int(getattr(cfg, "zero_stage", 0)) > 0:
-        asked.append("zero_stage=%s" % cfg.zero_stage)
-    if _sharded_checkpoint(cfg):
-        asked.append("sharded_checkpoint=%s (its write side)"
-                     % cfg.sharded_checkpoint)
-    if world is None:
-        world = dist.process_count() if dist.active() \
-            else int(cfg.dist_num_processes)
-    data = int(getattr(cfg, "mesh_data", -1))
-    if getattr(cfg, "model_name", "") == "transformer_moe" \
-            and max(world, data) > 1:
-        asked.append("model_name=transformer_moe under data parallelism "
-                     "(%d processes)" % max(world, data))
     if asked:
         raise NotImplementedError(
             "%s: not ported to zero_tpu_torch yet: it comes with a later "
             "slice" % ", ".join(asked))
+    if world is None:
+        world = dist.process_count() if dist.active() \
+            else int(cfg.dist_num_processes)
+    data = int(getattr(cfg, "mesh_data", -1))
     if data > 0 and data != world:
         raise ValueError(dist.mesh_message(data, world, cfg.device))
 

@@ -14,7 +14,8 @@ The global batch. Under data parallelism (parallel/distributed.py) each
 process holds rows [offset, offset + rows) of a global batch of ``total``
 rows, as the JAX package's GSPMD step holds one global array.
 ``global_batch`` says so for a microbatch; within it every draw indexed by
-batch row takes the global row (``index_base``: the JAX iota is global),
+batch row takes the global row (``index_base``, or ``global_index`` where
+the batch is not the leading axis: the JAX iota is global),
 and ``global_sum`` makes a batch statistic of the loss global.
 """
 
@@ -80,18 +81,55 @@ def global_rows() -> Tuple[int, int, int]:
     return _BATCH["offset"], _BATCH["rows"], _BATCH["total"]
 
 
-def index_base(n: int) -> int:
-    """The global linear index (mod 2^32) of the first element of a
-    batch-major tensor of ``n`` elements: the elements of the rows before
-    this process's. 0 outside global_batch. A tensor whose element count
-    is not a multiple of the rows is not batch-major and raises."""
+def index_base(shape, batch_axis: int = 0) -> int:
+    """The global linear index (mod 2^32) of the first element of a draw
+    over a tensor of ``shape`` whose batch axis is ``batch_axis``: the
+    elements of the rows before this process's. 0 outside global_batch.
+    Only a batch-major draw (batch axis 0, its leading axis a multiple of
+    the rows) has one contiguous offset; any other raises, and takes its
+    index from global_index instead."""
     offset, rows, _ = global_rows()
     if not rows:
         return 0
-    if n % rows:
-        raise ValueError("a draw over %d elements under a global batch of "
-                         "%d-row slices: not batch-major" % (n, rows))
-    return (offset * (n // rows)) & _U32
+    shape = tuple(int(d) for d in shape)
+    if batch_axis != 0:
+        raise ValueError("a draw over %s whose batch axis is %d under a "
+                         "global batch: its rows are not one contiguous "
+                         "block of the global index (global_index)"
+                         % (shape, batch_axis))
+    if not shape or shape[0] % rows:
+        raise ValueError("a draw over %s under a global batch of %d-row "
+                         "slices: its leading axis is not the batch"
+                         % (shape, rows))
+    return (offset * (math.prod(shape) // rows)) & _U32
+
+
+def global_index(shape, batch_axis: int = 0, device=None) -> torch.Tensor:
+    """The global linear index (mod 2^32, int64) of every element of a
+    draw over ``shape`` whose axis ``batch_axis`` holds this process's
+    rows, each ``shape[batch_axis] // rows`` long: the element's index in
+    the global tensor, whose batch axis is ``total / rows`` times longer.
+    An expert-major [E, B*C, d] tensor (ops/moe.py) is E strided blocks of
+    that index space, not one offset."""
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    offset, rows, total = global_rows()
+    if not rows or batch_axis == 0:
+        return ((torch.arange(max(n, 1), dtype=torch.int64, device=device)
+                 + index_base(shape, batch_axis)) & _U32)[:n].reshape(shape)
+    width = shape[batch_axis]
+    if width % rows:
+        raise ValueError("a draw over %s: axis %d is not %d rows long"
+                         % (shape, batch_axis, rows))
+    per = width // rows
+    lead = math.prod(shape[:batch_axis])
+    inner = math.prod(shape[batch_axis + 1:])
+    idx = ((torch.arange(lead, dtype=torch.int64, device=device)[:, None]
+            * (per * total) + offset * per
+            + torch.arange(width, dtype=torch.int64, device=device)[None, :])
+           [:, :, None] * inner
+           + torch.arange(inner, dtype=torch.int64, device=device))
+    return (idx & _U32).reshape(shape)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -115,16 +153,15 @@ def _mix32(x: torch.Tensor, mult: int) -> torch.Tensor:
     return _mul32(x, mult)
 
 
-def _hash_bits(words: Words, shape, device=None) -> torch.Tensor:
+def _hash_bits(words: Words, shape, device=None,
+               batch_axis: int = 0) -> torch.Tensor:
     """Uniform u32 draws (held in int64) from the murmur3 fmix32 finalizer
     over each element's linear index, seeded by the two key words:
     ``zero_tpu/ops/common.py:_hash_bits``, bit for bit. Within a global
-    batch the index is the element's in the global tensor (index_base)."""
+    batch the index is the element's in the global tensor, whose batch
+    axis is ``batch_axis`` (global_index)."""
     s0, s1 = int(words[0]) & _U32, int(words[-1]) & _U32
-    n = math.prod(shape)
-    x = ((torch.arange(max(n, 1), dtype=torch.int64, device=device)
-          + index_base(n)) & _U32)
-    x = x[:n].reshape(shape)
+    x = global_index(shape, batch_axis, device)
     x = _mix32(x ^ s0, 0x85EBCA6B)
     x = _mix32(x, 0xC2B2AE35)
     return x ^ (x >> 16) ^ s1
@@ -139,9 +176,10 @@ def keep_threshold(rate: Optional[float]) -> int:
 
 
 def dropout(rng: Optional[Words], x: torch.Tensor,
-            rate: Optional[float]) -> torch.Tensor:
+            rate: Optional[float], batch_axis: int = 0) -> torch.Tensor:
     """Inverted dropout with 8-bit threshold masks from the counter hash;
-    a no-op when ``rng`` is None or the rate is falsy/invalid."""
+    a no-op when ``rng`` is None or the rate is falsy/invalid.
+    ``batch_axis``: the axis of ``x`` that holds the batch rows (_hash_bits)."""
     if rng is None:
         return x
     t = keep_threshold(rate)
@@ -149,7 +187,7 @@ def dropout(rng: Optional[Words], x: torch.Tensor,
         return x
     if t <= 0:
         return torch.zeros_like(x)
-    keep = (_hash_bits(rng, x.shape, x.device) & 255) < t
+    keep = (_hash_bits(rng, x.shape, x.device, batch_axis) & 255) < t
     return torch.where(keep, x * keep_scale(t, x.dtype), torch.zeros_like(x))
 
 

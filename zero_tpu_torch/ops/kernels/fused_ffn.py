@@ -212,7 +212,7 @@ def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
         # the seed words and the global index of hidden element 0 (data
         # parallelism: ops/common.py:index_base)
         words = ((rng[0], rng[-1],
-                  common.index_base(x2.shape[0] * w1.shape[1]))
+                  common.index_base((x2.shape[0], w1.shape[1])))
                  if t < 256 else None)
         y = _FusedFFN.apply(_aligned(x2), _aligned(w1), b1.contiguous(),
                             _aligned(w2), b2.contiguous(), t, inv, words)

@@ -120,7 +120,7 @@ def kernel_words(rng, shape, rate: float):
         return 0, 0, 0
     b, h, lq = shape[:3]
     return (int(rng[0]) & 0xFFFFFFFF, int(rng[-1]) & 0xFFFFFFFF,
-            common.index_base(b * h * lq))
+            common.index_base((b, h, lq)))
 
 
 def launch_words(words):
@@ -138,7 +138,7 @@ def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
     row = (torch.arange(bh, dtype=torch.int64, device=device)[:, None] * lq
            + torch.arange(rows.start, rows.stop, dtype=torch.int64,
                           device=device)[None, :]
-           + common.index_base(bh * lq)) & 0xFFFFFFFF
+           + common.index_base((bh, lq))) & 0xFFFFFFFF
     seeds = _fmix(row, s0, s1)
     keys = torch.arange(lk, dtype=torch.int64, device=device)
     return _fmix(keys[None, None, :] ^ seeds[:, :, None], 0, s1) \

@@ -10,7 +10,8 @@ Counterpart of ``zero_tpu/ops/moe.py``:
     decode step routes without loss;
   * tokens past an expert's capacity contribute zero here and survive
     through the residual connection;
-  * the load-balance aux loss E * sum_e f_e * P_e over primary choices.
+  * the load-balance aux loss E * sum_e f_e * P_e over primary choices,
+    f_e and P_e means over the global batch under data parallelism.
 
 Two dispatch backends with the same semantics:
   * "einsum": dense [B, S, E, C] one-hot dispatch and combine products;
@@ -31,7 +32,7 @@ import torch
 
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
-from zero_tpu_torch.ops.common import dropout
+from zero_tpu_torch.ops.common import dropout, global_count, global_sum
 from zero_tpu_torch.search import top_k as stable_top_k
 
 
@@ -109,7 +110,10 @@ def _expert_ffn(ex: Experts, xin, rngs, drop):
     h = torch.bmm(xin, ex.w1.to(dt)) + ex.b1.to(dt)[:, None, :]
     h = torch.relu(h)
     if rngs is not None:
-        h = dropout(rngs(), h, drop)
+        # expert-major [E, B*C, d_h]: under data parallelism the hash
+        # indexes the global [E, B_global*C, d_h] tensor, E strided
+        # blocks of which are this process's (common.global_index)
+        h = dropout(rngs(), h, drop, batch_axis=1)
     return torch.bmm(h, ex.w2.to(dt)) + ex.b2.to(dt)[:, None, :]
 
 
@@ -140,9 +144,14 @@ def moe_ffn(params: MoE, x, rngs=None, drop=None, *, num_experts: int,
 
     if aux_sums is not None:
         # Switch load-balance loss over primary assignments (fractions
-        # before the cap keep the gradient signal when experts overflow)
-        f_e = _one_hot(top_idx[..., 0], e).mean(dim=(0, 1))
-        p_e = probs.mean(dim=(0, 1))
+        # before the cap keep the gradient signal when experts overflow);
+        # under data parallelism f_e and P_e are means over the global
+        # [B, S], and their product is taken after the means
+        primary = _one_hot(top_idx[..., 0], e)
+        means = global_sum(torch.cat([primary.sum(dim=(0, 1)),
+                                      probs.sum(dim=(0, 1))])) \
+            / global_count(b * s)
+        f_e, p_e = means[:e], means[e:]
         aux_sums.append(e * (f_e * p_e).sum())
 
     ex = params.experts

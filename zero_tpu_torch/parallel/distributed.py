@@ -11,6 +11,11 @@ the whole model, its moments and its EMA; the collectives are explicit:
     statistic of the loss is made global (``global_sum``): each process's
     loss is then the global batch's, and the sum of their gradients its
     gradient;
+  * under ZeRO (``zero_stage`` 1-3, parallel/mesh.py's layout) the
+    moments, the EMA and at stage 3 the parameters are held as shards:
+    ``reduce_scatter_sum`` sums gradients into them, ``all_gather_shards``
+    makes leaves whole again (the updated weights, the stage-3 forward,
+    ``host_fetchable``), in the same flat fp32 buckets;
   * ``any_flag`` agrees on a host flag (the preemption signal);
   * eval batches, identical on every process, are split by rows
     (``put_eval_batch``) and their decodes gathered
@@ -24,9 +29,12 @@ process group itself (two ranks sharing one card over gloo, say) keeps it:
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -37,9 +45,12 @@ log = logging.getLogger("zero_tpu_torch.distributed")
 # the gradient all-reduce's flat fp32 buckets hold at most this many bytes
 BUCKET_BYTES = 64 << 20
 
-# the gradient all-reduce's calls, bytes and time since the last
-# take_stats(): CUDA event pairs on a card, host seconds on the CPU
-_stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
+# each collective's calls, bytes (of the whole tensors it reduces or
+# gathers) and time since the last take_stats(): CUDA event pairs on a
+# card, host seconds on the CPU
+_KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+_stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
+          for kind in _KINDS}
 
 
 def active() -> bool:
@@ -144,57 +155,158 @@ def _all_reduce(t: torch.Tensor, op) -> None:
     t.copy_(host)
 
 
-def all_reduce_sum_(tensors) -> None:
-    """Sum fp32 tensors in place over the processes, packed into flat
-    buckets of at most BUCKET_BYTES, one call a bucket. COLLECTIVE: every
-    process calls it with tensors of the same shapes, in the same order."""
+def _buckets(tensors):
+    """Index lists of ``tensors`` in order, each list at most BUCKET_BYTES
+    of fp32 (a larger tensor alone)."""
     bucket, size = [], 0
-    for t in tensors:
+    for i, t in enumerate(tensors):
         nbytes = t.numel() * 4
         if bucket and size + nbytes > BUCKET_BYTES:
-            _reduce_bucket(bucket)
+            yield bucket
             bucket, size = [], 0
-        bucket.append(t)
+        bucket.append(i)
         size += nbytes
     if bucket:
-        _reduce_bucket(bucket)
+        yield bucket
 
 
-def _reduce_bucket(bucket) -> None:
-    flat = torch.cat([t.reshape(-1).float() for t in bucket])
-    cuda = flat.is_cuda
+@contextlib.contextmanager
+def _timed(kind: str, nbytes: int, cuda: bool):
+    """Count one call of collective ``kind`` over ``nbytes`` and time it."""
+    entry = _stats[kind]
     if cuda:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
     else:
         begin = time.perf_counter()
-    _all_reduce(flat, tdist.ReduceOp.SUM)
-    offset = 0
-    for t in bucket:
-        n = t.numel()
-        t.copy_(flat[offset:offset + n].view_as(t))
-        offset += n
+    yield
     if cuda:
         end.record()
-        _stats["events"].append((start, end))
+        entry["events"].append((start, end))
     else:
-        _stats["seconds"] += time.perf_counter() - begin
-    _stats["calls"] += 1
-    _stats["bytes"] += flat.numel() * 4
+        entry["seconds"] += time.perf_counter() - begin
+    entry["calls"] += 1
+    entry["bytes"] += nbytes
+
+
+def all_reduce_sum_(tensors) -> None:
+    """Sum fp32 tensors in place over the processes, packed into flat
+    buckets of at most BUCKET_BYTES, one call a bucket. COLLECTIVE: every
+    process calls it with tensors of the same shapes, in the same order."""
+    tensors = list(tensors)
+    for bucket in _buckets(tensors):
+        _reduce_bucket([tensors[i] for i in bucket])
+
+
+def _reduce_bucket(bucket) -> None:
+    flat = torch.cat([t.reshape(-1).float() for t in bucket])
+    with _timed("all_reduce", flat.numel() * 4, flat.is_cuda):
+        _all_reduce(flat, tdist.ReduceOp.SUM)
+        offset = 0
+        for t in bucket:
+            n = t.numel()
+            t.copy_(flat[offset:offset + n].view_as(t))
+            offset += n
+
+
+def _front_shape(shape, dim: int, world: int):
+    """The shape of a shard with its split dim moved to the front."""
+    rest = [int(n) for i, n in enumerate(shape) if i != dim]
+    return [int(shape[dim]) // world] + rest
+
+
+def _scatter_or_gather(kind: str, src: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """reduce_scatter_tensor (a sum) or all_gather_into_tensor of flat
+    ``src`` into flat ``out``; under gloo a card's tensors go through the
+    host."""
+    dev = _comm_device(src)
+    host_src = src if src.device == dev else src.to(dev)
+    host_out = out if out.device == dev else torch.empty(
+        out.shape, dtype=out.dtype, device=dev)
+    with warnings.catch_warnings():
+        # all_gather_into_tensor is one call on gloo and NCCL alike
+        warnings.simplefilter("ignore", FutureWarning)
+        if kind == "reduce_scatter":
+            tdist.reduce_scatter_tensor(host_out, host_src)
+        else:
+            tdist.all_gather_into_tensor(host_out, host_src)
+    if host_out is not out:
+        out.copy_(host_out)
+
+
+def reduce_scatter_sum(tensors, dims):
+    """Whole tensors -> this process's shard (parallel/mesh.py:shard_of)
+    of their sum over the processes, fp32, each split along its ``dims``
+    entry (not None). A shard along a dim d > 0 is not contiguous: dim d
+    moves to the front, each process's block is one row of a [W, n]
+    matrix, and the buckets' rows are reduce-scattered flat. COLLECTIVE."""
+    world = process_count()
+    tensors = list(tensors)
+    out = [None] * len(tensors)
+    for bucket in _buckets(tensors):
+        rows = [tensors[i].float().movedim(dims[i], 0).reshape(world, -1)
+                for i in bucket]
+        flat = torch.cat(rows, dim=1)
+        local = flat.new_empty(flat.shape[1])
+        with _timed("reduce_scatter", flat.numel() * 4, flat.is_cuda):
+            _scatter_or_gather("reduce_scatter", flat.reshape(-1), local)
+        offset = 0
+        for i, row in zip(bucket, rows):
+            n = row.shape[1]
+            front = local[offset:offset + n].view(
+                _front_shape(tensors[i].shape, dims[i], world))
+            out[i] = front.movedim(0, dims[i]).contiguous()
+            offset += n
+    return out
+
+
+def all_gather_shards(shards, dims):
+    """This process's shards -> the whole tensors (every process's shard
+    joined along its ``dims`` entry, in rank order), in the shards'
+    dtypes. COLLECTIVE."""
+    world = process_count()
+    shards = list(shards)
+    out = [None] * len(shards)
+    for bucket in _buckets(shards):
+        cols = [shards[i].float().movedim(dims[i], 0).reshape(-1)
+                for i in bucket]
+        flat = torch.cat(cols)
+        whole = flat.new_empty(world * flat.numel())
+        with _timed("all_gather", whole.numel() * 4, flat.is_cuda):
+            _scatter_or_gather("all_gather", flat, whole)
+        whole = whole.view(world, -1)
+        offset = 0
+        for i, col in zip(bucket, cols):
+            n = col.numel()
+            shape = _front_shape(shards[i].shape, dims[i], 1)
+            front = whole[:, offset:offset + n].reshape(
+                [world * shape[0]] + shape[1:])
+            # contiguous, as the whole tensor is held: a transposed
+            # layout would take other GEMM kernels (another rounding)
+            out[i] = front.movedim(0, dims[i]).to(
+                shards[i].dtype).contiguous()
+            offset += n
+    return out
 
 
 def take_stats() -> dict:
-    """{'calls', 'bytes', 'ms'} of the gradient all-reduce since the last
-    call (waits for the card's events), and resets them."""
-    seconds = _stats["seconds"]
-    for start, end in _stats["events"]:
-        end.synchronize()
-        seconds += start.elapsed_time(end) / 1000.0
-    out = {"calls": _stats["calls"], "bytes": _stats["bytes"],
-           "ms": seconds * 1000.0}
-    _stats.update(calls=0, bytes=0, seconds=0.0, events=[])
-    return out
+    """The gradient all-reduce's {'calls', 'bytes', 'ms'} since the last
+    call, with the same for 'reduce_scatter' and 'all_gather' under
+    ZeRO (waits for the card's events), and resets them."""
+    out = {}
+    for kind in _KINDS:
+        entry = _stats[kind]
+        seconds = entry["seconds"]
+        for start, end in entry["events"]:
+            end.synchronize()
+            seconds += start.elapsed_time(end) / 1000.0
+        out[kind] = {"calls": entry["calls"], "bytes": entry["bytes"],
+                     "ms": seconds * 1000.0}
+        entry.update(calls=0, bytes=0, seconds=0.0, events=[])
+    reduce = out.pop("all_reduce")
+    return dict(reduce, **out)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -208,6 +320,12 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return total + (x - x.detach())
 
 
+def barrier() -> None:
+    """Wait for every process (no-op without a group). COLLECTIVE."""
+    if active():
+        tdist.barrier()
+
+
 def any_flag(flag: bool) -> bool:
     """Whether ``flag`` is set on any process (a MAX all-reduce).
     COLLECTIVE."""
@@ -216,13 +334,49 @@ def any_flag(flag: bool) -> bool:
     return bool(_max_ints([int(bool(flag))])[0])
 
 
-def host_fetchable(tree):
-    """Make every tensor of ``tree`` safe to fetch on this process. Each
-    process holds the whole state (no ZeRO yet), so the tree comes back
-    as it is. COLLECTIVE by contract, as in the JAX package: every process
-    calls it at the same point, even where only the primary consumes the
-    result (a checkpoint write), so a sharded state can gather here."""
-    return tree
+def host_fetchable(tree, layout=None):
+    """Make every tensor of ``tree`` ({prefix: a module, a {name: tensor}
+    dict or the Adam state, or None}) whole on this process. Without a
+    ZeRO ``layout`` (parallel/mesh.py) each process holds the whole state
+    and the tree comes back as it is; with one, every shard is
+    all-gathered into a copy of its tree. COLLECTIVE by contract, as in
+    the JAX package: every process calls it at the same point, even
+    where only the primary consumes the result (a checkpoint write)."""
+    if layout is None or process_count() == 1:
+        return tree
+    jobs, out = [], {}
+
+    def whole_dict(tensors):
+        copied = dict(tensors)
+        for name, t in tensors.items():
+            if layout.is_shard(name, t):
+                jobs.append((t, layout.dim(name),
+                             lambda w, n=name: copied.__setitem__(n, w)))
+        return copied
+
+    for prefix, sub in tree.items():
+        if isinstance(sub, torch.nn.Module):
+            named = [(n, p) for n, p in sub.named_parameters()
+                     if layout.is_shard(n, p)]
+            if named:
+                sub = copy.deepcopy(sub)
+                mine = dict(sub.named_parameters())
+                for name, p in named:
+                    jobs.append((p, layout.dim(name),
+                                 lambda w, q=mine[name]: setattr(q, "data",
+                                                                 w)))
+        elif isinstance(sub, dict) and "mu" in sub:
+            sub = dict(sub, mu=whole_dict(sub["mu"]),
+                       nu=whole_dict(sub["nu"]))
+        elif isinstance(sub, dict):
+            sub = whole_dict(sub)
+        out[prefix] = sub
+    if jobs:
+        wholes = all_gather_shards([t.detach() for t, _, _ in jobs],
+                                   [d for _, d, _ in jobs])
+        for (_, _, assign), w in zip(jobs, wholes):
+            assign(w.contiguous())
+    return out
 
 
 def put_global_batch(batch, device):

@@ -22,10 +22,19 @@ stamp, so one state gives one file, byte for byte.
 
 ``Saver(async_save=True)`` (``async_checkpoint``) snapshots the state on
 its device and writes it on a worker thread; ``wait()`` joins the write
-and raises its error. The JAX package's sharded multi-host format
-(``model-<step>.shard<pid>.npz`` beside ``model-<step>.shardmeta.json``,
-"sharded-v1") restores here on one device: every leaf is assembled from
-all the shard files. Writing it comes with ZeRO, a later slice.
+and raises its error.
+
+The sharded format ("sharded-v1", ``Saver(sharded=True)``, the JAX
+package's ``save_checkpoint_sharded``): under ZeRO (parallel/mesh.py's
+layout) every process writes ``model-<step>.shard<rank>.npz`` holding its
+own slices under ``key@a:b,c:d`` (every dim listed, ``_index_key``'s
+text), shard0 also the leaves every process holds whole under the bare
+key; the primary writes ``model-<step>.shardmeta.json`` ({"format",
+"nproc", "keys": {key: shape}}). A training restore under the same
+number of processes reads each process's slices from its own file; any
+other restore (another number of processes, a monolithic checkpoint,
+``--mode test`` on one device) assembles every leaf from all the shard
+files and, in training, slices it.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from zero_tpu_torch.parallel import distributed as dist
 
 log = logging.getLogger("zero_tpu_torch.saver")
 
@@ -85,22 +96,43 @@ def flat_from_module(module, prefix: str = "params") -> Dict[str, np.ndarray]:
     return {prefix + "/" + k: _numpy(t) for k, t in tensors_of(module).items()}
 
 
+def layout_name(key: str) -> Optional[str]:
+    """The parameter name (parallel/mesh.py's layout) of a checkpoint key:
+    ``params/a/b``, ``ema/a/b``, ``opt/.mu/a/b`` and ``opt/.nu/a/b`` are
+    ``a.b``; Adam's count has none."""
+    prefix, _, sub = key.partition("/")
+    if prefix == "opt":
+        field, _, sub = sub.partition("/")
+        if field not in (".mu", ".nu"):
+            return None
+    return sub.replace("/", ".")
+
+
 def load_flat(tree, flat: Dict[str, np.ndarray],
-              prefix: str = "params") -> None:
+              prefix: str = "params", layout=None) -> None:
     """Copy checkpoint arrays into a checkpoint tree in place, by name,
     keeping (with a warning) every tensor the checkpoint lacks or holds at
-    another shape -- the JAX package's name-based partial restore."""
+    another shape -- the JAX package's name-based partial restore. Under
+    a ZeRO ``layout`` a tensor held as a shard takes its slice of the
+    whole array."""
     with torch.no_grad():
         for sub, t in tensors_of(tree).items():
             key = prefix + "/" + sub
-            if key not in flat:
+            arr = flat.get(key)
+            name = layout_name(key)
+            if arr is not None and layout is not None \
+                    and tuple(arr.shape) != tuple(t.shape) \
+                    and layout.is_shard(name, t) \
+                    and tuple(arr.shape) == layout.shapes[name]:
+                arr = layout.local(name, arr)
+            if arr is None:
                 log.warning("%s missed in checkpoint", key)
-            elif tuple(flat[key].shape) != tuple(t.shape):
+            elif tuple(arr.shape) != tuple(t.shape):
                 log.warning("shape mismatch for %s: saved %s vs model %s; "
                             "keeping model value", key,
-                            tuple(flat[key].shape), tuple(t.shape))
+                            tuple(arr.shape), tuple(t.shape))
             else:
-                t.copy_(torch.from_numpy(np.array(flat[key])))
+                t.copy_(torch.from_numpy(np.array(arr)))
 
 
 def _read_index(directory: str) -> List[str]:
@@ -162,14 +194,75 @@ def load_checkpoint_file(path: str,
                 if prefixes is None or k.split("/", 1)[0] in prefixes}
 
 
-def load_sharded_checkpoint(base: str,
-                            prefixes=None) -> Dict[str, np.ndarray]:
+def sharded_members(flat: Dict[str, torch.Tensor], layout=None):
+    """This process's part of a sharded-v1 checkpoint of ``flat`` ({key:
+    tensor as held}): (its members, the meta's {key: whole shape}). A
+    shard (under the ZeRO ``layout``) goes under ``key@<index>``
+    (``zero_tpu/saver.py:_index_key``'s text); a tensor every process
+    holds whole under the bare key, in shard0 only."""
+    rank = dist.process_index()
+    members, shapes = {}, {}
+    for key, t in flat.items():
+        name = layout_name(key)
+        if layout is not None and layout.is_shard(name, t):
+            members[key + "@" + layout.index_key(name)] = t
+            shapes[key] = list(layout.shapes[name])
+        else:
+            if rank == 0:
+                members[key] = t
+            shapes[key] = list(t.shape)
+    return members, shapes
+
+
+def write_sharded_checkpoint(directory: str, name: str,
+                             members: Dict[str, torch.Tensor],
+                             shapes: Dict[str, list]) -> str:
+    """Write this process's ``<name>.shard<rank>.npz`` and, on the
+    primary, ``<name>.shardmeta.json``. Every process calls it; no
+    collective."""
+    rank = dist.process_index()
+    path = write_checkpoint_file(directory, "%s.shard%d" % (name, rank),
+                                 members)
+    if rank == 0:
+        with open(os.path.join(directory, name + ".shardmeta.json"),
+                  "w") as w:
+            json.dump({"format": "sharded-v1",
+                       "nproc": dist.process_count(), "keys": shapes}, w)
+    return path
+
+
+def load_own_shards(base: str, layout, prefixes=None) -> Dict[str, np.ndarray]:
+    """This process's slices from its own shard file of the sharded-v1
+    checkpoint ``base``, where it was written by as many processes as the
+    ``layout`` has and holds exactly the slice the layout gives this
+    process: {key: slice}. Empty otherwise."""
+    with open(base + ".shardmeta.json") as r:
+        nproc = int(json.load(r)["nproc"])
+    own = "%s.shard%d.npz" % (base, layout.rank)
+    if nproc != layout.world or not os.path.exists(own):
+        return {}
+    out = {}
+    with np.load(own, allow_pickle=False) as z:
+        for member in z.files:
+            key, _, index = member.partition("@")
+            name = layout_name(key)
+            if index and name in layout.dims \
+                    and (prefixes is None
+                         or key.split("/", 1)[0] in prefixes) \
+                    and index == layout.index_key(name):
+                out[key] = z[member]
+    return out
+
+
+def load_sharded_checkpoint(base: str, prefixes=None,
+                            skip=()) -> Dict[str, np.ndarray]:
     """The arrays of the sharded-v1 checkpoint ``base`` (its path without
     extension), each leaf assembled from every ``<base>.shard*.npz``: a
     bare key is read as it is; ``key@a:b,c:d`` index keys are placed into
     a zero array of the shape ``<base>.shardmeta.json`` gives
     (``zero_tpu/saver.py:_load_sharded_leaf``). A key with no entry is
-    left out, so load_flat keeps the template's value with its warning."""
+    left out, so load_flat keeps the template's value with its warning;
+    so are the keys in ``skip``."""
     with open(base + ".shardmeta.json") as r:
         shapes = json.load(r)["keys"]
     pieces: Dict[str, list] = {}
@@ -178,8 +271,9 @@ def load_sharded_checkpoint(base: str,
         with np.load(fname, allow_pickle=False) as z:
             for member in z.files:
                 key, _, index = member.partition("@")
-                if key not in shapes or (prefixes is not None and
-                                         key.split("/", 1)[0] not in prefixes):
+                if key not in shapes or key in skip or (
+                        prefixes is not None
+                        and key.split("/", 1)[0] not in prefixes):
                     continue
                 if index:
                     pieces.setdefault(key, []).append((index, z[member]))
@@ -209,17 +303,28 @@ class Saver:
     """Latest-k + best-k checkpoint manager over the JAX package's file
     layout. With ``async_save`` the index and top-k bookkeeping run in
     ``save`` and the npz writes on a worker thread, over a snapshot of the
-    state taken on its device; at most one write is in flight."""
+    state taken on its device; at most one write is in flight. With
+    ``sharded`` every process calls ``save`` with the state as it holds
+    it (its ZeRO shards, ``layout``) and writes its own shard file; the
+    primary alone writes the index, the ledgers and evicts, the others
+    take the same top-k decisions (``zero_tpu/saver.py:_bookkeep_only``).
+    A sharded save starts with a barrier, once every process's earlier
+    writes are done, so that no eviction removes a shard still being
+    written (the JAX package has no such wait).
+    """
 
     def __init__(self, checkpoints: int = 5,
                  output_dir: Optional[str] = None, best_score: float = -1.0,
-                 best_checkpoints: int = 1, async_save: bool = False):
+                 best_checkpoints: int = 1, async_save: bool = False,
+                 sharded: bool = False, layout=None):
         self.output_dir = output_dir or "./output"
         self.output_best_dir = os.path.join(self.output_dir, "best")
         self.max_keep = checkpoints
         self.best_checkpoints = best_checkpoints
         self.best_score = best_score
         self.async_save = async_save
+        self.sharded = sharded
+        self.layout = layout
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         metric_path = os.path.join(self.output_best_dir, "metric.log")
@@ -247,10 +352,13 @@ class Saver:
             raise RuntimeError("the async checkpoint write failed") \
                 from error
 
-    def _write(self, directories, name, flat) -> None:
+    def _write(self, directories, name, flat, shapes=None) -> None:
         try:
             for directory in directories:
-                write_checkpoint_file(directory, name, flat)
+                if self.sharded:
+                    write_sharded_checkpoint(directory, name, flat, shapes)
+                else:
+                    write_checkpoint_file(directory, name, flat)
         except BaseException as e:      # surfaces at the next wait()
             if not self.async_save:
                 raise
@@ -260,21 +368,37 @@ class Saver:
              metric_score: Optional[float] = None) -> str:
         """trees: {'params': module, 'opt': adam state or None, 'ema': ...}.
         With a dev ``metric_score``, also updates best/. Returns the path
-        of the checkpoint (written once wait() returns, when async)."""
+        of the checkpoint (written once wait() returns, when async): its
+        npz, or, sharded, this process's shard file."""
         self.wait()
+        if self.sharded:
+            # every process has written its earlier shards before the
+            # primary evicts any of them
+            dist.barrier()
         os.makedirs(self.output_best_dir, exist_ok=True)
         name = "model-%d" % int(step)
-        path = os.path.join(self.output_dir, name + ".npz")
-        flat = flat_tensors(trees)
+        flat, shapes = flat_tensors(trees), None
+        if self.sharded:
+            flat, shapes = sharded_members(flat, self.layout)
+            path = os.path.join(self.output_dir, "%s.shard%d.npz"
+                                % (name, dist.process_index()))
+        else:
+            path = os.path.join(self.output_dir, name + ".npz")
         if self.async_save:
             # the on-device snapshot: training goes on updating in place
             flat = {k: t.detach().clone() for k, t in flat.items()}
         directories = [self.output_dir]
+        if self.sharded and not dist.is_primary():
+            # the primary's decisions on the same inputs, no ledger file
+            if metric_score is not None and metric_score > self.best_score:
+                self.best_score = metric_score
+            if self._topk_admit(name, metric_score):
+                directories.append(self.output_best_dir)
+            self._start_write(directories, name, flat, shapes)
+            return path
         names = [n for n in _read_index(self.output_dir) if n != name] + [name]
         while len(names) > self.max_keep:
-            for victim in _checkpoint_files(self.output_dir, names.pop(0)):
-                if os.path.exists(victim):
-                    os.remove(victim)
+            _remove_files(_checkpoint_files(self.output_dir, names.pop(0)))
         _write_index(self.output_dir, names)
 
         if metric_score is not None and metric_score > self.best_score:
@@ -292,8 +416,8 @@ class Saver:
             directories.append(self.output_best_dir)
             keep = {n for n, _ in self.topk_scores}
             for fname in os.listdir(self.output_best_dir):
-                if fname.endswith(".npz") and \
-                        fname[:-4].split(".shard")[0] not in keep:
+                base = _checkpoint_name(fname)
+                if base is not None and base not in keep:
                     os.remove(os.path.join(self.output_best_dir, fname))
             _write_index(self.output_best_dir,
                          [n for n, _ in self.topk_scores])
@@ -301,14 +425,17 @@ class Saver:
                       "w") as w:
                 for n, s in self.topk_scores:
                     w.write("{}\t{}\n".format(n, s))
+        self._start_write(directories, name, flat, shapes)
+        return path
+
+    def _start_write(self, directories, name, flat, shapes) -> None:
         if self.async_save:
             self._pending = threading.Thread(
-                target=self._write, args=(directories, name, flat),
+                target=self._write, args=(directories, name, flat, shapes),
                 daemon=True)
             self._pending.start()
         else:
-            self._write(directories, name, flat)
-        return path
+            self._write(directories, name, flat, shapes)
 
     def _topk_admit(self, name: str, metric_score) -> bool:
         if metric_score is None or not (
@@ -335,8 +462,11 @@ class Saver:
 
     def restore(self, trees: dict, path: Optional[str] = None) -> bool:
         """Load the latest checkpoint of ``path`` (or output_dir) into
-        ``{prefix: tree}`` in place, a sharded one assembled on this
-        device; returns False (trees unchanged) when there is none."""
+        ``{prefix: tree}`` in place; returns False (trees unchanged) when
+        there is none. A sharded one is assembled on this device, except
+        that under a ZeRO layout of as many processes as wrote it each
+        process reads its own slices from its own file; a tensor held as
+        a shard takes its slice of an assembled or monolithic leaf."""
         self.wait()
         ckpt = self.latest_path(path)
         if ckpt is None:
@@ -345,12 +475,35 @@ class Saver:
         prefixes = {p for p, tree in trees.items() if tree is not None}
         if ckpt.endswith(".shardmeta.json"):
             log.info("Restoring from sharded checkpoint %s", ckpt)
-            flat = load_sharded_checkpoint(
-                ckpt[:-len(".shardmeta.json")], prefixes)
+            base = ckpt[:-len(".shardmeta.json")]
+            own = {}
+            if self.layout is not None:
+                held = flat_tensors(trees)
+                own = {k: v for k, v in load_own_shards(
+                    base, self.layout, prefixes).items()
+                    if k in held and tuple(v.shape) == tuple(held[k].shape)}
+            flat = load_sharded_checkpoint(base, prefixes, skip=own)
+            flat.update(own)
         else:
             log.info("Restoring from %s", ckpt)
             flat = load_checkpoint_file(ckpt, prefixes)
         for prefix, tree in trees.items():
             if tree is not None:
-                load_flat(tree, flat, prefix)
+                load_flat(tree, flat, prefix, self.layout)
         return True
+
+
+def _checkpoint_name(fname: str) -> Optional[str]:
+    """The checkpoint a file of a checkpoint directory belongs to (its npz,
+    a shard file or the meta), None for any other file."""
+    if fname.endswith(".shardmeta.json"):
+        return fname[:-len(".shardmeta.json")]
+    if fname.endswith(".npz"):
+        return fname[:-4].split(".shard")[0]
+    return None
+
+
+def _remove_files(paths) -> None:
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)

@@ -1,7 +1,7 @@
 """Training, evaluation and scoring loops: one device a process, data
 parallelism across processes.
 
-Counterpart of ``zero_tpu/train.py`` without ZeRO, tensor parallelism,
+Counterpart of ``zero_tpu/train.py`` without tensor parallelism,
 pipelines or rings: the epoch/step loop with update_cycle grouping, NaN
 abort (or the safe_nan skip), periodic display/save/sample/eval, mid-epoch
 resume from ``record.json`` by skipping consumed batches, dev-BLEU-driven
@@ -12,7 +12,9 @@ plus the ``--mode test`` (``evaluate``), ``--mode score`` (``scorer``) and
 device. Under several processes (parallel/distributed.py) each takes its
 slot of every group of host batches, the primary saves and samples, and
 the dev eval decodes each process's rows of every batch and gathers
-them. ``data_kind=speech`` reads TSV
+them; under ZeRO (``zero_stage``) the state is gathered whole where a
+save or a decode needs it, or each process writes its own shards
+(``sharded_checkpoint``). ``data_kind=speech`` reads TSV
 manifests (audio.py:SpeechDataset) in every mode and feeds the models the
 frames, their mask, the transcript and the context as the JAX package
 does.
@@ -37,6 +39,7 @@ from zero_tpu_torch.models.base import Inference, get_model
 from zero_tpu_torch.models.common import check_ported, parallel_options
 from zero_tpu_torch.models.transformer_ibdecoder import unfold
 from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel.mesh import per_rank_bytes
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
 from zero_tpu_torch.search import beam_search, gather_cache, ib_beam_search
@@ -249,8 +252,14 @@ def _pad_group_batch(batch, host_group):
     return out
 
 
-def _state_bytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+def sharded_checkpoint(params, nproc: int) -> bool:
+    """``sharded_checkpoint``: "auto" is on iff there are several processes
+    and ``zero_stage`` > 0 (``zero_tpu/train.py:338-345``); true or false
+    force it."""
+    pref = getattr(params, "sharded_checkpoint", "auto")
+    if str(pref).lower() == "auto":
+        return nproc > 1 and int(getattr(params, "zero_stage", 0)) > 0
+    return pref is True or str(pref).lower() in ("true", "1", "yes")
 
 
 class _ProfileWindow:
@@ -307,7 +316,8 @@ def _train(params, preempted) -> dict:
     gnorms, this process's target tokens and the [C] (src, tgt) batch
     shapes of every step, the final dev BLEU (None without a dev set or
     after a preemption) and the gradient all-reduce's {'calls', 'bytes',
-    'ms'} over the run (zeros without a process group)."""
+    'ms'} over the run (zeros without a process group), with ZeRO's
+    'reduce_scatter' and 'all_gather' the same."""
     model = get_model(params.model_name)
     device = device_of(params)
     nproc, pid = dist.process_count(), dist.process_index()
@@ -333,16 +343,16 @@ def _train(params, preempted) -> dict:
 
     gen = torch.Generator().manual_seed(int(params.random_seed))
     state = init_train_state(model, params, gen, device)
-    num_params = sum(p.numel() for p in state.params.parameters())
+    num_params = sum(int(np.prod(shape)) for shape in (
+        state.layout.shapes.values() if state.layout else
+        (p.shape for p in state.params.parameters())))
     log.info("Total trainable variables size: %d", num_params)
     mb = 1024.0 * 1024.0
+    # each process's own bytes: its shards under ZeRO
     log.info("Per-chip state: params %.1f MB, optimizer %.1f MB, "
              "EMA %.1f MB (zero_stage=%d)",
-             _state_bytes(state.params.parameters()) / mb,
-             _state_bytes([state.opt["count"]]
-                          + list(state.opt["mu"].values())
-                          + list(state.opt["nu"].values())) / mb,
-             _state_bytes((state.ema or {}).values()) / mb,
+             per_rank_bytes(state.params) / mb,
+             per_rank_bytes(state.opt) / mb, per_rank_bytes(state.ema) / mb,
              int(getattr(params, "zero_stage", 0)))
 
     step_fn = make_train_step(model, params)
@@ -350,19 +360,28 @@ def _train(params, preempted) -> dict:
     # decodes the primary's own last batch on its own
     decode = make_decode_fn(params, model, sharded=True)
     decode_local = make_decode_fn(params, model)
+    # the sharded format: each process writes its own shards, no process
+    # gathers the whole state (saver.py)
     saver = Saver(checkpoints=params.checkpoints,
                   output_dir=params.output_dir,
                   best_checkpoints=params.best_checkpoints,
-                  async_save=bool(params.async_checkpoint))
+                  async_save=bool(params.async_checkpoint),
+                  sharded=sharded_checkpoint(params, nproc),
+                  layout=state.layout)
     recorder = params.recorder
 
     def _save_all(step, bleu=None):
-        """Checkpoint and recorder, written by the primary: every process
-        holds the same state. COLLECTIVE by contract (host_fetchable)."""
-        trees = dist.host_fetchable({"params": state.params,
-                                     "opt": state.opt, "ema": state.ema})
-        if dist.is_primary():
+        """Checkpoint and recorder. COLLECTIVE: every process writes its
+        shards (sharded), or all gather the whole state (host_fetchable)
+        and the primary writes it."""
+        trees = {"params": state.params, "opt": state.opt, "ema": state.ema}
+        if saver.sharded:
             saver.save(trees, step, bleu)
+        else:
+            trees = dist.host_fetchable(trees, state.layout)
+            if dist.is_primary():
+                saver.save(trees, step, bleu)
+        if dist.is_primary():
             recorder.save_to_json(
                 os.path.join(params.output_dir, "record.json"))
 
@@ -489,9 +508,13 @@ def _train(params, preempted) -> dict:
                 _save_all(step)
 
             if params.sample_freq > 0 and step % params.sample_freq == 0:
+                # under ZeRO every process gathers the weights (collective),
+                # the primary decodes its own batch
+                weights = (_eval_weights(params, model, state)
+                           if dist.is_primary() or state.layout else None)
                 if dist.is_primary():
-                    _sample_decode(params, decode_local,
-                                   _eval_weights(params, model, state), batch)
+                    _sample_decode(params, decode_local, weights, batch)
+                del weights
                 window_start = time.time()
                 window_tokens = 0
 
@@ -574,12 +597,19 @@ def record_eval_score(recorder, step, bleu, estop_patience):
 def _eval_weights(params, model, state):
     """A copy of the weights to decode with, in the compute dtype where the
     model casts them (ModelSpec.eval_cast): the EMA weights when
-    ema_decay > 0, else the parameters."""
-    weights = copy.deepcopy(state.params)
+    ema_decay > 0, else the parameters; under ZeRO gathered whole on
+    every process (COLLECTIVE: ``_place_eval_weights``, host_fetchable)."""
     if params.ema_decay > 0 and state.ema is not None:
-        with torch.no_grad():
-            for name, p in weights.named_parameters():
-                p.copy_(state.ema[name])
+        # only the EMA is gathered; the module is a skeleton for it
+        ema = dist.host_fetchable({"ema": state.ema}, state.layout)["ema"]
+        weights = copy.deepcopy(state.params)
+        for name, p in weights.named_parameters():
+            p.data = ema[name].detach().to(p.dtype, copy=True)
+    else:
+        weights = dist.host_fetchable({"params": state.params},
+                                      state.layout)["params"]
+        if weights is state.params:
+            weights = copy.deepcopy(weights)
     if model.eval_cast:
         weights = dtypes.cast_to_compute(weights, params)
     return weights.eval()

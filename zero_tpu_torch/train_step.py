@@ -13,6 +13,16 @@ Counterpart of ``zero_tpu/parallel/train_step.py`` on one device a process:
     ``functional_call``, not the module's forward, and DDP's mean of the
     processes' means is not the global batch's mean once their valid rows
     differ (all-pad rows, token buckets)
+  * ZeRO (``zero_stage``, parallel/mesh.py's layout) under data
+    parallelism: stage 1 holds Adam's moments and the EMA as this
+    process's shards, runs Adam on its slices and all-gathers the updated
+    weights; stage 2 also reduce-scatters each microbatch's gradient into
+    a shard accumulator, so no whole gradient outlives a microbatch;
+    stage 3 also holds the parameters as shards and gathers the whole
+    fp32 weights once a microbatch through a differentiable all-gather
+    (``_GatherShards``: its backward reduce-scatters the gradient). A
+    stage changes the layout only, never a value the host can observe;
+    with one process every stage runs as stage 0, as in the JAX package
   * clipping by global norm (``clip_grad_norm``)
   * Adam as ``optax.scale_by_adam(b1, b2, eps)`` followed by
     ``p - lr * u``, with the learning rate passed from the host each step
@@ -41,29 +51,56 @@ import torch
 from zero_tpu_torch import robt as robt_lib
 from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel.mesh import Layout
 
 
 @dataclass
 class TrainState:
-    params: torch.nn.Module      # fp32 master parameters
+    params: torch.nn.Module      # fp32 master parameters (stage 3: shards)
     opt: dict                    # {'count': int32 [], 'mu': {name: t}, 'nu': {name: t}}
     ema: Optional[Dict[str, torch.Tensor]]
     step: int
+    # ZeRO's layout of this process (None: every tensor whole) and the
+    # stage that runs
+    layout: Optional[Layout] = None
+    zero_stage: int = 0
 
 
 def _names_params(module):
     return list(module.named_parameters())
 
 
+def zero_stage(cfg) -> int:
+    """The ZeRO stage that runs: ``zero_stage`` under a 'data' degree
+    above 1 (one device a process: several processes), else 0."""
+    return int(getattr(cfg, "zero_stage", 0)) \
+        if dist.process_count() > 1 else 0
+
+
 def init_train_state(model, cfg, gen: torch.Generator, device) -> TrainState:
+    """The whole state from ``gen`` (the same on every process), then
+    under ZeRO each process keeps its shards of the moments and the EMA
+    and, at stage 3, of the parameters."""
     params = model.init_fn(gen, cfg).to(device)
     named = _names_params(params)
+    stage = zero_stage(cfg)
+    layout = (Layout.of(named, dist.process_count(), dist.process_index())
+              if stage else None)
+
+    def local(name, p):
+        return layout.local(name, p.detach()) if layout else p.detach()
+
     opt = {"count": torch.zeros((), dtype=torch.int32, device=device),
-           "mu": {n: torch.zeros_like(p) for n, p in named},
-           "nu": {n: torch.zeros_like(p) for n, p in named}}
-    ema = ({n: p.detach().clone() for n, p in named}
+           "mu": {n: torch.zeros_like(local(n, p)) for n, p in named},
+           "nu": {n: torch.zeros_like(local(n, p)) for n, p in named}}
+    ema = ({n: local(n, p).clone() for n, p in named}
            if cfg.ema_decay > 0 else None)
-    return TrainState(params=params, opt=opt, ema=ema, step=0)
+    if stage >= 3:
+        for n, p in named:
+            if layout.dim(n) is not None:
+                p.data = local(n, p).clone()
+    return TrainState(params=params, opt=opt, ema=ema, step=0,
+                      layout=layout, zero_stage=stage)
 
 
 def stack_microbatches(batches):
@@ -82,6 +119,58 @@ def stack_microbatches(batches):
 
 def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+
+
+def sharded_norm(shards, wholes) -> torch.Tensor:
+    """The global norm of a tree held partly as this process's shards
+    (their partial sums of squares all-reduced) and partly whole on every
+    process (counted once). COLLECTIVE."""
+    ref = (shards + wholes)[0]
+    part = torch.zeros(1, dtype=torch.float32, device=ref.device)
+    for t in shards:
+        part += torch.sum(t.float() * t.float())
+    dist.all_reduce_sum_([part])
+    return torch.sqrt(part[0] + sum(torch.sum(t.float() * t.float())
+                                    for t in wholes))
+
+
+class _GatherShards(torch.autograd.Function):
+    """ZeRO-3's weights: the forward all-gathers the fp32 shards into the
+    whole tensors, the backward reduce-scatters their gradients into the
+    shards' (each shard's .grad accumulates over the microbatches)."""
+
+    @staticmethod
+    def forward(ctx, dims, *shards):
+        ctx.dims = dims
+        return tuple(dist.all_gather_shards(shards, dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(dist.reduce_scatter_sum(grads, ctx.dims))
+
+
+class _Whole(torch.nn.Module):
+    """A parameter module run through functional_call on whole tensors."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, fn):
+        return fn(self.inner)
+
+
+def gathered_call(params, named, sharded, dims, fn):
+    """fn(params) with each sharded leaf (indices ``sharded`` of
+    ``named``) replaced by its whole fp32 tensor from one differentiable
+    all-gather; the cast to the compute dtype comes after, inside the
+    loss, so the backward reduce-scatters fp32 gradients. COLLECTIVE."""
+    wholes = _GatherShards.apply(tuple(dims[i] for i in sharded),
+                                 *[named[i][1] for i in sharded])
+    tensors = {"inner." + n: p for n, p in named}
+    for i, w in zip(sharded, wholes):
+        tensors["inner." + named[i][0]] = w
+    return torch.func.functional_call(_Whole(params), tensors, (fn,))
 
 
 def make_micro_backward(model, cfg):
@@ -143,27 +232,57 @@ def make_train_step(model, cfg):
         params = state.params
         named = _names_params(params)
         device = named[0][1].device
+        layout, stage = state.layout, state.zero_stage
+        dims = [layout.dim(n) if layout else None for n, _ in named]
+        # the leaves held as shards (moments and EMA from stage 1, grads
+        # from 2, parameters at 3) and those whole on every process
+        sharded = [i for i, d in enumerate(dims) if d is not None]
+        whole = [i for i, d in enumerate(dims) if d is None]
         cycles, rows = next(iter(batch.values())).shape[:2]
         for _, p in named:
             p.grad = None
-        loss = None
+        loss, acc = None, None
         for c in range(int(cycles)):
             feats = {k: torch.as_tensor(v[c], device=device)
                      for k, v in batch.items()}
             with global_batch(int(rows)):
-                micro = micro_backward(params, feats, gen, state.step)
+                if stage >= 3:
+                    micro = gathered_call(
+                        params, named, sharded, dims,
+                        lambda m: micro_backward(m, feats, gen, state.step))
+                else:
+                    micro = micro_backward(params, feats, gen, state.step)
+            if stage == 2:
+                # this microbatch's gradient into the shard accumulator
+                shards = dist.reduce_scatter_sum(
+                    [named[i][1].grad if named[i][1].grad is not None
+                     else torch.zeros_like(named[i][1]) for i in sharded],
+                    [dims[i] for i in sharded])
+                acc = shards if acc is None else [
+                    a + b for a, b in zip(acc, shards)]
+                for i in sharded:
+                    named[i][1].grad = None
             loss = micro if loss is None else loss + micro
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for _, p in named]
+        if stage == 2:
+            for i, g in zip(sharded, acc):
+                grads[i] = g
         if dist.active():
-            # once a step: the global batch's gradient on every process
-            dist.all_reduce_sum_(grads)
+            # once a step: the global batch's gradient of every leaf not
+            # already reduce-scattered into its shard
+            dist.all_reduce_sum_([grads[i] for i in (
+                whole if stage >= 2 else range(len(named)))])
         if cycles > 1:
             grads = [g / cycles for g in grads]
             loss = loss / cycles
 
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            if stage >= 2:
+                gnorm = sharded_norm([grads[i] for i in sharded],
+                                     [grads[i] for i in whole])
+            else:
+                gnorm = global_norm(grads)
             if clip_norm > 0:
                 scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12),
                                     max=1.0)
@@ -175,25 +294,46 @@ def make_train_step(model, cfg):
             if safe_nan:
                 ok = (torch.isfinite(loss) & torch.isfinite(gnorm)
                       & (gnorm < gnorm_bound))
-            for (name, p), g in zip(named, grads):
+            updated = []
+            for (name, p), g, d in zip(named, grads, dims):
+                # stages 1-2: Adam on this process's slice of a whole
+                # parameter (stage 1: of its whole gradient too)
+                sliced = d is not None and stage < 3
+                p_loc = layout.local(name, p) if sliced else p
+                if sliced and stage == 1:
+                    g = layout.local(name, g)
                 mu = (1.0 - b1) * g + b1 * state.opt["mu"][name]
                 nu = (1.0 - b2) * (g * g) + b2 * state.opt["nu"][name]
                 u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                new_p = p - lr * u.to(p.dtype)
+                new_p = p_loc - lr * u.to(p.dtype)
                 if ok is not None:
-                    new_p = torch.where(ok, new_p, p)
+                    new_p = torch.where(ok, new_p, p_loc)
                     mu = torch.where(ok, mu, state.opt["mu"][name])
                     nu = torch.where(ok, nu, state.opt["nu"][name])
-                p.copy_(new_p)
+                if sliced:
+                    updated.append(new_p)
+                else:
+                    p.copy_(new_p)
                 state.opt["mu"][name] = mu
                 state.opt["nu"][name] = nu
+            if updated:
+                # the new weights whole again: one all-gather of the slices
+                for i, w in zip(sharded, dist.all_gather_shards(
+                        updated, [dims[i] for i in sharded])):
+                    named[i][1].copy_(w)
             state.opt["count"] = (torch.where(ok, count, state.opt["count"])
                                   if ok is not None else count)
             if state.ema is not None:
-                for name, p in named:
+                for (name, p), d in zip(named, dims):
+                    p_loc = layout.local(name, p) \
+                        if d is not None and stage < 3 else p
                     state.ema[name] = (ema_decay * state.ema[name]
-                                       + (1.0 - ema_decay) * p)
-            pnorm = global_norm([p for _, p in named])
+                                       + (1.0 - ema_decay) * p_loc)
+            if stage >= 3:
+                pnorm = sharded_norm([named[i][1] for i in sharded],
+                                     [named[i][1] for i in whole])
+            else:
+                pnorm = global_norm([p for _, p in named])
             for _, p in named:
                 p.grad = None
         state.step += 1
