@@ -66,7 +66,13 @@ non-zero):
              tiles); dropout 0 and 0.1, outputs and every gradient held
              against the plain versions; device times of kernel, plain
              version and a PyTorch yardstick (SDPA; F.linear/relu/F.linear)
-             beside the bound
+             beside the bound; then tensor parallelism's launches, bf16
+             at dropout 0.1: the tensor-core #1/#2 over heads 4-7 of 8
+             (heads=(4, 8)) at the three shapes, #11/#12 over each half of
+             the 2048 hidden columns (hidden=(offset, 2048)) at N=4096,
+             output and gradients held against the plain versions on the
+             same split and against the whole launch's heads or columns
+             (the FFN halves' outputs and dx summed)
   serve      beam 4: random transformer-base weights from a seed saved
              through the port's saver, a synthetic 32768-token vocabulary
              and a 32-sentence test set; counts prove the decode went
@@ -95,8 +101,8 @@ non-zero):
              against the plain attention on the card, dropout off and on:
              loss within 1e-2 relative, grads within 2e-2 of their scale
   converge   the copy task (a 12-word vocabulary, target = source;
-             hidden 32, 700 steps, lr 3e-3) through --mode train with both
-             flags on: final dev BLEU >= 0.95
+             hidden 32, CONVERGE_STEPS steps, lr 3e-3) through --mode train
+             with both flags on: final dev BLEU >= 0.95
   rpr_kernels  fused_attention's RPR variant (#3 forward, #4 backward) at
              the train_kernels shapes with max_relative_position 16, fp32
              and bf16, dropout 0 and 0.1: output and the five gradients (dq,
@@ -109,7 +115,10 @@ non-zero):
              CUDA-core #3 and #4 on the same inputs (parent_ms), plain
              version, the composite the model runs with use_flash_attention
              off (_attn_core's one-hot form) and, as a floor, SDPA WITHOUT
-             relative positions, beside the bound (the RPR terms counted)
+             relative positions, beside the bound (the RPR terms counted);
+             then #3/#4 over heads 4-7 of 8 at the causal shape, bf16 at
+             dropout 0.1, against the plain version on the same heads and
+             the whole launch's heads
   rpr_train  transformer_rpr (configs/transformer_rpr_rela.json at 3+3
              layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
              update_cycle 4) trained TRAIN_STEPS steps with
@@ -195,7 +204,9 @@ non-zero):
              128, 32 and 80 (tensor cores) and 40, 256 (CUDA cores); device
              times of each kernel, of the CUDA-core #5, #6, #7 on the same
              inputs (what ran before, parent_ms), the plain version and
-             SDPA (bf16) beside the bound. And
+             SDPA (bf16) beside the bound; #5-#7 over heads 2-3 of 4 at
+             the padded shape, bf16 at dropout 0.1, against the plain
+             version on the same heads and the whole launch's heads. And
              decode_cross_attention (#9, unwired as in the JAX package)
              against its plain version at B=32 beam 4 S=64 and B=4 beam 4
              S=16384, timed beside the composite of cross_attn_step and
@@ -367,6 +378,25 @@ non-zero):
              one process on the global batch, dp_reference's tolerances
              (the load-balance statistics and the expert FFN's dropout
              over the global batch)
+  tp_train   tensor parallelism (mesh_model=2: mesh data 1 x model 2) in
+             the same two gloo ranks: dp_train's run with the EMA on, each
+             rank over its 4 heads and 1024 hidden columns (#1/#2/#11/#12
+             launches a rank checked as in train), every rank's bytes of
+             parameters, moments and EMA at most TP_SHARE of the whole
+             state's, the model line's all-reduces a step (calls, bytes,
+             ms), equal checksums and BLEU on the ranks (the dev eval on
+             gathered weights), each step's loss within TP_SAME of
+             dp_train's world of one (the same batches and seeds)
+  tp_reference  the small fp32 transformer and transformer_rpr (the
+             CUDA-core #1-#4 and #11/#12), dropout 0.1, at mesh_model=2 on
+             the two ranks against one process (the group out of reach):
+             loss within 1e-6 relative, each rank's part of the gradient
+             and of the parameters after one Adam step within 1e-5 of
+             their max; a kernel that dropped its head or column offset
+             would draw another part's dropout masks
+  ep_train   transformer_moe as moe_train runs it (fp32, dropout 0.1) at
+             mesh_expert=2, 4 experts a rank, against one process: the
+             same tolerances, the expert line's all-reduces counted
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -908,6 +938,8 @@ def attention_pad(gen, b, lk, padded):
 def train_attention_rows(fa, gen):
     """Kernels #1/#2 against fused_attention_ref, on the route
     forward_route picks; returns the JSON rows of the timed cases."""
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -1005,7 +1037,8 @@ def train_attention_rows(fa, gen):
                     # ones, on the same inputs (called directly: the
                     # tensor-core kernels' device time is the same either
                     # way)
-                    drop = (causal, rate, words or (0, 0))
+                    drop = (causal, rate, sa.kernel_words(words, q.shape,
+                                                          rate))
                     fwd["parent_ms"] = device_ms(
                         fa._forward, [tuple(t.detach() for t in s[:3])
                                       + (s[3],) + drop for s in sets], iters)
@@ -1139,6 +1172,141 @@ def train_ffn_rows(ff, gen):
     return rows
 
 
+# tensor parallelism's launches (tp_train's, at the train shapes; bf16,
+# dropout on): the second half of the 8 heads, and of the 2048 hidden
+# columns, whose dropout rows and indices are the whole layer's
+SPLIT_RATE = 0.1
+SPLIT_HEADS = (4, 8)
+SPLIT_HIDDEN = 1024
+
+
+def check_head_split(where, kernel, name, launch, plain, q, k, v, do,
+                     shared, heads, want, counter):
+    """``launch(q, k, v, heads)`` over the heads [offset, H) of q, k, v
+    [B, H, L, Dh] with ``heads`` = (offset, H), as tensor parallelism
+    launches the wrapper on a process's heads: its output and its
+    gradients of q, k, v and the ``shared`` (unsplit) inputs held against
+    ``plain`` on the same heads, and its output and dq, dk, dv against
+    the same heads of the launch over all H heads (``heads`` None), each
+    at TRAIN_TOLERANCE. Counts the launches in ``counter`` against
+    ``want``."""
+    offset = heads[0]
+    whole = launch(q, k, v, None)
+    wgrads = torch.autograd.grad(whole, (q, k, v), do)
+    part = [t.detach()[:, offset:].contiguous().requires_grad_()
+            for t in (q, k, v)]
+    pdo = do[:, offset:].contiguous()
+    leaves = part + list(shared)
+    counter.clear()
+    out = launch(*part, heads)
+    grads = torch.autograd.grad(out, leaves, pdo)
+    if dict(counter) != want:
+        raise AssertionError("%s over heads %s: launches %s, expected %s"
+                             % (kernel, heads, dict(counter), want))
+    ref = plain(*part, heads)
+    rgrads = torch.autograd.grad(ref, leaves, pdo)
+    label = "%s_heads_%d-%d_of_%d[%s,p=%g]" % (
+        name, offset, q.shape[1] - 1, heads[1],
+        str(q.dtype)[6:], SPLIT_RATE)
+    names = ["q", "k", "v"] + ["_shared%d" % i for i in range(len(shared))]
+    dtype = q.dtype
+    errs = [check("%s %s" % (kernel, label), out, ref, dtype,
+                  TRAIN_TOLERANCE)]
+    errs += [check("%s_backward %s d%s" % (kernel, label, w), g, r, dtype,
+                   TRAIN_TOLERANCE)
+             for w, g, r in zip(names, grads, rgrads)]
+    whole_errs = [check("%s %s against the whole launch" % (kernel, label),
+                        out, whole[:, offset:], dtype, TRAIN_TOLERANCE)]
+    whole_errs += [check("%s_backward %s d%s against the whole launch"
+                         % (kernel, label, w), g, r[:, offset:], dtype,
+                         TRAIN_TOLERANCE)
+                   for w, g, r in zip("qkv", grads, wgrads)]
+    phase(where, kernel=kernel, case=label, max_abs_err=errs[0],
+          backward_max_abs_err=max(errs[1:]),
+          whole_max_abs_err=max(whole_errs), kernels=sorted(want))
+
+
+def train_split_checks(fa, ff, gen):
+    """#1/#2 over SPLIT_HEADS at ATTN_CASES (the tensor-core kernels in
+    bf16), and #11/#12 over each half of FFN_SHAPE's hidden width, with
+    dropout on: the kernels' head and column offsets."""
+    dev, dtype, rate = "cuda", torch.bfloat16, SPLIT_RATE
+    for name, b, h, lq, lk, dh, causal, padded in ATTN_CASES:
+        q, k, v = (torch.randn(b, h, n, dh, generator=gen).to(
+            dev, dtype).requires_grad_() for n in (lq, lk, lk))
+        do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+        pad = attention_pad(gen, b, lk, padded).to(dev)
+
+        def launch(q, k, v, heads):
+            return fa.fused_attention(q, k, v, pad, causal=causal,
+                                      dropout_rate=rate, rng=SEED_WORDS,
+                                      heads=heads)
+
+        def plain(q, k, v, heads):
+            return fa.fused_attention_ref(q, k, v, pad, causal, rate,
+                                          SEED_WORDS, heads)
+
+        check_head_split("train_kernels", "fused_attention", name, launch,
+                         plain, q, k, v, do, (), SPLIT_HEADS,
+                         {"fused_attention_tc": 1,
+                          "fused_attention_backward_tc": 1}, fa.launches)
+    n, d_in, f, d_out = FFN_SHAPE
+    x = torch.randn(n, d_in, generator=gen).to(dev, dtype)
+    w1 = (torch.randn(d_in, f, generator=gen) * d_in ** -0.5).to(dev, dtype)
+    b1 = (torch.randn(f, generator=gen) * 0.1).to(dev, dtype)
+    w2 = (torch.randn(f, d_out, generator=gen) * f ** -0.5).to(dev, dtype)
+    b2 = (torch.randn(d_out, generator=gen) * 0.1).to(dev, dtype)
+    dy = torch.randn(n, d_out, generator=gen).to(dev, dtype)
+    leaves = [t.requires_grad_() for t in (x, w1, b1, w2, b2)]
+    whole = ff.fused_ffn(*leaves, SEED_WORDS, rate)
+    wgrads = torch.autograd.grad(whole, leaves, dy)
+    outs, dxs = [], []
+    for lo in (0, SPLIT_HIDDEN):
+        cols = slice(lo, lo + SPLIT_HIDDEN)
+        # the output bias once, as ops/nn.py:ffn adds it after the reduce
+        part = [t.detach().contiguous().requires_grad_() for t in (
+            x, w1[:, cols], b1[cols], w2[cols],
+            b2 if lo == 0 else torch.zeros_like(b2))]
+        hidden = (lo, f)
+        ff.launches.clear()
+        out = ff.fused_ffn(*part, SEED_WORDS, rate, hidden=hidden)
+        grads = torch.autograd.grad(out, part, dy)
+        if dict(ff.launches) != {"fused_ffn": 1, "fused_ffn_backward": 1}:
+            raise AssertionError("fused_ffn over hidden %s: launches %s"
+                                 % (hidden, dict(ff.launches)))
+        ref = ff.fused_ffn_ref(*part, SEED_WORDS, rate, hidden)
+        rgrads = torch.autograd.grad(ref, part, dy)
+        label = "N%d_hidden_%d-%d_of_%d[bfloat16,p=%g]" % (
+            n, lo, lo + SPLIT_HIDDEN - 1, f, rate)
+        errs = [check("fused_ffn " + label, out, ref, dtype,
+                      TRAIN_TOLERANCE)]
+        errs += [check("fused_ffn_backward %s d%s" % (label, w), g, r,
+                       dtype, TRAIN_TOLERANCE)
+                 for w, g, r in zip(("x", "W1", "b1", "W2", "b2"), grads,
+                                    rgrads)]
+        # the slice's own gradients are the whole launch's columns
+        whole_errs = [check("fused_ffn_backward %s d%s against the whole "
+                            "launch" % (label, w), g, r, dtype,
+                            TRAIN_TOLERANCE)
+                      for w, g, r in (("W1", grads[1], wgrads[1][:, cols]),
+                                      ("b1", grads[2], wgrads[2][cols]),
+                                      ("W2", grads[3], wgrads[3][cols]))]
+        phase("train_kernels", kernel="fused_ffn", case=label,
+              max_abs_err=errs[0], backward_max_abs_err=max(errs[1:]),
+              whole_max_abs_err=max(whole_errs),
+              kernels=sorted(ff.launches))
+        outs.append(out.float())
+        dxs.append(grads[0].float())
+    # the two slices' sums (the model line's reduce) are the whole launch's
+    phase("train_kernels", kernel="fused_ffn",
+          case="N%d_hidden_halves_summed[bfloat16,p=%g]" % (n, rate),
+          max_abs_err=check("fused_ffn halves summed", sum(outs), whole,
+                            dtype, TRAIN_TOLERANCE),
+          backward_max_abs_err=check("fused_ffn_backward halves summed dx",
+                                     sum(dxs), wgrads[0], dtype,
+                                     TRAIN_TOLERANCE))
+
+
 def train_kernels_phase():
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
@@ -1146,6 +1314,7 @@ def train_kernels_phase():
     gen = torch.Generator().manual_seed(SEED)
     rows = train_attention_rows(fa, gen)
     rows.update(train_ffn_rows(ff, gen))
+    train_split_checks(fa, ff, gen)
     return rows
 
 
@@ -1186,6 +1355,7 @@ def rpr_attention_rows(fa, gen):
     CUDA-core parents are timed on the same inputs as parent_ms); returns
     the rows."""
     from zero_tpu_torch.ops import attention as attn
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
     dev = "cuda"
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1263,6 +1433,8 @@ def rpr_attention_rows(fa, gen):
                       kernels=sorted(want))
                 continue
             sets = copies(inputs, fwd_bytes)
+            # the launch words of the CUDA-core parents, called directly
+            launch = sa.kernel_words(words, (b, h, lq), rate)
 
             def k_fwd(q, k, v, tk, tv, pad, do):
                 return fa.fused_attention(
@@ -1288,7 +1460,7 @@ def rpr_attention_rows(fa, gen):
                 # the same inputs
                 def parent_fwd(q, k, v, tk, tv, pad, do):
                     return fa._forward_rpr(q, k, v, pad, tk, tv, m, causal,
-                                           rate, words, route="cuda_cores")
+                                           rate, launch, route="cuda_cores")
 
                 fwd["parent_ms"] = device_ms(parent_fwd, sets, iters)
             bwd = {}
@@ -1299,7 +1471,7 @@ def rpr_attention_rows(fa, gen):
             if tc:
                 # the CUDA-core #4 that ran before the tensor-core one,
                 # on the same inputs, behind the same forward
-                drop = (causal, rate, words or (0, 0))
+                drop = (causal, rate, launch)
                 args = []
                 for s in sets:
                     qkv = tuple(t.detach() for t in s[:3])
@@ -1396,7 +1568,39 @@ def rpr_kernels_phase():
     gen = torch.Generator().manual_seed(SEED + 2)
     rows = rpr_attention_rows(fa, gen)
     rpr_m0_check(fa, gen)
+    rpr_split_check(fa, gen)
     return rows
+
+
+def rpr_split_check(fa, gen):
+    """#3/#4 over SPLIT_HEADS at ATTN_CASES' causal case with RPR_MAX
+    (the tensor-core kernels in bf16), dropout on; the tables are whole
+    on every process, so their gradients are held against the plain
+    version's."""
+    dev, dtype, rate = "cuda", torch.bfloat16, SPLIT_RATE
+    name, b, h, lq, lk, dh, causal, padded = ATTN_CASES[0]
+    q, k, v = (torch.randn(b, h, n, dh, generator=gen).to(
+        dev, dtype).requires_grad_() for n in (lq, lk, lk))
+    tk, tv = (torch.randn(2 * RPR_MAX + 1, dh, generator=gen).to(
+        dev, dtype).requires_grad_() for _ in range(2))
+    do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+    pad = attention_pad(gen, b, lk, padded).to(dev)
+
+    def launch(q, k, v, heads):
+        return fa.fused_attention(q, k, v, pad, causal=causal,
+                                  dropout_rate=rate, rng=SEED_WORDS,
+                                  rpr_tables=Tables(tk, tv),
+                                  max_relative_position=RPR_MAX,
+                                  heads=heads)
+
+    def plain(q, k, v, heads):
+        return fa.fused_attention_rpr_ref(q, k, v, pad, tk, tv, RPR_MAX,
+                                          causal, rate, SEED_WORDS, heads)
+
+    check_head_split("rpr_kernels", "fused_attention_rpr", name, launch,
+                     plain, q, k, v, do, (tk, tv), SPLIT_HEADS,
+                     {"fused_attention_rpr_tc": 1,
+                      "fused_attention_rpr_backward_tc": 1}, fa.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1723,7 +1927,7 @@ def _small_batch():
 
 def plain_attention(q, k, v, pad_mask=None, *, causal=False,
                     dropout_rate=0.0, rng=None, rpr_tables=None,
-                    max_relative_position=None):
+                    max_relative_position=None, heads=None):
     """fused_attention's interface over its plain versions: from the same
     seed words they draw the kernels' dropout masks."""
     from zero_tpu_torch.ops.kernels import fused_attention as fa
@@ -1732,19 +1936,19 @@ def plain_attention(q, k, v, pad_mask=None, *, causal=False,
            if pad_mask is None else pad_mask.float())
     rate = dropout_rate if rng is not None else 0.0
     if rpr_tables is None:
-        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng)
+        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng, heads)
     return fa.fused_attention_rpr_ref(
         q, k, v, pad, rpr_tables.keys.to(q.dtype),
         rpr_tables.values.to(q.dtype), max_relative_position, causal, rate,
-        rng)
+        rng, heads)
 
 
-def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0):
+def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0, hidden=None):
     """fused_ffn's interface over its plain version."""
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
     y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
-                         rate)
+                         rate, hidden)
     return y.reshape(*x.shape[:-1], w2.shape[1])
 
 
@@ -2544,6 +2748,11 @@ def deep_reference_phase(da):
         lambda steps: {"decode_pool_attention": n * steps}))
 
 
+# the copy task's steps (700 until the tensor- and expert-parallel phases
+# came; BLEU 0.968 at 450 on the CPU)
+CONVERGE_STEPS = 550
+
+
 def converge_phase(d):
     """The copy task through --mode train on the card, both flags on."""
     from zero_tpu_torch import run
@@ -2564,14 +2773,14 @@ def converge_phase(d):
             "relu_dropout=0.0,attention_dropout=0.0,max_len=16,"
             "batch_or_token=batch,batch_size=32,eval_batch_size=16,"
             "beam_size=2,decode_length=12,decode_max_len=24,lrate=3e-3,"
-            "lrate_strategy=vanilla,max_training_steps=700,disp_freq=200,"
+            "lrate_strategy=vanilla,max_training_steps=%d,disp_freq=200,"
             "save_freq=300,eval_freq=350,sample_freq=300,epoches=200,"
             "pad_seq_multiple=4,pad_batch_multiple=4,"
             "use_flash_attention=true,use_fused_ffn=true,"
             "src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
             "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
             "src_dev_file={0}/dev.src,tgt_dev_file={0}/dev.tgt,"
-            "output_dir={0}/out".format(d))
+            "output_dir={0}/out".format(d) % CONVERGE_STEPS)
     t0 = time.time()
     summary = run.main(["--mode", "train", "--parameters", spec])
     if not (summary["bleu"] is not None and summary["bleu"] >= 0.95):
@@ -2616,7 +2825,7 @@ LONG_PARAMS = ("use_flash_attention=true,max_len=16384,token_size=16384,"
 
 
 def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
-                 rng=None):
+                 rng=None, heads=None):
     """streaming_attention's interface over its plain version: from the
     same seed words it draws the kernels' dropout masks."""
     from zero_tpu_torch.ops.kernels import streaming_attention as sa
@@ -2624,7 +2833,8 @@ def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
     pad = (torch.ones(q.shape[0], k.shape[2], device=q.device)
            if pad_mask is None else pad_mask.float())
     rate = dropout_rate if rng is not None else 0.0
-    return sa.streaming_attention_ref(q, k, v, pad, causal, rate, rng)
+    return sa.streaming_attention_ref(q, k, v, pad, causal, rate, rng,
+                                      heads=heads)
 
 
 def streaming_rows(sa, gen):
@@ -2714,7 +2924,7 @@ def time_streaming(sa, sdpa, name, inputs, pad, h, lq, lk, dh, causal,
     rows_f32 = 4 * b * h * lq
     sets = copies(inputs, 2 * qb + 2 * kb)
     f_args = [(s[0].detach(), s[1].detach(), s[2].detach(), s[3], bool(causal),
-               rate, words or (0, 0)) for s in sets]
+               rate, sa.kernel_words(words, s[0].shape, rate)) for s in sets]
     fwds = [sa._forward_tc(*a) for a in f_args]
     dq_args = [a[:4] + (o, s[4], m, l) + a[4:]
                for a, (o, m, l), s in zip(f_args, fwds, sets)]
@@ -2862,8 +3072,38 @@ def long_kernels_phase(da, streaming=True):
 
     gen = torch.Generator().manual_seed(SEED + 4)
     rows = streaming_rows(sa, gen) if streaming else {}
+    if streaming:
+        stream_split_check(sa, gen)
     rows.update(cross_rows(da, torch.Generator().manual_seed(SEED + 5)))
     return rows
+
+
+def stream_split_check(sa, gen):
+    """#5-#7 over the second half of LONG_CASES' padded case's heads (B =
+    2, so the offset moves the second batch row's heads too; the
+    tensor-core kernels in bf16), dropout on."""
+    dev, dtype, rate = "cuda", torch.bfloat16, SPLIT_RATE
+    name, b, h, lq, lk, dh, causal, padded = LONG_CASES[1]
+    q, k, v = (torch.randn(b, h, n, dh, generator=gen).to(
+        dev, dtype).requires_grad_() for n in (lq, lk, lk))
+    do = torch.randn(b, h, lq, dh, generator=gen).to(dev, dtype)
+    pad = attention_pad(gen, b, lk, padded).to(dev)
+
+    def launch(q, k, v, heads):
+        return sa.streaming_attention(q, k, v, pad, causal=causal,
+                                      dropout_rate=rate, rng=SEED_WORDS,
+                                      heads=heads)
+
+    def plain(q, k, v, heads):
+        return sa.streaming_attention_ref(q, k, v, pad, causal, rate,
+                                          SEED_WORDS, heads=heads)
+
+    check_head_split("long_kernels", "streaming_attention", name, launch,
+                     plain, q, k, v, do, (), (h // 2, h),
+                     {"streaming_attention_tc": 1,
+                      "streaming_attention_dq_tc": 1,
+                      "streaming_attention_dkdv_tc": 1}, sa.launches)
+    torch.cuda.empty_cache()
 
 
 def write_long_corpus(d, words):
@@ -3095,9 +3335,10 @@ class _PlainBackward(torch.autograd.Function):
             fwd = fa._forward_tc if tc else fa._forward
         else:
             fwd = sa._forward_tc if tc else sa._forward
-        o = fwd(*map(sa._aligned, (q, k, v)), pad, causal, rate, words)[0]
+        o = fwd(*map(sa._aligned, (q, k, v)), pad, causal, rate,
+                sa.kernel_words(words, q.shape, rate))[0]
         ctx.save_for_backward(q, k, v, pad)
-        ctx.args = (causal, rate, words if rate else None)
+        ctx.args = (causal, rate, words)
         ctx.fused = fused
         return o
 
@@ -3121,26 +3362,29 @@ def _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng, fused):
            if pad_mask is None else pad_mask.float()).contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    words = tuple(rng) if rate else (0, 0)
+    words = tuple(rng) if rate else None
     return _PlainBackward.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), pad, bool(causal), rate,
                                 words, fused)
 
 
 def plain_backward_stream(q, k, v, pad_mask=None, *, causal=False,
-                          dropout_rate=0.0, rng=None):
-    """streaming_attention's interface: the forward kernel, the plain
-    version's backward (the same dropout masks from the same words)."""
+                          dropout_rate=0.0, rng=None, heads=None):
+    """streaming_attention's interface (every head): the forward kernel,
+    the plain version's backward (the same dropout masks from the same
+    words)."""
+    assert heads is None
     return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
                            False)
 
 
 def plain_backward_fused(q, k, v, pad_mask=None, *, causal=False,
                          dropout_rate=0.0, rng=None, rpr_tables=None,
-                         max_relative_position=None):
-    """fused_attention's interface (no RPR): the forward kernel, the plain
-    version's backward (the same dropout masks from the same words)."""
-    assert rpr_tables is None
+                         max_relative_position=None, heads=None):
+    """fused_attention's interface (no RPR, every head): the forward
+    kernel, the plain version's backward (the same dropout masks from the
+    same words)."""
+    assert rpr_tables is None and heads is None
     return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
                            True)
 
@@ -4800,6 +5044,12 @@ def dp_train_run(d, out, extra):
                                  for k in ("calls", "bytes", "ms")},
         all_gather_per_step={k: reduce["all_gather"][k] / steps
                              for k in ("calls", "bytes", "ms")},
+        # tensor and expert parallelism's all-reduces (parallel/
+        # distributed.py copy_in and reduce_out) a step
+        model_reduce_per_step={k: reduce["model_reduce"][k] / steps
+                               for k in ("calls", "bytes", "ms")},
+        expert_reduce_per_step={k: reduce["expert_reduce"][k] / steps
+                                for k in ("calls", "bytes", "ms")},
         steps=summary["steps"], shapes=summary["shapes"],
         losses=summary["losses"], step_s=[b - a for a, b in
                                           zip(ends[:-1], ends[1:])],
@@ -4869,8 +5119,8 @@ def dp_reference_run(rank, world):
 def dp_worker(spec_path):
     """One rank of the two that share the card (chip_smoke.py --dp-worker
     SPEC): its own gloo group, then the runs of dp_train, dp_reference,
-    zero_train, zero_reference and moe_dp that SPEC's tasks name; writes
-    their results (torch.save)."""
+    zero_train, zero_reference, moe_dp, tp_train, tp_reference and
+    ep_train that SPEC's tasks name; writes their results (torch.save)."""
     import torch.distributed as tdist
 
     with open(spec_path) as r:
@@ -4895,6 +5145,14 @@ def dp_worker(spec_path):
         if "moe_dp" in spec["tasks"]:
             out["moe_dp"] = moe_dp_run(spec["d"], spec["rank"],
                                        spec["world"])
+        if "tp_train" in spec["tasks"]:
+            out["tp_train"] = dp_train_run(
+                spec["d"], os.path.join(spec["d"], "tp_gloo"),
+                spec["extra"] + ZERO_EXTRA + TP_EXTRA)
+        if "tp_reference" in spec["tasks"]:
+            out["tp_reference"] = tp_reference_run()
+        if "ep_train" in spec["tasks"]:
+            out["ep_train"] = ep_train_run(spec["d"])
     finally:
         tdist.destroy_process_group()
     torch.save(out, spec["result"])
@@ -4967,11 +5225,12 @@ def dp_numbers(runs, cfg):
 
 
 DP_PHASES = {"dp_train", "dp_reference", "zero_train", "zero_reference",
-             "moe_dp"}
+             "moe_dp", "tp_train", "tp_reference", "ep_train"}
 DP_TASKS = (("dp_train", "train"), ("dp_reference", "reference"),
             ("zero_train", "zero_train"), ("zero_reference",
                                            "zero_reference"),
-            ("moe_dp", "moe_dp"))
+            ("moe_dp", "moe_dp"), ("tp_train", "tp_train"),
+            ("tp_reference", "tp_reference"), ("ep_train", "ep_train"))
 
 
 def dp_train_phase(d, todo):
@@ -4980,7 +5239,7 @@ def dp_train_phase(d, todo):
     phases asked for (dp_reference, zero_train, zero_reference, moe_dp),
     one after another in the same two processes. Returns (the world of
     one's launches and each rank's, or None without dp_train; the ranks'
-    results)."""
+    results; the world of one's run or None)."""
     from zero_tpu_torch.config import load_config_file
 
     for side in ("src", "tgt"):
@@ -5004,7 +5263,7 @@ def dp_train_phase(d, todo):
         phase("dp_train", world=1, backend="nccl", steps=DP_STEPS, **numbers)
     ranks = dp_workers(d, [task for name, task in DP_TASKS if name in todo])
     if one is None:
-        return None, None, ranks
+        return None, None, ranks, None
     numbers = dp_numbers([r["train"] for r in ranks], cfg)
     if len(set(map(tuple, numbers["checksums"]))) != 1 \
             or len(set(numbers["bleu"])) != 1 or numbers["bleu"][0] is None:
@@ -5013,7 +5272,7 @@ def dp_train_phase(d, todo):
     phase("dp_train", world=DP_WORLD, backend="gloo", steps=DP_STEPS,
           note=DP_NOTE, **numbers)
     return (one["train_launches"],
-            [r["train"]["train_launches"] for r in ranks], ranks)
+            [r["train"]["train_launches"] for r in ranks], ranks, one)
 
 
 def dp_kernel_checks():
@@ -5427,6 +5686,195 @@ def moe_dp_phase(ranks):
         raise AssertionError("moe_dp: %s" % got)
 
 
+# tensor parallelism on the two gloo ranks: mesh data 1 x model 2, so both
+# ranks train every batch of the world of one; each rank writes its own
+# parts of the checkpoints (no whole-state gather through host memory)
+TP_EXTRA = ",mesh_model=2,sharded_checkpoint=true"
+# each step's loss against dp_train's world of one (bf16: the partial
+# products summed over the ranks round otherwise), relative: on an H100
+# the second step's differs by 2.2e-5, the same in every run; another
+# part's dropout masks would move it by far more
+TP_SAME = 2e-4
+# a rank's bytes of parameters, moments and EMA against the whole state's
+# at W_m = 2: every projection and the 32768-row embedding split
+TP_SHARE = 0.55
+
+
+def split_pass(cfg, feats):
+    """loss, grads and the parameters after one Adam step from SEED on the
+    batch ``feats``, which every process of a model or expert line holds
+    whole (data degree 1): each tensor as this process holds it ({name:
+    tensor}), and the layout (None in one process)."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.train_step import (global_batch, init_train_state,
+                                           make_train_step)
+
+    model = get_model(cfg.model_name)
+    state = init_train_state(model, cfg, torch.Generator().manual_seed(SEED),
+                             "cuda")
+    names = [n for n, _ in state.params.named_parameters()]
+    with global_batch(feats["source"].shape[0]):
+        loss = model.train_fn(state.params, feats, cfg,
+                              torch.Generator().manual_seed(SEED))["loss"]
+        grads = [g.contiguous() for g in torch.autograd.grad(
+            loss, list(state.params.parameters()))]
+    make_train_step(model, cfg)(state, {k: v[None] for k, v in feats.items()},
+                                1e-3, torch.Generator().manual_seed(SEED))
+    return (loss.item(), dict(zip(names, grads)),
+            {n: p.detach() for n, p in state.params.named_parameters()},
+            state.layout)
+
+
+def split_errors(got, one):
+    """A split run's loss, grads and updated parameters against the one
+    process's (split_pass), each whole tensor cut to the process's part:
+    the loss relative, the rest relative to their largest value."""
+    loss, grads, params, layout = got
+    one_loss, one_grads, one_params, _ = one
+
+    def err(mine, whole):
+        scale = max(float(t.abs().max()) for t in whole.values())
+        return max(float((t - layout.part(n, whole[n])).abs().max())
+                   for n, t in mine.items()) / scale
+
+    return dict(loss=loss, one_process_loss=one_loss,
+                loss_rel_err=abs(loss - one_loss) / abs(one_loss),
+                grad_err=err(grads, one_grads),
+                param_err=err(params, one_params),
+                split_leaves=len(layout.splits))
+
+
+def tp_reference_run():
+    """tp_reference on one of the two ranks: the small fp32 transformer
+    and transformer_rpr (dp_reference's, dropout 0.1: the CUDA-core #1-#4
+    and #11/#12 over each rank's heads and hidden slice, at the whole
+    heads' and width's dropout index) at mesh_model=2 on the whole
+    _small_batch, against one process (the group out of reach: no
+    collective). Returns {model: errors and launches}."""
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel import distributed as dist
+
+    feats = {k: v.cuda() for k, v in _small_batch().items()}
+    out = {}
+    for name in ("transformer", "transformer_rpr"):
+        cfg = _small_model(0.1, name)
+        cfg.epsilon = 1e-6
+        cfg.device = "cuda"
+        cfg.mesh_model = 2
+        fa.launches.clear()
+        ff.launches.clear()
+        got = split_pass(cfg, feats)
+        launches = collect((fa.launches, ff.launches))
+        cfg.mesh_model = 1
+        with mock.patch.object(dist, "active", lambda: False):
+            one = split_pass(cfg, feats)
+        out[name] = dict(split_errors(got, one), launches=launches)
+    return out
+
+
+def tp_reference_phase(ranks):
+    """tp_reference: the two ranks against one process (loss 1e-6
+    relative, grads and parameters 1e-5 of their max); #1/#2 and #11/#12
+    (transformer) and #3/#4 (transformer_rpr) launched on both ranks.
+    Returns each rank's launches over both models."""
+    want = {"transformer": ("fused_attention", "fused_attention_backward",
+                            "fused_ffn", "fused_ffn_backward"),
+            "transformer_rpr": ("fused_attention_rpr",
+                                "fused_attention_rpr_backward")}
+    report, per_rank = {}, []
+    for rank, got in enumerate(r["tp_reference"] for r in ranks):
+        total = collections.Counter()
+        for name, errs in got.items():
+            report["%s rank %d" % (name, rank)] = errs
+            total.update(errs["launches"])
+            ran = all(errs["launches"].get(k, 0) for k in want[name])
+            if not (errs["loss_rel_err"] <= 1e-6 and errs["grad_err"] <= 1e-5
+                    and errs["param_err"] <= 1e-5 and ran
+                    and errs["split_leaves"]):
+                raise AssertionError("tp_reference %s rank %d: %s"
+                                     % (name, rank, errs))
+        per_rank.append(dict(total))
+    phase("tp_reference", world=DP_WORLD, mesh="data 1 x model 2", **report)
+    return per_rank
+
+
+def ep_train_run(d):
+    """ep_train on one of the two ranks: moe_train's model (moe_config:
+    fp32, 8 experts, top-1, einsum, dropout 0.1 in the experts too) at
+    mesh_expert=2, each rank running its 4 experts, on the whole
+    _full_width_batch (its last row all pad), against one process.
+    Returns the errors, the expert all-reduces and this rank's bytes of
+    parameters against the whole model's."""
+    from zero_tpu_torch.parallel import distributed as dist
+
+    cfg = moe_config(d)
+    cfg.mesh_expert = 2
+    feats = _full_width_batch()
+    for v in feats.values():
+        v[-1] = 0
+    dist.take_stats()
+    got = split_pass(cfg, feats)
+    reduces = dist.take_stats()["expert_reduce"]
+    held = sum(p.numel() for p in got[2].values())
+    cfg.mesh_expert = 1
+    with mock.patch.object(dist, "active", lambda: False):
+        one = split_pass(cfg, feats)
+    whole = sum(p.numel() for p in one[2].values())
+    return dict(split_errors(got, one), expert_reduce=reduces,
+                param_share=held / whole)
+
+
+def ep_train_phase(ranks):
+    """ep_train: the two expert ranks against one process, dp_reference's
+    tolerances."""
+    got = [r["ep_train"] for r in ranks]
+    phase("ep_train", world=DP_WORLD, mesh="data 1 x expert 2",
+          ranks=got)
+    for rank, errs in enumerate(got):
+        if not (errs["loss_rel_err"] <= 1e-6 and errs["grad_err"] <= 1e-5
+                and errs["param_err"] <= 1e-5 and errs["split_leaves"]
+                and errs["expert_reduce"]["calls"] > 0):
+            raise AssertionError("ep_train rank %d: %s" % (rank, errs))
+
+
+def tp_train_phase(ranks, one, cfg):
+    """tp_train: the base config (BASE_CUT, both kernel flags, dropout
+    0.1, update_cycle 4, the EMA on) at mesh_model=2 on the two gloo
+    ranks through --mode train with the 8-sentence dev eval: dp_numbers'
+    checks (steps, #1/#2/#11/#12 launches a rank as dp_train's, equal
+    checksums and BLEU), each step's loss within TP_SAME of dp_train's
+    world of one (the same batches and seeds), each rank's bytes at most
+    TP_SHARE of the whole state's, the model line's all-reduces a step.
+    Returns each rank's launches."""
+    per = [r["tp_train"] for r in ranks]
+    numbers = dp_numbers(per, cfg)
+    share = {k: max(r["per_rank_bytes"][k] for r in per)
+             / per[0]["whole_bytes"][k] for k in ("params", "moments", "ema")}
+    diff = max(abs(a - b) / abs(b) for r in per
+               for a, b in zip(r["losses"], one["losses"]))
+    phase("tp_train", world=DP_WORLD, mesh="data 1 x model 2",
+          backend="gloo", steps=DP_STEPS, note=DP_NOTE,
+          per_rank_bytes=[r["per_rank_bytes"] for r in per],
+          whole_bytes=per[0]["whole_bytes"], share_of_whole=share,
+          model_reduce_per_step=[r["model_reduce_per_step"] for r in per],
+          allreduce_calls=[r["allreduce_calls_per_step"] for r in per],
+          world_of_one_losses=one["losses"], rel_diff_from_world_of_one=diff,
+          **numbers)
+    if not (len(set(map(tuple, numbers["checksums"]))) == 1
+            and len(set(numbers["bleu"])) == 1
+            and numbers["bleu"][0] is not None
+            and all(v <= TP_SHARE for v in share.values())
+            and diff <= TP_SAME
+            and all(r["model_reduce_per_step"]["calls"] > 0 for r in per)):
+        raise AssertionError(
+            "tp_train: checksums %s, BLEU %s, shares %s, loss diff %g, "
+            "model reduces %s" % (numbers["checksums"], numbers["bleu"],
+                                  share, diff, [r["model_reduce_per_step"]
+                                                for r in per]))
+    return [r["train_launches"] for r in per]
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -5437,7 +5885,7 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "slice13_reference", "ib_train", "speech_train",
           "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
           "rnn_reference", "host", "dp_train", "dp_reference", "zero_train",
-          "zero_reference", "moe_dp")
+          "zero_reference", "moe_dp", "tp_train", "tp_reference", "ep_train")
 
 
 def main(argv=None):
@@ -5470,6 +5918,9 @@ def main(argv=None):
                      "checkpoint: give it too")
     if "zero_train" in todo and "dp_train" not in todo:
         parser.error("zero_train holds its stages to dp_train's two ranks: "
+                     "give it too")
+    if "tp_train" in todo and "dp_train" not in todo:
+        parser.error("tp_train holds its losses to dp_train's world of one: "
                      "give it too")
     if todo & {"deepnmt_train", "host"} and "rnn_train" not in todo:
         parser.error("deepnmt_train's ensemble and host's metrics read "
@@ -5575,15 +6026,16 @@ def main(argv=None):
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
                             ["launches"])
         if todo & DP_PHASES:
-            dp_launches, dp_rank_launches, ranks = dp_train_phase(d, todo)
+            dp_launches, dp_rank_launches, ranks, dp_one = dp_train_phase(
+                d, todo)
             if "dp_reference" in todo:
                 dp_reference_phase([r["reference"] for r in ranks])
+            zero_cfg = load_config_file(CONFIG)
+            zero_cfg.update(overrides(BASE_CUT))
             if "zero_train" in todo:
                 from zero_tpu_torch.ops.kernels import fused_attention as fa
                 from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
-                zero_cfg = load_config_file(CONFIG)
-                zero_cfg.update(overrides(BASE_CUT))
                 zero_launches = zero_train_phase(
                     d, ranks, [r for r in ranks if "train" in r], zero_cfg,
                     (fa.launches, ff.launches, da.launches))
@@ -5591,6 +6043,12 @@ def main(argv=None):
                 zero_reference_phase(ranks)
             if "moe_dp" in todo:
                 moe_dp_phase(ranks)
+            if "tp_train" in todo:
+                tp_launches = tp_train_phase(ranks, dp_one, zero_cfg)
+            if "tp_reference" in todo:
+                tp_reference_launches = tp_reference_phase(ranks)
+            if "ep_train" in todo:
+                ep_train_phase(ranks)
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches, BASE_CUT,
@@ -5787,6 +6245,12 @@ def main(argv=None):
         row["zero_train_rank_launches"] = {
             "stage%d" % stage: [r[kernel] for r in per]
             for stage, per in zero_launches.items()}
+        # tensor parallelism at mesh_model=2 on the two gloo ranks, each
+        # over its heads and hidden slice (tp_train), and the CUDA-core
+        # route of the small fp32 models (tp_reference)
+        row["tp_train_rank_launches"] = [r[kernel] for r in tp_launches]
+        row["tp_reference_rank_launches"] = [
+            r.get(kernel, 0) for r in tp_reference_launches]
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)
@@ -5811,6 +6275,10 @@ def main(argv=None):
             composite_ms=r0["composite_ms"])
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
+        # transformer_rpr at mesh_model=2 on the two gloo ranks, CUDA-core
+        # route (tp_reference)
+        row["tp_reference_rank_launches"] = [
+            r.get(kernel, 0) for r in tp_reference_launches]
         kernels.append(row)
     # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
     # mask, an all-pad row), as long_train runs them; SDPA with dropout off.

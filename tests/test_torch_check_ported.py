@@ -1,6 +1,10 @@
 """zero_tpu_torch refuses what it has not ported instead of ignoring it:
-the mesh axes other than 'data' raise in ``--mode train`` (the defaults,
-ZeRO, the sharded checkpoint and MoE over processes do not),
+the 'seq' and 'pipe' mesh axes raise in ``--mode train``, and so do the
+'model' axis for a model outside TP_MODELS and the 'expert' axis for one
+other than transformer_moe, each naming the model; a mesh that one
+process cannot hold raises make_mesh's ValueError (the defaults, ZeRO,
+the sharded checkpoint, MoE over processes and tensor and expert
+parallelism over enough processes do not),
 and ``--mode test`` with a mesh decodes on the one device with the JAX
 package's warning. And ``decode_split_sweep.py --package DIR`` imports
 DIR's zero_tpu_torch in a fresh process."""
@@ -25,10 +29,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("option,error,match", [
-    ("mesh_model=2", NotImplementedError, "mesh_model=2.*later slice"),
+    # one process holds one device: a model or expert degree of two
+    # needs two processes
+    ("mesh_model=2", ValueError, "make_mesh needs.*\\*2\\*1\\*1\\*1 ="),
     ("mesh_seq=2", NotImplementedError, "mesh_seq=2.*later slice"),
     ("mesh_pipe=2", NotImplementedError, "mesh_pipe=2.*later slice"),
-    ("mesh_expert=2", NotImplementedError, "mesh_expert=2.*later slice"),
+    ("mesh_expert=2", ValueError, "make_mesh needs.*\\*1\\*1\\*1\\*2 ="),
     # one device a process: the 'data' degree is the number of processes
     ("mesh_data=2", ValueError, "make_mesh needs.*mesh_data")])
 def test_parallel_options_raise_in_training(option, error, match):
@@ -37,6 +43,65 @@ def test_parallel_options_raise_in_training(option, error, match):
     the sharded checkpoint and transformer_moe."""
     with pytest.raises(error, match=match):
         run.main(["--mode", "train", "--parameters", "device=cpu," + option])
+
+
+LATER_TP = ["transformer_aan", "transformer_fuse",
+            "transformer_multilingual", "transformer_clsr",
+            "transformer_ibdecoder", "transformer_afs", "rnnsearch",
+            "deepnmt", "rnnsearch_deepatt"]
+
+
+@pytest.mark.parametrize("name", LATER_TP)
+def test_mesh_model_raises_for_a_model_of_a_later_slice(name):
+    """Two processes at mesh_model=2: the models outside TP_MODELS raise,
+    naming themselves and the later slice."""
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_model=2,model_name=" + name)
+    with pytest.raises(NotImplementedError,
+                       match="mesh_model=2 for %s.*later slice" % name):
+        check_ported(cfg, world=2)
+
+
+@pytest.mark.parametrize("option", [
+    "model_name=transformer,mesh_model=2",
+    "model_name=transformer_rpr,mesh_model=2,zero_stage=3",
+    "model_name=transformer_moe,mesh_model=2",
+    "model_name=transformer_moe,mesh_expert=2",
+    "model_name=transformer,mesh_model=2,mesh_data=2,zero_stage=1"])
+def test_tensor_and_expert_parallelism_run_in_training(option):
+    cfg = default_config()
+    cfg.parse("device=cpu," + option)
+    world = 4 if "mesh_data=2" in option else 2
+    check_ported(cfg, world=world)
+
+
+def test_expert_parallelism_raises_for_other_models_and_odd_heads():
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_expert=2,model_name=transformer")
+    with pytest.raises(NotImplementedError,
+                       match="mesh_expert=2 for transformer.*later slice"):
+        check_ported(cfg, world=2)
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_model=3,num_heads=8,model_name=transformer")
+    with pytest.raises(ValueError, match="num_heads 8.*mesh_model 3"):
+        check_ported(cfg, world=3)
+
+
+def test_expert_parallelism_under_scan_layers_raises():
+    """The expert rule would split a stacked expert leaf along its layer
+    dim: that combination comes with a later slice; tensor parallelism
+    under scan_layers runs."""
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_expert=2,model_name=transformer_moe,"
+              "scan_layers=true")
+    with pytest.raises(NotImplementedError,
+                       match="mesh_expert=2 with scan_layers for "
+                             "transformer_moe.*later slice"):
+        check_ported(cfg, world=2)
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_model=2,model_name=transformer_moe,"
+              "scan_layers=true,use_remat=true")
+    check_ported(cfg, world=2)
 
 
 @pytest.mark.parametrize("option", [

@@ -39,10 +39,10 @@
 //     dropout on too. Kernel 1 writes delta and dq; kernel 2 gives each
 //     block its own keys' dk/dv, reducing over every query row inside the
 //     block: no atomics, no split partial sums, deterministic.
-//   * Dropout: element (row r = row_base + bh * Lq + i, key j) keeps iff
-//     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (zt::row_seed,
-//     zt::keep_key), the 32-bit test of _dropout_keep, with scale
-//     1/(1 - rate): the streaming kernels' rule, a per-row seed word hashed
+//   * Dropout: element (row r = row_base + zt::global_row(bh, i), key j)
+//     keeps iff hash_bits(j, hash_bits(r, s0, s1), s1) < threshold
+//     (zt::row_seed, zt::keep_key), the 32-bit test of _dropout_keep,
+//     with scale 1/(1 - rate): the streaming kernels' rule, a per-row seed word hashed
 //     once per row, so no B*H*Lq*Lk index wraps at 2^32. The bit depends on
 //     the element only, so the forward and backward tile differently and
 //     still agree, and the plain PyTorch version reproduces the mask.
@@ -501,7 +501,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    int causal, float scale, int dropout,
                    unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
-                   unsigned int row_base) {
+                   unsigned int row_base, unsigned int heads_total,
+                   unsigned int head_offset) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -519,6 +520,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.s0 = s0;
   p.s1 = s1;
   p.row_base = row_base;
+  p.heads_total = heads_total;
+  p.head_offset = head_offset;
   return p;
 }
 
@@ -529,9 +532,12 @@ extern "C" int zt_attention_forward(
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1, row_base);
+                         dropout, threshold, drop_scale, s0, s1, row_base,
+                         heads_total,
+                         head_offset);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -544,9 +550,12 @@ extern "C" int zt_attention_backward(
     void* delta, void* dq, void* dk, void* dv, int dtype, int batch,
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
-    unsigned int s1, unsigned int row_base, void* stream) {
+    unsigned int s1, unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1, row_base);
+                         dropout, threshold, drop_scale, s0, s1, row_base,
+                         heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -565,9 +574,12 @@ extern "C" int zt_attention_forward_tc(
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1, row_base);
+                         dropout, threshold, drop_scale, s0, s1, row_base,
+                         heads_total,
+                         head_offset);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -583,9 +595,12 @@ extern "C" int zt_attention_backward_tc(
     void* delta, void* dq, void* dk, void* dv, int dtype, int batch,
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
-    unsigned int s1, unsigned int row_base, void* stream) {
+    unsigned int s1, unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
-                         dropout, threshold, drop_scale, s0, s1, row_base);
+                         dropout, threshold, drop_scale, s0, s1, row_base,
+                         heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;

@@ -61,10 +61,10 @@
 //   * An all-pad row has uniform weights, so its bucket sums and Tv term are
 //     not zero and dTv gets its share; ds is zero there, so dq, dk and dTk
 //     get nothing from it.
-//   * Dropout: element (row r = row_base + bh * Lq + i, key j) keeps iff
-//     hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (a per-row seed
-//     word hashed once per row, zt::row_seed / zt::keep_key), scale
-//     1/(1 - rate), as in kernels #1/#2 and #5-#7; bucket sums are taken
+//   * Dropout: element (row r = row_base + zt::global_row(bh, i), key j)
+//     keeps iff hash_bits(j, hash_bits(r, s0, s1), s1) < threshold (a
+//     per-row seed word hashed once per row, zt::row_seed /
+//     zt::keep_key), scale 1/(1 - rate), as in kernels #1/#2 and #5-#7; bucket sums are taken
 //     over the dropped weights.
 //
 // Bound. At transformer-base shapes (L <= 256, Dh = 64, m = 16) the RPR
@@ -118,13 +118,18 @@ struct Params {
   int heads, lq, lk, dh, rel, buckets, causal, dropout;
   float scale, drop_scale;
   uint32_t threshold, s0, s1, row_base;
+  // the whole head count and this launch's first head (tensor
+  // parallelism: a process's heads; heads and 0 otherwise)
+  uint32_t heads_total, head_offset;
 };
 
 // The seed word of query row i of head bh (0 when dropout is off).
 __device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
   if (!p.dropout) return 0u;
-  return zt::row_seed(
-      p.row_base + (uint32_t)bh * (uint32_t)p.lq + (uint32_t)i, p.s0, p.s1);
+  return zt::row_seed(p.row_base + zt::global_row(bh, i, p.heads,
+                                                  p.heads_total,
+                                                  p.head_offset, p.lq),
+                      p.s0, p.s1);
 }
 
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed,
@@ -708,7 +713,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    int lq, int lk, int dh, int rel, int causal, float scale,
                    int dropout, unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
-                   unsigned int row_base) {
+                   unsigned int row_base, unsigned int heads_total,
+                   unsigned int head_offset) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -730,6 +736,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.s0 = s0;
   p.s1 = s1;
   p.row_base = row_base;
+  p.heads_total = heads_total;
+  p.head_offset = head_offset;
   return p;
 }
 
@@ -741,7 +749,8 @@ zt::AttnParams tc_params(const void* q, const void* k, const void* v,
                          int lk, int dh, int rel, int causal, float scale,
                          int dropout, unsigned int threshold,
                          float drop_scale, unsigned int s0, unsigned int s1,
-                   unsigned int row_base) {
+                   unsigned int row_base, unsigned int heads_total,
+                   unsigned int head_offset) {
   zt::AttnParams p = {};
   p.q = q;
   p.k = k;
@@ -761,6 +770,8 @@ zt::AttnParams tc_params(const void* q, const void* k, const void* v,
   p.s0 = s0;
   p.s1 = s1;
   p.row_base = row_base;
+  p.heads_total = heads_total;
+  p.head_offset = head_offset;
   p.tk = tk;
   p.tv = tv;
   p.rel = rel;
@@ -779,10 +790,12 @@ extern "C" int zt_attention_rpr_forward(
     int batch, int heads, int lq, int lk, int dh, int rel, int causal,
     float scale, int dropout, unsigned int threshold, float drop_scale,
     unsigned int s0, unsigned int s1, unsigned int row_base,
+    unsigned int heads_total, unsigned int head_offset,
     void* stream) {
   Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -797,10 +810,12 @@ extern "C" int zt_attention_rpr_backward(
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
     int rel, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -825,11 +840,13 @@ extern "C" int zt_attention_rpr_forward_tc(
     int batch, int heads, int lq, int lk, int dh, int rel, int causal,
     float scale, int dropout, unsigned int threshold, float drop_scale,
     unsigned int s0, unsigned int s1, unsigned int row_base,
+    unsigned int heads_total, unsigned int head_offset,
     void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
                                rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1, row_base);
+                               drop_scale, s0, s1, row_base, heads_total,
+                         head_offset);
   p.out = o;
   return zt::tc::run_forward<true, zt::tc::Rpr>(p, dtype, batch * heads,
                                                  stream);
@@ -847,12 +864,14 @@ extern "C" int zt_attention_rpr_backward_tc(
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
     int rel, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   const int bh = batch * heads, nb = 2 * rel + 1;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
                                rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1, row_base);
+                               drop_scale, s0, s1, row_base, heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.out = dq;

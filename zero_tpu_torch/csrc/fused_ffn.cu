@@ -73,11 +73,13 @@
 // unrounded dh, dx and dW1 take dh rounded.
 //
 // Dropout: keep bit of hidden element (row, col) is
-// (hash_bits(index_base + row * filter + col, s0, s1) & 255) < t, scale
+// (hash_bits(index_base + row * F + offset + col, s0, s1) & 255) < t, scale
 // 256/t: the same mask as zero_tpu/ops/common.py:dropout draws over the
 // [N, filter] hidden tensor from the same two key words (index_base: the
 // elements of the global batch before this launch's under data
-// parallelism, 0 in one process). It depends on the element only, so
+// parallelism, 0 in one process; F the whole width and offset the first
+// column of this launch's slice under tensor parallelism, filter and 0
+// otherwise). It depends on the element only, so
 // forward and backward need no shared tiling; the tensor-core epilogues
 // compute it where each accumulator fragment's (row, col) is known.
 //
@@ -116,6 +118,9 @@ struct Params {
   float inv;
   uint32_t s0, s1;
   uint32_t index_base;  // the global index of hidden element 0
+  // the whole hidden width and this launch's first column (tensor
+  // parallelism: a process's slice; f and 0 otherwise)
+  uint32_t f_total, f_offset;
 };
 
 template <typename T>
@@ -129,14 +134,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
   }
 }
 
-// keep bit of hidden element `index` = row * f + col (dropout on)
+// keep bit of hidden element `index` = row * f_total + f_offset + col
+// (dropout on)
 __device__ __forceinline__ bool keep_index(const Params& p, uint32_t index) {
   return (zt::hash_bits(p.index_base + index, p.s0, p.s1) & 255u) <
          (uint32_t)p.t;
 }
 
 __device__ __forceinline__ bool ffn_keep(const Params& p, int row, int col) {
-  return keep_index(p, (uint32_t)row * (uint32_t)p.f + (uint32_t)col);
+  return keep_index(p,
+                    (uint32_t)row * p.f_total + p.f_offset + (uint32_t)col);
 }
 
 // ---------------------------------------------------------------------------
@@ -637,7 +644,8 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_hidden(Params p) {
       put2(smem, r, c,
            dropped_pair(p, pre_pair(p, acc[4 * j + 2 * h],
                                     acc[4 * j + 2 * h + 1], col),
-                        keep_pair(p, (uint32_t)(m0 + r) * p.f + col)));
+                        keep_pair(p, (uint32_t)(m0 + r) * p.f_total
+                                              + p.f_offset + col)));
     }
   __syncthreads();
   store_tile((bf16*)p.hd, p.f, p.n, p.f, m0, n0, smem);
@@ -705,7 +713,8 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_bwd_hidden(Params p) {
     for (int h = 0; h < 2; ++h) {
       const int r = frag_row(h), c = frag_col(j);
       const float2 pv = __bfloat1622float2(get2(pre, r, c));
-      const bool2 keep = keep_pair(p, (uint32_t)(m0 + r) * p.f + n0 + c);
+      const bool2 keep = keep_pair(p, (uint32_t)(m0 + r) * p.f_total
+                                          + p.f_offset + n0 + c);
       const bool valid = m0 + r < p.n;
       float d[2];
 #pragma unroll
@@ -920,7 +929,8 @@ cudaError_t backward_f32(const Params& p, float* db1, float* db2,
 Params make_params(const void* x, const void* w1, const void* b1,
                    const void* w2, int n, int din, int f, int dout,
                    int dropout, int t, float inv, unsigned int s0,
-                   unsigned int s1, unsigned int index_base) {
+                   unsigned int s1, unsigned int index_base,
+                   unsigned int f_total, unsigned int f_offset) {
   Params p = {};
   p.x = x;
   p.w1 = w1;
@@ -936,6 +946,8 @@ Params make_params(const void* x, const void* w1, const void* b1,
   p.s0 = s0;
   p.s1 = s1;
   p.index_base = index_base;
+  p.f_total = f_total;
+  p.f_offset = f_offset;
   return p;
 }
 
@@ -947,9 +959,10 @@ extern "C" int zt_ffn_forward(const void* x, const void* w1, const void* b1,
                               void* hd, int dtype, int n, int din, int f,
                               int dout, int dropout, int t, float inv,
                               unsigned int s0, unsigned int s1,
-                              unsigned int index_base, void* stream) {
+                              unsigned int index_base, unsigned int f_total,
+                              unsigned int f_offset, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1, index_base);
+                         s1, index_base, f_total, f_offset);
   p.b2 = b2;
   p.y = y;
   p.hd = hd;
@@ -966,9 +979,10 @@ extern "C" int zt_ffn_backward(
     const void* dy, void* dx, void* hd, void* dh, void* db1_part, void* dw1,
     void* db1, void* dw2, void* db2, int dtype, int n, int din, int f,
     int dout, int dropout, int t, float inv, unsigned int s0,
-    unsigned int s1, unsigned int index_base, void* stream) {
+    unsigned int s1, unsigned int index_base, unsigned int f_total,
+    unsigned int f_offset, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1, index_base);
+                         s1, index_base, f_total, f_offset);
   p.dy = dy;
   p.y = dx;
   p.hd = hd;

@@ -37,11 +37,12 @@
 //     TPU kernel stores lse = m + log l, which rounds to -1e30 on such a row
 //     and gives weight 1 instead of 1/Lk; here such a row gets zero dq and
 //     dk and a 1/Lk share of dO in dv, as softmax does.
-//   * Dropout bits are 64-bit safe: element (row r = row_base + bh*Lq + i,
-//     key j) keeps iff hash_bits(j, hash_bits(r, s0, s1), s1) < threshold
-//     (zt::row_seed, zt::keep_key; kernels #1-#4 draw the same). A per-row
-//     seed word, hashed once per row, then the key index: no B*H*Lq*Lk
-//     linear index that wraps at 2^32 (it does at B=2, H=8, L=16384). The
+//   * Dropout bits are 64-bit safe: element (row r = row_base +
+//     zt::global_row(bh, i), key j) keeps iff hash_bits(j, hash_bits(r,
+//     s0, s1), s1) < threshold (zt::row_seed, zt::keep_key; kernels
+//     #1-#4 draw the same). A per-row seed word, hashed once per row,
+//     then the key index: no B*H*Lq*Lk linear index that wraps at 2^32
+//     (it does at B=2, H=8, L=16384). The
 //     bit depends on the element only, so forward and backward agree, and
 //     the plain PyTorch version (streaming_attention_ref) reproduces it.
 //   * No atomics and no split over keys or queries: every sum runs in a
@@ -518,7 +519,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    int lq, int lk, int dh, int causal, float scale,
                    int dropout, unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
-                   unsigned int row_base) {
+                   unsigned int row_base, unsigned int heads_total,
+                   unsigned int head_offset) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -538,6 +540,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.s0 = s0;
   p.s1 = s1;
   p.row_base = row_base;
+  p.heads_total = heads_total;
+  p.head_offset = head_offset;
   return p;
 }
 
@@ -549,10 +553,12 @@ extern "C" int zt_streaming_forward(
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.out = o;
   return run(p, dtype, batch * heads, kForward, stream);
 }
@@ -563,10 +569,12 @@ extern "C" int zt_streaming_backward_dq(
     void* delta, void* dq, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -580,10 +588,12 @@ extern "C" int zt_streaming_backward_dkdv(
     void* dk, void* dv, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;
@@ -598,10 +608,12 @@ extern "C" int zt_streaming_forward_tc(
     void* m, void* l, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.out = o;
   return zt::tc::run_forward<false>(p, dtype, batch * heads, stream);
 }
@@ -612,10 +624,12 @@ extern "C" int zt_streaming_backward_dq_tc(
     void* delta, void* dq, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -630,10 +644,12 @@ extern "C" int zt_streaming_backward_dkdv_tc(
     void* dk, void* dv, int dtype, int batch, int heads, int lq, int lk,
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
-    unsigned int row_base, void* stream) {
+    unsigned int row_base, unsigned int heads_total,
+    unsigned int head_offset, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
-                         row_base);
+                         row_base, heads_total,
+                         head_offset);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;

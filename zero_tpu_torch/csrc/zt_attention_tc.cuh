@@ -115,6 +115,9 @@ struct AttnParams {
   // the global row of this launch's row 0 (data parallelism: the rows
   // of the processes before this one)
   uint32_t row_base;
+  // the whole head count and this launch's first head (tensor
+  // parallelism: a process's heads; heads and 0 otherwise)
+  uint32_t heads_total, head_offset;
   // Shaw RPR (the Rpr policy; fused_attention_rpr.cu): tables tk, tv [R,
   // Dh] bf16, R = 2 rel + 1; for dq_tc and dkdv_tc, fp32 scratch qd [B*H,
   // Lq, R] of pairs (q.Tk^T, do.Tv^T) and fp32 table-gradient partials
@@ -131,7 +134,8 @@ struct AttnParams {
 __device__ __forceinline__ uint32_t row_seed(const AttnParams& p, int bh,
                                              int i) {
   if (!p.dropout) return 0u;
-  return row_seed(p.row_base + (uint32_t)bh * (uint32_t)p.lq + (uint32_t)i,
+  return row_seed(p.row_base + global_row(bh, i, p.heads, p.heads_total,
+                                          p.head_offset, p.lq),
                   p.s0, p.s1);
 }
 

@@ -61,14 +61,27 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t index, uint32_t s0,
 }
 
 // Attention dropout, shared by every attention kernel (#1-#7): element (row
-// r = row_base + bh * Lq + i, key j) keeps iff hash_bits(j, row_seed(r), s1)
-// < threshold, row_base the rows (b * H * Lq) of the global batch before
-// this launch's (data parallelism; 0 in one process). A per-row seed word, then the key index: no B*H*Lq*Lk linear
-// index that wraps at 2^32. A kernel hashes each row's seed once and keeps
+// r = row_base + global_row(bh, i), key j) keeps iff hash_bits(j,
+// row_seed(r), s1) < threshold, row_base the rows (b * H * Lq) of the global
+// batch before this launch's (data parallelism; 0 in one process). A
+// per-row seed word, then the key index: no B*H*Lq*Lk linear index that
+// wraps at 2^32. A kernel hashes each row's seed once and keeps
 // it beside the row.
 __device__ __forceinline__ uint32_t row_seed(uint32_t row, uint32_t s0,
                                              uint32_t s1) {
   return hash_bits(row, s0, s1);
+}
+
+// The row of query i of launch head bh = b * heads + h in the global [B, H,
+// Lq] rows: (b * H + head_offset + h) * Lq + i, the launch holding heads
+// [head_offset, head_offset + heads) of H (tensor parallelism); bh * Lq + i
+// when it holds them all.
+__device__ __forceinline__ uint32_t global_row(int bh, int i, int heads,
+                                               uint32_t heads_total,
+                                               uint32_t head_offset, int lq) {
+  const uint32_t b = (uint32_t)bh / (uint32_t)heads;
+  const uint32_t h = (uint32_t)bh - b * (uint32_t)heads;
+  return (b * heads_total + head_offset + h) * (uint32_t)lq + (uint32_t)i;
 }
 
 __device__ __forceinline__ bool keep_key(uint32_t seed, int j, uint32_t s1,

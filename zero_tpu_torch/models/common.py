@@ -32,9 +32,13 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
     layer are drawn before the stack runs, as the JAX package's scan
     draws them
 
-Data parallelism across processes runs (parallel/distributed.py); the
-other parallelism options raise in training (check_ported), the pipeline
-over a stack (``mesh_pipe``) among them.
+Data parallelism across processes runs (parallel/distributed.py), and
+for TP_MODELS tensor parallelism (``mesh_model``: vocab-parallel
+embeddings and cross entropy here, split attention and FFN in ops/;
+parallel/tensor.py) and for transformer_moe expert parallelism
+(``mesh_expert``, ops/moe.py); the other parallelism options raise in
+training (check_ported), the pipeline over a stack (``mesh_pipe``) among
+them.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from zero_tpu_torch.parallel import distributed as dist
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import tensor as tp
 
 
 class LayerHooks(NamedTuple):
@@ -137,17 +142,18 @@ def stack_layers(layers) -> torch.nn.Module:
     return stacked
 
 
-def _sliced(stack, l, fn, *args):
+def _sliced(stack, tensors, l, fn, *args):
     """fn(layer l, *args): the stacked module run on the l-th slice of
-    each of its tensors (slicing inside autograd, so the layer's grads
-    land in row l of the stacked grads)."""
-    tensors = {n: t[l] for n, t in stack.named_parameters()}
-    return torch.func.functional_call(stack, tensors, (fn,) + args)
+    each of its ``tensors`` (tp.stack_tensors; slicing inside autograd,
+    so the layer's grads land in row l of the stacked grads)."""
+    return torch.func.functional_call(
+        stack, {n: t[l] for n, t in tensors.items()}, (fn,) + args)
 
 
 def stack_depth(stack) -> int:
-    """The number of layers of a stacked module."""
-    return next(iter(stack.parameters())).shape[0]
+    """The number of layers of a stacked module (the longest leading dim:
+    tensor parallelism may hold a leaf's part of the layers)."""
+    return max(t.shape[0] for t in stack.parameters())
 
 
 def layer_calls(layers) -> list:
@@ -155,7 +161,8 @@ def layer_calls(layers) -> list:
     list of layer modules or a stacked module (scan_layers)."""
     if isinstance(layers, torch.nn.ModuleList):
         return [functools.partial(_direct, p) for p in layers]
-    return [functools.partial(_sliced, layers, l)
+    tensors = tp.stack_tensors(layers)
+    return [functools.partial(_sliced, layers, tensors, l)
             for l in range(stack_depth(layers))]
 
 
@@ -202,20 +209,33 @@ def init_embeddings(gen, cfg, zero_softmax: bool = False) -> dict:
 
 
 def emb_tables(params: Seq2Seq, cfg):
-    """Resolve (src, tgt, softmax) tables under the sharing flags."""
+    """Resolve (src, tgt, softmax) tables under the sharing flags; a table
+    split over the vocabulary (tensor parallelism) as its
+    parallel/tensor.py:VocabPart."""
     if cfg.shared_source_target_embedding:
-        e = params.embedding
+        e = tp.table(params, "embedding", params.embedding)
         return e, e, e
-    src = params.src_embedding
-    tgt = params.tgt_embedding
+    src = tp.table(params, "src_embedding", params.src_embedding)
+    tgt = tp.table(params, "tgt_embedding", params.tgt_embedding)
     soft = (tgt if cfg.shared_target_softmax_embedding
-            else params.softmax_embedding)
+            else tp.table(params, "softmax_embedding",
+                          params.softmax_embedding))
     return src, tgt, soft
 
 
 def embed_scaled(table, ids, bias, cfg, dtype):
-    """gather(emb) * sqrt(hidden) + bias."""
-    x = torch.nn.functional.embedding(ids.long(), table).to(dtype)
+    """gather(emb) * sqrt(hidden) + bias. A VocabPart looks up the ids in
+    its rows, zero elsewhere, summed over its line."""
+    if isinstance(table, tp.VocabPart):
+        local = ids.long() - table.offset
+        inside = (local >= 0) & (local < table.table.shape[0])
+        x = torch.nn.functional.embedding(
+            torch.where(inside, local, torch.zeros_like(local)),
+            table.table).to(dtype)
+        x = dist.reduce_out(torch.where(inside[..., None], x,
+                                        torch.zeros_like(x)), table.axis)
+    else:
+        x = torch.nn.functional.embedding(ids.long(), table).to(dtype)
     x = x * (cfg.hidden_size ** 0.5)
     return x + bias.to(dtype)
 
@@ -310,9 +330,9 @@ def output_logits(feature, softmax_table):
     return logits.float()
 
 
-def _chunk_ce(xc, lc, table, factor):
+def _chunk_ce(xc, lc, table, factor, vocab=None):
     return ops_common.smoothed_centropy_reduced(output_logits(xc, table), lc,
-                                                factor)
+                                                factor, vocab)
 
 
 def chunked_tied_ce(feature, soft_table, labels, factor, chunk_tokens):
@@ -321,7 +341,13 @@ def chunked_tied_ce(feature, soft_table, labels, factor, chunk_tokens):
     autograd each chunk is checkpointed, so the backward recomputes its
     logits instead of storing them. Per-position math is that of
     smoothed_centropy(output_logits(...)). feature: [B, L, d]; returns
-    centropy [B, L] fp32."""
+    centropy [B, L] fp32. A VocabPart table gives [B*L, V/W] logits a
+    chunk, reduced over its line (smoothed_centropy_reduced's ``vocab``)."""
+    vocab = None
+    if isinstance(soft_table, tp.VocabPart):
+        vocab = (soft_table.offset, soft_table.total, soft_table.axis)
+        feature = dist.copy_in(feature, soft_table.axis)
+        soft_table = soft_table.table
     b, l, d = feature.shape
     n = b * l
     xf = feature.reshape(n, d)
@@ -334,7 +360,8 @@ def chunked_tied_ce(feature, soft_table, labels, factor, chunk_tokens):
     grad = torch.is_grad_enabled()
     cents = []
     for c0 in range(0, n + pad, chunk):
-        args = (xf[c0:c0 + chunk], lf[c0:c0 + chunk], soft_table, factor)
+        args = (xf[c0:c0 + chunk], lf[c0:c0 + chunk], soft_table, factor,
+                vocab)
         cents.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
                      if grad else _chunk_ce(*args))
     return torch.cat(cents)[:n].reshape(b, l)
@@ -345,6 +372,9 @@ def ce_from_feature(feature, soft_table, labels, mask, cfg, factor):
     cfg.loss_chunk_tokens > 0, full logits otherwise. Returns (scalar loss,
     per-sentence [B])."""
     chunk = int(getattr(cfg, "loss_chunk_tokens", 0) or 0)
+    if isinstance(soft_table, tp.VocabPart) and chunk <= 0:
+        # the vocab-parallel reductions over one chunk of every position
+        chunk = labels.numel()
     if chunk > 0:
         return ops_common.sentence_mean_loss(
             chunked_tied_ce(feature, soft_table, labels, factor, chunk),
@@ -368,34 +398,61 @@ def parallel_options(cfg) -> list:
     return asked
 
 
+# the models that train under tensor parallelism (mesh_model > 1): the
+# JAX package's TRANSFORMER_CORE | DEC_SELF_CROSS family
+TP_MODELS = ("transformer", "transformer_rpr", "transformer_moe",
+             "transformer_rela", "transformer_fixup", "transformer_l0drop")
+# the models that train under expert parallelism (mesh_expert > 1)
+EP_MODELS = ("transformer_moe",)
+
+
 def check_ported(cfg, training: bool = True,
                  world: Optional[int] = None):
     """Raise on options of a later slice instead of ignoring them: in
-    training a mesh axis other than 'data' above 1 (``mesh_pipe`` among
-    them, and with it the pipeline over a scan_layers stack). Data
-    parallelism across ``world`` processes (by default the process
-    group's, or ``dist_num_processes`` before one exists) runs, with ZeRO
-    (``zero_stage``), the sharded checkpoint and every model; a
-    ``mesh_data`` other than -1, 0 or the world size raises make_mesh's
-    ValueError. Evaluation decodes on one device with a warning instead
-    (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
-    when the devices are too few."""
+    training ``mesh_seq`` or ``mesh_pipe`` above 1 (and with it the
+    pipeline over a scan_layers stack), ``mesh_model`` above 1 for a model
+    not in TP_MODELS and ``mesh_expert`` above 1 for one not in
+    EP_MODELS, each naming the model. Data parallelism across ``world``
+    processes (by default the process group's, or ``dist_num_processes``
+    before one exists) runs, with ZeRO (``zero_stage``), the sharded
+    checkpoint and every model, and so do tensor and expert parallelism
+    for their models; mesh degrees whose product is not the world size
+    raise make_mesh's ValueError, and a head count the model degree does
+    not divide a ValueError. Evaluation decodes on one device with a
+    warning instead (train.py:_eval_on_one_device), as the JAX package's
+    _eval_mesh does when the devices are too few."""
     if not training:
         return
     asked = ["%s=%s" % (key, getattr(cfg, key))
-             for key in ("mesh_model", "mesh_seq", "mesh_pipe",
-                         "mesh_expert")
+             for key in ("mesh_seq", "mesh_pipe")
              if int(getattr(cfg, key, 1)) > 1]
+    if not asked:
+        if world is None:
+            world = dist.process_count() if dist.active() \
+                else int(cfg.dist_num_processes)
+        dist.mesh_degrees(cfg, world)
+    name = getattr(cfg, "model_name", "")
+    for key, models in (("mesh_model", TP_MODELS),
+                        ("mesh_expert", EP_MODELS)):
+        if int(getattr(cfg, key, 1)) > 1 and name not in models:
+            asked.append("%s=%s for %s" % (key, getattr(cfg, key), name))
     if asked:
         raise NotImplementedError(
             "%s: not ported to zero_tpu_torch yet: it comes with a later "
             "slice" % ", ".join(asked))
-    if world is None:
-        world = dist.process_count() if dist.active() \
-            else int(cfg.dist_num_processes)
-    data = int(getattr(cfg, "mesh_data", -1))
-    if data > 0 and data != world:
-        raise ValueError(dist.mesh_message(data, world, cfg.device))
+    if int(getattr(cfg, "mesh_expert", 1)) > 1 \
+            and bool(getattr(cfg, "scan_layers", False)):
+        # the expert rule splits a stacked [L, E, ...] expert leaf along
+        # its layer dim, not its experts
+        raise NotImplementedError(
+            "mesh_expert=%s with scan_layers for %s: not ported to "
+            "zero_tpu_torch yet: it comes with a later slice"
+            % (cfg.mesh_expert, name))
+    model = int(getattr(cfg, "mesh_model", 1))
+    if model > 1 and int(cfg.num_heads) % model:
+        raise ValueError("num_heads %d is not divisible by mesh_model %d: "
+                         "tensor parallelism splits attention by heads"
+                         % (int(cfg.num_heads), model))
 
 
 # ---------------------------------------------------------------------------
@@ -449,14 +506,14 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
         keys_l) on each layer's slices of the stacked tensors, under the
         activation checkpoint when ``remat`` (a context_fn) is given.
         keys None: dropout off."""
+        tensors = tp.stack_tensors(stack)
         for l in range(stack_depth(stack)):
             keys_l = [None] * REMAT_KEYS if keys is None else keys[l]
             if remat is not None:
-                tensors = {n: t[l] for n, t in stack.named_parameters()}
                 x = remat_layer(stack, remat, layer_fn, x, *args, keys_l,
-                                tensors=tensors)
+                                tensors={n: t[l] for n, t in tensors.items()})
             else:
-                x = _sliced(stack, l, layer_fn, x, *args, keys_l)
+                x = _sliced(stack, tensors, l, layer_fn, x, *args, keys_l)
         return x
 
     def _enc_layer_keys(p, x, src_keep, cfg, keys):

@@ -12,6 +12,13 @@ place here, where JAX returns an updated copy; validity is a ``position <=
 time`` mask. Softmax runs in fp32 regardless of the compute dtype.
 Self-attention uses one fused qkv projection; cross attention computes the
 memory k/v once at encode time.
+
+Tensor parallelism (``attn_train``; parallel/tensor.py): where the
+projections are column-split, a process holds its heads' columns of q,
+k and v (of the fused qkv: three blocks) and of ReLA's epilogue, runs
+attention over those heads (the kernels too, at the whole heads' dropout
+rows) and the row-split output map sums its partial product over the
+line.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from zero_tpu_torch.ops import rpr as rpr_mod
 from zero_tpu_torch.ops.kernels import decode_attention as da
 from zero_tpu_torch.ops.kernels import fused_attention as fa
 from zero_tpu_torch.ops.kernels import streaming_attention as sa
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 NEG_INF = da.NEG_INF
 
@@ -107,23 +116,34 @@ def _rpr_flash_ok(lq: int, lk: int, max_rel, causal, pad_mask) -> bool:
             and fa.rpr_supported(lq, lk, max_rel))
 
 
-def _out_map(params: Attention, o, relu=False, aan=None):
+def _out_map(params: Attention, o, relu=False, aan=None, part=None):
     """ReLA's epilogue (relu attention with ``post`` params), the merged
-    attention's AAN add-on ``aan``, then the output map."""
+    attention's AAN add-on ``aan``, then the output map (row-parallel
+    over ``part``'s line where ``o`` holds a process's heads)."""
     if relu and hasattr(params, "post"):
-        o = gated_rms_norm(params.post, o)
+        o = gated_rms_norm(params.post, o, part=part)
     if aan is not None:
         o = o + aan
-    return nn.linear(params.o, o) if hasattr(params, "o") else o
+    return tp.row_linear(params.o, o) if hasattr(params, "o") else o
 
 
-def gated_rms_norm(params: GatedRmsNorm, x, eps: float = 1e-8):
+def gated_rms_norm(params: GatedRmsNorm, x, eps: float = 1e-8, part=None):
     """ReLA epilogue, in fp32: scale * x * rsqrt(mean(x^2) + eps) *
-    sigmoid(gate * x)."""
+    sigmoid(gate * x). With ``part`` (tensor parallelism) ``x`` is a
+    process's slice of the hidden width: its sum of squares is summed over
+    the line and the replicated ``scale`` and ``gate`` are sliced."""
     xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    out = (params.scale.float() * xf * torch.rsqrt(ms + eps)
-           * torch.sigmoid(params.gate.float() * xf))
+    scale, gate = params.scale.float(), params.gate.float()
+    if part is None:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        width = xf.shape[-1]
+        ms = dist.sum_both(xf.square().sum(dim=-1, keepdim=True),
+                           part.axis) / (width * part.degree)
+        lo = part.offset(width)
+        scale = dist.copy_in(scale, part.axis)[lo:lo + width]
+        gate = dist.copy_in(gate, part.axis)[lo:lo + width]
+    out = scale * xf * torch.rsqrt(ms + eps) * torch.sigmoid(gate * xf)
     return out.to(x.dtype)
 
 
@@ -155,7 +175,7 @@ def promote(q, k, v):
 
 def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
                rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False,
-               count_weights=None):
+               count_weights=None, heads=None):
     """Softmax attention on [B, L, hidden] projections, with dropout on the
     weights (8-bit threshold masks of ops/common.py:dropout). relu=True
     switches to ReLA's weights: logits times the keep-mask, then relu.
@@ -167,7 +187,9 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     RPR: with ``rpr_max`` the relative terms run in the bucket-one-hot
     form (ops/rpr.py); ``rpr_ids`` without ``rpr_max`` (decode rows) and
     shapes whose one-hot constant would be oversized take the gathered
-    form. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
+    form. ``heads`` = (offset, whole count): the num_heads heads are a
+    process's part (tensor parallelism), whose dropout draws index the
+    whole heads. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
     q, k, v = promote(q, k, v)
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
@@ -206,7 +228,9 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
         if keep_mask is not None:
             logits = torch.where(keep_mask > 0, logits, NEG_INF)
         weights = torch.softmax(logits, dim=-1)
-    dweights = common.dropout(rng, weights, drop).to(q.dtype)
+    dweights = common.dropout(
+        rng, weights, drop,
+        split=None if heads is None else (1,) + tuple(heads)).to(q.dtype)
     if use_onehot:
         o = rpr_mod.output_with_rpr_onehot(dweights, vh, rpr_tables.values,
                                            rpr_max)
@@ -249,8 +273,28 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     ``fuse_mask`` is the raw [B, Lq] target pad mask (the O(L) masked
     cumulative mean, nn.aan_cummean), ``fuse_weight`` a [B, Lq, Lq]
     averaging matrix. count_weights (L0Drop's count softmax) keeps the
-    composite, as in the JAX package. Returns {'output', 'weights'}
-    (weights None on the kernel paths)."""
+    composite, as in the JAX package. Under tensor parallelism (a
+    column-split qkv or q) the process attends over its num_heads / W
+    heads, every route included. Returns {'output', 'weights'} (weights
+    None on the kernel paths)."""
+    part = tp.column(params.qkv if memory is None else params.q)
+    heads = None
+    if part is not None:
+        if num_heads % part.degree:
+            raise ValueError("num_heads %d is not divisible by mesh_%s %d"
+                             % (num_heads, part.axis, part.degree))
+        query = dist.copy_in(query, part.axis)
+        if memory is not None:
+            memory = dist.copy_in(memory, part.axis)
+        local = num_heads // part.degree
+        heads = (part.offset(local), num_heads)
+        num_heads = local
+        if rpr_tables is not None:
+            # every head reads the replicated tables: their gradient is
+            # summed over the line
+            rpr_tables = rpr_mod.TableView(
+                dist.copy_in(rpr_tables.keys, part.axis),
+                dist.copy_in(rpr_tables.values, part.axis))
     if memory is None:
         q, k, v = nn.linear(params.qkv, query).chunk(3, dim=-1)
     else:
@@ -267,21 +311,23 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         use_flash = kernels_supported(lq, lk)
     if use_flash:
         drop_rate = float(drop) if (drop and rng is not None) else 0.0
-        heads = [split_heads(x, num_heads) for x in (q, k, v)]
+        qkv = [split_heads(x, num_heads) for x in (q, k, v)]
         if rpr_tables is None and lk > fa.MAX_LK:
-            o = sa.streaming_attention(*heads, pad_mask, causal=causal,
-                                       dropout_rate=drop_rate, rng=rng)
+            o = sa.streaming_attention(*qkv, pad_mask, causal=causal,
+                                       dropout_rate=drop_rate, rng=rng,
+                                       heads=heads)
         else:
-            o = fa.fused_attention(*heads, pad_mask, causal=causal,
+            o = fa.fused_attention(*qkv, pad_mask, causal=causal,
                                    dropout_rate=drop_rate, rng=rng,
                                    rpr_tables=rpr_tables,
-                                   max_relative_position=max_relative_position)
+                                   max_relative_position=max_relative_position,
+                                   heads=heads)
         o, weights = combine_heads(o.to(q.dtype)), None
     else:
         o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
                                 drop=drop, rpr_tables=rpr_tables,
                                 rpr_max=max_relative_position, relu=relu,
-                                count_weights=count_weights)
+                                count_weights=count_weights, heads=heads)
     aan = None
     if fuse_mask is not None:
         aan = nn.aan_cummean(nn.linear(params.v, query), fuse_mask,
@@ -289,7 +335,8 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
     elif fuse_weight is not None:
         v_q = nn.linear(params.v, query)
         aan = torch.einsum("bqk,bkd->bqd", fuse_weight.to(v_q.dtype), v_q)
-    return {"output": _out_map(params, o, relu, aan), "weights": weights}
+    return {"output": _out_map(params, o, relu, aan, part),
+            "weights": weights}
 
 
 # ---------------------------------------------------------------------------

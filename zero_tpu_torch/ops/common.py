@@ -17,6 +17,14 @@ rows, as the JAX package's GSPMD step holds one global array.
 batch row takes the global row (``index_base``, or ``global_index`` where
 the batch is not the leading axis: the JAX iota is global),
 and ``global_sum`` makes a batch statistic of the loss global.
+
+A split axis. Under tensor parallelism a process draws over its heads
+([B, H/W, Lq, Lk] attention weights) or its slice of the FFN hidden
+width ([B, L, F/W]); under expert parallelism over its experts ([E/W,
+B*C, d]). GSPMD hashes the global linear index, so such a draw names the
+axis, its offset and its whole length (``split``): the element's index is
+its place in the tensor with both the batch and the split axis whole
+(``global_index``), which no one offset gives (``index_base`` refuses).
 """
 
 from __future__ import annotations
@@ -104,32 +112,47 @@ def index_base(shape, batch_axis: int = 0) -> int:
     return (offset * (math.prod(shape) // rows)) & _U32
 
 
-def global_index(shape, batch_axis: int = 0, device=None) -> torch.Tensor:
+Split = Tuple[int, int, int]     # (axis, offset, whole length)
+
+
+def global_index(shape, batch_axis: int = 0, device=None,
+                 split: Optional[Split] = None) -> torch.Tensor:
     """The global linear index (mod 2^32, int64) of every element of a
     draw over ``shape`` whose axis ``batch_axis`` holds this process's
-    rows, each ``shape[batch_axis] // rows`` long: the element's index in
-    the global tensor, whose batch axis is ``total / rows`` times longer.
-    An expert-major [E, B*C, d] tensor (ops/moe.py) is E strided blocks of
+    rows, each ``shape[batch_axis] // rows`` long, and whose axis
+    ``split[0]`` (if given) is the part [offset, offset + n) of a whole
+    ``split[2]`` long: the element's index in the global tensor. An
+    expert-major [E, B*C, d] tensor (ops/moe.py) is E strided blocks of
     that index space, not one offset."""
     shape = tuple(int(d) for d in shape)
     n = math.prod(shape)
     offset, rows, total = global_rows()
-    if not rows or batch_axis == 0:
+    if split is None and (not rows or batch_axis == 0):
         return ((torch.arange(max(n, 1), dtype=torch.int64, device=device)
                  + index_base(shape, batch_axis)) & _U32)[:n].reshape(shape)
-    width = shape[batch_axis]
-    if width % rows:
-        raise ValueError("a draw over %s: axis %d is not %d rows long"
-                         % (shape, batch_axis, rows))
-    per = width // rows
-    lead = math.prod(shape[:batch_axis])
-    inner = math.prod(shape[batch_axis + 1:])
-    idx = ((torch.arange(lead, dtype=torch.int64, device=device)[:, None]
-            * (per * total) + offset * per
-            + torch.arange(width, dtype=torch.int64, device=device)[None, :])
-           [:, :, None] * inner
-           + torch.arange(inner, dtype=torch.int64, device=device))
-    return (idx & _U32).reshape(shape)
+    # each axis as (offset, whole length)
+    spans = [(0, d) for d in shape]
+    if rows:
+        width = shape[batch_axis]
+        if width % rows:
+            raise ValueError("a draw over %s: axis %d is not %d rows long"
+                             % (shape, batch_axis, rows))
+        per = width // rows
+        spans[batch_axis] = (offset * per, total * per)
+    if split is not None:
+        axis = split[0] % len(shape)
+        spans[axis] = (int(split[1]), int(split[2]))
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for axis in reversed(range(len(shape))):
+        start, whole = spans[axis]
+        view = [1] * len(shape)
+        view[axis] = shape[axis]
+        idx = idx + (torch.arange(start, start + shape[axis],
+                                  dtype=torch.int64, device=device)
+                     * stride).reshape(view)
+        stride *= whole
+    return (idx.expand(shape) & _U32).reshape(shape)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -154,14 +177,15 @@ def _mix32(x: torch.Tensor, mult: int) -> torch.Tensor:
 
 
 def _hash_bits(words: Words, shape, device=None,
-               batch_axis: int = 0) -> torch.Tensor:
+               batch_axis: int = 0,
+               split: Optional[Split] = None) -> torch.Tensor:
     """Uniform u32 draws (held in int64) from the murmur3 fmix32 finalizer
     over each element's linear index, seeded by the two key words:
     ``zero_tpu/ops/common.py:_hash_bits``, bit for bit. Within a global
     batch the index is the element's in the global tensor, whose batch
-    axis is ``batch_axis`` (global_index)."""
+    axis is ``batch_axis``, with a ``split`` axis whole (global_index)."""
     s0, s1 = int(words[0]) & _U32, int(words[-1]) & _U32
-    x = global_index(shape, batch_axis, device)
+    x = global_index(shape, batch_axis, device, split)
     x = _mix32(x ^ s0, 0x85EBCA6B)
     x = _mix32(x, 0xC2B2AE35)
     return x ^ (x >> 16) ^ s1
@@ -176,10 +200,13 @@ def keep_threshold(rate: Optional[float]) -> int:
 
 
 def dropout(rng: Optional[Words], x: torch.Tensor,
-            rate: Optional[float], batch_axis: int = 0) -> torch.Tensor:
+            rate: Optional[float], batch_axis: int = 0,
+            split: Optional[Split] = None) -> torch.Tensor:
     """Inverted dropout with 8-bit threshold masks from the counter hash;
     a no-op when ``rng`` is None or the rate is falsy/invalid.
-    ``batch_axis``: the axis of ``x`` that holds the batch rows (_hash_bits)."""
+    ``batch_axis``: the axis of ``x`` that holds the batch rows;
+    ``split``: (axis, offset, whole length) of an axis ``x`` holds a part
+    of (_hash_bits)."""
     if rng is None:
         return x
     t = keep_threshold(rate)
@@ -187,7 +214,8 @@ def dropout(rng: Optional[Words], x: torch.Tensor,
         return x
     if t <= 0:
         return torch.zeros_like(x)
-    keep = (_hash_bits(rng, x.shape, x.device, batch_axis) & 255) < t
+    keep = (_hash_bits(rng, x.shape, x.device, batch_axis, split)
+            & 255) < t
     return torch.where(keep, x * keep_scale(t, x.dtype), torch.zeros_like(x))
 
 
@@ -233,21 +261,39 @@ def smoothed_centropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def smoothed_centropy_reduced(logits: torch.Tensor, labels: torch.Tensor,
-                              factor: float) -> torch.Tensor:
+                              factor: float, vocab=None) -> torch.Tensor:
     """smoothed_centropy as per-token reductions over the vocabulary (max,
     log-sum-exp, centred logit sum, gold logit): no [N, V] log-prob tensor
-    is kept. The max is detached, the standard stable-lse step."""
+    is kept. The max is detached, the standard stable-lse step.
+
+    ``vocab`` = (offset, whole size, mesh axis): the logits are a
+    process's columns [offset, offset + V/W) of the vocabulary (tensor
+    parallelism); each of the four reductions is completed over the line
+    (Megatron's vocab-parallel cross entropy), and the result is the
+    whole vocabulary's on every process."""
+    from zero_tpu_torch.parallel import distributed as dist
     logits = logits.float()
     vocab_size = logits.shape[-1]
+    labels = labels.long()
+    total = (lambda x: x) if vocab is None else (
+        lambda x: dist.reduce_out(x, vocab[2]))
     m = logits.max(dim=-1).values.detach()
+    if vocab is not None:
+        m = dist.max_over(m, vocab[2])
+        offset, vocab_size = vocab[0], vocab[1]
+        local = labels - offset
+        inside = (local >= 0) & (local < logits.shape[-1])
+        labels = torch.where(inside, local, torch.zeros_like(local))
     centered = logits - m[..., None]
-    sum_exp = torch.exp(centered).sum(dim=-1)
+    sum_exp = total(torch.exp(centered).sum(dim=-1))
     lse = m + torch.log(sum_exp)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if vocab is not None:
+        gold = total(torch.where(inside, gold, torch.zeros_like(gold)))
     gold_logp = gold - lse
     if 0.0 < factor < 1.0:
         p, q, normalizer = _smoothing(vocab_size, factor)
-        csum = centered.sum(dim=-1)
+        csum = total(centered.sum(dim=-1))
         sum_logp = csum - float(vocab_size) * torch.log(sum_exp)
         centropy = -(p * gold_logp + q * (sum_logp - gold_logp))
         return centropy - normalizer

@@ -10,6 +10,7 @@ sandwich, and attention with input inits scaled by numblocks^-1/6 (or
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +18,8 @@ from zero_tpu_torch.ops import attention
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.common import dropout
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 
 class Shift(torch.nn.Module):
@@ -24,11 +27,20 @@ class Shift(torch.nn.Module):
         super().__init__()
         self.offset = torch.nn.Parameter(torch.zeros(1))
 
+    @staticmethod
+    def of(offset: torch.Tensor):
+        """A stand-in holding ``offset`` as it enters a computation."""
+        return _ShiftView(offset)
+
 
 class Scale(torch.nn.Module):
     def __init__(self, init: float = 1.0):
         super().__init__()
         self.scale = torch.nn.Parameter(torch.full((1,), float(init)))
+
+
+class _ShiftView(NamedTuple):
+    offset: torch.Tensor
 
 
 def init_shift() -> Shift:
@@ -73,13 +85,26 @@ def init_fixup_ffn(gen, d_in: int, d_hidden: int, d_out: int, numblocks: int,
 
 
 def fixup_ffn(params: FixupFFN, x, rng=None, relu_dropout=None):
+    """The shift/scale sandwich around relu(x W1) W2. Under tensor
+    parallelism (a column-split ``enlarge``) the process runs its slice
+    of the hidden width; the shifts inside it are replicated scalars whose
+    gradient is summed over the line, and the row-split output is summed
+    over it."""
     x = shift(params.shift0, x)
+    part = tp.column(params.enlarge)
+    inner1, inner2, split = params.shift1, params.shift2, None
+    if part is not None:
+        x = dist.copy_in(x, part.axis)
+        inner1 = Shift.of(dist.copy_in(params.shift1.offset, part.axis))
+        inner2 = Shift.of(dist.copy_in(params.shift2.offset, part.axis))
+        width = params.enlarge.ws[0].shape[-1]
+        split = (-1, part.offset(width), width * part.degree)
     h = nn.linear(params.enlarge, x)
-    h = shift(params.shift1, h)
+    h = shift(inner1, h)
     h = torch.relu(h)
-    h = dropout(rng, h, relu_dropout)
-    h = shift(params.shift2, h)
-    out = nn.linear(params.output, h)
+    h = dropout(rng, h, relu_dropout, split=split)
+    h = shift(inner2, h)
+    out = tp.row_linear(params.output, h)
     return scale(params.scale, out)
 
 

@@ -99,20 +99,22 @@ def forward_route(dtype: torch.dtype, dh: int, device: str = "cuda") -> str:
     return sa.route(device, dtype, dh)
 
 
-def keep_mask(words, shape, rate: float, device=None) -> torch.Tensor:
+def keep_mask(words, shape, rate: float, device=None,
+              heads=None) -> torch.Tensor:
     """The attention dropout keep mask over [B, H, Lq, Lk]: every query row
     of ``streaming_attention.keep_mask``, the one mask family of the four
-    attention routes."""
+    attention routes. ``heads``: (offset, whole count) of the H heads."""
     b, h, lq, lk = shape
-    return sa.keep_mask(words, b * h, lq, range(lq), lk, rate,
-                        device).reshape(shape)
+    return sa.keep_mask(words, b * h, lq, range(lq), lk, rate, device,
+                        sa.head_split(h, heads)).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
 
-def _weights(s, pad_mask, causal: bool, dropout_rate: float, rng):
+def _weights(s, pad_mask, causal: bool, dropout_rate: float, rng,
+             heads=None):
     """The fp32 softmax of scores s [B, H, Lq, Lk] under the key pad mask
     and the causal flag (masked scores NEG_INF), then the kernels'
     dropout."""
@@ -123,33 +125,34 @@ def _weights(s, pad_mask, causal: bool, dropout_rate: float, rng):
                                  device=s.device).tril()[None, None]
     w = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1)
     if dropout_rate > 0.0 and rng is not None:
-        drop = keep_mask(rng, w.shape, dropout_rate, s.device)
+        drop = keep_mask(rng, w.shape, dropout_rate, s.device, heads)
         w = torch.where(drop, w * (1.0 / (1.0 - dropout_rate)),
                         torch.zeros_like(w))
     return w
 
 
 def fused_attention_ref(q, k, v, pad_mask, causal: bool = False,
-                        dropout_rate: float = 0.0, rng=None):
+                        dropout_rate: float = 0.0, rng=None, heads=None):
     """Plain PyTorch fused attention, computed in fp32 and returned in the
-    query dtype. q/k/v: [B, H, L, Dh]; pad_mask: [B, Lk] 1/0."""
+    query dtype. q/k/v: [B, H, L, Dh]; pad_mask: [B, Lk] 1/0; ``heads``:
+    (offset, whole count) of the H heads (tensor parallelism)."""
     launches["fused_attention_ref"] += 1
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         * q.shape[-1] ** -0.5
-    w = _weights(s, pad_mask, causal, dropout_rate, rng)
+    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
 def fused_attention_rpr_ref(q, k, v, pad_mask, tk, tv, max_rel: int,
                             causal: bool = False, dropout_rate: float = 0.0,
-                            rng=None):
+                            rng=None, heads=None):
     """Plain PyTorch Shaw-RPR attention: the one-hot form of
     ``_xla_equivalent_rpr`` computed in fp32, with the dropout mask of the
     kernels; returned in the query dtype. tk/tv: [2m+1, Dh]."""
     launches["fused_attention_rpr_ref"] += 1
     s = rpr_mod.logits_with_rpr_onehot(q.float() * q.shape[-1] ** -0.5,
                                        k.float(), tk.float(), max_rel)
-    w = _weights(s, pad_mask, causal, dropout_rate, rng)
+    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads)
     return rpr_mod.output_with_rpr_onehot(w, v.float(), tv.float(),
                                           max_rel).to(q.dtype)
 
@@ -164,16 +167,16 @@ def _library():
     fwd = lib.zt_attention_forward
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                       ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_uint, ctypes.c_void_p])
+                       ctypes.c_float] + [ctypes.c_uint] * 5
+                    + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwds = []
     for name in ("zt_attention_backward", "zt_attention_backward_tc"):
         bwd = getattr(lib, name)
         bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                           ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                           ctypes.c_uint, ctypes.c_void_p])
+                           ctypes.c_float] + [ctypes.c_uint] * 5
+                        + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         bwds.append(bwd)
     fwd_tc = lib.zt_attention_forward_tc
@@ -185,8 +188,8 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _rpr_library():
     lib = cuda_build.load("fused_attention_rpr")
-    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
-            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+    tail = ([ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.c_uint] * 5 + [ctypes.c_void_p])
     fns = []
     for name, pointers in (("zt_attention_rpr_forward", 9),
                            ("zt_attention_rpr_backward", 20),
@@ -200,12 +203,13 @@ def _rpr_library():
 
 
 def _dropout_args(rate: float, words):
-    """The launch's dropout arguments from ``words`` = (s0, s1[, row
-    base]) (sa.kernel_words)."""
+    """The launch's dropout arguments from ``words`` = (s0, s1, row base,
+    whole heads, head offset) (sa.kernel_words); all zeros without
+    dropout, which the kernels then do not read."""
     if rate > 0.0:
         return (1, sa.dropout_threshold(rate),
                 1.0 / (1.0 - rate)) + sa.launch_words(words)
-    return 0, 0, 1.0, 0, 0, 0
+    return 0, 0, 1.0, 0, 0, 0, 0, 0
 
 
 def _raise_on(err: int, what: str):
@@ -434,8 +438,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pad_mask: Optional[torch.Tensor] = None, *,
                     causal: bool = False, dropout_rate: float = 0.0,
                     rng=None, rpr_tables=None,
-                    max_relative_position: Optional[int] = None
-                    ) -> torch.Tensor:
+                    max_relative_position: Optional[int] = None,
+                    heads=None) -> torch.Tensor:
     """Fused attention over [B, H, L, Dh] projections.
 
     pad_mask: [B, Lk] 1/0 key-side padding mask (None = all valid); the
@@ -443,7 +447,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed words) is given and 0 < dropout_rate < 1. ``rpr_tables`` (an
     object with [2m+1, Dh] ``keys`` and ``values``, as ops/rpr.py:RprTables)
     with ``max_relative_position`` m adds Shaw relative positions; the
-    tables are cast to the query dtype, differentiably. Returns
+    tables are cast to the query dtype, differentiably. ``heads`` =
+    (offset, whole count): the H heads are a process's part of the heads
+    (tensor parallelism), whose dropout rows are the whole heads'. Returns
     [B, H, Lq, Dh] in the query dtype.
     """
     b, lk = q.shape[0], k.shape[2]
@@ -452,9 +458,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = pad_mask.float().contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    # the kernels' seed words and the global row of row 0 (data
-    # parallelism: ops/common.py:index_base)
-    words = sa.kernel_words(rng, q.shape, rate)
+    # the kernels' seed words, the global row of row 0 (data
+    # parallelism: ops/common.py:index_base) and the head split
+    words = sa.kernel_words(rng, q.shape, rate, heads)
     tables = None
     if rpr_tables is not None:
         if max_relative_position is None:
@@ -467,8 +473,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "plain":
         if tables is not None:
             return fused_attention_rpr_ref(q, k, v, pad, *tables, max_rel,
-                                           causal, rate, rng)
-        return fused_attention_ref(q, k, v, pad, causal, rate, rng)
+                                           causal, rate, rng, heads)
+        return fused_attention_ref(q, k, v, pad, causal, rate, rng, heads)
     if not q.is_cuda:
         raise ValueError("fused_attention: unsupported device %s" % q.device)
     _check(q, k, v, pad)

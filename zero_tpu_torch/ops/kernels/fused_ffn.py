@@ -65,13 +65,17 @@ def _drop_args(rate: float, words, dtype):
 # plain version
 # ---------------------------------------------------------------------------
 
-def fused_ffn_ref(x, w1, b1, w2, b2, rng=None, rate: float = 0.0):
-    """Plain PyTorch fused FFN over x [N, d_in] (all in x's dtype)."""
+def fused_ffn_ref(x, w1, b1, w2, b2, rng=None, rate: float = 0.0,
+                  hidden=None):
+    """Plain PyTorch fused FFN over x [N, d_in] (all in x's dtype);
+    ``hidden`` = (offset, whole width) of a slice of the hidden width."""
     launches["fused_ffn_ref"] += 1
     t, inv = _drop_args(rate, rng, x.dtype)
     h = torch.relu(torch.matmul(x, w1) + b1)
     if t < 256:
-        keep = (common._hash_bits(rng, h.shape, h.device) & 255) < t
+        split = None if hidden is None else (1,) + tuple(hidden)
+        keep = (common._hash_bits(rng, h.shape, h.device, split=split)
+                & 255) < t
         h = torch.where(keep, h * inv, torch.zeros_like(h))
     return torch.matmul(h, w2) + b2
 
@@ -85,22 +89,25 @@ def _library():
     lib = cuda_build.load("fused_ffn")
     fwd = lib.zt_ffn_forward
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                    + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_uint, ctypes.c_void_p])
+                    + [ctypes.c_float] + [ctypes.c_uint] * 5
+                    + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.zt_ffn_backward
     bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                    + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_uint, ctypes.c_void_p])
+                    + [ctypes.c_float] + [ctypes.c_uint] * 5
+                    + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _seeds(words):
-    """(s0, s1, index base) of a launch from (s0, s1[, index base])."""
+    """(s0, s1, index base, whole width, column offset) as u32 launch
+    arguments; all zeros without dropout (``words`` None), which the
+    kernels then do not read."""
     if words is None:
-        return 0, 0, 0
-    return tuple(int(w) & 0xFFFFFFFF for w in (tuple(words) + (0,))[:3])
+        return 0, 0, 0, 0, 0
+    s0, s1, base, width, offset = words
+    return tuple(int(w) & 0xFFFFFFFF for w in (s0, s1, base, width, offset))
 
 
 def _raise_on(err: int, what: str):
@@ -196,23 +203,27 @@ def _check(x, w1, b1, w2, b2):
 
 
 def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
-              rate: float = 0.0) -> torch.Tensor:
+              rate: float = 0.0, hidden=None) -> torch.Tensor:
     """relu(x @ W1 + b1) -> dropout -> @ W2 + b2 over x [..., d_in], all in
     x's dtype. Dropout runs when ``rng`` (a pair of seed words) is given and
-    0 < rate < 1. Returns [..., d_out]."""
+    0 < rate < 1. ``hidden`` = (offset, whole width): W1's columns are the
+    slice [offset, offset + f) of a wider hidden layer (tensor
+    parallelism), whose dropout index is the whole layer's. Returns
+    [..., d_out]."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
-        y = fused_ffn_ref(x2, w1, b1, w2, b2, rng, rate)
+        y = fused_ffn_ref(x2, w1, b1, w2, b2, rng, rate, hidden)
     elif not x.is_cuda:
         raise ValueError("fused_ffn: unsupported device %s" % x.device)
     else:
         _check(x2, w1, b1, w2, b2)
         t, inv = _drop_args(rate, rng, x.dtype)
-        # the seed words and the global index of hidden element 0 (data
-        # parallelism: ops/common.py:index_base)
+        # the seed words, the global index of hidden element 0 (data
+        # parallelism: ops/common.py:index_base) and the hidden slice
+        offset, width = hidden if hidden is not None else (0, w1.shape[1])
         words = ((rng[0], rng[-1],
-                  common.index_base((x2.shape[0], w1.shape[1])))
+                  common.index_base((x2.shape[0], width)), width, offset)
                  if t < 256 else None)
         y = _FusedFFN.apply(_aligned(x2), _aligned(w1), b1.contiguous(),
                             _aligned(w2), b2.contiguous(), t, inv, words)

@@ -112,33 +112,53 @@ def _fmix(x: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
     return x ^ (x >> 16) ^ s1
 
 
-def kernel_words(rng, shape, rate: float):
-    """The kernels' (s0, s1, row base) of a launch over q [B, H, Lq, Dh]:
-    the seed words and the global row of row 0, (0, 0, 0) without
-    dropout."""
-    if not rate:
-        return 0, 0, 0
+def head_split(h: int, heads=None):
+    """(H held, offset, whole count) of a launch over H = ``h`` heads that
+    are the part ``heads`` = (offset, whole count) of the heads; all of
+    them without ``heads``."""
+    offset, total = heads if heads is not None else (0, h)
+    return int(h), int(offset), int(total)
+
+
+def kernel_words(rng, shape, rate: float, heads=None):
+    """The kernels' (s0, s1, row base, whole heads, head offset) of a
+    launch over q [B, H, Lq, Dh] whose H heads are the part ``heads`` =
+    (offset, whole count) of the heads (all of them by default): the seed
+    words, the global row of row 0 and the head split; zero words and
+    row base without dropout."""
     b, h, lq = shape[:3]
+    _, offset, total = head_split(h, heads)
+    if not rate:
+        return 0, 0, 0, total, offset
     return (int(rng[0]) & 0xFFFFFFFF, int(rng[-1]) & 0xFFFFFFFF,
-            common.index_base((b, h, lq)))
+            common.index_base((b, total, lq)), total, offset)
 
 
 def launch_words(words):
-    """(s0, s1, row base) as u32 launch arguments from (s0, s1[, row
-    base]); the base defaults to 0 (one process)."""
-    return tuple(int(w) & 0xFFFFFFFF for w in (tuple(words) + (0,))[:3])
+    """kernel_words' (s0, s1, row base, whole heads, head offset) as u32
+    launch arguments."""
+    s0, s1, base, total, offset = words
+    return tuple(int(w) & 0xFFFFFFFF for w in (s0, s1, base, total, offset))
 
 
 def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, heads=None) -> torch.Tensor:
     """The dropout keep mask [B*H, len(rows), Lk] of query rows ``rows``;
     within a global batch the rows are the global batch's
-    (ops/common.py:index_base)."""
+    (ops/common.py:index_base). ``heads`` = (H held, offset, whole count)
+    (head_split): the launch's head bh = b * H + h is head offset + h of
+    the whole count, the kernels' ``zt::global_row``."""
     s0, s1 = int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF
-    row = (torch.arange(bh, dtype=torch.int64, device=device)[:, None] * lq
+    local = torch.arange(bh, dtype=torch.int64, device=device)
+    if heads is None:
+        first = local * lq + common.index_base((bh, lq))
+    else:
+        h, offset, total = heads
+        first = (((local // h) * total + offset + local % h) * lq
+                 + common.index_base((bh // h, total, lq)))
+    row = (first[:, None]
            + torch.arange(rows.start, rows.stop, dtype=torch.int64,
-                          device=device)[None, :]
-           + common.index_base((bh, lq))) & 0xFFFFFFFF
+                          device=device)[None, :]) & 0xFFFFFFFF
     seeds = _fmix(row, s0, s1)
     keys = torch.arange(lk, dtype=torch.int64, device=device)
     return _fmix(keys[None, None, :] ^ seeds[:, :, None], 0, s1) \
@@ -150,7 +170,7 @@ def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
 # ---------------------------------------------------------------------------
 
 def _chunk(qc, k, v, keep_keys, i0: int, lq: int, causal: bool, rate: float,
-           words):
+           words, heads=None):
     """Attention of query rows [i0, i0 + c) in fp32: qc [BH, c, Dh], k/v
     [BH, Lk, Dh], keep_keys [BH, Lk] bool."""
     c, lk = qc.shape[1], k.shape[1]
@@ -163,18 +183,19 @@ def _chunk(qc, k, v, keep_keys, i0: int, lq: int, causal: bool, rate: float,
     w = torch.softmax(s, dim=-1)
     if rate > 0.0:
         keep = keep_mask(words, qc.shape[0], lq, range(i0, i0 + c), lk, rate,
-                         qc.device)
+                         qc.device, heads)
         w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
     return torch.einsum("bqk,bkd->bqd", w, v)
 
 
 def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
                             dropout_rate: float = 0.0, rng=None,
-                            chunk: Optional[int] = None):
+                            chunk: Optional[int] = None, heads=None):
     """Plain PyTorch streaming attention, computed in fp32 over chunks of
     query rows and returned in the query dtype. q/k/v: [B, H, L, Dh];
     pad_mask: [B, Lk] 1/0. Dropout runs when ``rng`` (two seed words) is
-    given and 0 < dropout_rate < 1."""
+    given and 0 < dropout_rate < 1; ``heads``: (offset, whole count) of
+    the H heads (tensor parallelism)."""
     launches["streaming_attention_ref"] += 1
     b, h, lq, dh = q.shape
     lk = k.shape[2]
@@ -191,7 +212,7 @@ def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
     outs = []
     for i0 in range(0, lq, chunk):
         args = (q3[:, i0:i0 + chunk], k3, v3, keep_keys, i0, lq, bool(causal),
-                rate, rng)
+                rate, rng, head_split(h, heads))
         outs.append(checkpoint(_chunk, *args, use_reentrant=False)
                     if grad else _chunk(*args))
     return torch.cat(outs, dim=1).reshape(b, h, lq, dh).to(q.dtype)
@@ -201,9 +222,9 @@ def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
 # kernels
 # ---------------------------------------------------------------------------
 
-_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                              ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                              ctypes.c_uint, ctypes.c_void_p]
+_TAIL = ([ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                               ctypes.c_float] + [ctypes.c_uint] * 5
+         + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,13 +246,13 @@ def _library():
 
 def _args(q, k, causal, rate, words):
     """The launch's trailing arguments: dtype, shape, causal flag, scale,
-    dropout words and row base (kernel_words), stream."""
+    dropout words, row base and head split (kernel_words), stream."""
     b, h, lq, dh = q.shape
     if rate > 0.0:
         drop = (1, dropout_threshold(rate),
                 1.0 / (1.0 - rate)) + launch_words(words)
     else:
-        drop = (0, 0, 1.0, 0, 0, 0)
+        drop = (0, 0, 1.0, 0, 0, 0, 0, 0)
     return (_DTYPES[q.dtype], b, h, lq, k.shape[2], dh, int(causal),
             float(dh) ** -0.5) + drop + (
                 torch.cuda.current_stream(q.device).cuda_stream,)
@@ -383,7 +404,7 @@ def _check(q, k, v, pad):
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pad_mask: Optional[torch.Tensor] = None, *,
                         causal: bool = False, dropout_rate: float = 0.0,
-                        rng=None) -> torch.Tensor:
+                        rng=None, heads=None) -> torch.Tensor:
     """Key-blocked attention over [B, H, L, Dh] projections; Lk bounded by
     device memory only.
 
@@ -398,10 +419,11 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = pad_mask.float().contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    words = kernel_words(rng, q.shape, rate)
+    words = kernel_words(rng, q.shape, rate, heads)
     which = route(q.device.type, q.dtype, q.shape[-1])
     if which == "plain":
-        return streaming_attention_ref(q, k, v, pad, causal, rate, rng)
+        return streaming_attention_ref(q, k, v, pad, causal, rate, rng,
+                                       heads=heads)
     if not q.is_cuda:
         raise ValueError("streaming_attention: unsupported device %s"
                          % q.device)

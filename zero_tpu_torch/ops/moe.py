@@ -22,6 +22,14 @@ Two dispatch backends with the same semantics:
 The router's softmax runs in fp32 whatever the activation dtype; the
 experts' products are batched matmuls (the JAX package runs them outside
 any Pallas kernel).
+
+Expert parallelism (``mesh_expert``; parallel/tensor.py): a process holds
+E/W of the expert stacks. The router, the capacity and the aux loss are
+computed whole on every process of the expert line, whose batch rows are
+the same; the einsum dispatch fills the process's experts, the token
+input and the combine weights entering through copy_in, and the combine
+of its experts' outputs is summed over the line (reduce_out). The expert
+dropout draws at the global expert index.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import torch
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.common import dropout, global_count, global_sum
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 from zero_tpu_torch.search import top_k as stable_top_k
 
 
@@ -103,9 +113,10 @@ def _route(top_idx, num_experts: int, c: int):
     return torch.stack(pos_slots, dim=-1), torch.stack(keep_slots, dim=-1)
 
 
-def _expert_ffn(ex: Experts, xin, rngs, drop):
+def _expert_ffn(ex: Experts, xin, rngs, drop, split=None):
     """Expert-batched relu FFN on [E, T, d] inputs; the weights are cast
-    to the activation dtype, as every dense layer does."""
+    to the activation dtype, as every dense layer does. ``split`` = (0,
+    offset, whole count): the E experts are a process's part."""
     dt = xin.dtype
     h = torch.bmm(xin, ex.w1.to(dt)) + ex.b1.to(dt)[:, None, :]
     h = torch.relu(h)
@@ -113,7 +124,7 @@ def _expert_ffn(ex: Experts, xin, rngs, drop):
         # expert-major [E, B*C, d_h]: under data parallelism the hash
         # indexes the global [E, B_global*C, d_h] tensor, E strided
         # blocks of which are this process's (common.global_index)
-        h = dropout(rngs(), h, drop, batch_axis=1)
+        h = dropout(rngs(), h, drop, batch_axis=1, split=split)
     return torch.bmm(h, ex.w2.to(dt)) + ex.b2.to(dt)[:, None, :]
 
 
@@ -155,6 +166,12 @@ def moe_ffn(params: MoE, x, rngs=None, drop=None, *, num_experts: int,
         aux_sums.append(e * (f_e * p_e).sum())
 
     ex = params.experts
+    tag = tp.leaf_part(ex, "w1")
+    if tag is not None and dispatch != "einsum":
+        raise NotImplementedError(
+            "moe_dispatch=%s under expert parallelism: not ported to "
+            "zero_tpu_torch yet: it comes with a later slice (einsum runs)"
+            % dispatch)
     if dispatch == "einsum":
         combine = x.new_zeros((b, s, e, c), dtype=torch.float32)
         for slot in range(top_k):
@@ -164,6 +181,9 @@ def moe_ffn(params: MoE, x, rngs=None, drop=None, *, num_experts: int,
             combine = combine + (e_oh[..., :, None] * c_oh[..., None, :]
                                  * (kf * gates[..., slot])[..., None, None])
         disp = (combine > 0).to(x.dtype)                          # [B,S,E,C]
+        if tag is not None:
+            return _expert_parallel(ex, tag[0], x, combine, disp, rngs,
+                                    drop)
         xin = torch.einsum("bsec,bsd->ebcd", disp, x).reshape(e, b * c, d)
         out = _expert_ffn(ex, xin, rngs, drop).reshape(e, b, c, -1)
         return torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), out)
@@ -188,3 +208,21 @@ def moe_ffn(params: MoE, x, rngs=None, drop=None, *, num_experts: int,
         .expand(b, s * top_k, d_out)).reshape(b, s, top_k, d_out)
     w = (gates * keep.float()).to(x.dtype)
     return torch.einsum("bsk,bskd->bsd", w, back)
+
+
+def _expert_parallel(ex: Experts, part, x, combine, disp, rngs, drop):
+    """The einsum dispatch and combine of this process's experts (part
+    ``part`` of the E experts): the tokens and the combine weights enter
+    the line's region, the combined outputs are summed over it."""
+    b, s, e, c = combine.shape
+    d = x.shape[-1]
+    local = e // part.degree
+    lo = part.offset(local)
+    x = dist.copy_in(x, part.axis)
+    combine = dist.copy_in(combine, part.axis)[:, :, lo:lo + local]
+    xin = torch.einsum("bsec,bsd->ebcd", disp[:, :, lo:lo + local],
+                       x).reshape(local, b * c, d)
+    out = _expert_ffn(ex, xin, rngs, drop, split=(0, lo, e)) \
+        .reshape(local, b, c, -1)
+    return dist.reduce_out(
+        torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), out), part.axis)

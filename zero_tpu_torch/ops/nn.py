@@ -18,6 +18,8 @@ import torch
 from zero_tpu_torch.ops import common
 from zero_tpu_torch.ops import initializers as inits
 from zero_tpu_torch.ops.kernels import fused_ffn as fused_ffn_mod
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 
 # ---------------------------------------------------------------------------
@@ -130,19 +132,36 @@ def ffn(params: FFN, x, rng=None, relu_dropout: Optional[float] = None,
 
     fused=True routes through the fused kernels of
     ops/kernels/fused_ffn.py (their plain version for CPU tensors). Both
-    paths draw the same dropout mask from ``rng``'s seed words."""
+    paths draw the same dropout mask from ``rng``'s seed words.
+
+    Under tensor parallelism (a column-split ``enlarge``,
+    parallel/tensor.py) the process runs its slice of the hidden width,
+    the kernels included, with the whole width's dropout index; the
+    partial output is summed over the line, then ``output``'s bias is
+    added once."""
+    part = tp.column(params.enlarge)
+    hidden = None
+    if part is not None:
+        x = dist.copy_in(x, part.axis)
+        width = params.enlarge.ws[0].shape[-1]
+        hidden = (part.offset(width), width * part.degree)
     if fused:
         if params.enlarge.b is None or params.output.b is None:
             raise ValueError("fused FFN needs biases on both linears")
         dtype = x.dtype
         rate = relu_dropout if (rng is not None and relu_dropout) else 0.0
-        return fused_ffn_mod.fused_ffn(
+        b2 = params.output.b.to(dtype)
+        y = fused_ffn_mod.fused_ffn(
             x, params.enlarge.ws[0].to(dtype), params.enlarge.b.to(dtype),
-            params.output.ws[0].to(dtype), params.output.b.to(dtype), rng,
-            rate)
+            params.output.ws[0].to(dtype),
+            b2 if part is None else torch.zeros_like(b2), rng, rate, hidden)
+        if part is None:
+            return y
+        return dist.reduce_out(y, part.axis) + b2
     h = torch.relu(linear(params.enlarge, x))
-    h = common.dropout(rng, h, relu_dropout)
-    return linear(params.output, h)
+    h = common.dropout(rng, h, relu_dropout,
+                       split=None if hidden is None else (-1,) + hidden)
+    return tp.row_linear(params.output, h)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@ Two forms of the same math:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 
@@ -27,6 +29,13 @@ class RprTables(torch.nn.Module):
         super().__init__()
         self.keys = torch.nn.Parameter(keys)
         self.values = torch.nn.Parameter(values)
+
+
+class TableView(NamedTuple):
+    """RprTables' two tensors as they enter a computation (tensor
+    parallelism: through copy_in)."""
+    keys: torch.Tensor
+    values: torch.Tensor
 
 
 def init_rpr(gen, max_relative_position: int, depth: int,

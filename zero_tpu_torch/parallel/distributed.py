@@ -1,4 +1,5 @@
-"""Data parallelism across processes, one device a process.
+"""Data, tensor and expert parallelism across processes, one device a
+process.
 
 Counterpart of ``zero_tpu/parallel/distributed.py``. The JAX package joins
 its processes with ``jax.distributed.initialize``, shards the global batch
@@ -16,6 +17,12 @@ the whole model, its moments and its EMA; the collectives are explicit:
     ``reduce_scatter_sum`` sums gradients into them, ``all_gather_shards``
     makes leaves whole again (the updated weights, the stage-3 forward,
     ``host_fetchable``), in the same flat fp32 buckets;
+  * the processes form ``make_mesh``'s grid ``data x model [x expert]``
+    (``Grid``): the collectives above run over the data group; tensor
+    parallelism ('model', Megatron) and expert parallelism ('expert')
+    enter and leave their split regions through ``copy_in`` (identity
+    forward, all-reduce backward) and ``reduce_out`` (all-reduce
+    forward, identity backward) over the model or expert group;
   * ``any_flag`` agrees on a host flag (the preemption signal);
   * eval batches, identical on every process, are split by rows
     (``put_eval_batch``) and their decodes gathered
@@ -35,10 +42,13 @@ import logging
 import math
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as tdist
+
+from zero_tpu_torch.parallel import tensor
 
 log = logging.getLogger("zero_tpu_torch.distributed")
 
@@ -48,7 +58,8 @@ BUCKET_BYTES = 64 << 20
 # each collective's calls, bytes (of the whole tensors it reduces or
 # gathers) and time since the last take_stats(): CUDA event pairs on a
 # card, host seconds on the CPU
-_KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+_KINDS = ("all_reduce", "reduce_scatter", "all_gather", "model_reduce",
+          "expert_reduce")
 _stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
           for kind in _KINDS}
 
@@ -108,31 +119,138 @@ def maybe_initialize(params) -> bool:
 
 def destroy() -> None:
     """Leave the job (at exit of the CLI, which made the group)."""
+    _GRIDS.clear()
+    _current["grid"] = None
     if active():
         tdist.destroy_process_group()
 
 
-def data_degree(params) -> int:
-    """The mesh's 'data' degree (``zero_tpu/parallel/mesh.py:make_mesh``):
-    one device a process, so the world size. ``mesh_data`` -1 or 0 means
-    every device; any other value must be the world size."""
-    world = process_count()
+AXES = ("data", "model", "expert")
+
+
+class Grid:
+    """The processes as ``make_mesh``'s device grid: axes data, model and
+    expert (``zero_tpu/parallel/mesh.py:56-64``), process r at the
+    row-major coordinates of r. ``group(axis)`` is the process group of
+    this process's line along ``axis``: None for the default group (the
+    axis spans every process), ALONE where the axis has one process and
+    another axis has more (no collective runs)."""
+
+    def __init__(self, degrees, rank: int):
+        self.degrees = {a: int(degrees.get(a, 1)) for a in AXES}
+        coords, rest = {}, int(rank)
+        for axis in reversed(AXES):
+            coords[axis] = rest % self.degrees[axis]
+            rest //= self.degrees[axis]
+        self.coords = {a: coords[a] for a in AXES}
+        self.groups = {}
+
+    def degree(self, axis: str) -> int:
+        return self.degrees.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def size(self) -> int:
+        return math.prod(self.degrees.values())
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def ranks(self, axis: str):
+        """The ranks of the line along ``axis`` through this process, in
+        coordinate order."""
+        coords = dict(self.coords)
+        out = []
+        for c in range(self.degree(axis)):
+            coords[axis] = c
+            r = 0
+            for a in AXES:
+                r = r * self.degree(a) + coords[a]
+            out.append(r)
+        return out
+
+
+# Grid.group of an axis along which a process is alone
+ALONE = "alone"
+_GRIDS = {}
+_current = {"grid": None}
+
+
+def mesh_degrees(params, world: Optional[int] = None) -> dict:
+    """{axis: degree} of ``params``' mesh over ``world`` processes (the
+    group's by default): ``mesh_data`` -1 or 0 means every process the
+    model and expert degrees leave; their product must be the world
+    size, else make_mesh's ValueError."""
+    world = process_count() if world is None else int(world)
+    model = max(int(getattr(params, "mesh_model", 1) or 1), 1)
+    expert = max(int(getattr(params, "mesh_expert", 1) or 1), 1)
     data = int(getattr(params, "mesh_data", -1))
     if data <= 0:
-        return world
-    if data != world:
-        raise ValueError(mesh_message(data, world, params.device))
-    return data
+        data = world // (model * expert)
+    if data <= 0 or data * model * expert != world:
+        raise ValueError(mesh_message(data, model, expert, world,
+                                      params.device))
+    return {"data": data, "model": model, "expert": expert}
 
 
-def mesh_message(data: int, world: int, platform) -> str:
-    """make_mesh's error, for a 'data' degree that is not the number of
-    devices (one a process)."""
-    return ("make_mesh needs data*model*seq*pipe*expert = %s*1*1*1*1 = %s "
+def make_grid(params) -> Grid:
+    """The grid of ``params``' mesh over the process group, made current
+    (the collectives' groups). COLLECTIVE the first time a mesh shape is
+    asked for: every process makes every line's group, in one order."""
+    degrees = mesh_degrees(params)
+    world, rank = process_count(), process_index()
+    key = (world, tuple(degrees[a] for a in AXES))
+    grid = _GRIDS.get(key)
+    if grid is None:
+        grid = Grid(degrees, rank)
+        for axis in AXES:
+            if grid.degree(axis) == world:
+                continue                  # the default group
+            if grid.degree(axis) == 1:
+                grid.groups[axis] = ALONE
+                continue
+            # every line along the axis, made by every process in order
+            for start in range(world):
+                line = Grid(degrees, start)
+                if line.coord(axis):
+                    continue
+                ranks = line.ranks(axis)
+                group = tdist.new_group(ranks)
+                if rank in ranks:
+                    grid.groups[axis] = group
+        _GRIDS[key] = grid
+    _current["grid"] = grid
+    return grid
+
+
+def grid() -> Grid:
+    """The current grid: the last make_grid's, else data parallelism over
+    every process."""
+    if _current["grid"] is not None and _current["grid"].size() == \
+            process_count():
+        return _current["grid"]
+    return Grid({"data": process_count()}, process_index())
+
+
+def mesh_message(data: int, model: int, expert: int, world: int,
+                 platform) -> str:
+    """make_mesh's error, for a mesh whose degrees do not multiply to the
+    number of devices (one a process)."""
+    return ("make_mesh needs data*model*seq*pipe*expert = %s*%s*1*1*%s = %s "
             "devices but %d are available on platform %r (one device a "
-            "process: mesh_data must be -1, 0 or the number of processes). "
-            "Set mesh_data/mesh_model/mesh_seq/mesh_pipe/mesh_expert to fit "
-            "the hardware." % (data, data, world, str(platform)))
+            "process: mesh_data must be -1, 0 or the number of processes "
+            "over mesh_model * mesh_expert). Set mesh_data/mesh_model/"
+            "mesh_seq/mesh_pipe/mesh_expert to fit the hardware."
+            % (data, model, expert, max(data, 0) * model * expert, world,
+               str(platform)))
+
+
+def _axis_group(axis: str):
+    """(the process group, its size) of this process's line along
+    ``axis``; the group is ALONE where no collective runs."""
+    g = grid()
+    return g.group(axis), g.degree(axis)
 
 
 def _comm_device(t: torch.Tensor) -> torch.device:
@@ -143,15 +261,15 @@ def _comm_device(t: torch.Tensor) -> torch.device:
     return torch.device("cpu")
 
 
-def _all_reduce(t: torch.Tensor, op) -> None:
-    """All-reduce ``t`` in place; under gloo a card's tensor goes through
-    the host."""
+def _all_reduce(t: torch.Tensor, op, group=None) -> None:
+    """All-reduce ``t`` in place over ``group`` (the default group when
+    None); under gloo a card's tensor goes through the host."""
     dev = _comm_device(t)
     if dev == t.device:
-        tdist.all_reduce(t, op=op)
+        tdist.all_reduce(t, op=op, group=group)
         return
     host = t.to(dev)
-    tdist.all_reduce(host, op=op)
+    tdist.all_reduce(host, op=op, group=group)
     t.copy_(host)
 
 
@@ -190,19 +308,24 @@ def _timed(kind: str, nbytes: int, cuda: bool):
     entry["bytes"] += nbytes
 
 
-def all_reduce_sum_(tensors) -> None:
-    """Sum fp32 tensors in place over the processes, packed into flat
-    buckets of at most BUCKET_BYTES, one call a bucket. COLLECTIVE: every
-    process calls it with tensors of the same shapes, in the same order."""
+def all_reduce_sum_(tensors, axis: str = "data") -> None:
+    """Sum fp32 tensors in place over this process's line along mesh
+    ``axis`` (the data group: the gradients' sum), packed into flat
+    buckets of at most BUCKET_BYTES, one call a bucket; nothing where the
+    line is this process alone. COLLECTIVE: every process of the line
+    calls it with tensors of the same shapes, in the same order."""
+    group, _ = _axis_group(axis)
+    if group == ALONE:
+        return
     tensors = list(tensors)
     for bucket in _buckets(tensors):
-        _reduce_bucket([tensors[i] for i in bucket])
+        _reduce_bucket([tensors[i] for i in bucket], group)
 
 
-def _reduce_bucket(bucket) -> None:
+def _reduce_bucket(bucket, group) -> None:
     flat = torch.cat([t.reshape(-1).float() for t in bucket])
     with _timed("all_reduce", flat.numel() * 4, flat.is_cuda):
-        _all_reduce(flat, tdist.ReduceOp.SUM)
+        _all_reduce(flat, tdist.ReduceOp.SUM, group)
         offset = 0
         for t in bucket:
             n = t.numel()
@@ -217,7 +340,7 @@ def _front_shape(shape, dim: int, world: int):
 
 
 def _scatter_or_gather(kind: str, src: torch.Tensor,
-                       out: torch.Tensor) -> None:
+                       out: torch.Tensor, group=None) -> None:
     """reduce_scatter_tensor (a sum) or all_gather_into_tensor of flat
     ``src`` into flat ``out``; under gloo a card's tensors go through the
     host."""
@@ -229,20 +352,20 @@ def _scatter_or_gather(kind: str, src: torch.Tensor,
         # all_gather_into_tensor is one call on gloo and NCCL alike
         warnings.simplefilter("ignore", FutureWarning)
         if kind == "reduce_scatter":
-            tdist.reduce_scatter_tensor(host_out, host_src)
+            tdist.reduce_scatter_tensor(host_out, host_src, group=group)
         else:
-            tdist.all_gather_into_tensor(host_out, host_src)
+            tdist.all_gather_into_tensor(host_out, host_src, group=group)
     if host_out is not out:
         out.copy_(host_out)
 
 
 def reduce_scatter_sum(tensors, dims):
     """Whole tensors -> this process's shard (parallel/mesh.py:shard_of)
-    of their sum over the processes, fp32, each split along its ``dims``
+    of their sum over the data group, fp32, each split along its ``dims``
     entry (not None). A shard along a dim d > 0 is not contiguous: dim d
     moves to the front, each process's block is one row of a [W, n]
     matrix, and the buckets' rows are reduce-scattered flat. COLLECTIVE."""
-    world = process_count()
+    group, world = _axis_group("data")
     tensors = list(tensors)
     out = [None] * len(tensors)
     for bucket in _buckets(tensors):
@@ -251,7 +374,8 @@ def reduce_scatter_sum(tensors, dims):
         flat = torch.cat(rows, dim=1)
         local = flat.new_empty(flat.shape[1])
         with _timed("reduce_scatter", flat.numel() * 4, flat.is_cuda):
-            _scatter_or_gather("reduce_scatter", flat.reshape(-1), local)
+            _scatter_or_gather("reduce_scatter", flat.reshape(-1), local,
+                               group)
         offset = 0
         for i, row in zip(bucket, rows):
             n = row.shape[1]
@@ -263,10 +387,10 @@ def reduce_scatter_sum(tensors, dims):
 
 
 def all_gather_shards(shards, dims):
-    """This process's shards -> the whole tensors (every process's shard
-    joined along its ``dims`` entry, in rank order), in the shards'
-    dtypes. COLLECTIVE."""
-    world = process_count()
+    """This process's shards -> the whole tensors (every data-group
+    process's shard joined along its ``dims`` entry, in rank order), in
+    the shards' dtypes. COLLECTIVE."""
+    group, world = _axis_group("data")
     shards = list(shards)
     out = [None] * len(shards)
     for bucket in _buckets(shards):
@@ -275,7 +399,7 @@ def all_gather_shards(shards, dims):
         flat = torch.cat(cols)
         whole = flat.new_empty(world * flat.numel())
         with _timed("all_gather", whole.numel() * 4, flat.is_cuda):
-            _scatter_or_gather("all_gather", flat, whole)
+            _scatter_or_gather("all_gather", flat, whole, group)
         whole = whole.view(world, -1)
         offset = 0
         for i, col in zip(bucket, cols):
@@ -294,7 +418,8 @@ def all_gather_shards(shards, dims):
 def take_stats() -> dict:
     """The gradient all-reduce's {'calls', 'bytes', 'ms'} since the last
     call, with the same for 'reduce_scatter' and 'all_gather' under
-    ZeRO (waits for the card's events), and resets them."""
+    ZeRO and for the split regions' all-reduces, 'model_reduce' and
+    'expert_reduce' (waits for the card's events), and resets them."""
     out = {}
     for kind in _KINDS:
         entry = _stats[kind]
@@ -310,14 +435,95 @@ def take_stats() -> dict:
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the processes as its value, ``x``'s own
+    """The sum of ``x`` over the data group as its value, ``x``'s own
     gradient: "global value, local gradient". A loss built of such sums
     has the global batch's value on every process, and the sum of the
     processes' gradients is the global loss's gradient (for ratios of sums
     and non-linear terms alike). COLLECTIVE."""
+    group, _ = _axis_group("data")
+    if group == ALONE:
+        return x
     total = x.detach().clone()
-    _all_reduce(total, tdist.ReduceOp.SUM)
+    _all_reduce(total, tdist.ReduceOp.SUM, group)
     return total + (x - x.detach())
+
+
+# ---------------------------------------------------------------------------
+# the split regions of tensor ('model') and expert ('expert') parallelism
+# ---------------------------------------------------------------------------
+
+def _region_sum(x: torch.Tensor, axis: str,
+                op=tdist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over this process's line along
+    ``axis``, counted as one ``<axis>_reduce`` call."""
+    group, _ = _axis_group(axis)
+    out = x.detach().contiguous().clone()
+    with _timed(axis + "_reduce", out.numel() * out.element_size(),
+                out.is_cuda):
+        _all_reduce(out, op, group)
+    return out
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: identity forward, gradient summed over the line."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _region_sum(g, ctx.axis), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: partial sums summed over the line, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _region_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBoth(_CopyIn):
+    """A statistic over a split axis whose users are split too (ReLA's
+    mean square): summed over the line both ways."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _region_sum(x, axis)
+
+
+def copy_in(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """A replicated activation entering a region split over ``axis``: the
+    same value, its gradient summed over the line (each process's holds
+    the part its split computed). COLLECTIVE in the backward."""
+    return _CopyIn.apply(x, axis) if grid().degree(axis) > 1 else x
+
+
+def reduce_out(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """A region's partial sums leaving it: their sum over the line, the
+    replicated gradient passed through. COLLECTIVE."""
+    return _ReduceOut.apply(x, axis) if grid().degree(axis) > 1 else x
+
+
+def sum_both(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The sum over the line of a statistic that split users read, its
+    gradient summed too. COLLECTIVE both ways."""
+    return _SumBoth.apply(x, axis) if grid().degree(axis) > 1 else x
+
+
+def max_over(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The element-wise maximum over the line, no gradient. COLLECTIVE."""
+    if grid().degree(axis) == 1:
+        return x
+    return _region_sum(x, axis, tdist.ReduceOp.MAX)
 
 
 def barrier() -> None:
@@ -337,33 +543,32 @@ def any_flag(flag: bool) -> bool:
 def host_fetchable(tree, layout=None):
     """Make every tensor of ``tree`` ({prefix: a module, a {name: tensor}
     dict or the Adam state, or None}) whole on this process. Without a
-    ZeRO ``layout`` (parallel/mesh.py) each process holds the whole state
-    and the tree comes back as it is; with one, every shard is
-    all-gathered into a copy of its tree. COLLECTIVE by contract, as in
-    the JAX package: every process calls it at the same point, even
-    where only the primary consumes the result (a checkpoint write)."""
+    ``layout`` (parallel/mesh.py) each process holds the whole state and
+    the tree comes back as it is; with one, every ZeRO shard is
+    all-gathered over the data group and every model or expert part over
+    its line, into a copy of its tree (a module's copy loses its split
+    tags: it runs whole). COLLECTIVE by contract, as in the JAX package:
+    every process calls it at the same point, even where only the primary
+    consumes the result (a checkpoint write)."""
     if layout is None or process_count() == 1:
         return tree
-    jobs, out = [], {}
+    jobs, out, modules = [], {}, []
 
     def whole_dict(tensors):
         copied = dict(tensors)
         for name, t in tensors.items():
-            if layout.is_shard(name, t):
-                jobs.append((t, layout.dim(name),
-                             lambda w, n=name: copied.__setitem__(n, w)))
+            jobs.append((name, t, lambda w, n=name: copied.__setitem__(n,
+                                                                       w)))
         return copied
 
     for prefix, sub in tree.items():
         if isinstance(sub, torch.nn.Module):
-            named = [(n, p) for n, p in sub.named_parameters()
-                     if layout.is_shard(n, p)]
-            if named:
+            if any(layout.is_shard(n, p) or layout.split(n) is not None
+                   for n, p in sub.named_parameters()):
                 sub = copy.deepcopy(sub)
-                mine = dict(sub.named_parameters())
-                for name, p in named:
-                    jobs.append((p, layout.dim(name),
-                                 lambda w, q=mine[name]: setattr(q, "data",
+                modules.append(sub)
+                for name, p in sub.named_parameters():
+                    jobs.append((name, p, lambda w, q=p: setattr(q, "data",
                                                                  w)))
         elif isinstance(sub, dict) and "mu" in sub:
             sub = dict(sub, mu=whole_dict(sub["mu"]),
@@ -371,20 +576,59 @@ def host_fetchable(tree, layout=None):
         elif isinstance(sub, dict):
             sub = whole_dict(sub)
         out[prefix] = sub
-    if jobs:
-        wholes = all_gather_shards([t.detach() for t, _, _ in jobs],
-                                   [d for _, d, _ in jobs])
-        for (_, _, assign), w in zip(jobs, wholes):
-            assign(w.contiguous())
+    held = [t.detach() for _, t, _ in jobs]
+    values = list(held)
+    shards = [i for i, (n, t, _) in enumerate(jobs) if layout.is_shard(n, t)]
+    if shards:
+        wholes = all_gather_shards([values[i] for i in shards],
+                                   [layout.dim(jobs[i][0]) for i in shards])
+        for i, w in zip(shards, wholes):
+            values[i] = w.contiguous()
+    for axis in ("model", "expert"):
+        parts = [i for i, (n, _, _) in enumerate(jobs)
+                 if layout.split(n) is not None
+                 and layout.split(n).axis == axis]
+        if parts:
+            gathered = _all_gather_parts([values[i] for i in parts], axis)
+            for i, every in zip(parts, gathered):
+                values[i] = layout.split(jobs[i][0]).join(every) \
+                    .contiguous()
+    for (_, _, assign), h, v in zip(jobs, held, values):
+        if v is not h:
+            assign(v)
+    for module in modules:
+        tensor.clear_tags(module)
+    return out
+
+
+def _all_gather_parts(parts, axis: str):
+    """Each tensor's part on every process of this process's line along
+    ``axis``, in coordinate order: [[part of coord 0, 1, ...] per
+    tensor], in flat fp32 buckets. COLLECTIVE."""
+    group, world = _axis_group(axis)
+    out = [None] * len(parts)
+    for bucket in _buckets(parts):
+        flat = torch.cat([parts[i].float().reshape(-1) for i in bucket])
+        whole = flat.new_empty(world * flat.numel())
+        with _timed("all_gather", whole.numel() * 4, flat.is_cuda):
+            _scatter_or_gather("all_gather", flat, whole, group)
+        whole = whole.view(world, -1)
+        offset = 0
+        for i in bucket:
+            n = parts[i].numel()
+            out[i] = [whole[w, offset:offset + n].view(parts[i].shape)
+                      .to(parts[i].dtype) for w in range(world)]
+            offset += n
     return out
 
 
 def put_global_batch(batch, device):
     """This process's stacked feature dict -> its tensors on ``device``.
-    The global batch is the concatenation over the processes, in process
-    order, of their batches (each padded to the group's shape, so they
-    agree); no process builds it. Its rows before this process's are
-    ``process_index() * rows`` (``train_step``)."""
+    The global batch is the concatenation over the data group, in data
+    coordinate order, of their batches (each padded to the group's shape,
+    so they agree; the processes of one model or expert line hold the
+    same rows); no process builds it. Its rows before this process's are
+    ``grid().coord("data") * rows`` (``train_step``)."""
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in batch.items()}
 

@@ -25,11 +25,14 @@ its device and writes it on a worker thread; ``wait()`` joins the write
 and raises its error.
 
 The sharded format ("sharded-v1", ``Saver(sharded=True)``, the JAX
-package's ``save_checkpoint_sharded``): under ZeRO (parallel/mesh.py's
-layout) every process writes ``model-<step>.shard<rank>.npz`` holding its
-own slices under ``key@a:b,c:d`` (every dim listed, ``_index_key``'s
-text), shard0 also the leaves every process holds whole under the bare
-key; the primary writes ``model-<step>.shardmeta.json`` ({"format",
+package's ``save_checkpoint_sharded``): under ZeRO or tensor and expert
+parallelism (parallel/mesh.py's layout) every process writes
+``model-<step>.shard<rank>.npz`` holding its own rectangles of the whole
+leaves under ``key@a:b,c:d`` (every dim listed, ``_index_key``'s text;
+a fused ``qkv`` part is three), each rectangle written by one process (a
+leaf no axis cuts by the coordinate-0 process of that axis), shard0 also
+the leaves every process holds whole under the bare key; the primary
+writes ``model-<step>.shardmeta.json`` ({"format",
 "nproc", "keys": {key: shape}}). A training restore under the same
 number of processes reads each process's slices from its own file; any
 other restore (another number of processes, a monolithic checkpoint,
@@ -121,10 +124,13 @@ def load_flat(tree, flat: Dict[str, np.ndarray],
             arr = flat.get(key)
             name = layout_name(key)
             if arr is not None and layout is not None \
-                    and tuple(arr.shape) != tuple(t.shape) \
-                    and layout.is_shard(name, t) \
-                    and tuple(arr.shape) == layout.shapes[name]:
-                arr = layout.local(name, arr)
+                    and name in layout.shapes \
+                    and tuple(arr.shape) != tuple(t.shape):
+                if tuple(arr.shape) == layout.wholes.get(name):
+                    arr = layout.part(name, arr)
+                if layout.is_shard(name, t) \
+                        and tuple(arr.shape) == layout.shapes[name]:
+                    arr = layout.local(name, arr)
             if arr is None:
                 log.warning("%s missed in checkpoint", key)
             elif tuple(arr.shape) != tuple(t.shape):
@@ -197,16 +203,21 @@ def load_checkpoint_file(path: str,
 def sharded_members(flat: Dict[str, torch.Tensor], layout=None):
     """This process's part of a sharded-v1 checkpoint of ``flat`` ({key:
     tensor as held}): (its members, the meta's {key: whole shape}). A
-    shard (under the ZeRO ``layout``) goes under ``key@<index>``
-    (``zero_tpu/saver.py:_index_key``'s text); a tensor every process
-    holds whole under the bare key, in shard0 only."""
+    tensor held as a part (under the ``layout``: a ZeRO shard, a model or
+    expert part) goes under ``key@<index>`` for each rectangle of the
+    whole leaf it holds (``zero_tpu/saver.py:_index_key``'s text), where
+    this process is the one that writes it (Layout.writes); a tensor
+    every process holds whole under the bare key, in shard0 only."""
     rank = dist.process_index()
     members, shapes = {}, {}
     for key, t in flat.items():
         name = layout_name(key)
-        if layout is not None and layout.is_shard(name, t):
-            members[key + "@" + layout.index_key(name)] = t
-            shapes[key] = list(layout.shapes[name])
+        sharded = layout is not None and layout.is_shard(name, t)
+        if sharded or (layout is not None and layout.split(name)):
+            if layout.writes(name, sharded):
+                for index, piece in layout.pieces(name, t, sharded):
+                    members[key + "@" + index] = piece
+            shapes[key] = list(layout.wholes[name])
         else:
             if rank == 0:
                 members[key] = t
@@ -232,25 +243,38 @@ def write_sharded_checkpoint(directory: str, name: str,
 
 
 def load_own_shards(base: str, layout, prefixes=None) -> Dict[str, np.ndarray]:
-    """This process's slices from its own shard file of the sharded-v1
-    checkpoint ``base``, where it was written by as many processes as the
-    ``layout`` has and holds exactly the slice the layout gives this
-    process: {key: slice}. Empty otherwise."""
+    """This process's parts from its own shard file of the sharded-v1
+    checkpoint ``base``, where it was written by as many processes as run
+    now and holds exactly the rectangles the ``layout`` gives this
+    process's ZeRO shard: {key: the shard as held}. Empty otherwise (a
+    part whole over the data axis is assembled from every file)."""
     with open(base + ".shardmeta.json") as r:
         nproc = int(json.load(r)["nproc"])
-    own = "%s.shard%d.npz" % (base, layout.rank)
-    if nproc != layout.world or not os.path.exists(own):
+    own = "%s.shard%d.npz" % (base, dist.process_index())
+    if nproc != dist.process_count() or not os.path.exists(own):
         return {}
-    out = {}
+    found: Dict[str, Dict[str, np.ndarray]] = {}
     with np.load(own, allow_pickle=False) as z:
         for member in z.files:
             key, _, index = member.partition("@")
             name = layout_name(key)
             if index and name in layout.dims \
+                    and layout.dims[name] is not None \
                     and (prefixes is None
-                         or key.split("/", 1)[0] in prefixes) \
-                    and index == layout.index_key(name):
-                out[key] = z[member]
+                         or key.split("/", 1)[0] in prefixes):
+                found.setdefault(key, {})[index] = z[member]
+    out = {}
+    for key, pieces in found.items():
+        name = layout_name(key)
+        shape = list(layout.shapes[name])
+        shape[layout.dims[name]] //= layout.world
+        held = np.zeros(shape, next(iter(pieces.values())).dtype)
+        wanted = layout.pieces(name, held, True)
+        if {index for index, _ in wanted} != set(pieces):
+            continue
+        for index, view in wanted:
+            view[...] = pieces[index]
+        out[key] = held
     return out
 
 

@@ -1,23 +1,25 @@
-"""Training, evaluation and scoring loops: one device a process, data
-parallelism across processes.
+"""Training, evaluation and scoring loops: one device a process, data,
+tensor and expert parallelism across processes.
 
-Counterpart of ``zero_tpu/train.py`` without tensor parallelism,
-pipelines or rings: the epoch/step loop with update_cycle grouping, NaN
-abort (or the safe_nan skip), periodic display/save/sample/eval, mid-epoch
+Counterpart of ``zero_tpu/train.py`` without pipelines or rings: the
+epoch/step loop with update_cycle grouping, NaN abort (or the safe_nan
+skip), periodic display/save/sample/eval, mid-epoch
 resume from ``record.json`` by skipping consumed batches, dev-BLEU-driven
 best checkpointing and early stop, the EMA weight swap for eval, a SIGTERM
 checkpoint-and-exit, a profiler window, and the final save and dev eval;
 plus the ``--mode test`` (``evaluate``), ``--mode score`` (``scorer``) and
 ``--mode ensemble`` (``ensemble``) entry points, which decode on one
-device. Under several processes (parallel/distributed.py) each takes its
-slot of every group of host batches, the primary saves and samples, and
-the dev eval decodes each process's rows of every batch and gathers
-them; under ZeRO (``zero_stage``) the state is gathered whole where a
-save or a decode needs it, or each process writes its own shards
-(``sharded_checkpoint``). ``data_kind=speech`` reads TSV
-manifests (audio.py:SpeechDataset) in every mode and feeds the models the
-frames, their mask, the transcript and the context as the JAX package
-does.
+device. Under several processes (parallel/distributed.py) each takes the
+slot of its data coordinate in every group of host batches (the
+processes of a model or expert line take the same), the primary saves
+and samples, and the dev eval decodes each process's rows of every batch
+with the whole weights and gathers them; under ZeRO (``zero_stage``) or
+tensor and expert parallelism (``mesh_model``, ``mesh_expert``) the
+state is gathered whole where a save or a decode needs it, or each
+process writes its own parts (``sharded_checkpoint``).
+``data_kind=speech`` reads TSV manifests (audio.py:SpeechDataset) in
+every mode and feeds the models the frames, their mask, the transcript
+and the context as the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from zero_tpu_torch.models.base import Inference, get_model
 from zero_tpu_torch.models.common import check_ported, parallel_options
 from zero_tpu_torch.models.transformer_ibdecoder import unfold
 from zero_tpu_torch.parallel import distributed as dist
-from zero_tpu_torch.parallel.mesh import per_rank_bytes
+from zero_tpu_torch.parallel.mesh import per_rank_bytes, whole_size
+from zero_tpu_torch.parallel import tensor as tp
 from zero_tpu_torch.pipeline import Prefetcher
 from zero_tpu_torch.saver import Saver
 from zero_tpu_torch.search import beam_search, gather_cache, ib_beam_search
@@ -321,15 +324,25 @@ def _train(params, preempted) -> dict:
     model = get_model(params.model_name)
     device = device_of(params)
     nproc, pid = dist.process_count(), dist.process_index()
-    # the 'data' degree: one device a process (parallel/distributed.py)
-    data_par = dist.data_degree(params)
-    check_ported(params, world=data_par)
+    check_ported(params, world=nproc)
+    # the mesh grid over the processes, one device a process
+    # (parallel/distributed.py): 'data' x 'model' x 'expert'
+    grid = dist.make_grid(params) if dist.active() else dist.grid()
+    data_par, slot = grid.degree("data"), grid.coord("data")
     if nproc > 1:
-        log.info("data parallelism: process %d of %d on %s", pid, nproc,
-                 device)
+        log.info("process %d of %d on %s: mesh %s at %s", pid, nproc,
+                 device, grid.degrees, grid.coords)
+    if nproc > 1 and grid.degree("model") > 1 and params.sample_freq > 0:
+        # zero_tpu/train.py:295-302
+        log.warning("multi-host with tensor parallelism: in-training "
+                    "sampling disabled (sample batches are host-local); "
+                    "dev eval itself stays on via the collective mesh "
+                    "decode")
+        params.sample_freq = 0
     # every process builds the same batch stream (the seeds of run.py),
-    # takes its slot of each group of nproc host batches and pads it to
-    # the group's shape: the global batch needs no communication
+    # takes the slot of its data coordinate in each group of data_par
+    # host batches and pads it to the group's shape: the global batch
+    # needs no communication, and a model or expert line holds one slot
     train_dataset = _make_dataset(params, params.src_train_file,
                                   params.tgt_train_file, train=True,
                                   data_par=max(data_par // nproc, 1))
@@ -343,9 +356,7 @@ def _train(params, preempted) -> dict:
 
     gen = torch.Generator().manual_seed(int(params.random_seed))
     state = init_train_state(model, params, gen, device)
-    num_params = sum(int(np.prod(shape)) for shape in (
-        state.layout.shapes.values() if state.layout else
-        (p.shape for p in state.params.parameters())))
+    num_params = whole_size(state.layout, state.params)
     log.info("Total trainable variables size: %d", num_params)
     mb = 1024.0 * 1024.0
     # each process's own bytes: its shards under ZeRO
@@ -422,10 +433,10 @@ def _train(params, preempted) -> dict:
             group, host_group = [], []
             for lidx, batch in enumerate(host_queue):
                 host_group.append(batch)
-                if len(host_group) < nproc:
+                if len(host_group) < data_par:
                     continue
-                mine = host_group[pid]
-                if nproc > 1:
+                mine = host_group[slot]
+                if data_par > 1:
                     mine = _pad_group_batch(mine, host_group)
                 host_group = []
                 if epoch == resume_epoch and lidx <= resume_lidx:
@@ -597,12 +608,14 @@ def record_eval_score(recorder, step, bleu, estop_patience):
 def _eval_weights(params, model, state):
     """A copy of the weights to decode with, in the compute dtype where the
     model casts them (ModelSpec.eval_cast): the EMA weights when
-    ema_decay > 0, else the parameters; under ZeRO gathered whole on
-    every process (COLLECTIVE: ``_place_eval_weights``, host_fetchable)."""
+    ema_decay > 0, else the parameters; under ZeRO or tensor and expert
+    parallelism gathered whole on every process (COLLECTIVE:
+    host_fetchable), so the decode runs as on one device."""
     if params.ema_decay > 0 and state.ema is not None:
         # only the EMA is gathered; the module is a skeleton for it
         ema = dist.host_fetchable({"ema": state.ema}, state.layout)["ema"]
         weights = copy.deepcopy(state.params)
+        tp.clear_tags(weights)
         for name, p in weights.named_parameters():
             p.data = ema[name].detach().to(p.dtype, copy=True)
     else:

@@ -22,7 +22,15 @@ Counterpart of ``zero_tpu/parallel/train_step.py`` on one device a process:
     fp32 weights once a microbatch through a differentiable all-gather
     (``_GatherShards``: its backward reduce-scatters the gradient). A
     stage changes the layout only, never a value the host can observe;
-    with one process every stage runs as stage 0, as in the JAX package
+    with a data degree of one every stage runs as stage 0, as in the JAX
+    package
+  * tensor and expert parallelism (``mesh_model``, ``mesh_expert``;
+    parallel/mesh.py's table, parallel/tensor.py's regions): each process
+    holds its part of every split leaf, and ZeRO cuts that part further;
+    the gradients are summed over the data group only (a replicated leaf
+    gets the same gradient on every process of a model or expert line,
+    which no collective averages), and the norms count each part once
+    over its line and each replicated leaf once
   * clipping by global norm (``clip_grad_norm``)
   * Adam as ``optax.scale_by_adam(b1, b2, eps)`` followed by
     ``p - lr * u``, with the learning rate passed from the host each step
@@ -51,7 +59,8 @@ import torch
 from zero_tpu_torch import robt as robt_lib
 from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.parallel import distributed as dist
-from zero_tpu_torch.parallel.mesh import Layout
+from zero_tpu_torch.parallel import tensor as tp
+from zero_tpu_torch.parallel.mesh import Layout, warn_unsharded
 
 
 @dataclass
@@ -72,20 +81,29 @@ def _names_params(module):
 
 def zero_stage(cfg) -> int:
     """The ZeRO stage that runs: ``zero_stage`` under a 'data' degree
-    above 1 (one device a process: several processes), else 0."""
+    above 1, else 0."""
     return int(getattr(cfg, "zero_stage", 0)) \
-        if dist.process_count() > 1 else 0
+        if dist.grid().degree("data") > 1 else 0
 
 
 def init_train_state(model, cfg, gen: torch.Generator, device) -> TrainState:
-    """The whole state from ``gen`` (the same on every process), then
-    under ZeRO each process keeps its shards of the moments and the EMA
-    and, at stage 3, of the parameters."""
+    """The whole state from ``gen`` (the same on every process), then each
+    process keeps its model/expert part of every split leaf and, under
+    ZeRO, its shards of the moments and the EMA and, at stage 3, of the
+    parameters. Makes the mesh grid current (COLLECTIVE: its groups)."""
+    grid = dist.make_grid(cfg) if dist.active() else dist.grid()
     params = model.init_fn(gen, cfg).to(device)
     named = _names_params(params)
     stage = zero_stage(cfg)
-    layout = (Layout.of(named, dist.process_count(), dist.process_index())
-              if stage else None)
+    split = grid.degree("model") > 1 or grid.degree("expert") > 1
+    layout = (Layout.plan(named, grid, zero=stage > 0)
+              if stage or split else None)
+    if layout is not None and split:
+        if dist.is_primary():
+            warn_unsharded(layout.wholes, grid.degree("model"))
+        for name, p in named:
+            p.data = layout.part(name, p.detach()).contiguous()
+        tp.tag_module(params, layout)
 
     def local(name, p):
         return layout.local(name, p.detach()) if layout else p.detach()
@@ -117,21 +135,30 @@ def stack_microbatches(batches):
     return out
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
-
-
-def sharded_norm(shards, wholes) -> torch.Tensor:
+def sharded_norm(shards, wholes, lines=None) -> torch.Tensor:
     """The global norm of a tree held partly as this process's shards
-    (their partial sums of squares all-reduced) and partly whole on every
-    process (counted once). COLLECTIVE."""
-    ref = (shards + wholes)[0]
-    part = torch.zeros(1, dtype=torch.float32, device=ref.device)
-    for t in shards:
-        part += torch.sum(t.float() * t.float())
-    dist.all_reduce_sum_([part])
-    return torch.sqrt(part[0] + sum(torch.sum(t.float() * t.float())
-                                    for t in wholes))
+    (their partial sums of squares all-reduced over the data group) and
+    partly whole on every process (counted once). ``lines`` ({tensor
+    index: mesh axes}) names the model or expert axes that cut a tensor
+    (indices into shards + wholes): its partial sum is completed over
+    those lines too. COLLECTIVE."""
+    tensors = shards + wholes
+    lines = lines or {}
+    keys = sorted({(i < len(shards),) + tuple(lines.get(i, ()))
+                   for i in range(len(tensors))}, reverse=True)
+    parts = {k: torch.zeros(1, dtype=torch.float32,
+                            device=tensors[0].device) for k in keys}
+    for i, t in enumerate(tensors):
+        key = (i < len(shards),) + tuple(lines.get(i, ()))
+        parts[key] = parts[key] + torch.sum(t.float() * t.float())
+    total = None
+    for key in keys:
+        if key[0]:
+            dist.all_reduce_sum_([parts[key]])
+        for axis in key[1:]:
+            dist.all_reduce_sum_([parts[key]], axis)
+        total = parts[key][0] if total is None else total + parts[key][0]
+    return torch.sqrt(total)
 
 
 class _GatherShards(torch.autograd.Function):
@@ -203,12 +230,14 @@ def make_micro_backward(model, cfg):
 
 def global_batch(rows: int):
     """The global batch that a microbatch of ``rows`` rows belongs to:
-    under a process group, the concatenation of every process's slice in
-    process order (their slices share one shape); else none."""
+    under a process group, the concatenation of every data-group
+    process's slice in data coordinate order (their slices share one
+    shape; a model or expert line holds one slice); else none."""
     if not dist.active():
         return contextlib.nullcontext()
-    world, pid = dist.process_count(), dist.process_index()
-    return ops_common.global_batch(pid * rows, rows, world * rows,
+    grid = dist.grid()
+    data, coord = grid.degree("data"), grid.coord("data")
+    return ops_common.global_batch(coord * rows, rows, data * rows,
                                    dist.global_sum)
 
 
@@ -238,6 +267,16 @@ def make_train_step(model, cfg):
         # from 2, parameters at 3) and those whole on every process
         sharded = [i for i, d in enumerate(dims) if d is not None]
         whole = [i for i, d in enumerate(dims) if d is None]
+        # the model or expert axis that cuts each leaf (the norms complete
+        # its sums over that line), by the leaf's index in sharded + whole
+        # (``lines``) and in named (``named_lines``)
+        splits = {n: s.axis for n, s in layout.splits.items()} \
+            if layout else {}
+        lines = {j: (splits[named[i][0]],)
+                 for j, i in enumerate(sharded + whole)
+                 if named[i][0] in splits}
+        named_lines = {i: (splits[n],) for i, (n, _) in enumerate(named)
+                       if n in splits}
         cycles, rows = next(iter(batch.values())).shape[:2]
         for _, p in named:
             p.grad = None
@@ -280,9 +319,9 @@ def make_train_step(model, cfg):
         with torch.no_grad():
             if stage >= 2:
                 gnorm = sharded_norm([grads[i] for i in sharded],
-                                     [grads[i] for i in whole])
+                                     [grads[i] for i in whole], lines)
             else:
-                gnorm = global_norm(grads)
+                gnorm = sharded_norm([], grads, named_lines)
             if clip_norm > 0:
                 scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12),
                                     max=1.0)
@@ -331,9 +370,9 @@ def make_train_step(model, cfg):
                                        + (1.0 - ema_decay) * p_loc)
             if stage >= 3:
                 pnorm = sharded_norm([named[i][1] for i in sharded],
-                                     [named[i][1] for i in whole])
+                                     [named[i][1] for i in whole], lines)
             else:
-                pnorm = global_norm([p for _, p in named])
+                pnorm = sharded_norm([], [p for _, p in named], named_lines)
             for _, p in named:
                 p.grad = None
         state.step += 1
