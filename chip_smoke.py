@@ -82,7 +82,7 @@ non-zero):
              CPU (plain versions): identical sequences, scores within 1e-4
   train      transformer-base (configs/transformer_base_wmt14.json: bf16,
              dropout 0.1, token_size 4096, update_cycle 4; at BASE_CUT's
-             3+3 layers, as rpr_train, rela_train and aan_train, for the
+             2+2 layers, as rpr_train, rela_train and aan_train, for the
              script's time) trained for
              TRAIN_STEPS steps on a synthetic corpus with both kernel flags
              on: ms/step, target tokens/s, loss and gnorm, model FLOPs and
@@ -119,7 +119,7 @@ non-zero):
              then #3/#4 over heads 4-7 of 8 at the causal shape, bf16 at
              dropout 0.1, against the plain version on the same heads and
              the whole launch's heads
-  rpr_train  transformer_rpr (configs/transformer_rpr_rela.json at 3+3
+  rpr_train  transformer_rpr (configs/transformer_rpr_rela.json at 2+2
              layers, 512/2048, 8 heads, m 16, bf16, token_size 4096,
              update_cycle 4) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn, which RPR ignores) on,
@@ -136,7 +136,7 @@ non-zero):
              card, loss within 1e-5; beam-4 decode card against CPU,
              identical sequences
   rela_train transformer_rela (configs/transformer_rpr_rela.json with
-             model_name=transformer_rela: 3+3 layers, 512/2048, bf16,
+             model_name=transformer_rela: 2+2 layers, 512/2048, bf16,
              dropout 0.1) trained TRAIN_STEPS steps with
              use_flash_attention (and use_fused_ffn) on: ms/step, tokens/s,
              MFU; no kernel launch (ReLA keeps the composite attention and
@@ -147,7 +147,7 @@ non-zero):
   rela_reference  a small fp32 transformer_rela: train_fn loss and grads
              card against CPU within 1e-4; beam 4 card (#8 relu) against
              CPU, identical sequences
-  aan_train  transformer_aan (configs/transformer_aan_wmt14.json at 3+3,
+  aan_train  transformer_aan (configs/transformer_aan_wmt14.json at 2+2,
              512/2048, bf16, dropout 0.1) trained TRAIN_STEPS steps with both
              kernel flags on (launches 3 each of #1/#2 and #11/#12 forwards
              and backwards per microbatch: the encoder; the AAN decoder's
@@ -206,19 +206,25 @@ non-zero):
              inputs (what ran before, parent_ms), the plain version and
              SDPA (bf16) beside the bound; #5-#7 over heads 2-3 of 4 at
              the padded shape, bf16 at dropout 0.1, against the plain
-             version on the same heads and the whole launch's heads. And
+             version on the same heads and the whole launch's heads; #5-#7
+             as the ring's blocks (parallel/ring.py in threads of this
+             process) over 2 and 4 blocks, fp32 and bf16, causal and
+             padded, against the plain kernel-form ring at dropout 0.1 and
+             the unsplit launch at 0; #1/#2 and #3/#4 over each half of
+             the queries and #11/#12 over each half of a sequence's rows (bf16,
+             dropout 0.1) against the whole launch's slice. And
              decode_cross_attention (#9, unwired as in the JAX package)
              against its plain version at B=32 beam 4 S=64 and B=4 beam 4
              S=16384, timed beside the composite of cross_attn_step and
              SDPA, and checked with a fully masked batch row (which
              averages all S positions) at 5 beams and at 1; fp32 and bf16
-  long_train transformer-base (configs/transformer_base_wmt14.json with
-             use_flash_attention and max_len/token_size 16384,
-             pad_seq_multiple 128; a constant learning rate 1e-3) trained
-             LONG_STEPS steps on synthetic pairs of 8200-16000 tokens a
-             side, one pair per microbatch: ms/step, target tokens/s, MFU,
-             peak memory; launches = 18 each of the tensor-core #5, #6 and
-             #7 per microbatch, no CUDA-core kernel, no plain version; then
+  long_train transformer-base (configs/transformer_base_wmt14.json at
+             BASE_CUT's 2+2 with use_flash_attention and max_len/token_size
+             16384, pad_seq_multiple 128; a constant learning rate 1e-3)
+             trained LONG_STEPS steps on synthetic pairs of 8200-16000
+             tokens a side, one pair per microbatch: ms/step, target
+             tokens/s, MFU, peak memory; launches = 9 each of the
+             tensor-core #5, #6 and #7 per microbatch, no CUDA-core kernel, no plain version; then
              --mode score and --mode test (beam 4) of the checkpoint on four
              long pairs at eval_batch_size 2: the tensor-core #5 in every
              forward, #8 in decoding
@@ -272,7 +278,7 @@ non-zero):
              identical beam-4 sequences, exact launch counts; then the scan
              transformer in bf16 with use_remat against without: gap 0
   ib_train   configs/transformer_base_wmt14.json as transformer_ibdecoder
-             (at BASE_CUT's 3+3, 6+6 as written; bf16, both kernel flags)
+             (at BASE_CUT's 2+2, 6+6 as written; bf16, both kernel flags)
              IB_STEPS steps: ms/step,
              tokens/s, MFU (over the bf16 peak; the decoder computes in
              fp32, promoted by its fp32 positions as in the JAX package);
@@ -282,7 +288,7 @@ non-zero):
              --mode test at beam 4 and 1 (the pair search: pair steps,
              sentences/s; the encoder's #1/#11, no decode kernel: the
              pair step attends over two positions) and --mode score
-  speech_train  configs/speech_afs_mustc.json at 2+2+2 (6+6+6 as
+  speech_train  configs/speech_afs_mustc.json at 1+1+1 (6+6+6 as
              written, for the script's time; bf16,
              AFS tf, coarse CTC, use_flash_attention, the fused FFN off)
              SPEECH_STEPS steps on a synthetic corpus the phase writes
@@ -336,7 +342,7 @@ non-zero):
              metric CLI (OTEM, UTEM, BLEU; detokenized BLEU) and the chrF
              script on rnn_train's beam-4 output
   dp_train   data parallelism across processes (zero_tpu_torch/parallel/):
-             configs/transformer_base_wmt14.json at BASE_CUT's 3+3 (bf16,
+             configs/transformer_base_wmt14.json at BASE_CUT's 2+2 (bf16,
              both kernel flags, dropout 0.1, update_cycle 4) DP_STEPS
              steps through --mode train, first as a world of one over NCCL
              (dist_coordinator=127.0.0.1:<port>: the gradient all-reduce
@@ -397,6 +403,27 @@ non-zero):
   ep_train   transformer_moe as moe_train runs it (fp32, dropout 0.1) at
              mesh_expert=2, 4 experts a rank, against one process: the
              same tolerances, the expert line's all-reduces counted
+  sp_train   sequence parallelism (mesh_seq=2: mesh data 1 x seq 2):
+             long_train's pairs (SP_CUT: 2+2, 2 microbatches a step; bf16,
+             both kernel flags, attention dropout 0, the others 0.1)
+             LONG_STEPS steps, first as a world of one in this process,
+             then in the two gloo ranks, each on its block of every
+             sequence: ms/step, tokens/s, peak memory a rank against the
+             world of one's, the ring's shifts and the encoder's gather a
+             step (calls, bytes, ms), the launches of #5-#7 (the ring's
+             blocks: a causal ring skips those above the diagonal; the
+             cross attention past 8192 keys) and #11/#12 a rank
+             (sp_expected_launches), each step's loss within SP_SAME of
+             the world of one's
+  sp_reference  the small fp32 transformer (the CUDA-core #5-#7 as ring
+             blocks, #1/#2 over a rank's queries, #11/#12 over its rows),
+             transformer_rpr (plain ring blocks; the CUDA-core #3/#4 over
+             a rank's queries in its cross-attention) and transformer_rela
+             (plain ring blocks),
+             attention dropout 0, relu and residual dropout 0.1, at
+             mesh_seq=2 against one process: loss within 1e-6 relative,
+             the gradients summed over the line and the parameters after
+             one Adam step within 1e-5 of their max
 Then the `kernels` JSON line, the script's total seconds, the nvidia-smi
 name/power-limit line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -457,10 +484,10 @@ TRAIN_STEPS = 2
 # data-parallel phases came)
 TEST_SENTENCES = 32
 # the earlier phases run at a cut depth (the script's time budget):
-# transformer-base's at 3+3 (6+6 as written; IBDecoder too, MoE at 2+2),
-# config 4's at 2+6 (20+6; scan_layers too), the multilingual config's at
-# 1+1, config 5's at 2+2+2; the RNN phases at the default config's widths
-BASE_CUT = ",num_encoder_layer=3,num_decoder_layer=3"
+# transformer-base's at 2+2 (6+6 as written, 3+3 until sequence
+# parallelism came; IBDecoder too, MoE at 2+2), config 4's at 2+6 (20+6;
+# scan_layers too), the multilingual config's at 1+1, config 5's at 1+1+1; the RNN phases at the default config's widths
+BASE_CUT = ",num_encoder_layer=2,num_decoder_layer=2"
 DEEP_CUT = ",num_encoder_layer=2"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
 # the card spins this many cycles before each timed run (~0.25 s), so the
@@ -1459,8 +1486,9 @@ def rpr_attention_rows(fa, gen):
                 # the CUDA-core #3 that ran before the tensor-core one, on
                 # the same inputs
                 def parent_fwd(q, k, v, tk, tv, pad, do):
-                    return fa._forward_rpr(q, k, v, pad, tk, tv, m, causal,
-                                           rate, launch, route="cuda_cores")
+                    return fa._forward_rpr(q, k, v, pad, tk, tv, m, 0,
+                                           causal, rate, launch,
+                                           route="cuda_cores")
 
                 fwd["parent_ms"] = device_ms(parent_fwd, sets, iters)
             bwd = {}
@@ -1476,10 +1504,10 @@ def rpr_attention_rows(fa, gen):
                 for s in sets:
                     qkv = tuple(t.detach() for t in s[:3])
                     tables = (s[3].detach(), s[4].detach())
-                    o, mx, lx = fa._forward_rpr(*qkv, s[5], *tables, m,
+                    o, mx, lx = fa._forward_rpr(*qkv, s[5], *tables, m, 0,
                                                 *drop)
                     args.append(qkv + (s[5],) + tables
-                                + (o, s[6], mx, lx, m) + drop)
+                                + (o, s[6], mx, lx, m, 0) + drop)
                 bwd["parent_ms"] = device_ms(fa._backward_rpr, args,
                                              iters)
                 del args
@@ -1697,7 +1725,7 @@ def remat_forwards(cfg):
 
 def expected_launches(cfg, summary):
     """Per microbatch: one attention per encoder layer and two per decoder
-    layer (18 at 6+6, 9 at BASE_CUT's 3+3), one FFN per layer (12, 6);
+    layer (18 at 6+6, 6 at BASE_CUT's 2+2), one FFN per layer (12, 4);
     forward (twice under
     use_remat) and backward, the attention on the route forward_route
     picks. transformer_l0drop's layers are transformer's."""
@@ -1927,7 +1955,7 @@ def _small_batch():
 
 def plain_attention(q, k, v, pad_mask=None, *, causal=False,
                     dropout_rate=0.0, rng=None, rpr_tables=None,
-                    max_relative_position=None, heads=None):
+                    max_relative_position=None, heads=None, qrows=None):
     """fused_attention's interface over its plain versions: from the same
     seed words they draw the kernels' dropout masks."""
     from zero_tpu_torch.ops.kernels import fused_attention as fa
@@ -1936,19 +1964,22 @@ def plain_attention(q, k, v, pad_mask=None, *, causal=False,
            if pad_mask is None else pad_mask.float())
     rate = dropout_rate if rng is not None else 0.0
     if rpr_tables is None:
-        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng, heads)
+        return fa.fused_attention_ref(q, k, v, pad, causal, rate, rng, heads,
+                                      qrows)
+    assert qrows is None
     return fa.fused_attention_rpr_ref(
         q, k, v, pad, rpr_tables.keys.to(q.dtype),
         rpr_tables.values.to(q.dtype), max_relative_position, causal, rate,
         rng, heads)
 
 
-def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0, hidden=None):
+def plain_ffn(x, w1, b1, w2, b2, rng=None, rate=0.0, hidden=None,
+              tokens=None):
     """fused_ffn's interface over its plain version."""
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
 
     y = ff.fused_ffn_ref(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, rng,
-                         rate, hidden)
+                         rate, hidden, tokens)
     return y.reshape(*x.shape[:-1], w2.shape[1])
 
 
@@ -2825,7 +2856,7 @@ LONG_PARAMS = ("use_flash_attention=true,max_len=16384,token_size=16384,"
 
 
 def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
-                 rng=None, heads=None):
+                 rng=None, heads=None, qrows=None):
     """streaming_attention's interface over its plain version: from the
     same seed words it draws the kernels' dropout masks."""
     from zero_tpu_torch.ops.kernels import streaming_attention as sa
@@ -2834,7 +2865,7 @@ def plain_stream(q, k, v, pad_mask=None, *, causal=False, dropout_rate=0.0,
            if pad_mask is None else pad_mask.float())
     rate = dropout_rate if rng is not None else 0.0
     return sa.streaming_attention_ref(q, k, v, pad, causal, rate, rng,
-                                      heads=heads)
+                                      heads=heads, qrows=qrows)
 
 
 def streaming_rows(sa, gen):
@@ -3074,6 +3105,9 @@ def long_kernels_phase(da, streaming=True):
     rows = streaming_rows(sa, gen) if streaming else {}
     if streaming:
         stream_split_check(sa, gen)
+        ring_kernel_checks(sa, gen)
+        seq_block_checks(gen)
+        torch.cuda.empty_cache()
     rows.update(cross_rows(da, torch.Generator().manual_seed(SEED + 5)))
     return rows
 
@@ -3120,9 +3154,9 @@ def write_long_corpus(d, words):
 
 
 def long_train_phase(d, da):
-    """--mode train of transformer-base on the long pairs, then --mode
-    score and --mode test of its checkpoint; returns the train run's
-    launch counts."""
+    """--mode train of transformer-base on the long pairs (at BASE_CUT,
+    for the script's time), then --mode score and --mode test of its
+    checkpoint; returns the train run's launch counts."""
     from zero_tpu_torch import run
     from zero_tpu_torch.config import load_config_file
     from zero_tpu_torch.ops.kernels import fused_attention as fa
@@ -3130,13 +3164,15 @@ def long_train_phase(d, da):
     from zero_tpu_torch.ops.kernels import streaming_attention as sa
 
     cfg = load_config_file(CONFIG)
+    cfg.update(overrides(BASE_CUT))
     counters = (sa.launches, fa.launches, ff.launches, da.launches)
     files = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
              "output_dir={0}/long_model,".format(d))
     spec = (files + LONG_PARAMS + ",src_train_file={0}/long_train.src,"
             "tgt_train_file={0}/long_train.tgt,lrate_strategy=vanilla,"
             "lrate=1e-3,max_training_steps={1},disp_freq=1,save_freq=0,"
-            "eval_freq=0,sample_freq=0,epoches=100".format(d, LONG_STEPS))
+            "eval_freq=0,sample_freq=0,epoches=100".format(d, LONG_STEPS)
+            + BASE_CUT)
     for c in counters:
         c.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -3369,22 +3405,24 @@ def _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng, fused):
 
 
 def plain_backward_stream(q, k, v, pad_mask=None, *, causal=False,
-                          dropout_rate=0.0, rng=None, heads=None):
-    """streaming_attention's interface (every head): the forward kernel,
-    the plain version's backward (the same dropout masks from the same
-    words)."""
-    assert heads is None
+                          dropout_rate=0.0, rng=None, heads=None,
+                          qrows=None):
+    """streaming_attention's interface (every head, every query): the
+    forward kernel, the plain version's backward (the same dropout masks
+    from the same words)."""
+    assert heads is None and qrows is None
     return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
                            False)
 
 
 def plain_backward_fused(q, k, v, pad_mask=None, *, causal=False,
                          dropout_rate=0.0, rng=None, rpr_tables=None,
-                         max_relative_position=None, heads=None):
-    """fused_attention's interface (no RPR, every head): the forward
-    kernel, the plain version's backward (the same dropout masks from the
-    same words)."""
-    assert rpr_tables is None and heads is None
+                         max_relative_position=None, heads=None,
+                         qrows=None):
+    """fused_attention's interface (no RPR, every head, every query): the
+    forward kernel, the plain version's backward (the same dropout masks
+    from the same words)."""
+    assert rpr_tables is None and heads is None and qrows is None
     return _plain_backward(q, k, v, pad_mask, causal, dropout_rate, rng,
                            True)
 
@@ -4079,7 +4117,7 @@ def slice13_reference_phase(da):
 # slice 14: transformer_ibdecoder, then speech translation (transformer_afs)
 # ---------------------------------------------------------------------------
 
-# the base config at BASE_CUT's 3+3 (6+6 before the RNN phases came)
+# the base config at BASE_CUT's 2+2 (6+6 before the RNN phases came)
 IB_EXTRA = (",model_name=transformer_ibdecoder,"
             "scope_name=transformer_ibdecoder" + BASE_CUT)
 IB_STEPS = 2     # 3 before the data-parallel phases came
@@ -4090,10 +4128,11 @@ SPEECH_STEPS = 2     # 3 before the data-parallel phases came
 SPEECH_CONTEXT_STEPS = 2
 SPEECH_UTTERANCES = 600
 # the config's own settings: the fused FFN off, no sample decode (a speech
-# batch's frames fail its source print, as in the JAX package); 2+2+2
-# layers (6+6+6 as written; 3+3+3 from the RNN phases to the ZeRO phases)
-SPEECH_EXTRA = (",use_fused_ffn=false,num_encoder_layer=2,"
-                "num_st_encoder_layer=2,num_decoder_layer=2")
+# batch's frames fail its source print, as in the JAX package); 1+1+1
+# layers (6+6+6 as written; 3+3+3 from the RNN phases to the ZeRO phases,
+# 2+2+2 until sequence parallelism came)
+SPEECH_EXTRA = (",use_fused_ffn=false,num_encoder_layer=1,"
+                "num_st_encoder_layer=1,num_decoder_layer=1")
 
 
 def ib_expected_launches(cfg, summary):
@@ -4573,9 +4612,11 @@ def slice14_reference_phase(da):
 # ---------------------------------------------------------------------------
 
 # the default config's RNN widths (1000 hidden, 620 embed, 8 heads) at the
-# transformer-base training settings; bf16 asked for, fp32 computed
+# transformer-base training settings, but 2 microbatches a step (4 before
+# the sequence-parallel phases came, for the script's time); bf16 asked
+# for, fp32 computed
 RNN_SETTINGS = dict(default_dtype="bfloat16", dropout=0.1, token_size=4096,
-                    update_cycle=4, hidden_size=1000, embed_size=620,
+                    update_cycle=2, hidden_size=1000, embed_size=620,
                     num_heads=8)
 RNN_MODELS = {
     "rnn_train": dict(model_name="rnnsearch", scope_name="rnnsearch",
@@ -5153,6 +5194,12 @@ def dp_worker(spec_path):
             out["tp_reference"] = tp_reference_run()
         if "ep_train" in spec["tasks"]:
             out["ep_train"] = ep_train_run(spec["d"])
+        if "sp_train" in spec["tasks"]:
+            out["sp_train"] = sp_train_run(
+                spec["d"], os.path.join(spec["d"], "sp_gloo"),
+                spec["extra"][len(BASE_CUT):] + SP_EXTRA)
+        if "sp_reference" in spec["tasks"]:
+            out["sp_reference"] = sp_reference_run()
     finally:
         tdist.destroy_process_group()
     torch.save(out, spec["result"])
@@ -5225,12 +5272,14 @@ def dp_numbers(runs, cfg):
 
 
 DP_PHASES = {"dp_train", "dp_reference", "zero_train", "zero_reference",
-             "moe_dp", "tp_train", "tp_reference", "ep_train"}
+             "moe_dp", "tp_train", "tp_reference", "ep_train", "sp_train",
+             "sp_reference"}
 DP_TASKS = (("dp_train", "train"), ("dp_reference", "reference"),
             ("zero_train", "zero_train"), ("zero_reference",
                                            "zero_reference"),
             ("moe_dp", "moe_dp"), ("tp_train", "tp_train"),
-            ("tp_reference", "tp_reference"), ("ep_train", "ep_train"))
+            ("tp_reference", "tp_reference"), ("ep_train", "ep_train"),
+            ("sp_train", "sp_train"), ("sp_reference", "sp_reference"))
 
 
 def dp_train_phase(d, todo):
@@ -5875,6 +5924,402 @@ def tp_train_phase(ranks, one, cfg):
     return [r["train_launches"] for r in per]
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism (mesh_seq; parallel/ring.py)
+# ---------------------------------------------------------------------------
+
+# ring kernel checks (long_kernels): (name, B, H, L, Dh, causal, padded),
+# the padded case with an all-pad row; over SP_BLOCKS blocks in one
+# process (ring.simulate)
+SP_RING_CASES = (("ring_causal", 1, 4, 1024, 64, True, False),
+                 ("ring_pad", 2, 4, 1024, 64, False, True))
+SP_BLOCKS = (2, 4)
+# #1/#2 over a query block and #11/#12 over a block's rows (long_kernels):
+# B, H, L, Dh; the FFN's widths FFN_SHAPE[1:]
+SP_BLOCK_CASE = (2, 4, 512, 64)
+# sp_train: long_train's pairs cut to 2+2 layers and 2 microbatches a step
+# (the script's time), mesh data 1 x seq 2, attention dropout 0 (a ring
+# block draws its own masks), the others 0.1
+SP_CUT = ",num_encoder_layer=2,num_decoder_layer=2,update_cycle=2"
+SP_EXTRA = ",mesh_seq=2"
+SP_PARAMS = ",use_fused_ffn=true,attention_dropout=0.0"
+# each step's loss against the world of one, relative (bf16: the ring's
+# blocks merge rounded outputs): on an H100 5.6e-6 at SP_CUT (6.3e-6 at
+# 3+3); another block's dropout masks would move it by far more
+SP_SAME = 5e-5
+SP_MODELS = ("transformer", "transformer_rpr", "transformer_rela")
+
+
+def ring_pass(ring, q, k, v, keep, do, n, causal, rate):
+    """The ring over n blocks of q, k, v [B, H, L, Dh] in one process
+    (ring.simulate), the kernel route: #5-#7 on CUDA tensors, their plain
+    kernel-form version on CPU ones. Returns the output and dq, dk, dv,
+    each joined along L."""
+    lb = q.shape[2] // n
+
+    def block(me, shift):
+        sl = slice(me * lb, (me + 1) * lb)
+        qb, kb, vb, tk, tv, o = ring.prepare(
+            *(t[:, :, sl].contiguous() for t in (q, k, v)), keep,
+            causal=causal, words=SEED_WORDS if rate else None, drop=rate,
+            use_kernels=True, line=(me, n, shift))
+        out, m, l = ring.ring_forward(qb, kb, vb, tk, tv, o)
+        grads = ring.ring_backward(qb, kb, vb, tk, tv, out, m, l,
+                                   do[:, :, sl].contiguous(), o)
+        return out, grads[:3]
+
+    res = ring.simulate(n, block)
+    return (torch.cat([r[0] for r in res], dim=2),
+            [torch.cat([r[1][i] for r in res], dim=2) for i in range(3)])
+
+
+def ring_kernel_checks(sa, gen):
+    """#5-#7 as ring blocks (parallel/ring.py's kernel route) over 2 and 4
+    blocks, fp32 (CUDA cores) and bf16 (tensor cores), causal and padded
+    (an all-pad row): at dropout 0.1 against the plain kernel-form ring
+    with the same words, at 0 against the unsplit #5-#7 launch, forward
+    and dq, dk, dv, at TOLERANCE; each block one #5, #6 and #7 (a causal
+    ring skips the blocks above the diagonal). Returns {case: errors}."""
+    from zero_tpu_torch.parallel import ring
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, h, L, dh, causal, padded in SP_RING_CASES:
+            q, k, v, do = (torch.randn(b, h, L, dh, generator=gen).to(
+                "cuda", dtype) for _ in range(4))
+            keep = attention_pad(gen, b, L, padded).to("cuda")
+            sfx = {"tensor_cores": "_tc", "cuda_cores": ""}[sa.route(
+                "cuda", dtype, dh)]
+            for n in SP_BLOCKS:
+                blocks = n * (n + 1) // 2 if causal else n * n
+                want = {key + sfx: blocks for key in (
+                    "streaming_attention", "streaming_attention_dq",
+                    "streaming_attention_dkdv")}
+                for rate in (0.1, 0.0):
+                    sa.launches.clear()
+                    got, grads = ring_pass(ring, q, k, v, keep, do, n,
+                                           causal, rate)
+                    torch.cuda.synchronize()
+                    launched = {k_: c for k_, c in sa.launches.items() if c}
+                    if launched != want:
+                        raise AssertionError("ring %s n=%d: launches %s, "
+                                             "expected %s" % (name, n,
+                                                              launched,
+                                                              want))
+                    if rate:
+                        ref, refs = ring_pass(
+                            ring, *(t.cpu() for t in (q, k, v, keep, do)),
+                            n, causal, rate)
+                        ref, refs = ref.cuda(), [g.cuda() for g in refs]
+                    else:
+                        leaves = [t.clone().requires_grad_()
+                                  for t in (q, k, v)]
+                        whole = sa.streaming_attention(*leaves, keep,
+                                                       causal=causal)
+                        refs = list(torch.autograd.grad(whole, leaves, do))
+                        ref = whole.detach()
+                    tag = "%s n=%d rate %s" % (name, n, rate)
+                    out["%s %s" % (tag, str(dtype)[6:])] = [
+                        check("ring " + tag + " " + part, x, y, dtype)
+                        for part, x, y in zip(("out", "dq", "dk", "dv"),
+                                              [got] + grads, [ref] + refs)]
+    phase("long_kernels", ring_checks=out,
+          against="rate 0.1: the plain kernel-form ring (same words); "
+          "rate 0: the unsplit #5-#7 launch")
+    return out
+
+
+def seq_block_checks(gen):
+    """#1/#2 and #3/#4 (RPR_MAX) over each half of the queries (qrows) and
+    #11/#12 over each half of a sequence's rows (tokens), bf16, dropout
+    0.1, against the matching slice of the whole launch: forward and dq
+    (dx). A launch that dropped the block's offset would draw the first
+    half's masks, and #3/#4 would index the first half's distances."""
+    import types
+
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+
+    dtype, rate = torch.bfloat16, SPLIT_RATE
+    b, h, L, dh = SP_BLOCK_CASE
+    q, k, v, do = (torch.randn(b, h, L, dh, generator=gen).to("cuda", dtype)
+                   for _ in range(4))
+    pad = attention_pad(gen, b, L, True).to("cuda")
+    qq = q.clone().requires_grad_()
+    whole = fa.fused_attention(qq, k, v, pad, dropout_rate=rate,
+                               rng=SEED_WORDS)
+    dq, = torch.autograd.grad(whole, qq, do)
+    tables = types.SimpleNamespace(**{
+        key: torch.randn(2 * RPR_MAX + 1, dh, generator=gen).mul(0.5).to(
+            "cuda", dtype) for key in ("keys", "values")})
+    rpr = dict(dropout_rate=rate, rng=SEED_WORDS, rpr_tables=tables,
+               max_relative_position=RPR_MAX)
+    qq = q.clone().requires_grad_()
+    whole_rpr = fa.fused_attention(qq, k, v, pad, **rpr)
+    dq_rpr, = torch.autograd.grad(whole_rpr, qq, do)
+    _, d_in, f, d_out = FFN_SHAPE
+    x = torch.randn(b, L, d_in, generator=gen).to("cuda", dtype)
+    dy = torch.randn(b, L, d_out, generator=gen).to("cuda", dtype)
+    w1, w2 = (torch.randn(m, n_, generator=gen).mul(0.05).to("cuda", dtype)
+              for m, n_ in ((d_in, f), (f, d_out)))
+    b1, b2 = (torch.randn(n_, generator=gen).mul(0.1).to("cuda", dtype)
+              for n_ in (f, d_out))
+    xx = x.clone().requires_grad_()
+    y = ff.fused_ffn(xx, w1, b1, w2, b2, SEED_WORDS, rate)
+    dx, = torch.autograd.grad(y, xx, dy)
+    errs = {}
+    lb = L // 2
+    for lo in (0, lb):
+        sl = slice(lo, lo + lb)
+        qb = q[:, :, sl].contiguous().requires_grad_()
+        ob = fa.fused_attention(qb, k, v, pad, dropout_rate=rate,
+                                rng=SEED_WORDS, qrows=(lo, L))
+        dqb, = torch.autograd.grad(ob, qb, do[:, :, sl].contiguous())
+        qb = q[:, :, sl].contiguous().requires_grad_()
+        ob_rpr = fa.fused_attention(qb, k, v, pad, qrows=(lo, L), **rpr)
+        dqb_rpr, = torch.autograd.grad(ob_rpr, qb,
+                                       do[:, :, sl].contiguous())
+        xb = x[:, sl].contiguous().requires_grad_()
+        yb = ff.fused_ffn(xb, w1, b1, w2, b2, SEED_WORDS, rate,
+                          tokens=(lb, L, lo))
+        dxb, = torch.autograd.grad(yb, xb, dy[:, sl].contiguous())
+        errs["queries %d-%d" % (lo, lo + lb)] = [
+            check("fused_attention qrows", ob, whole[:, :, sl], dtype),
+            check("fused_attention_backward qrows dq", dqb, dq[:, :, sl],
+                  dtype),
+            check("fused_attention_rpr qrows", ob_rpr, whole_rpr[:, :, sl],
+                  dtype),
+            check("fused_attention_rpr_backward qrows dq", dqb_rpr,
+                  dq_rpr[:, :, sl], dtype),
+            check("fused_ffn tokens", yb, y[:, sl], dtype),
+            check("fused_ffn_backward tokens dx", dxb, dx[:, sl], dtype)]
+    phase("long_kernels", seq_block_checks=errs,
+          note="against the whole launch's slice: 0.0 is bit-equal")
+    return errs
+
+
+def sp_train_run(d, out, extra):
+    """--mode train of long_train's pairs (transformer-base at SP_CUT,
+    bf16, both kernel flags, attention dropout 0, the others 0.1),
+    LONG_STEPS steps; ``extra`` adds the mesh and the process group.
+    Returns its numbers, launch counts and the seq line's collectives a
+    step."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "output_dir={1},".format(d, out) + LONG_PARAMS
+            + ",src_train_file={0}/long_train.src,tgt_train_file={0}/"
+            "long_train.tgt,lrate_strategy=vanilla,lrate=1e-3,"
+            "max_training_steps={1},disp_freq=1,save_freq=0,eval_freq=0,"
+            "sample_freq=0,epoches=100".format(d, LONG_STEPS)
+            + SP_PARAMS + SP_CUT + extra)
+    counters = (sa.launches, fa.launches, ff.launches)
+    for c in counters:
+        c.clear()
+    torch.cuda.reset_peak_memory_stats()
+    summary = run.main(["--mode", "train", "--config", CONFIG,
+                        "--parameters", spec])
+    torch.cuda.synchronize()
+    steps = max(summary["steps"], 1)
+    reduce = summary["allreduce"]
+    ends = summary["step_end_times"]
+    return dict(
+        steps=summary["steps"], losses=summary["losses"],
+        shapes=summary["shapes"], tokens=summary["target_tokens"],
+        step_s=[b - a for a, b in zip(ends[:-1], ends[1:])],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=collect(counters),
+        per_step={kind: {k: reduce[kind][k] / steps
+                         for k in ("calls", "bytes", "ms")}
+                  for kind in ("seq_ring", "seq_gather")},
+        allreduce_per_step={k: reduce[k] / steps
+                            for k in ("calls", "bytes", "ms")})
+
+
+def sp_expected_launches(cfg, coord, n):
+    """#5-#7 and #11/#12 a run of sp_train at seq coordinate ``coord`` of
+    n (n = 1: the world of one): per microbatch an encoder self-attention
+    takes n blocks, a decoder one coord + 1 (the causal skip), the cross
+    attention one streaming launch (its memory is past 8192 keys), an FFN
+    one launch; forward and backward."""
+    microbatches = cfg["update_cycle"] * LONG_STEPS
+    enc, dec = cfg["num_encoder_layer"], cfg["num_decoder_layer"]
+    attn = enc * n + dec * (coord + 1) + dec if n > 1 else enc + 2 * dec
+    want = {k: attn * microbatches for k in (
+        "streaming_attention_tc", "streaming_attention_dq_tc",
+        "streaming_attention_dkdv_tc")}
+    want.update({k: (enc + dec) * microbatches
+                 for k in ("fused_ffn", "fused_ffn_backward")})
+    return want
+
+
+def sp_train_phase(ranks, one):
+    """sp_train: the two seq ranks (mesh data 1 x seq 2) against the world
+    of one on the same pairs: steps, finite losses, each within SP_SAME of
+    the world of one's, the launches sp_expected_launches counts, the
+    ring's shifts and the encoder's gather a step. Returns each rank's
+    launches."""
+    from zero_tpu_torch.config import load_config_file
+
+    cfg = load_config_file(CONFIG)
+    cfg.update(overrides(SP_CUT))
+    per = [r["sp_train"] for r in ranks]
+    for coord, r in enumerate(per + [one]):
+        n = 1 if r is one else len(per)
+        want = sp_expected_launches(cfg, coord, n)
+        if r["steps"] != LONG_STEPS or not all(map(math.isfinite,
+                                                   r["losses"])) \
+                or r["launches"] != want:
+            raise AssertionError("sp_train %s: steps %d, losses %s, "
+                                 "launches %s, expected %s"
+                                 % ("world of one" if n == 1 else
+                                    "rank %d" % coord, r["steps"],
+                                    r["losses"], r["launches"], want))
+    diff = max(abs(a - b) / abs(b) for r in per
+               for a, b in zip(r["losses"], one["losses"]))
+    step_s = sorted(s for r in per for s in r["step_s"])
+    timed = max(sum(r["step_s"]) for r in per)
+    one_s = sorted(one["step_s"])
+    phase("sp_train", world=len(per), mesh="data 1 x seq 2", backend="gloo",
+          steps=LONG_STEPS, note=DP_NOTE,
+          stacked_lengths=[stacked_shape(s)[1:] for s in per[0]["shapes"]],
+          ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+          target_tokens_per_s=sum(per[0]["tokens"][1:]) / timed,
+          world_of_one_ms_per_step=1e3 * one_s[len(one_s) // 2],
+          world_of_one_tokens_per_s=sum(one["tokens"][1:]) / sum(one_s),
+          peak_gib=[r["peak_gib"] for r in per],
+          world_of_one_peak_gib=one["peak_gib"],
+          seq_ring_per_step=[r["per_step"]["seq_ring"] for r in per],
+          seq_gather_per_step=[r["per_step"]["seq_gather"] for r in per],
+          allreduce_per_step=[r["allreduce_per_step"] for r in per],
+          launches_per_rank=[r["launches"] for r in per],
+          losses=[r["losses"] for r in per],
+          world_of_one_losses=one["losses"], rel_diff_from_world_of_one=diff)
+    if not (diff <= SP_SAME
+            and all(r["per_step"]["seq_ring"]["calls"] > 0
+                    and r["per_step"]["seq_gather"]["calls"] > 0
+                    for r in per)
+            and max(r["peak_gib"] for r in per) < one["peak_gib"]):
+        raise AssertionError("sp_train: loss diff %g, ring %s, gather %s, "
+                             "peaks %s against %s"
+                             % (diff, [r["per_step"] for r in per], per,
+                                [r["peak_gib"] for r in per],
+                                one["peak_gib"]))
+    return [r["launches"] for r in per]
+
+
+def _sp_batch():
+    """_small_batch with its target padded to 10 positions: both lengths
+    even, so the two seq ranks and one process index the same dropout
+    elements."""
+    feats = _small_batch()
+    feats["target"] = torch.nn.functional.pad(feats["target"], (0, 1))
+    return feats
+
+
+def sp_reference_run():
+    """sp_reference on one of the two ranks: the small fp32 transformer,
+    transformer_rpr and transformer_rela (attention dropout 0, relu and
+    residual dropout 0.1, both kernel flags: the CUDA-core #5-#7 as the
+    softmax ring's blocks, #1/#2 (#3/#4 under RPR) on each rank's queries,
+    #11/#12 on its rows) at mesh_seq=2 on _sp_batch, against one process (the group out
+    of reach). Returns {model: errors and launches}."""
+    from zero_tpu_torch.models import get_model
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.ops.kernels import streaming_attention as sa
+    from zero_tpu_torch.parallel import distributed as dist
+    from zero_tpu_torch.parallel import ring
+    from zero_tpu_torch.train_step import (global_batch, init_train_state,
+                                           make_train_step)
+
+    feats = {k: v.cuda() for k, v in _sp_batch().items()}
+    rows = feats["source"].shape[0]
+    out = {}
+    for name in SP_MODELS:
+        cfg = _small_model(0.1, name)
+        cfg.attention_dropout = 0.0
+        cfg.epsilon = 1e-6
+        cfg.device = "cuda"
+        runs = {}
+        for seq in (2, 1):
+            cfg.mesh_seq = seq
+            counters = (sa.launches, fa.launches, ff.launches, ring.launches)
+            for c in counters:
+                c.clear()
+            alone = (contextlib.nullcontext() if seq > 1 else
+                     mock.patch.object(dist, "active", lambda: False))
+            with alone:
+                model = get_model(name)
+                state = init_train_state(
+                    model, cfg, torch.Generator().manual_seed(SEED), "cuda")
+                params = list(state.params.parameters())
+                with global_batch(rows):
+                    loss = model.train_fn(
+                        state.params, feats, cfg,
+                        torch.Generator().manual_seed(SEED))["loss"]
+                    grads = [g.contiguous() for g in
+                             torch.autograd.grad(loss, params)]
+                if seq > 1:
+                    # each rank's gradient covers its block of the
+                    # sequences
+                    dist.all_reduce_sum_(grads, "seq")
+                make_train_step(model, cfg)(
+                    state, {k: v[None] for k, v in feats.items()}, 1e-3,
+                    torch.Generator().manual_seed(SEED))
+            runs[seq] = (loss.item(), grads,
+                         [p.detach().clone() for p in params],
+                         collect(counters))
+
+        def err(a, b):
+            scale = max(float(t.abs().max()) for t in b)
+            return max(float((x - y).abs().max()) for x, y in zip(a, b)) \
+                / scale
+
+        (loss, grads, params, launches), (one_loss, one_grads, one_params,
+                                          _) = runs[2], runs[1]
+        out[name] = dict(loss=loss, one_process_loss=one_loss,
+                         loss_rel_err=abs(loss - one_loss) / abs(one_loss),
+                         grad_err=err(grads, one_grads),
+                         param_err=err(params, one_params),
+                         launches=launches)
+    return out
+
+
+def sp_reference_phase(ranks):
+    """sp_reference: the two seq ranks against one process (loss 1e-6
+    relative, grads and parameters 1e-5 of their max); the CUDA-core #5-#7
+    (ring blocks), #1/#2 and #11/#12 launched on both ranks by the
+    transformer, the plain ring by transformer_rpr and transformer_rela
+    (whose FFN takes no kernel, as in the JAX package), and the CUDA-core
+    #3/#4 by transformer_rpr's cross-attention on each rank's queries.
+    Returns each rank's launches over the three models."""
+    want = {"transformer": ("streaming_attention", "streaming_attention_dq",
+                            "streaming_attention_dkdv", "fused_attention",
+                            "fused_attention_backward", "fused_ffn",
+                            "fused_ffn_backward"),
+            "transformer_rpr": ("ring_block_ref", "fused_attention_rpr",
+                                "fused_attention_rpr_backward"),
+            "transformer_rela": ("ring_block_ref",)}
+    report, per_rank = {}, []
+    for rank, got in enumerate(r["sp_reference"] for r in ranks):
+        total = collections.Counter()
+        for name, errs in got.items():
+            report["%s rank %d" % (name, rank)] = errs
+            total.update(errs["launches"])
+            ran = all(errs["launches"].get(k, 0) for k in want[name])
+            if not (errs["loss_rel_err"] <= 1e-6 and errs["grad_err"] <= 1e-5
+                    and errs["param_err"] <= 1e-5 and ran):
+                raise AssertionError("sp_reference %s rank %d: %s"
+                                     % (name, rank, errs))
+        per_rank.append(dict(total))
+    phase("sp_reference", world=DP_WORLD, mesh="data 1 x seq 2", **report)
+    return per_rank
+
+
 PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "reference", "train", "train_reference", "converge", "rpr_kernels",
           "rpr_train", "rpr_reference", "rela_train", "rela_reference",
@@ -5885,7 +6330,8 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "slice13_reference", "ib_train", "speech_train",
           "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
           "rnn_reference", "host", "dp_train", "dp_reference", "zero_train",
-          "zero_reference", "moe_dp", "tp_train", "tp_reference", "ep_train")
+          "zero_reference", "moe_dp", "tp_train", "tp_reference", "ep_train",
+          "sp_train", "sp_reference")
 
 
 def main(argv=None):
@@ -6025,6 +6471,11 @@ def main(argv=None):
         if "train" in todo:
             launches.update(train_phase(d, da, extra=BASE_CUT)[0]
                             ["launches"])
+        if "sp_train" in todo:
+            # the world of one of sp_train, before the two ranks take the
+            # card
+            write_long_corpus(d, words)
+            sp_one = sp_train_run(d, os.path.join(d, "sp_one"), "")
         if todo & DP_PHASES:
             dp_launches, dp_rank_launches, ranks, dp_one = dp_train_phase(
                 d, todo)
@@ -6049,6 +6500,10 @@ def main(argv=None):
                 tp_reference_launches = tp_reference_phase(ranks)
             if "ep_train" in todo:
                 ep_train_phase(ranks)
+            if "sp_train" in todo:
+                sp_launches = sp_train_phase(ranks, sp_one)
+            if "sp_reference" in todo:
+                sp_reference_launches = sp_reference_phase(ranks)
         if "rpr_train" in todo:
             launches.update(train_phase(d, da, RPR_CONFIG, "rpr_train",
                                         rpr_expected_launches, BASE_CUT,
@@ -6251,6 +6706,15 @@ def main(argv=None):
         row["tp_train_rank_launches"] = [r[kernel] for r in tp_launches]
         row["tp_reference_rank_launches"] = [
             r.get(kernel, 0) for r in tp_reference_launches]
+        # sequence parallelism at mesh_seq=2 on the two gloo ranks: each
+        # rank's block of the long pairs (sp_train: the cross attention
+        # streams there, so #1/#2 take none) and the CUDA-core route of
+        # the small fp32 models (sp_reference: #1/#2 over a rank's
+        # queries, #11/#12 over its rows)
+        row["sp_train_rank_launches"] = [r.get(name, 0)
+                                         for r in sp_launches]
+        row["sp_reference_rank_launches"] = [
+            r.get(kernel, 0) for r in sp_reference_launches]
         if "parent_ms" in r:
             row.update(tensor_cores=True, parent_ms=r["parent_ms"])
         kernels.append(row)
@@ -6279,6 +6743,10 @@ def main(argv=None):
         # route (tp_reference)
         row["tp_reference_rank_launches"] = [
             r.get(kernel, 0) for r in tp_reference_launches]
+        # transformer_rpr's cross-attention over each of the two seq
+        # ranks' queries, CUDA-core route (sp_reference)
+        row["sp_reference_rank_launches"] = [
+            r_.get(kernel, 0) for r_ in sp_reference_launches]
         kernels.append(row)
     # streaming kernels: bf16 at rate 0.1 on the encoder-like case (pad
     # mask, an all-pad row), as long_train runs them; SDPA with dropout off.
@@ -6297,6 +6765,13 @@ def main(argv=None):
             bound_by=r["bound_by"],
             library_ms=long_rows[(name, "pad_8320", 0.0)]["library_ms"],
             tensor_cores=True, parent_ms=r["parent_ms"])
+        # sequence parallelism: every softmax ring block of sp_train (and
+        # its cross attention past 8192 keys) a rank, and the CUDA-core
+        # ring blocks of sp_reference
+        row["sp_train_rank_launches"] = [r_.get(name, 0)
+                                         for r_ in sp_launches]
+        row["sp_reference_rank_launches"] = [
+            r_.get(name[:-3], 0) for r_ in sp_reference_launches]
         kernels.append(row)
     # the cross-attention decode kernel stays unwired, as in the JAX
     # package: no launch on the main path; long-memory shape, bf16

@@ -1,10 +1,11 @@
 """zero_tpu_torch refuses what it has not ported instead of ignoring it:
-the 'seq' and 'pipe' mesh axes raise in ``--mode train``, and so do the
-'model' axis for a model outside TP_MODELS and the 'expert' axis for one
-other than transformer_moe, each naming the model; a mesh that one
-process cannot hold raises make_mesh's ValueError (the defaults, ZeRO,
-the sharded checkpoint, MoE over processes and tensor and expert
-parallelism over enough processes do not),
+the 'pipe' mesh axis raises in ``--mode train``, and so do the 'model'
+axis for a model outside TP_MODELS, the 'seq' axis for one outside
+SP_MODELS (and beside the 'expert' axis or ROBT) and the 'expert' axis
+for one other than transformer_moe, each naming the model; a mesh that
+one process cannot hold raises make_mesh's ValueError (the defaults,
+ZeRO, the sharded checkpoint, MoE over processes and tensor, sequence
+and expert parallelism over enough processes do not),
 and ``--mode test`` with a mesh decodes on the one device with the JAX
 package's warning. And ``decode_split_sweep.py --package DIR`` imports
 DIR's zero_tpu_torch in a fresh process."""
@@ -32,7 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     # one process holds one device: a model or expert degree of two
     # needs two processes
     ("mesh_model=2", ValueError, "make_mesh needs.*\\*2\\*1\\*1\\*1 ="),
-    ("mesh_seq=2", NotImplementedError, "mesh_seq=2.*later slice"),
+    ("mesh_seq=2", ValueError, "make_mesh needs.*\\*1\\*2\\*1\\*1 ="),
     ("mesh_pipe=2", NotImplementedError, "mesh_pipe=2.*later slice"),
     ("mesh_expert=2", ValueError, "make_mesh needs.*\\*1\\*1\\*1\\*2 ="),
     # one device a process: the 'data' degree is the number of processes
@@ -60,6 +61,47 @@ def test_mesh_model_raises_for_a_model_of_a_later_slice(name):
     with pytest.raises(NotImplementedError,
                        match="mesh_model=2 for %s.*later slice" % name):
         check_ported(cfg, world=2)
+
+
+LATER_SP = ["transformer_aan", "transformer_fuse", "transformer_moe",
+            "transformer_ibdecoder", "transformer_afs", "transformer_fixup",
+            "rnnsearch", "deepnmt", "rnnsearch_deepatt"]
+
+
+@pytest.mark.parametrize("name", LATER_SP)
+def test_mesh_seq_raises_for_a_model_of_a_later_slice(name):
+    """Two processes at mesh_seq=2: the models outside SP_MODELS raise,
+    naming themselves and the later slice."""
+    cfg = default_config()
+    cfg.parse("device=cpu,mesh_seq=2,model_name=" + name)
+    with pytest.raises(NotImplementedError,
+                       match="mesh_seq=2 for %s.*later slice" % name):
+        check_ported(cfg, world=2)
+
+
+@pytest.mark.parametrize("option", [
+    "mesh_seq=2,mesh_expert=2,model_name=transformer_moe",
+    "mesh_seq=2,robt=true,model_name=transformer_multilingual"])
+def test_mesh_seq_with_expert_parallelism_or_robt_raises(option):
+    cfg = default_config()
+    cfg.parse("device=cpu," + option)
+    with pytest.raises(NotImplementedError, match="mesh_seq=2.*later slice"):
+        check_ported(cfg, world=4 if "expert" in option else 2)
+
+
+@pytest.mark.parametrize("option", [
+    "model_name=transformer,mesh_seq=2",
+    "model_name=transformer_rpr,mesh_seq=2,zero_stage=3",
+    "model_name=transformer_rela,mesh_seq=2,mesh_data=2,zero_stage=1",
+    "model_name=transformer_multilingual,mesh_seq=2",
+    "model_name=transformer_clsr,mesh_seq=2",
+    "model_name=transformer_l0drop,mesh_seq=2",
+    "model_name=transformer,mesh_seq=2,mesh_model=2"])
+def test_sequence_parallelism_runs_in_training(option):
+    cfg = default_config()
+    cfg.parse("device=cpu," + option)
+    world = 4 if "mesh_data=2" in option or "mesh_model=2" in option else 2
+    check_ported(cfg, world=world)
 
 
 @pytest.mark.parametrize("option", [

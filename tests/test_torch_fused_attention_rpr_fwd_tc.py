@@ -71,7 +71,7 @@ def test_rpr_forward_route(device, dtype, dh, counter, monkeypatch):
                             lambda d=None: types.SimpleNamespace(
                                 cuda_stream=0))
         route = fa.forward_route(dtype, dh, device)
-        fa._FusedAttentionRpr.apply(q, q, q, pad, tk, tk, m, False, 0.0,
+        fa._FusedAttentionRpr.apply(q, q, q, pad, tk, tk, m, 0, False, 0.0,
                                     (0, 0), route)
         assert calls == [fa._RPR_FORWARD[route][0]]
         assert calls == [3 if counter.endswith("_tc") else 0]

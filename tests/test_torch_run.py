@@ -100,7 +100,7 @@ def test_device_cuda_without_a_card_raises(corpus):
 LATER_MODEL = "transformer_of_a_later_slice"
 _LATER = {"train": ["--parameters", "device=cpu,mesh_pipe=2"],
           "score": ["--parameters", "device=cpu,model_name=" + LATER_MODEL],
-          "train_mesh": ["--parameters", "device=cpu,mesh_seq=2"]}
+          "train_mesh": ["--parameters", "device=cpu,mesh_seq=2,mesh_pipe=2"]}
 
 
 @pytest.mark.parametrize("mode", ["train", "score", "train_mesh"])

@@ -502,7 +502,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
                    unsigned int row_base, unsigned int heads_total,
-                   unsigned int head_offset) {
+                   unsigned int head_offset,
+                   unsigned int lq_whole) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -522,6 +523,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.row_base = row_base;
   p.heads_total = heads_total;
   p.head_offset = head_offset;
+  p.lq_whole = lq_whole;
   return p;
 }
 
@@ -533,11 +535,11 @@ extern "C" int zt_attention_forward(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
                          dropout, threshold, drop_scale, s0, s1, row_base,
                          heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -551,11 +553,11 @@ extern "C" int zt_attention_backward(
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
     unsigned int s1, unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
                          dropout, threshold, drop_scale, s0, s1, row_base,
                          heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -575,11 +577,11 @@ extern "C" int zt_attention_forward_tc(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
                          dropout, threshold, drop_scale, s0, s1, row_base,
                          heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -596,11 +598,11 @@ extern "C" int zt_attention_backward_tc(
     int heads, int lq, int lk, int dh, int causal, float scale, int dropout,
     unsigned int threshold, float drop_scale, unsigned int s0,
     unsigned int s1, unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, heads, lq, lk, dh, causal, scale,
                          dropout, threshold, drop_scale, s0, s1, row_base,
                          heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;

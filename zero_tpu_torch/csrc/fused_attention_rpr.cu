@@ -15,8 +15,10 @@
 //                          forward_route; fp32 and other depths take the
 //                          CUDA-core kernels here.
 //
-// Math. With c(i, j) = clip(i - j, -m, m) + m, R = 2m + 1 buckets and the
-// tables Tk, Tv [R, Dh] in the order given (bucket c is row c):
+// Math. With c(i, j) = clip(i0 + i - j, -m, m) + m, R = 2m + 1 buckets and
+// the tables Tk, Tv [R, Dh] in the order given (bucket c is row c); i0 is
+// q_offset, the position of query row 0 (0, or a sequence block's first
+// query where the launch runs a block of queries against a whole memory):
 //   s_ij = (q_i . k_j + q_i . Tk[c(i,j)]) * Dh^-0.5   under the key pad mask
 //          and the causal flag (masked entries -1e30)
 //   w    = fp32 softmax of s, w_d = w after dropout
@@ -27,7 +29,8 @@
 //
 // Layout: q [B*H, Lq, Dh], k/v [B*H, Lk, Dh] contiguous, fp32 or bf16; pad
 // [B, Lk] fp32 (1 = attend); Tk/Tv [R, Dh] in the q dtype. Any Lq, Lk;
-// Dh <= 256; R <= 129 (m <= 64).
+// Dh <= 256; R <= 129 (m <= 64). The causal flag compares i and j
+// themselves: a causal launch takes q_offset 0.
 //
 // Design of the CUDA-core kernels (fp32, and bf16 at depths the tensor-core
 // backward does not take). The tiling is that of fused_attention.cu: a block
@@ -121,6 +124,12 @@ struct Params {
   // the whole head count and this launch's first head (tensor
   // parallelism: a process's heads; heads and 0 otherwise)
   uint32_t heads_total, head_offset;
+  // the whole query length (a sequence block's launch: its rows are a
+  // part of the whole sequence's; lq otherwise)
+  uint32_t lq_whole;
+  // the position of query row 0 in the distances c(i, j) (a sequence
+  // block's launch over the whole memory; 0 otherwise)
+  int q_offset;
 };
 
 // The seed word of query row i of head bh (0 when dropout is off).
@@ -128,7 +137,7 @@ __device__ __forceinline__ uint32_t row_seed(const Params& p, int bh, int i) {
   if (!p.dropout) return 0u;
   return zt::row_seed(p.row_base + zt::global_row(bh, i, p.heads,
                                                   p.heads_total,
-                                                  p.head_offset, p.lq),
+                                                  p.head_offset, p.lq_whole),
                       p.s0, p.s1);
 }
 
@@ -277,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) rpr_forward(Params p) {
     for (int r = 0; r < kRows; ++r) {
       const int rr = warp * kRows + r;
       const int i = q0 + rr;
-      const int c = bucket(i, j, p.rel);
+      const int c = bucket(i + p.q_offset, j, p.rel);
       const bool valid = pad_ok && (!p.causal || j <= i);
       float x = valid ? (s[r] + qr[rr * nb + c]) * p.scale : kMasked;
       if (!exists) x = -INFINITY;
@@ -423,7 +432,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dq(Params p) {
       const int rr = warp * kRows + r;
       const int i = q0 + rr;
       const bool row_in = i < p.lq;
-      const int c = bucket(i, j, p.rel);
+      const int c = bucket(i + p.q_offset, j, p.rel);
       const bool valid = row_in && pad_ok && (!p.causal || j <= i);
       const float x = valid ? (s[r] + qr[rr * nb + c]) * p.scale : kMasked;
       const float w = (exists && row_in) ? expf(x - m[r]) / l[r] : 0.f;
@@ -546,7 +555,7 @@ __global__ void __launch_bounds__(kThreads) rpr_backward_dkdv(Params p) {
       const int rr = warp * kRows + r;
       const int i = q0 + rr;
       const bool row_in = i < p.lq;
-      const int c = bucket(i, j, p.rel);
+      const int c = bucket(i + p.q_offset, j, p.rel);
       const size_t g = ((size_t)bh * p.lq + (row_in ? i : 0)) * nb + c;
       const bool valid = row_in && pad_ok && (!p.causal || j <= i);
       const float x = valid ? (s[r] + p.qr[g]) * p.scale : kMasked;
@@ -710,11 +719,13 @@ cudaError_t run(const Params& p, int dtype, int bh, bool backward, void* dtk,
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* pad, const void* tk, const void* tv, int heads,
-                   int lq, int lk, int dh, int rel, int causal, float scale,
+                   int lq, int lk, int dh, int rel, int q_offset, int causal,
+                   float scale,
                    int dropout, unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
                    unsigned int row_base, unsigned int heads_total,
-                   unsigned int head_offset) {
+                   unsigned int head_offset,
+                   unsigned int lq_whole) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -727,6 +738,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.lk = lk;
   p.dh = dh;
   p.rel = rel;
+  p.q_offset = q_offset;
   p.buckets = 2 * rel + 1;
   p.causal = causal;
   p.scale = scale;
@@ -738,6 +750,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.row_base = row_base;
   p.heads_total = heads_total;
   p.head_offset = head_offset;
+  p.lq_whole = lq_whole;
   return p;
 }
 
@@ -746,11 +759,13 @@ Params make_params(const void* q, const void* k, const void* v,
 zt::AttnParams tc_params(const void* q, const void* k, const void* v,
                          const void* pad, const void* tk, const void* tv,
                          const void* m, const void* l, int heads, int lq,
-                         int lk, int dh, int rel, int causal, float scale,
+                         int lk, int dh, int rel, int q_offset, int causal,
+                         float scale,
                          int dropout, unsigned int threshold,
                          float drop_scale, unsigned int s0, unsigned int s1,
                    unsigned int row_base, unsigned int heads_total,
-                   unsigned int head_offset) {
+                   unsigned int head_offset,
+                   unsigned int lq_whole) {
   zt::AttnParams p = {};
   p.q = q;
   p.k = k;
@@ -772,9 +787,11 @@ zt::AttnParams tc_params(const void* q, const void* k, const void* v,
   p.row_base = row_base;
   p.heads_total = heads_total;
   p.head_offset = head_offset;
+  p.lq_whole = lq_whole;
   p.tk = tk;
   p.tv = tv;
   p.rel = rel;
+  p.q_offset = q_offset;
   return p;
 }
 
@@ -787,15 +804,17 @@ bool tc_takes(int batch, int heads, int rel) {
 extern "C" int zt_attention_rpr_forward(
     const void* q, const void* k, const void* v, const void* pad,
     const void* tk, const void* tv, void* o, void* m, void* l, int dtype,
-    int batch, int heads, int lq, int lk, int dh, int rel, int causal,
-    float scale, int dropout, unsigned int threshold, float drop_scale,
+    int batch, int heads, int lq, int lk, int dh, int rel, int q_offset,
+    int causal, float scale, int dropout, unsigned int threshold,
+    float drop_scale,
     unsigned int s0, unsigned int s1, unsigned int row_base,
     unsigned int heads_total, unsigned int head_offset,
-    void* stream) {
-  Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
+    unsigned int lq_whole, void* stream) {
+  Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel,
+                         q_offset, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.out = o;
   p.m = (float*)m;
   p.l = (float*)l;
@@ -808,14 +827,15 @@ extern "C" int zt_attention_rpr_backward(
     const void* m, const void* l, void* delta, void* qr, void* dwb,
     void* part_tk, void* part_tv, void* dq, void* dk, void* dv, void* dtk,
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
-    int rel, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1,
+    int rel, int q_offset, int causal, float scale, int dropout,
+    unsigned int threshold, float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
-  Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel, causal,
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
+  Params p = make_params(q, k, v, pad, tk, tv, heads, lq, lk, dh, rel,
+                         q_offset, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.m = (float*)m;
@@ -837,16 +857,17 @@ extern "C" int zt_attention_rpr_backward(
 extern "C" int zt_attention_rpr_forward_tc(
     const void* q, const void* k, const void* v, const void* pad,
     const void* tk, const void* tv, void* o, void* m, void* l, int dtype,
-    int batch, int heads, int lq, int lk, int dh, int rel, int causal,
-    float scale, int dropout, unsigned int threshold, float drop_scale,
+    int batch, int heads, int lq, int lk, int dh, int rel, int q_offset,
+    int causal, float scale, int dropout, unsigned int threshold,
+    float drop_scale,
     unsigned int s0, unsigned int s1, unsigned int row_base,
     unsigned int heads_total, unsigned int head_offset,
-    void* stream) {
+    unsigned int lq_whole, void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
-                               rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1, row_base, heads_total,
-                         head_offset);
+                               rel, q_offset, causal, scale, dropout,
+                               threshold, drop_scale, s0, s1, row_base,
+                               heads_total, head_offset, lq_whole);
   p.out = o;
   return zt::tc::run_forward<true, zt::tc::Rpr>(p, dtype, batch * heads,
                                                  stream);
@@ -862,16 +883,16 @@ extern "C" int zt_attention_rpr_backward_tc(
     const void* m, const void* l, void* delta, void* qr, void* dwb,
     void* part_tk, void* part_tv, void* dq, void* dk, void* dv, void* dtk,
     void* dtv, int dtype, int batch, int heads, int lq, int lk, int dh,
-    int rel, int causal, float scale, int dropout, unsigned int threshold,
-    float drop_scale, unsigned int s0, unsigned int s1,
+    int rel, int q_offset, int causal, float scale, int dropout,
+    unsigned int threshold, float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   if (!tc_takes(batch, heads, rel)) return (int)cudaErrorInvalidValue;
   const int bh = batch * heads, nb = 2 * rel + 1;
   zt::AttnParams p = tc_params(q, k, v, pad, tk, tv, m, l, heads, lq, lk, dh,
-                               rel, causal, scale, dropout, threshold,
-                               drop_scale, s0, s1, row_base, heads_total,
-                         head_offset);
+                               rel, q_offset, causal, scale, dropout,
+                               threshold, drop_scale, s0, s1, row_base,
+                               heads_total, head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.out = dq;

@@ -79,7 +79,8 @@
 // elements of the global batch before this launch's under data
 // parallelism, 0 in one process; F the whole width and offset the first
 // column of this launch's slice under tensor parallelism, filter and 0
-// otherwise). It depends on the element only, so
+// otherwise; row the global token row, ffn_row's map of a sequence block's
+// rows under sequence parallelism). It depends on the element only, so
 // forward and backward need no shared tiling; the tensor-core epilogues
 // compute it where each accumulator fragment's (row, col) is known.
 //
@@ -121,6 +122,10 @@ struct Params {
   // the whole hidden width and this launch's first column (tensor
   // parallelism: a process's slice; f and 0 otherwise)
   uint32_t f_total, f_offset;
+  // the row map of a sequence block (sequence parallelism): the launch's
+  // rows are B blocks of l_local tokens, each at l_offset in a sequence of
+  // l_whole; l_local == l_whole otherwise
+  uint32_t l_local, l_whole, l_offset;
 };
 
 template <typename T>
@@ -141,9 +146,16 @@ __device__ __forceinline__ bool keep_index(const Params& p, uint32_t index) {
          (uint32_t)p.t;
 }
 
+// the global token row of launch row `row` (the row map)
+__device__ __forceinline__ uint32_t ffn_row(const Params& p, uint32_t row) {
+  if (p.l_local == p.l_whole) return row;
+  const uint32_t b = row / p.l_local;
+  return b * p.l_whole + p.l_offset + (row - b * p.l_local);
+}
+
 __device__ __forceinline__ bool ffn_keep(const Params& p, int row, int col) {
-  return keep_index(p,
-                    (uint32_t)row * p.f_total + p.f_offset + (uint32_t)col);
+  return keep_index(p, ffn_row(p, (uint32_t)row) * p.f_total + p.f_offset +
+                           (uint32_t)col);
 }
 
 // ---------------------------------------------------------------------------
@@ -608,6 +620,12 @@ __device__ __forceinline__ float2 pre_pair(const Params& p, float a0,
   return __bfloat1622float2(round2(s.x + b.x, s.y + b.y));
 }
 
+// the hidden index of launch row `row`'s first column: the row map's
+// global row times the whole width, plus this launch's first column
+__device__ __forceinline__ uint32_t row_first(const Params& p, int row) {
+  return ffn_row(p, (uint32_t)row) * p.f_total + p.f_offset;
+}
+
 // keep bits of hidden elements index, index + 1 (all kept, dropout off)
 __device__ __forceinline__ bool2 keep_pair(const Params& p, uint32_t index) {
   if (!p.dropout) return {true, true};
@@ -635,6 +653,8 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_hidden(Params p) {
   Acc acc;
   mma_tile<true, false, kStages>((const bf16*)p.x, p.din, (const bf16*)p.w1,
                                  p.f, p.n, p.f, p.din, m0, n0, smem, acc);
+  const uint32_t first[2] = {row_first(p, m0 + frag_row(0)),
+                             row_first(p, m0 + frag_row(1))};
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -644,8 +664,7 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_hidden(Params p) {
       put2(smem, r, c,
            dropped_pair(p, pre_pair(p, acc[4 * j + 2 * h],
                                     acc[4 * j + 2 * h + 1], col),
-                        keep_pair(p, (uint32_t)(m0 + r) * p.f_total
-                                              + p.f_offset + col)));
+                        keep_pair(p, first[h] + col)));
     }
   __syncthreads();
   store_tile((bf16*)p.hd, p.f, p.n, p.f, m0, n0, smem);
@@ -706,6 +725,8 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_bwd_hidden(Params p) {
                                    (const bf16*)p.w2, p.dout, p.n, p.f,
                                    p.dout, m0, n0, ring, acc);
   bf16* dh = ring;   // staged dh; h_d overwrites pre in place
+  const uint32_t first[2] = {row_first(p, m0 + frag_row(0)),
+                             row_first(p, m0 + frag_row(1))};
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     float cs[2] = {0.f, 0.f};
@@ -713,8 +734,7 @@ __global__ void __launch_bounds__(kThreads, 2) ffn_bwd_hidden(Params p) {
     for (int h = 0; h < 2; ++h) {
       const int r = frag_row(h), c = frag_col(j);
       const float2 pv = __bfloat1622float2(get2(pre, r, c));
-      const bool2 keep = keep_pair(p, (uint32_t)(m0 + r) * p.f_total
-                                          + p.f_offset + n0 + c);
+      const bool2 keep = keep_pair(p, first[h] + n0 + c);
       const bool valid = m0 + r < p.n;
       float d[2];
 #pragma unroll
@@ -930,7 +950,9 @@ Params make_params(const void* x, const void* w1, const void* b1,
                    const void* w2, int n, int din, int f, int dout,
                    int dropout, int t, float inv, unsigned int s0,
                    unsigned int s1, unsigned int index_base,
-                   unsigned int f_total, unsigned int f_offset) {
+                   unsigned int f_total, unsigned int f_offset,
+                   unsigned int l_local, unsigned int l_whole,
+                   unsigned int l_offset) {
   Params p = {};
   p.x = x;
   p.w1 = w1;
@@ -948,6 +970,9 @@ Params make_params(const void* x, const void* w1, const void* b1,
   p.index_base = index_base;
   p.f_total = f_total;
   p.f_offset = f_offset;
+  p.l_local = l_local;
+  p.l_whole = l_whole;
+  p.l_offset = l_offset;
   return p;
 }
 
@@ -960,9 +985,11 @@ extern "C" int zt_ffn_forward(const void* x, const void* w1, const void* b1,
                               int dout, int dropout, int t, float inv,
                               unsigned int s0, unsigned int s1,
                               unsigned int index_base, unsigned int f_total,
-                              unsigned int f_offset, void* stream) {
+                              unsigned int f_offset, unsigned int l_local,
+    unsigned int l_whole, unsigned int l_offset, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1, index_base, f_total, f_offset);
+                         s1, index_base, f_total, f_offset, l_local,
+                         l_whole, l_offset);
   p.b2 = b2;
   p.y = y;
   p.hd = hd;
@@ -980,9 +1007,11 @@ extern "C" int zt_ffn_backward(
     void* db1, void* dw2, void* db2, int dtype, int n, int din, int f,
     int dout, int dropout, int t, float inv, unsigned int s0,
     unsigned int s1, unsigned int index_base, unsigned int f_total,
-    unsigned int f_offset, void* stream) {
+    unsigned int f_offset, unsigned int l_local,
+    unsigned int l_whole, unsigned int l_offset, void* stream) {
   Params p = make_params(x, w1, b1, w2, n, din, f, dout, dropout, t, inv, s0,
-                         s1, index_base, f_total, f_offset);
+                         s1, index_base, f_total, f_offset, l_local,
+                         l_whole, l_offset);
   p.dy = dy;
   p.y = dx;
   p.hd = hd;

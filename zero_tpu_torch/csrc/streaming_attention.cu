@@ -520,7 +520,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    int dropout, unsigned int threshold, float drop_scale,
                    unsigned int s0, unsigned int s1,
                    unsigned int row_base, unsigned int heads_total,
-                   unsigned int head_offset) {
+                   unsigned int head_offset,
+                   unsigned int lq_whole) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -542,6 +543,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.row_base = row_base;
   p.heads_total = heads_total;
   p.head_offset = head_offset;
+  p.lq_whole = lq_whole;
   return p;
 }
 
@@ -554,11 +556,11 @@ extern "C" int zt_streaming_forward(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.out = o;
   return run(p, dtype, batch * heads, kForward, stream);
 }
@@ -570,11 +572,11 @@ extern "C" int zt_streaming_backward_dq(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -589,11 +591,11 @@ extern "C" int zt_streaming_backward_dkdv(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;
@@ -609,11 +611,11 @@ extern "C" int zt_streaming_forward_tc(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.out = o;
   return zt::tc::run_forward<false>(p, dtype, batch * heads, stream);
 }
@@ -625,11 +627,11 @@ extern "C" int zt_streaming_backward_dq_tc(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.o = o;
   p.dout = dout;
   p.delta = (float*)delta;
@@ -645,11 +647,11 @@ extern "C" int zt_streaming_backward_dkdv_tc(
     int dh, int causal, float scale, int dropout, unsigned int threshold,
     float drop_scale, unsigned int s0, unsigned int s1,
     unsigned int row_base, unsigned int heads_total,
-    unsigned int head_offset, void* stream) {
+    unsigned int head_offset, unsigned int lq_whole, void* stream) {
   Params p = make_params(q, k, v, pad, m, l, heads, lq, lk, dh, causal,
                          scale, dropout, threshold, drop_scale, s0, s1,
                          row_base, heads_total,
-                         head_offset);
+                         head_offset, lq_whole);
   p.dout = dout;
   p.delta = (float*)delta;
   p.dk = dk;

@@ -118,6 +118,9 @@ struct AttnParams {
   // the whole head count and this launch's first head (tensor
   // parallelism: a process's heads; heads and 0 otherwise)
   uint32_t heads_total, head_offset;
+  // the whole query length (a sequence block's launch: its rows are a
+  // part of the whole sequence's; lq otherwise)
+  uint32_t lq_whole;
   // Shaw RPR (the Rpr policy; fused_attention_rpr.cu): tables tk, tv [R,
   // Dh] bf16, R = 2 rel + 1; for dq_tc and dkdv_tc, fp32 scratch qd [B*H,
   // Lq, R] of pairs (q.Tk^T, do.Tv^T) and fp32 table-gradient partials
@@ -128,6 +131,9 @@ struct AttnParams {
   float* part_tk;
   float* part_tv;
   int rel;
+  // the position of query row 0 in the distances c(i, j) (a sequence
+  // block's launch over the whole memory; 0 otherwise)
+  int q_offset;
 };
 
 // The seed word of query row i of head bh (0 when dropout is off).
@@ -135,7 +141,7 @@ __device__ __forceinline__ uint32_t row_seed(const AttnParams& p, int bh,
                                              int i) {
   if (!p.dropout) return 0u;
   return row_seed(p.row_base + global_row(bh, i, p.heads, p.heads_total,
-                                          p.head_offset, p.lq),
+                                          p.head_offset, p.lq_whole),
                   p.s0, p.s1);
 }
 
@@ -245,7 +251,8 @@ struct Rpr {
 
 // ---------------------------------------------------------------------------
 // The Rpr policy (#3, #4). With c(i, j) = clip(i - j, -rel, rel) + rel,
-// R = 2 rel + 1 buckets and the tables Tk, Tv [R, Dh]:
+// R = 2 rel + 1 buckets and the tables Tk, Tv [R, Dh] (i the query's
+// position: its row plus p.q_offset):
 //   S += qr[i, c(i, j)] (qr = Q.Tk^T),  dP += dwb[i, c(i, j)] (dwb = dO.Tv^T),
 //   wb[i, c] = sum_{j: c(i,j) = c} P_drop,  ds_b[i, c] = the same sum of dS,
 //   o += wb.Tv,  dq += ds_b.Tk,  dTk = scale * sum_i ds_b^T q,
@@ -517,7 +524,7 @@ __device__ __forceinline__ void rpr_fwd_scores(const Params& p,
         const int i = 4 * j + 2 * h + e;
         const bool valid = pad_ok && (!EDGE || !p.causal || key <= r.row[h]);
         if (BAND) {
-          const int b = rpr_bucket(r.row[h], key, p.rel);
+          const int b = rpr_bucket(r.row[h] + p.q_offset, key, p.rel);
           if (b == 0 || b == top) {
             s[i] = rpr_score(s[i], b == 0 ? lo[h] : hi[h]);
           } else {
@@ -566,7 +573,7 @@ __device__ __forceinline__ void rpr_fwd_scores(const Params& p,
         if (!BAND) {
           wlo[h] += w;   // the tile's one bucket, ce: moved below
         } else {
-          const int b = rpr_bucket(r.row[h], key, p.rel);
+          const int b = rpr_bucket(r.row[h] + p.q_offset, key, p.rel);
           if (b == 0)
             wlo[h] += w;
           else if (b == top)
@@ -627,7 +634,7 @@ __device__ __forceinline__ void rpr_fwd_finish(const Params& p,
   // its key was reached and kept (an early-return form ran slower on the
   // card: PERF.md, Findings)
   auto weight = [&](int h, int c) {
-    const int j = r.row[h] + p.rel - c;
+    const int j = r.row[h] + p.q_offset + p.rel - c;
     const float u = row_qr[h][min(c, nb - 1)];
     const bool in = c > 0 && c < top && (unsigned)j < (unsigned)key_end &&
                     (!p.dropout ||
@@ -779,7 +786,8 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kFwdMinBlocks : 1)
     // mask
     const bool edge = k0 + kKeys > p.lk || (p.causal && k0 + kKeys - 1 > q0);
     if constexpr (POL::kOn) {
-      const int ce = rpr_tile_bucket(q0, kBlockRows, k0, kKeys, p.rel);
+      const int ce =
+          rpr_tile_bucket(q0 + p.q_offset, kBlockRows, k0, kKeys, p.rel);
       const float* pd = pads + slot * kKeys;
       if (ce < 0) {
         if (edge)
@@ -1011,7 +1019,8 @@ __device__ __forceinline__ void rpr_dq_scores(
         const bool valid =
             pad_ok && (!EDGE || (r.row_in[h] &&
                                  (!p.causal || key <= r.row[h])));
-        const int b = BAND ? rpr_bucket(r.row[h], key, p.rel) : ce;
+        const int b =
+            BAND ? rpr_bucket(r.row[h] + p.q_offset, key, p.rel) : ce;
         float wd = 0.f, ds = 0.f;
         if (exists) {
           const float2 t =
@@ -1294,7 +1303,8 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kDqMinBlocks : 1)
       // not enter wb
       const bool edge = rows_edge || k0 + kKeys > p.lk ||
                         (p.causal && k0 + kKeys - 1 > q0);
-      const int ce = rpr_tile_bucket(q0, kBlockRows, k0, kKeys, p.rel);
+      const int ce =
+          rpr_tile_bucket(q0 + p.q_offset, kBlockRows, k0, kKeys, p.rel);
       const float* pd = pads + slot * kKeys;
       if (ce < 0) {
         if (edge)
@@ -1423,8 +1433,9 @@ __device__ __forceinline__ void rpr_dkdv_scores(
         float wd = 0.f, ds = 0.f;
         if (exists) {
           const float2 t =
-              BAND ? rpr_terms(qd, rpr_bucket(i, kv.key[h], p.rel), p.rel,
-                               lo, hi)
+              BAND ? rpr_terms(qd,
+                               rpr_bucket(i + p.q_offset, kv.key[h], p.rel),
+                               p.rel, lo, hi)
                    : (ce == 0 ? lo : hi);
           const float w =
               fast_exp2((valid ? (s[x] + t.x) * scale_log2 : masked_log2) -
@@ -1558,7 +1569,8 @@ __global__ void __launch_bounds__(kThreadsTC, DP == 64 ? kKvMinBlocks : 1)
     if constexpr (POL::kOn) {
       const float4* st = stats + slot * BQ;
       const float4* eg = edges + slot * BQ;
-      const int ce = rpr_tile_bucket(qt0, BQ, k0, kBlockRows, p.rel);
+      const int ce =
+          rpr_tile_bucket(qt0 + p.q_offset, BQ, k0, kBlockRows, p.rel);
       if (ce < 0) {
         if (edge)
           rpr_dkdv_scores<BQ, true, FUSED, true>(p, s, dp, st, eg, qt0, kv,

@@ -75,7 +75,9 @@ __device__ __forceinline__ uint32_t row_seed(uint32_t row, uint32_t s0,
 // The row of query i of launch head bh = b * heads + h in the global [B, H,
 // Lq] rows: (b * H + head_offset + h) * Lq + i, the launch holding heads
 // [head_offset, head_offset + heads) of H (tensor parallelism); bh * Lq + i
-// when it holds them all.
+// when it holds them all. Lq is the whole query length: a launch over a
+// sequence block (sequence parallelism) passes the whole sequence's and
+// adds the block's first query to row_base.
 __device__ __forceinline__ uint32_t global_row(int bh, int i, int heads,
                                                uint32_t heads_total,
                                                uint32_t head_offset, int lq) {

@@ -35,10 +35,16 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
 Data parallelism across processes runs (parallel/distributed.py), and
 for TP_MODELS tensor parallelism (``mesh_model``: vocab-parallel
 embeddings and cross entropy here, split attention and FFN in ops/;
-parallel/tensor.py) and for transformer_moe expert parallelism
-(``mesh_expert``, ops/moe.py); the other parallelism options raise in
-training (check_ported), the pipeline over a stack (``mesh_pipe``) among
-them.
+parallel/tensor.py), for transformer_moe expert parallelism
+(``mesh_expert``, ops/moe.py) and for SP_MODELS sequence parallelism
+(``mesh_seq``: every process of a seq line holds the whole batch ids,
+embeds its block of the source and of the shifted target positions
+(``seq_inputs``), runs the layers on its block with ring self-attention
+(parallel/ring.py), gathers the encoder output once for every decoder
+layer's cross-attention (``gather_encodes``) and takes the loss of its
+target block, the per-sentence sums over the line); the other
+parallelism options raise in training (check_ported), the pipeline over
+a stack (``mesh_pipe``) among them.
 """
 
 from __future__ import annotations
@@ -246,6 +252,68 @@ def shift_right(x):
     return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1, :]
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: this process's block of every sequence
+# ---------------------------------------------------------------------------
+
+def seq_span(length: int):
+    """[lo, hi) of this process's block of a length-``length`` sequence
+    axis under a split sequence (ops/common.py:seq_parallel); the whole
+    axis otherwise."""
+    n = ops_common.seq_degree()
+    if n <= 1:
+        return 0, int(length)
+    if length % n:
+        raise ValueError("a sequence of %d positions does not split into "
+                         "mesh_seq=%d blocks (seq_padded pads it)"
+                         % (length, n))
+    part = length // n
+    lo = ops_common.seq_coord() * part
+    return lo, lo + part
+
+
+def seq_block(x, dim: int = 1):
+    """This process's block of ``x`` along ``dim`` (x itself without a
+    split sequence)."""
+    lo, hi = seq_span(x.shape[dim])
+    return x.narrow(dim, lo, hi - lo) if (lo, hi) != (0, x.shape[dim]) \
+        else x
+
+
+def seq_padded(features: dict) -> dict:
+    """The source and target ids padded with 0 (pad) to a multiple of the
+    seq degree: the padding is masked (keys, loss), and trails every
+    valid position. The one place a training length meets the 'seq'
+    degree (the JAX package runs a length it does not divide dense)."""
+    n = ops_common.seq_degree()
+    if n <= 1:
+        return features
+    out = dict(features)
+    for key in ("source", "target"):
+        t = out[key]
+        pad = (-t.shape[1]) % n
+        if pad:
+            out[key] = torch.nn.functional.pad(t, (0, pad))
+    return out
+
+
+def seq_inputs(x, rng, rate):
+    """Embedded whole-length inputs x [B, L, d] (the target's already
+    shifted) -> this process's block plus the timing signal of its global
+    positions, then the input dropout, indexed over the whole sequence."""
+    lo, _ = seq_span(x.shape[1])
+    x = nn.add_timing_signal(seq_block(x), offset=lo)
+    return dropout(rng, x, rate,
+                   split=ops_common.seq_split(1, x.shape[1]))
+
+
+def gather_encodes(x):
+    """The encoder output's blocks joined whole on every process of the
+    seq line, once for every decoder layer's cross-attention
+    (distributed.gather_seq); x itself without a split sequence."""
+    return dist.gather_seq(x) if ops_common.seq_degree() > 1 else x
+
+
 # the matmuls each policy keeps: "dots" those without batch dims (the
 # projections and the FFN), "dots_all" the batched ones too (attention's
 # scores and context)
@@ -404,27 +472,34 @@ TP_MODELS = ("transformer", "transformer_rpr", "transformer_moe",
              "transformer_rela", "transformer_fixup", "transformer_l0drop")
 # the models that train under expert parallelism (mesh_expert > 1)
 EP_MODELS = ("transformer_moe",)
+# the models that train under sequence parallelism (mesh_seq > 1): the
+# JAX package's ring-capable models (zero_tpu/tests/test_ring.py)
+SP_MODELS = ("transformer", "transformer_rpr", "transformer_rela",
+             "transformer_multilingual", "transformer_clsr",
+             "transformer_l0drop")
 
 
 def check_ported(cfg, training: bool = True,
                  world: Optional[int] = None):
     """Raise on options of a later slice instead of ignoring them: in
-    training ``mesh_seq`` or ``mesh_pipe`` above 1 (and with it the
-    pipeline over a scan_layers stack), ``mesh_model`` above 1 for a model
-    not in TP_MODELS and ``mesh_expert`` above 1 for one not in
-    EP_MODELS, each naming the model. Data parallelism across ``world``
-    processes (by default the process group's, or ``dist_num_processes``
-    before one exists) runs, with ZeRO (``zero_stage``), the sharded
-    checkpoint and every model, and so do tensor and expert parallelism
-    for their models; mesh degrees whose product is not the world size
-    raise make_mesh's ValueError, and a head count the model degree does
-    not divide a ValueError. Evaluation decodes on one device with a
-    warning instead (train.py:_eval_on_one_device), as the JAX package's
-    _eval_mesh does when the devices are too few."""
+    training ``mesh_pipe`` above 1 (and with it the pipeline over a
+    scan_layers stack), ``mesh_model`` above 1 for a model not in
+    TP_MODELS, ``mesh_seq`` above 1 for one not in SP_MODELS and
+    ``mesh_expert`` above 1 for one not in EP_MODELS, each naming the
+    model, and ``mesh_seq`` with ``mesh_expert``. Data parallelism across
+    ``world`` processes (by default the process group's, or
+    ``dist_num_processes`` before one exists) runs, with ZeRO
+    (``zero_stage``), the sharded checkpoint and every model, and so do
+    tensor, sequence and expert parallelism for their models; mesh
+    degrees whose product is not the world size raise make_mesh's
+    ValueError, and a head count the model degree does not divide a
+    ValueError. Evaluation decodes on one device with a warning instead
+    (train.py:_eval_on_one_device), as the JAX package's _eval_mesh does
+    when the devices are too few."""
     if not training:
         return
     asked = ["%s=%s" % (key, getattr(cfg, key))
-             for key in ("mesh_seq", "mesh_pipe")
+             for key in ("mesh_pipe",)
              if int(getattr(cfg, key, 1)) > 1]
     if not asked:
         if world is None:
@@ -432,10 +507,17 @@ def check_ported(cfg, training: bool = True,
                 else int(cfg.dist_num_processes)
         dist.mesh_degrees(cfg, world)
     name = getattr(cfg, "model_name", "")
-    for key, models in (("mesh_model", TP_MODELS),
+    for key, models in (("mesh_model", TP_MODELS), ("mesh_seq", SP_MODELS),
                         ("mesh_expert", EP_MODELS)):
         if int(getattr(cfg, key, 1)) > 1 and name not in models:
             asked.append("%s=%s for %s" % (key, getattr(cfg, key), name))
+    if int(getattr(cfg, "mesh_seq", 1)) > 1:
+        # ROBT's in-step greedy decode of the batch is not split
+        for key in ("mesh_expert", "robt"):
+            value = getattr(cfg, key, 0)
+            if (int(value) > 1 if key == "mesh_expert" else bool(value)):
+                asked.append("mesh_seq=%s with %s=%s"
+                             % (cfg.mesh_seq, key, value))
     if asked:
         raise NotImplementedError(
             "%s: not ported to zero_tpu_torch yet: it comes with a later "
@@ -528,8 +610,7 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
         mask = (source != 0).to(dtype)
         src_table, _, _ = emb_tables(params, cfg)
         x = embed_scaled(src_table, source, params.emb_bias, cfg, dtype)
-        x = nn.add_timing_signal(x)
-        x = dropout(rngs(), x, cfg.dropout if training else None)
+        x = seq_inputs(x, rngs(), cfg.dropout if training else None)
         src_keep = nn.masking_mask(mask)
         remat = remat_policy(cfg) if _use_remat(cfg, training) else None
         if _scan_layers(cfg):
@@ -548,18 +629,17 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
                     x = hooks.enc_layer(p, x, src_keep, cfg, rngs)
         if hooks.enc_post is not None:
             x = hooks.enc_post(params.enc_post, x)
-        state = {"encodes": x, "mask": mask}
+        state = {"encodes": gather_encodes(x), "mask": mask}
         if hooks.post_encode is not None:
             state = hooks.post_encode(params, state, cfg, rngs, training)
         return state
 
     def _decode_train(params, target, state, cfg, rngs, dtype, training):
-        mask = (target != 0).to(dtype)
+        mask = seq_block((target != 0).to(dtype))
         _, tgt_table, soft_table = emb_tables(params, cfg)
         x = embed_scaled(tgt_table, target, params.emb_bias, cfg, dtype)
-        x = shift_right(x)
-        x = nn.add_timing_signal(x)
-        x = dropout(rngs(), x, cfg.dropout if training else None)
+        x = seq_inputs(shift_right(x), rngs(),
+                       cfg.dropout if training else None)
         # built on first use, by a layer on the composite path: a layer
         # whose self-attention takes a kernel needs only the causal flag,
         # and an [L, L] fp32 mask is 1 GiB at L = 16384
@@ -592,6 +672,7 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
         loss, per-sentence [B])."""
         check_ported(cfg, training)
         dtype = dtypes.compute_dtype(cfg)
+        features = seq_padded(features)
 
         def body(cparams):
             rngs = RngGen(gen if training else None)
@@ -601,8 +682,8 @@ def make_transformer(hooks: LayerHooks, zero_softmax: bool = False,
                 cparams, features["target"], state, cfg, rngs, dtype,
                 training)
             loss, per_sample = ce_from_feature(
-                feature, soft_table, features["target"], mask, cfg,
-                label_smooth)
+                feature, soft_table, seq_block(features["target"]), mask,
+                cfg, label_smooth)
             if extra_loss is not None and training:
                 loss = loss + extra_loss(cparams, state, cfg, step)
             return loss, per_sample

@@ -60,7 +60,10 @@ def clsr(params: ClsrUnit, x, lang, rngs, training, gate_sums):
     """Apply one CLSR unit; appends (sum g, count) to gate_sums."""
     log_alpha = nn.linear(params.gate, x).float()                 # [B,L,1]
     if training:
-        g = l0norm.hard_concrete_sample(rngs(), log_alpha)
+        # x may be a sequence block: its noise indexes the whole sequence
+        g = l0norm.hard_concrete_sample(
+            rngs(), log_alpha,
+            split=ops_common.seq_split(1, log_alpha.shape[1]))
     else:
         g = l0norm.hard_concrete_mean(log_alpha)
     h_shared = nn.linear(params.shared, x)
@@ -135,22 +138,20 @@ def _encode(params, source, cfg, rngs, training, gate_sums):
     src_table, _, _ = common.emb_tables(params, cfg)
     x = common.embed_scaled(src_table, source, params.emb_bias, cfg,
                             torch.float32)
-    x = nn.add_timing_signal(x)
-    x = dropout(rngs(), x, cfg.dropout if training else None)
+    x = common.seq_inputs(x, rngs(), cfg.dropout if training else None)
     keep = nn.masking_mask(mask)
     for p in params.encoder:
         x = _enc_layer(p, x, keep, lang, cfg, rngs, training, gate_sums)
-    return {"encodes": x, "mask": mask, "lang": lang}
+    return {"encodes": common.gather_encodes(x), "mask": mask, "lang": lang}
 
 
 def _decode_train(params, target, state, cfg, rngs, training, gate_sums):
-    mask = (target != 0).float()
+    mask = common.seq_block((target != 0).float())
     _, tgt_table, soft_table = common.emb_tables(params, cfg)
     x = common.embed_scaled(tgt_table, target, params.emb_bias, cfg,
                             torch.float32)
-    x = common.shift_right(x)
-    x = nn.add_timing_signal(x)
-    x = dropout(rngs(), x, cfg.dropout if training else None)
+    x = common.seq_inputs(common.shift_right(x), rngs(),
+                          cfg.dropout if training else None)
     self_keep = nn.causal_mask(target.shape[1], device=target.device)
     mem_keep = nn.masking_mask(state["mask"])
     for p in params.decoder:
@@ -161,20 +162,25 @@ def _decode_train(params, target, state, cfg, rngs, training, gate_sums):
 
 def budget_loss(gate_sums, cfg):
     """|mean gate over every unit's positions - clsr_budget|, the
-    positions of the global batch under data parallelism."""
-    total_g = ops_common.global_sum(sum(s for s, _ in gate_sums))
-    total_n = ops_common.global_count(sum(n for _, n in gate_sums))
+    positions of the global batch under data parallelism and of the whole
+    sequences under sequence parallelism."""
+    total_g = ops_common.global_sum(ops_common.seq_sum(
+        sum(s for s, _ in gate_sums)))
+    total_n = ops_common.global_count(ops_common.seq_count(
+        sum(n for _, n in gate_sums)))
     return torch.abs(total_g / max(total_n, 1.0) - cfg.clsr_budget)
 
 
 def train_fn(params, features, cfg, gen, step=0):
     common.check_ported(cfg)
+    features = common.seq_padded(features)
     rngs = RngGen(gen)
     gate_sums = []
     state = _encode(params, features["source"], cfg, rngs, True, gate_sums)
     feat, soft_table, mask = _decode_train(params, features["target"], state,
                                            cfg, rngs, True, gate_sums)
-    loss, _ = common.ce_from_feature(feat, soft_table, features["target"],
+    loss, _ = common.ce_from_feature(feat, soft_table,
+                                     common.seq_block(features["target"]),
                                      mask, cfg, cfg.label_smooth)
     return {"loss": loss + cfg.clsr_alpha * budget_loss(gate_sums, cfg)}
 

@@ -86,8 +86,11 @@ def post_encode(params, state, cfg, rngs, training):
         gated = encodes * gates.to(encodes.dtype)
         # only attend to the surviving positions
         new_mask = (gates[..., 0] > 0).to(mask.dtype) * mask
+        # under a split sequence every process gates the gathered
+        # encoder output: the penalty is the whole sequences' on each
         return dict(state, encodes=gated, mask=new_mask,
-                    l0_penalty=l0_penalty(log_alpha, mask))
+                    l0_penalty=common_ops.seq_shared(
+                        l0_penalty(log_alpha, mask)))
     gates = l0norm.hard_concrete_mean(log_alpha)
     keep = (gates > 0).to(encodes.dtype)
     gated = (encodes * (gates.to(encodes.dtype) * keep)

@@ -135,12 +135,12 @@ def _encode(params, source, cfg, rngs, training):
     src_table, _, _ = common.emb_tables(params, cfg)
     x = common.embed_scaled(src_table, source, params.emb_bias, cfg,
                             torch.float32)
-    x = nn.add_timing_signal(x)
-    x = dropout(rngs(), x, cfg.dropout if training else None)
+    x = common.seq_inputs(x, rngs(), cfg.dropout if training else None)
     keep = nn.masking_mask(mask)
     for p in params.encoder:
         x = base.enc_layer(p, x, keep, cfg, rngs)
-    return {"encodes": x, "mask": mask, "lang": lang_from_source(source, cfg)}
+    return {"encodes": common.gather_encodes(x), "mask": mask,
+            "lang": lang_from_source(source, cfg)}
 
 
 def _dec_layer_train(p, x, state, self_keep, mem_keep, cfg, rngs, lang):
@@ -164,13 +164,12 @@ def _lalt(params, x, lang):
 
 
 def _decode_train(params, target, state, cfg, rngs, training):
-    mask = (target != 0).float()
+    mask = common.seq_block((target != 0).float())
     _, tgt_table, soft_table = common.emb_tables(params, cfg)
     x = common.embed_scaled(tgt_table, target, params.emb_bias, cfg,
                             torch.float32)
-    x = common.shift_right(x)
-    x = nn.add_timing_signal(x)
-    x = dropout(rngs(), x, cfg.dropout if training else None)
+    x = common.seq_inputs(common.shift_right(x), rngs(),
+                          cfg.dropout if training else None)
     lang = state["lang"]
     self_keep = nn.causal_mask(target.shape[1], device=target.device)
     mem_keep = nn.masking_mask(state["mask"])
@@ -182,11 +181,13 @@ def _decode_train(params, target, state, cfg, rngs, training):
 
 def train_fn(params, features, cfg, gen, step=0):
     common.check_ported(cfg)
+    features = common.seq_padded(features)
     rngs = RngGen(gen)
     state = _encode(params, features["source"], cfg, rngs, True)
     feat, soft_table, mask = _decode_train(params, features["target"], state,
                                            cfg, rngs, True)
-    loss, _ = common.ce_from_feature(feat, soft_table, features["target"],
+    loss, _ = common.ce_from_feature(feat, soft_table,
+                                     common.seq_block(features["target"]),
                                      mask, cfg, cfg.label_smooth)
     return {"loss": loss}
 

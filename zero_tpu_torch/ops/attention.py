@@ -19,6 +19,15 @@ k and v (of the fused qkv: three blocks) and of ReLA's epilogue, runs
 attention over those heads (the kernels too, at the whole heads' dropout
 rows) and the row-split output map sums its partial product over the
 line.
+
+Sequence parallelism (``attn_train`` under ops/common.py:seq_parallel):
+the query is this process's block of the sequence. A self-attention runs
+the ring of parallel/ring.py, before the kernel or composite branch, as
+the JAX package's does, over the process's heads under TP too; a
+cross-attention runs the block's queries against the whole (gathered)
+memory, its dropout rows and (RPR) its distances the whole sequence's, on
+the kernels under ``use_flash`` as in one process. A self-attention the
+ring cannot take raises: it must never attend within a block alone.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from zero_tpu_torch.ops.kernels import decode_attention as da
 from zero_tpu_torch.ops.kernels import fused_attention as fa
 from zero_tpu_torch.ops.kernels import streaming_attention as sa
 from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import ring
 from zero_tpu_torch.parallel import tensor as tp
 
 NEG_INF = da.NEG_INF
@@ -175,7 +185,7 @@ def promote(q, k, v):
 
 def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
                rpr_tables=None, rpr_ids=None, rpr_max=None, relu=False,
-               count_weights=None, heads=None):
+               count_weights=None, heads=None, qrows=None):
     """Softmax attention on [B, L, hidden] projections, with dropout on the
     weights (8-bit threshold masks of ops/common.py:dropout). relu=True
     switches to ReLA's weights: logits times the keep-mask, then relu.
@@ -189,7 +199,9 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
     shapes whose one-hot constant would be oversized take the gathered
     form. ``heads`` = (offset, whole count): the num_heads heads are a
     process's part (tensor parallelism), whose dropout draws index the
-    whole heads. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
+    whole heads; ``qrows`` = (offset, whole length): the Lq queries are a
+    block of the sequence (sequence parallelism), whose draws index the
+    whole sequence. Returns ([B, Lq, hidden], weights [B, H, Lq, Lk])."""
     q, k, v = promote(q, k, v)
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
@@ -228,9 +240,10 @@ def _attn_core(q, k, v, keep_mask, num_heads, *, rng=None, drop=None,
         if keep_mask is not None:
             logits = torch.where(keep_mask > 0, logits, NEG_INF)
         weights = torch.softmax(logits, dim=-1)
-    dweights = common.dropout(
-        rng, weights, drop,
-        split=None if heads is None else (1,) + tuple(heads)).to(q.dtype)
+    splits = [] if heads is None else [(1,) + tuple(heads)]
+    if qrows is not None:
+        splits.append((2,) + tuple(qrows))
+    dweights = common.dropout(rng, weights, drop, split=splits).to(q.dtype)
     if use_onehot:
         o = rpr_mod.output_with_rpr_onehot(dweights, vh, rpr_tables.values,
                                            rpr_max)
@@ -303,6 +316,18 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         v = nn.linear(params.v, memory)
     q, k, v = promote(q, k, v)
     lq, lk = q.shape[1], k.shape[1]
+    qrows = rpr_ids = None
+    if common.seq_degree() > 1:
+        if memory is None:
+            return _ring_self_attention(
+                params, q, k, v, num_heads, rng=rng, drop=drop,
+                use_flash=use_flash, causal=causal, pad_mask=pad_mask,
+                rpr_tables=rpr_tables, max_rel=max_relative_position,
+                relu=relu, fuse=fuse_weight is not None
+                or fuse_mask is not None, count_weights=count_weights,
+                heads=heads, part=part)
+        split = common.seq_split(1, lq)
+        qrows = (split[1], split[2])
     use_flash = use_flash and not relu and count_weights is None
     if use_flash and rpr_tables is not None:
         use_flash = _rpr_flash_ok(lq, lk, max_relative_position, causal,
@@ -315,19 +340,24 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         if rpr_tables is None and lk > fa.MAX_LK:
             o = sa.streaming_attention(*qkv, pad_mask, causal=causal,
                                        dropout_rate=drop_rate, rng=rng,
-                                       heads=heads)
+                                       heads=heads, qrows=qrows)
         else:
             o = fa.fused_attention(*qkv, pad_mask, causal=causal,
                                    dropout_rate=drop_rate, rng=rng,
                                    rpr_tables=rpr_tables,
                                    max_relative_position=max_relative_position,
-                                   heads=heads)
+                                   heads=heads, qrows=qrows)
         o, weights = combine_heads(o.to(q.dtype)), None
     else:
-        o, weights = _attn_core(q, k, v, keep_mask, num_heads, rng=rng,
-                                drop=drop, rpr_tables=rpr_tables,
-                                rpr_max=max_relative_position, relu=relu,
-                                count_weights=count_weights, heads=heads)
+        if qrows is not None and rpr_tables is not None:
+            # the block's distances from its global query positions
+            rpr_ids = rpr_mod.relative_positions_matrix(
+                lq, lk, max_relative_position, q.device, qrows[0])
+        o, weights = _attn_core(
+            q, k, v, keep_mask, num_heads, rng=rng, drop=drop,
+            rpr_tables=rpr_tables, rpr_ids=rpr_ids,
+            rpr_max=max_relative_position if rpr_ids is None else None,
+            relu=relu, count_weights=count_weights, heads=heads, qrows=qrows)
     aan = None
     if fuse_mask is not None:
         aan = nn.aan_cummean(nn.linear(params.v, query), fuse_mask,
@@ -337,6 +367,42 @@ def attn_train(params: Attention, query, memory, keep_mask, num_heads, *,
         aan = torch.einsum("bqk,bkd->bqd", fuse_weight.to(v_q.dtype), v_q)
     return {"output": _out_map(params, o, relu, aan, part),
             "weights": weights}
+
+
+def _ring_self_attention(params: Attention, q, k, v, num_heads, *,
+                         rng, drop, use_flash, causal, pad_mask, rpr_tables,
+                         max_rel, relu, fuse, count_weights, heads, part):
+    """A self-attention over this process's block of the sequence: the ring
+    (parallel/ring.py), its blocks on #5-#7 under ``use_flash`` in softmax
+    mode; the epilogue as attn_train's. A mask the ring cannot take (no
+    causal flag or key pad mask declared, L0Drop's count softmax, the
+    merged attention, RPR without its clipping distance) raises, and so
+    does a shape that fails ring.ring_route_ok (the JAX ring's rule)."""
+    if (count_weights is not None or fuse
+            or not (causal or pad_mask is not None)
+            or (rpr_tables is not None and max_rel is None)):
+        raise ValueError(
+            "self-attention variant is not ring-capable under mesh_seq=%d: "
+            "its mask does not decompose into a causal flag and a key pad "
+            "mask (it would attend within a sequence block alone)"
+            % common.seq_degree())
+    whole = q.shape[1] * common.seq_degree()
+    batch = q.shape[0] * dist.grid().degree("data")
+    heads_total = num_heads if heads is None else heads[1]
+    if not ring.ring_route_ok(batch, heads_total, whole, whole):
+        raise ValueError(
+            "self-attention of batch %d, %d heads and length %d does not "
+            "take the ring under mesh_seq=%d" % (batch, heads_total, whole,
+                                                 common.seq_degree()))
+    qh, kh, vh = (split_heads(x, num_heads) for x in (q, k, v))
+    o = ring.ring_attention(
+        qh, kh, vh, pad_mask, causal=causal, words=rng, drop=drop,
+        relu=relu, max_rel=max_rel, heads=heads, use_kernels=use_flash,
+        rpr_tables=None if rpr_tables is None else (rpr_tables.keys,
+                                                    rpr_tables.values))
+    return {"output": _out_map(params, combine_heads(o.to(q.dtype)), relu,
+                               None, part),
+            "weights": None}
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,14 @@ B*C, d]). GSPMD hashes the global linear index, so such a draw names the
 axis, its offset and its whole length (``split``): the element's index is
 its place in the tensor with both the batch and the split axis whole
 (``global_index``), which no one offset gives (``index_base`` refuses).
+
+A split sequence. Under sequence parallelism (``mesh_seq``,
+parallel/ring.py) each process of a seq line holds block ``coord`` of
+every sequence, all blocks of one length (``seq_parallel``): a draw over
+a [B, L/n, ...] activation names its L axis (``seq_split``), so that it
+takes the whole sequence's index, and the per-sentence sums of the loss
+are summed over the line (``seq_sum``). Ring attention folds its blocks'
+owners into the seed words (``fold_in``, JAX's threefry ``fold_in``).
 """
 
 from __future__ import annotations
@@ -115,6 +123,15 @@ def index_base(shape, batch_axis: int = 0) -> int:
 Split = Tuple[int, int, int]     # (axis, offset, whole length)
 
 
+def _splits(split) -> list:
+    """A Split, a sequence of Splits or None -> a list of Splits."""
+    if not split:
+        return []
+    if isinstance(split[0], int):
+        return [tuple(split)]
+    return [tuple(s) for s in split if s is not None]
+
+
 def global_index(shape, batch_axis: int = 0, device=None,
                  split: Optional[Split] = None) -> torch.Tensor:
     """The global linear index (mod 2^32, int64) of every element of a
@@ -123,11 +140,13 @@ def global_index(shape, batch_axis: int = 0, device=None,
     ``split[0]`` (if given) is the part [offset, offset + n) of a whole
     ``split[2]`` long: the element's index in the global tensor. An
     expert-major [E, B*C, d] tensor (ops/moe.py) is E strided blocks of
-    that index space, not one offset."""
+    that index space, not one offset. ``split`` may be a list of such
+    splits on different axes (heads and a sequence block)."""
     shape = tuple(int(d) for d in shape)
     n = math.prod(shape)
     offset, rows, total = global_rows()
-    if split is None and (not rows or batch_axis == 0):
+    splits = _splits(split)
+    if not splits and (not rows or batch_axis == 0):
         return ((torch.arange(max(n, 1), dtype=torch.int64, device=device)
                  + index_base(shape, batch_axis)) & _U32)[:n].reshape(shape)
     # each axis as (offset, whole length)
@@ -139,9 +158,8 @@ def global_index(shape, batch_axis: int = 0, device=None,
                              % (shape, batch_axis, rows))
         per = width // rows
         spans[batch_axis] = (offset * per, total * per)
-    if split is not None:
-        axis = split[0] % len(shape)
-        spans[axis] = (int(split[1]), int(split[2]))
+    for axis, start, whole in splits:
+        spans[axis % len(shape)] = (int(start), int(whole))
     idx = torch.zeros((), dtype=torch.int64, device=device)
     stride = 1
     for axis in reversed(range(len(shape))):
@@ -153,6 +171,91 @@ def global_index(shape, batch_axis: int = 0, device=None,
                      * stride).reshape(view)
         stride *= whole
     return (idx.expand(shape) & _U32).reshape(shape)
+
+
+# the process's block of every sequence (seq_parallel)
+_SEQ = {"coord": 0, "degree": 1, "reduce": None}
+
+
+@contextlib.contextmanager
+def seq_parallel(coord: int, degree: int, reduce: Optional[Callable] = None):
+    """Within: this process holds block ``coord`` of ``degree`` equal
+    blocks of every sequence of the microbatch; ``reduce(x)``
+    (distributed.global_sum over 'seq') sums a per-sentence statistic
+    over the line."""
+    saved = dict(_SEQ)
+    _SEQ.update(coord=int(coord), degree=int(degree), reduce=reduce)
+    try:
+        yield
+    finally:
+        _SEQ.update(saved)
+
+
+def seq_degree() -> int:
+    """The number of blocks a sequence is split into (1: no split)."""
+    return _SEQ["degree"]
+
+
+def seq_coord() -> int:
+    return _SEQ["coord"]
+
+
+def seq_split(axis: int, length: int) -> Optional[Split]:
+    """The Split of a draw whose axis ``axis`` is this process's block of
+    ``length`` positions: (axis, coord * length, degree * length); None
+    without a split sequence."""
+    n = _SEQ["degree"]
+    if n <= 1:
+        return None
+    return (axis, _SEQ["coord"] * int(length), n * int(length))
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """A sum over this process's block of positions -> the whole
+    sequence's: the line's sum as the value, its own gradient."""
+    reduce = _SEQ["reduce"]
+    return x if reduce is None or _SEQ["degree"] <= 1 else reduce(x)
+
+
+def seq_shared(x: torch.Tensor) -> torch.Tensor:
+    """A loss term that every process of a seq line computes whole (from
+    the gathered encoder output): its value as it is and 1/n of its
+    gradient on each of the n processes, so that their sum is its
+    gradient."""
+    n = _SEQ["degree"]
+    return x if n <= 1 else x.detach() + (x - x.detach()) / n
+
+
+def seq_count(n: float) -> float:
+    """A count over this process's block of positions -> the whole
+    sequence's."""
+    return n * _SEQ["degree"]
+
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> Words:
+    """Threefry-2x32 with 20 rounds on host ints (jax.random's
+    threefry_2x32 on one pair of counters)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _U32
+    x1 = (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _U32
+            x1 ^= x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def fold_in(words: Words, data: int) -> Words:
+    """``jax.random.fold_in`` of a threefry key whose two words are
+    ``words``: threefry_2x32 of the key over the counters (0, data)."""
+    return _threefry2x32(int(words[0]) & _U32, int(words[-1]) & _U32, 0,
+                         int(data) & _U32)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -304,10 +407,12 @@ def sentence_mean_loss(centropy: torch.Tensor, mask: torch.Tensor):
     """Per-sentence mean, then batch mean over the sentences that have a
     token (all-pad rows contribute 0 and are left out). Returns (scalar
     loss, per-sentence loss [B]). Within a global batch both sums are the
-    global batch's (global_sum)."""
+    global batch's (global_sum); over a split sequence the per-sentence
+    sums are the whole sentence's (seq_sum)."""
     mask = mask.float()
-    msum = mask.sum(dim=-1)
-    per_sample = (centropy * mask).sum(dim=-1) / torch.clamp(msum, min=1.0)
+    msum = seq_sum(mask.sum(dim=-1))
+    per_sample = seq_sum((centropy * mask).sum(dim=-1)) / torch.clamp(
+        msum, min=1.0)
     valid = (msum > 0).float()
     return masked_mean(per_sample, valid), per_sample
 

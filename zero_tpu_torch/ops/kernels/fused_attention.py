@@ -100,13 +100,14 @@ def forward_route(dtype: torch.dtype, dh: int, device: str = "cuda") -> str:
 
 
 def keep_mask(words, shape, rate: float, device=None,
-              heads=None) -> torch.Tensor:
+              heads=None, qrows=None) -> torch.Tensor:
     """The attention dropout keep mask over [B, H, Lq, Lk]: every query row
     of ``streaming_attention.keep_mask``, the one mask family of the four
-    attention routes. ``heads``: (offset, whole count) of the H heads."""
+    attention routes. ``heads``: (offset, whole count) of the H heads;
+    ``qrows``: (offset, whole length) of the Lq query rows."""
     b, h, lq, lk = shape
     return sa.keep_mask(words, b * h, lq, range(lq), lk, rate, device,
-                        sa.head_split(h, heads)).reshape(shape)
+                        sa.head_split(h, heads), qrows).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +115,7 @@ def keep_mask(words, shape, rate: float, device=None,
 # ---------------------------------------------------------------------------
 
 def _weights(s, pad_mask, causal: bool, dropout_rate: float, rng,
-             heads=None):
+             heads=None, qrows=None):
     """The fp32 softmax of scores s [B, H, Lq, Lk] under the key pad mask
     and the causal flag (masked scores NEG_INF), then the kernels'
     dropout."""
@@ -125,36 +126,53 @@ def _weights(s, pad_mask, causal: bool, dropout_rate: float, rng,
                                  device=s.device).tril()[None, None]
     w = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1)
     if dropout_rate > 0.0 and rng is not None:
-        drop = keep_mask(rng, w.shape, dropout_rate, s.device, heads)
+        drop = keep_mask(rng, w.shape, dropout_rate, s.device, heads, qrows)
         w = torch.where(drop, w * (1.0 / (1.0 - dropout_rate)),
                         torch.zeros_like(w))
     return w
 
 
 def fused_attention_ref(q, k, v, pad_mask, causal: bool = False,
-                        dropout_rate: float = 0.0, rng=None, heads=None):
+                        dropout_rate: float = 0.0, rng=None, heads=None,
+                        qrows=None):
     """Plain PyTorch fused attention, computed in fp32 and returned in the
     query dtype. q/k/v: [B, H, L, Dh]; pad_mask: [B, Lk] 1/0; ``heads``:
-    (offset, whole count) of the H heads (tensor parallelism)."""
+    (offset, whole count) of the H heads (tensor parallelism); ``qrows``:
+    (offset, whole length) of the query rows (a sequence block)."""
     launches["fused_attention_ref"] += 1
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         * q.shape[-1] ** -0.5
-    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads)
+    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads, qrows)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
 def fused_attention_rpr_ref(q, k, v, pad_mask, tk, tv, max_rel: int,
                             causal: bool = False, dropout_rate: float = 0.0,
-                            rng=None, heads=None):
+                            rng=None, heads=None, qrows=None):
     """Plain PyTorch Shaw-RPR attention: the one-hot form of
     ``_xla_equivalent_rpr`` computed in fp32, with the dropout mask of the
-    kernels; returned in the query dtype. tk/tv: [2m+1, Dh]."""
+    kernels; returned in the query dtype. tk/tv: [2m+1, Dh]. ``qrows`` =
+    (offset, whole length): the queries are a block of a longer sequence,
+    at positions offset + i in the distances and the dropout rows."""
     launches["fused_attention_rpr_ref"] += 1
+    first = _q_offset(qrows, causal)
     s = rpr_mod.logits_with_rpr_onehot(q.float() * q.shape[-1] ** -0.5,
-                                       k.float(), tk.float(), max_rel)
-    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads)
+                                       k.float(), tk.float(), max_rel, first)
+    w = _weights(s, pad_mask, causal, dropout_rate, rng, heads, qrows)
     return rpr_mod.output_with_rpr_onehot(w, v.float(), tv.float(),
-                                          max_rel).to(q.dtype)
+                                          max_rel, first).to(q.dtype)
+
+
+def _q_offset(qrows, causal: bool) -> int:
+    """The RPR distances' position of query row 0: the block's first query
+    (``qrows`` = (offset, whole length)), 0 without a block. The causal
+    flag compares rows and keys themselves, so a causal launch over a
+    block is refused."""
+    first = 0 if qrows is None else int(qrows[0])
+    if first and causal:
+        raise ValueError("fused_attention: a causal RPR launch over a query "
+                         "block (offset %d) is not supported" % first)
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +185,7 @@ def _library():
     fwd = lib.zt_attention_forward
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                       ctypes.c_float] + [ctypes.c_uint] * 5
+                       ctypes.c_float] + [ctypes.c_uint] * 6
                     + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwds = []
@@ -175,7 +193,7 @@ def _library():
         bwd = getattr(lib, name)
         bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                           ctypes.c_float] + [ctypes.c_uint] * 5
+                           ctypes.c_float] + [ctypes.c_uint] * 6
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         bwds.append(bwd)
@@ -189,14 +207,15 @@ def _library():
 def _rpr_library():
     lib = cuda_build.load("fused_attention_rpr")
     tail = ([ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float]
-            + [ctypes.c_uint] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_uint] * 6 + [ctypes.c_void_p])
     fns = []
+    # dtype, batch, heads, Lq, Lk, Dh, m, q_offset, causal
     for name, pointers in (("zt_attention_rpr_forward", 9),
                            ("zt_attention_rpr_backward", 20),
                            ("zt_attention_rpr_backward_tc", 20),
                            ("zt_attention_rpr_forward_tc", 9)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + tail
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 9 + tail
         fn.restype = ctypes.c_int
         fns.append(fn)
     return tuple(fns)
@@ -204,12 +223,12 @@ def _rpr_library():
 
 def _dropout_args(rate: float, words):
     """The launch's dropout arguments from ``words`` = (s0, s1, row base,
-    whole heads, head offset) (sa.kernel_words); all zeros without
-    dropout, which the kernels then do not read."""
+    whole heads, head offset, whole query length) (sa.kernel_words);
+    zero words without dropout, which the kernels then do not read."""
     if rate > 0.0:
         return (1, sa.dropout_threshold(rate),
                 1.0 / (1.0 - rate)) + sa.launch_words(words)
-    return 0, 0, 1.0, 0, 0, 0, 0, 0
+    return (0, 0, 1.0) + sa.launch_words(words)
 
 
 def _raise_on(err: int, what: str):
@@ -311,10 +330,11 @@ _RPR_FORWARD = {"cuda_cores": (0, "fused_attention_rpr"),
                 "tensor_cores": (3, "fused_attention_rpr_tc")}
 
 
-def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words,
-                 route="cuda_cores"):
+def _forward_rpr(q, k, v, pad, tk, tv, max_rel, q_offset, causal, rate,
+                 words, route="cuda_cores"):
     """#3 on ``route`` ("cuda_cores", or "tensor_cores": bf16, 16-byte
-    aligned inputs): (o, m, l)."""
+    aligned inputs), query row 0 at position ``q_offset`` in the
+    distances: (o, m, l)."""
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     which, key = _RPR_FORWARD[route]
@@ -326,7 +346,8 @@ def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             tk.data_ptr(), tv.data_ptr(), o.data_ptr(), m.data_ptr(),
             l.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh, max_rel,
-            int(causal), float(dh) ** -0.5, *_dropout_args(rate, words),
+            q_offset, int(causal), float(dh) ** -0.5,
+            *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "RPR forward")
     launches[key] += 1
@@ -338,8 +359,8 @@ def _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate, words,
 _RPR_DQ_ROWS = {"cuda_cores": 32, "tensor_cores": 64}
 
 
-def _backward_rpr(q, k, v, pad, tk, tv, o, do, m, l, max_rel, causal, rate,
-                  words, route="cuda_cores"):
+def _backward_rpr(q, k, v, pad, tk, tv, o, do, m, l, max_rel, q_offset,
+                  causal, rate, words, route="cuda_cores"):
     """#4 on ``route`` ("cuda_cores", or "tensor_cores": bf16, 16-byte
     aligned inputs): (dq, dk, dv, dTk, dTv)."""
     b, h, lq, dh = q.shape
@@ -367,7 +388,7 @@ def _backward_rpr(q, k, v, pad, tk, tv, o, do, m, l, max_rel, causal, rate,
             None if dwb is None else dwb.data_ptr(), part_tk.data_ptr(),
             part_tv.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dtk.data_ptr(), dtv.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk,
-            dh, max_rel, int(causal), float(dh) ** -0.5,
+            dh, max_rel, q_offset, int(causal), float(dh) ** -0.5,
             *_dropout_args(rate, words),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "RPR backward")
@@ -380,14 +401,14 @@ class _FusedAttentionRpr(torch.autograd.Function):
     on the ``route`` that ``forward_route`` picked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad, tk, tv, max_rel, causal, rate, words,
-                route):
+    def forward(ctx, q, k, v, pad, tk, tv, max_rel, q_offset, causal, rate,
+                words, route):
         if route == "tensor_cores":
             q, k, v, tk, tv = map(sa._aligned, (q, k, v, tk, tv))
-        o, m, l = _forward_rpr(q, k, v, pad, tk, tv, max_rel, causal, rate,
-                               words, route)
+        o, m, l = _forward_rpr(q, k, v, pad, tk, tv, max_rel, q_offset,
+                               causal, rate, words, route)
         ctx.save_for_backward(q, k, v, pad, tk, tv, o, m, l)
-        ctx.args = (max_rel, causal, rate, words, route)
+        ctx.args = (max_rel, q_offset, causal, rate, words, route)
         return o
 
     @staticmethod
@@ -398,7 +419,8 @@ class _FusedAttentionRpr(torch.autograd.Function):
             do = sa._aligned(do)
         dq, dk, dv, dtk, dtv = _backward_rpr(q, k, v, pad, tk, tv, o, do, m,
                                              l, *ctx.args)
-        return dq, dk, dv, None, dtk, dtv, None, None, None, None, None
+        return (dq, dk, dv, None, dtk, dtv, None, None, None, None, None,
+                None)
 
 
 def _check(q, k, v, pad):
@@ -439,7 +461,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, dropout_rate: float = 0.0,
                     rng=None, rpr_tables=None,
                     max_relative_position: Optional[int] = None,
-                    heads=None) -> torch.Tensor:
+                    heads=None, qrows=None) -> torch.Tensor:
     """Fused attention over [B, H, L, Dh] projections.
 
     pad_mask: [B, Lk] 1/0 key-side padding mask (None = all valid); the
@@ -460,7 +482,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    and 0.0 < dropout_rate < 1.0) else 0.0
     # the kernels' seed words, the global row of row 0 (data
     # parallelism: ops/common.py:index_base) and the head split
-    words = sa.kernel_words(rng, q.shape, rate, heads)
+    words = sa.kernel_words(rng, q.shape, rate, heads, qrows)
     tables = None
     if rpr_tables is not None:
         if max_relative_position is None:
@@ -473,8 +495,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "plain":
         if tables is not None:
             return fused_attention_rpr_ref(q, k, v, pad, *tables, max_rel,
-                                           causal, rate, rng, heads)
-        return fused_attention_ref(q, k, v, pad, causal, rate, rng, heads)
+                                           causal, rate, rng, heads, qrows)
+        return fused_attention_ref(q, k, v, pad, causal, rate, rng, heads,
+                                   qrows)
     if not q.is_cuda:
         raise ValueError("fused_attention: unsupported device %s" % q.device)
     _check(q, k, v, pad)
@@ -482,6 +505,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tables is not None:
         _check_rpr(q, *tables, max_rel)
         return _FusedAttentionRpr.apply(q, k, v, pad, *tables, max_rel,
+                                        _q_offset(qrows, causal),
                                         bool(causal), rate, words, route)
     return _FusedAttention.apply(q, k, v, pad, bool(causal), rate, words,
                                  route)

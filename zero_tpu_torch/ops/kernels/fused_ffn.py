@@ -66,16 +66,23 @@ def _drop_args(rate: float, words, dtype):
 # ---------------------------------------------------------------------------
 
 def fused_ffn_ref(x, w1, b1, w2, b2, rng=None, rate: float = 0.0,
-                  hidden=None):
+                  hidden=None, tokens=None):
     """Plain PyTorch fused FFN over x [N, d_in] (all in x's dtype);
-    ``hidden`` = (offset, whole width) of a slice of the hidden width."""
+    ``hidden`` = (offset, whole width) of a slice of the hidden width;
+    ``tokens`` = (local, whole, offset): the N rows are N / local sequence
+    blocks of ``local`` tokens at ``offset`` in sequences of ``whole``."""
     launches["fused_ffn_ref"] += 1
     t, inv = _drop_args(rate, rng, x.dtype)
     h = torch.relu(torch.matmul(x, w1) + b1)
     if t < 256:
-        split = None if hidden is None else (1,) + tuple(hidden)
-        keep = (common._hash_bits(rng, h.shape, h.device, split=split)
-                & 255) < t
+        splits = [] if hidden is None else [(-1,) + tuple(hidden)]
+        shape = h.shape
+        if tokens is not None:
+            local, whole, offset = tokens
+            shape = (h.shape[0] // local, local, h.shape[1])
+            splits.append((1, offset, whole))
+        keep = (common._hash_bits(rng, shape, h.device, split=splits)
+                & 255).reshape(h.shape) < t
         h = torch.where(keep, h * inv, torch.zeros_like(h))
     return torch.matmul(h, w2) + b2
 
@@ -89,25 +96,24 @@ def _library():
     lib = cuda_build.load("fused_ffn")
     fwd = lib.zt_ffn_forward
     fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                    + [ctypes.c_float] + [ctypes.c_uint] * 5
+                    + [ctypes.c_float] + [ctypes.c_uint] * 8
                     + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.zt_ffn_backward
     bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                    + [ctypes.c_float] + [ctypes.c_uint] * 5
+                    + [ctypes.c_float] + [ctypes.c_uint] * 8
                     + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _seeds(words):
-    """(s0, s1, index base, whole width, column offset) as u32 launch
-    arguments; all zeros without dropout (``words`` None), which the
-    kernels then do not read."""
+    """(s0, s1, index base, whole width, column offset, block tokens, whole
+    tokens, token offset) as u32 launch arguments; all zeros without
+    dropout (``words`` None), which the kernels then do not read."""
     if words is None:
-        return 0, 0, 0, 0, 0
-    s0, s1, base, width, offset = words
-    return tuple(int(w) & 0xFFFFFFFF for w in (s0, s1, base, width, offset))
+        return (0,) * 8
+    return tuple(int(w) & 0xFFFFFFFF for w in words)
 
 
 def _raise_on(err: int, what: str):
@@ -203,17 +209,20 @@ def _check(x, w1, b1, w2, b2):
 
 
 def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
-              rate: float = 0.0, hidden=None) -> torch.Tensor:
+              rate: float = 0.0, hidden=None, tokens=None) -> torch.Tensor:
     """relu(x @ W1 + b1) -> dropout -> @ W2 + b2 over x [..., d_in], all in
     x's dtype. Dropout runs when ``rng`` (a pair of seed words) is given and
     0 < rate < 1. ``hidden`` = (offset, whole width): W1's columns are the
     slice [offset, offset + f) of a wider hidden layer (tensor
-    parallelism), whose dropout index is the whole layer's. Returns
-    [..., d_out]."""
+    parallelism), whose dropout index is the whole layer's. ``tokens`` =
+    (local, whole, offset): x's rows are sequence blocks of ``local``
+    tokens at ``offset`` in sequences of ``whole`` (sequence parallelism),
+    whose dropout index is the whole sequences' (the kernels' row map).
+    Returns [..., d_out]."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
-        y = fused_ffn_ref(x2, w1, b1, w2, b2, rng, rate, hidden)
+        y = fused_ffn_ref(x2, w1, b1, w2, b2, rng, rate, hidden, tokens)
     elif not x.is_cuda:
         raise ValueError("fused_ffn: unsupported device %s" % x.device)
     else:
@@ -222,8 +231,13 @@ def fused_ffn(x: torch.Tensor, w1, b1, w2, b2, rng=None,
         # the seed words, the global index of hidden element 0 (data
         # parallelism: ops/common.py:index_base) and the hidden slice
         offset, width = hidden if hidden is not None else (0, w1.shape[1])
-        words = ((rng[0], rng[-1],
-                  common.index_base((x2.shape[0], width)), width, offset)
+        if tokens is None:
+            local, whole, first = x2.shape[0], x2.shape[0], 0
+            base = common.index_base((x2.shape[0], width))
+        else:
+            local, whole, first = tokens
+            base = common.index_base((x2.shape[0] // local, whole, width))
+        words = ((rng[0], rng[-1], base, width, offset, local, whole, first)
                  if t < 256 else None)
         y = _FusedFFN.apply(_aligned(x2), _aligned(w1), b1.contiguous(),
                             _aligned(w2), b2.contiguous(), t, inv, words)

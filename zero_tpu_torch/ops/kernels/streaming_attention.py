@@ -120,42 +120,43 @@ def head_split(h: int, heads=None):
     return int(h), int(offset), int(total)
 
 
-def kernel_words(rng, shape, rate: float, heads=None):
-    """The kernels' (s0, s1, row base, whole heads, head offset) of a
-    launch over q [B, H, Lq, Dh] whose H heads are the part ``heads`` =
-    (offset, whole count) of the heads (all of them by default): the seed
-    words, the global row of row 0 and the head split; zero words and
-    row base without dropout."""
+def kernel_words(rng, shape, rate: float, heads=None, qrows=None):
+    """The kernels' (s0, s1, row base, whole heads, head offset, whole
+    query length) of a launch over q [B, H, Lq, Dh] whose H heads are the
+    part ``heads`` = (offset, whole count) of the heads (all of them by
+    default) and whose Lq query rows are the part ``qrows`` = (offset,
+    whole length) of a longer sequence (a sequence block; all of it by
+    default): the seed words, the global row of row 0 and the splits;
+    zero words and row base without dropout."""
     b, h, lq = shape[:3]
     _, offset, total = head_split(h, heads)
+    first, whole = qrows if qrows is not None else (0, lq)
     if not rate:
-        return 0, 0, 0, total, offset
+        return 0, 0, 0, total, offset, whole
     return (int(rng[0]) & 0xFFFFFFFF, int(rng[-1]) & 0xFFFFFFFF,
-            common.index_base((b, total, lq)), total, offset)
+            (common.index_base((b, total, whole)) + int(first)) & 0xFFFFFFFF,
+            total, offset, whole)
 
 
 def launch_words(words):
-    """kernel_words' (s0, s1, row base, whole heads, head offset) as u32
-    launch arguments."""
-    s0, s1, base, total, offset = words
-    return tuple(int(w) & 0xFFFFFFFF for w in (s0, s1, base, total, offset))
+    """kernel_words' six words as u32 launch arguments."""
+    return tuple(int(w) & 0xFFFFFFFF for w in words)
 
 
 def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
-              device=None, heads=None) -> torch.Tensor:
+              device=None, heads=None, qrows=None) -> torch.Tensor:
     """The dropout keep mask [B*H, len(rows), Lk] of query rows ``rows``;
     within a global batch the rows are the global batch's
     (ops/common.py:index_base). ``heads`` = (H held, offset, whole count)
     (head_split): the launch's head bh = b * H + h is head offset + h of
-    the whole count, the kernels' ``zt::global_row``."""
+    the whole count; ``qrows`` = (offset, whole length): the Lq rows are
+    a block of a longer sequence; the kernels' ``zt::global_row``."""
     s0, s1 = int(words[0]) & 0xFFFFFFFF, int(words[-1]) & 0xFFFFFFFF
     local = torch.arange(bh, dtype=torch.int64, device=device)
-    if heads is None:
-        first = local * lq + common.index_base((bh, lq))
-    else:
-        h, offset, total = heads
-        first = (((local // h) * total + offset + local % h) * lq
-                 + common.index_base((bh // h, total, lq)))
+    first, whole = qrows if qrows is not None else (0, lq)
+    h, offset, total = heads if heads is not None else (1, 0, 1)
+    first = (((local // h) * total + offset + local % h) * whole + first
+             + common.index_base((bh // h, total, whole)))
     row = (first[:, None]
            + torch.arange(rows.start, rows.stop, dtype=torch.int64,
                           device=device)[None, :]) & 0xFFFFFFFF
@@ -170,7 +171,7 @@ def keep_mask(words, bh: int, lq: int, rows: range, lk: int, rate: float,
 # ---------------------------------------------------------------------------
 
 def _chunk(qc, k, v, keep_keys, i0: int, lq: int, causal: bool, rate: float,
-           words, heads=None):
+           words, heads=None, qrows=None):
     """Attention of query rows [i0, i0 + c) in fp32: qc [BH, c, Dh], k/v
     [BH, Lk, Dh], keep_keys [BH, Lk] bool."""
     c, lk = qc.shape[1], k.shape[1]
@@ -183,19 +184,21 @@ def _chunk(qc, k, v, keep_keys, i0: int, lq: int, causal: bool, rate: float,
     w = torch.softmax(s, dim=-1)
     if rate > 0.0:
         keep = keep_mask(words, qc.shape[0], lq, range(i0, i0 + c), lk, rate,
-                         qc.device, heads)
+                         qc.device, heads, qrows)
         w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
     return torch.einsum("bqk,bkd->bqd", w, v)
 
 
 def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
                             dropout_rate: float = 0.0, rng=None,
-                            chunk: Optional[int] = None, heads=None):
+                            chunk: Optional[int] = None, heads=None,
+                            qrows=None):
     """Plain PyTorch streaming attention, computed in fp32 over chunks of
     query rows and returned in the query dtype. q/k/v: [B, H, L, Dh];
     pad_mask: [B, Lk] 1/0. Dropout runs when ``rng`` (two seed words) is
     given and 0 < dropout_rate < 1; ``heads``: (offset, whole count) of
-    the H heads (tensor parallelism)."""
+    the H heads (tensor parallelism); ``qrows``: (offset, whole length) of
+    the Lq query rows (a sequence block)."""
     launches["streaming_attention_ref"] += 1
     b, h, lq, dh = q.shape
     lk = k.shape[2]
@@ -212,7 +215,7 @@ def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
     outs = []
     for i0 in range(0, lq, chunk):
         args = (q3[:, i0:i0 + chunk], k3, v3, keep_keys, i0, lq, bool(causal),
-                rate, rng, head_split(h, heads))
+                rate, rng, head_split(h, heads), qrows)
         outs.append(checkpoint(_chunk, *args, use_reentrant=False)
                     if grad else _chunk(*args))
     return torch.cat(outs, dim=1).reshape(b, h, lq, dh).to(q.dtype)
@@ -223,7 +226,7 @@ def streaming_attention_ref(q, k, v, pad_mask, causal: bool = False,
 # ---------------------------------------------------------------------------
 
 _TAIL = ([ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                               ctypes.c_float] + [ctypes.c_uint] * 5
+                               ctypes.c_float] + [ctypes.c_uint] * 6
          + [ctypes.c_void_p])
 
 
@@ -252,7 +255,7 @@ def _args(q, k, causal, rate, words):
         drop = (1, dropout_threshold(rate),
                 1.0 / (1.0 - rate)) + launch_words(words)
     else:
-        drop = (0, 0, 1.0, 0, 0, 0, 0, 0)
+        drop = (0, 0, 1.0) + launch_words(words)
     return (_DTYPES[q.dtype], b, h, lq, k.shape[2], dh, int(causal),
             float(dh) ** -0.5) + drop + (
                 torch.cuda.current_stream(q.device).cuda_stream,)
@@ -404,14 +407,16 @@ def _check(q, k, v, pad):
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pad_mask: Optional[torch.Tensor] = None, *,
                         causal: bool = False, dropout_rate: float = 0.0,
-                        rng=None, heads=None) -> torch.Tensor:
+                        rng=None, heads=None, qrows=None) -> torch.Tensor:
     """Key-blocked attention over [B, H, L, Dh] projections; Lk bounded by
     device memory only.
 
     pad_mask: [B, Lk] 1/0 key-side padding mask (None = all valid); the
     Dh^-0.5 scaling happens inside. Dropout runs when ``rng`` (a pair of
-    seed words) is given and 0 < dropout_rate < 1. Returns [B, H, Lq, Dh]
-    in the query dtype.
+    seed words) is given and 0 < dropout_rate < 1. ``heads``: (offset,
+    whole count) of the H heads; ``qrows``: (offset, whole length) of the
+    Lq query rows (a sequence block's, whose dropout rows are the whole
+    sequence's). Returns [B, H, Lq, Dh] in the query dtype.
     """
     b, lk = q.shape[0], k.shape[2]
     if pad_mask is None:
@@ -419,11 +424,11 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = pad_mask.float().contiguous()
     rate = float(dropout_rate) if (rng is not None
                                    and 0.0 < dropout_rate < 1.0) else 0.0
-    words = kernel_words(rng, q.shape, rate, heads)
+    words = kernel_words(rng, q.shape, rate, heads, qrows)
     which = route(q.device.type, q.dtype, q.shape[-1])
     if which == "plain":
         return streaming_attention_ref(q, k, v, pad, causal, rate, rng,
-                                       heads=heads)
+                                       heads=heads, qrows=qrows)
     if not q.is_cuda:
         raise ValueError("streaming_attention: unsupported device %s"
                          % q.device)

@@ -27,11 +27,12 @@ GAMMA = -0.1
 ZETA = 1.1
 
 
-def uniform_noise(words, shape, device) -> torch.Tensor:
+def uniform_noise(words, shape, device, split=None) -> torch.Tensor:
     """Uniform fp32 noise in [0, 1) from the seed words: the low 24 bits
     of each element's counter hash (ops/common.py:_hash_bits, by the
-    global batch row under data parallelism), exact in fp32."""
-    bits = common._hash_bits(words, shape, device) & 0xFFFFFF
+    global batch row under data parallelism and the whole sequence's
+    position where ``split`` names a sequence block), exact in fp32."""
+    bits = common._hash_bits(words, shape, device, split=split) & 0xFFFFFF
     return bits.to(torch.float32) * (1.0 / 2 ** 24)
 
 
@@ -47,12 +48,17 @@ def hard_concrete_from_noise(noise, log_alpha, beta=BETA, gamma=GAMMA,
 
 
 def hard_concrete_sample(words, log_alpha, beta=BETA, gamma=GAMMA,
-                         zeta=ZETA, eps=EPSILON):
-    """Sample gates with noise from a site's seed words."""
+                         zeta=ZETA, eps=EPSILON, split=None):
+    """Sample gates with noise from a site's seed words; ``split``: the
+    sequence block log_alpha holds (ops/common.py:seq_split)."""
     if words is None:
         raise ValueError("hard-concrete gates are sampled from dropout seed "
                          "words: training needs a generator")
-    noise = uniform_noise(words, log_alpha.shape, log_alpha.device)
+    if split is None:
+        noise = uniform_noise(words, log_alpha.shape, log_alpha.device)
+    else:
+        noise = uniform_noise(words, log_alpha.shape, log_alpha.device,
+                              split)
     return hard_concrete_from_noise(noise, log_alpha, beta, gamma, zeta, eps)
 
 

@@ -105,8 +105,10 @@ def fused_layer_norm(params: LayerNorm, x, eps: float = 1e-8):
 
 
 def residual_fn(x, y, rng=None, drop: Optional[float] = None):
-    """Residual connection with dropout on the branch."""
-    return x + common.dropout(rng, y, drop)
+    """Residual connection with dropout on the branch; y [B, L, d] may be
+    a sequence block (its draws index the whole sequence)."""
+    split = common.seq_split(1, y.shape[1]) if y.dim() == 3 else None
+    return x + common.dropout(rng, y, drop, split=split)
 
 
 # ---------------------------------------------------------------------------
@@ -138,9 +140,11 @@ def ffn(params: FFN, x, rng=None, relu_dropout: Optional[float] = None,
     parallel/tensor.py) the process runs its slice of the hidden width,
     the kernels included, with the whole width's dropout index; the
     partial output is summed over the line, then ``output``'s bias is
-    added once."""
+    added once. Over a split sequence x [B, L/n, d] is a block, whose
+    dropout index is the whole sequence's (the kernels' row map)."""
     part = tp.column(params.enlarge)
     hidden = None
+    seq = common.seq_split(1, x.shape[1]) if x.dim() == 3 else None
     if part is not None:
         x = dist.copy_in(x, part.axis)
         width = params.enlarge.ws[0].shape[-1]
@@ -154,13 +158,16 @@ def ffn(params: FFN, x, rng=None, relu_dropout: Optional[float] = None,
         y = fused_ffn_mod.fused_ffn(
             x, params.enlarge.ws[0].to(dtype), params.enlarge.b.to(dtype),
             params.output.ws[0].to(dtype),
-            b2 if part is None else torch.zeros_like(b2), rng, rate, hidden)
+            b2 if part is None else torch.zeros_like(b2), rng, rate, hidden,
+            None if seq is None else (x.shape[1], seq[2], seq[1]))
         if part is None:
             return y
         return dist.reduce_out(y, part.axis) + b2
     h = torch.relu(linear(params.enlarge, x))
-    h = common.dropout(rng, h, relu_dropout,
-                       split=None if hidden is None else (-1,) + hidden)
+    splits = [] if hidden is None else [(-1,) + hidden]
+    if seq is not None:
+        splits.append(seq)
+    h = common.dropout(rng, h, relu_dropout, split=splits)
     return tp.row_linear(params.output, h)
 
 
@@ -194,11 +201,15 @@ def timing_signal(length_or_position, channels: int,
     return signal.to(dtype)
 
 
-def add_timing_signal(x, time=None):
+def add_timing_signal(x, time=None, offset: int = 0):
     """Add the positional signal; an int ``time`` selects decode-position
-    mode (the signal of that one position)."""
+    mode (the signal of that one position); ``offset``: x holds positions
+    [offset, offset + L) (a sequence block)."""
     length, channels = x.shape[-2], x.shape[-1]
-    if time is None:
+    if time is None and offset:
+        position = torch.arange(offset, offset + length, device=x.device)
+        sig = timing_signal(position, channels, dtype=x.dtype)
+    elif time is None:
         sig = timing_signal(length, channels, dtype=x.dtype, device=x.device)
     else:
         position = torch.full((1,), float(time), device=x.device)

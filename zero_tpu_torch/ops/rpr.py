@@ -48,9 +48,11 @@ def init_rpr(gen, max_relative_position: int, depth: int,
 
 def relative_positions_matrix(length_q: int, length_k: int,
                               max_relative_position: int,
-                              device=None) -> torch.Tensor:
-    """[Lq, Lk] clipped relative-distance ids in [0, 2*max]."""
-    rq = torch.arange(length_q, device=device)[:, None]
+                              device=None, q_offset: int = 0) -> torch.Tensor:
+    """[Lq, Lk] clipped relative-distance ids in [0, 2*max]; query i is at
+    position q_offset + i (a sequence block's queries against a whole
+    memory)."""
+    rq = torch.arange(q_offset, q_offset + length_q, device=device)[:, None]
     rk = torch.arange(length_k, device=device)[None, :]
     dist = torch.clamp(rq - rk, -max_relative_position, max_relative_position)
     return dist + max_relative_position
@@ -83,26 +85,30 @@ def onehot_supported(length_q: int, length_k: int,
 
 
 def _dist_onehot(length_q: int, length_k: int, max_relative_position: int,
-                 dtype, device=None) -> torch.Tensor:
+                 dtype, device=None, q_offset: int = 0) -> torch.Tensor:
     ids = relative_positions_matrix(length_q, length_k,
-                                    max_relative_position, device)
+                                    max_relative_position, device, q_offset)
     return torch.nn.functional.one_hot(
         ids, 2 * max_relative_position + 1).to(dtype)
 
 
-def logits_with_rpr_onehot(qh, kh, table, max_relative_position: int):
+def logits_with_rpr_onehot(qh, kh, table, max_relative_position: int,
+                           q_offset: int = 0):
     """q @ k^T + (q @ table^T) expanded through the distance one-hot."""
     lq, lk = qh.shape[2], kh.shape[2]
-    oh = _dist_onehot(lq, lk, max_relative_position, qh.dtype, qh.device)
+    oh = _dist_onehot(lq, lk, max_relative_position, qh.dtype, qh.device,
+                      q_offset)
     qr = torch.einsum("bhqd,md->bhqm", qh, table.to(qh.dtype))
     logits = torch.matmul(qh, kh.transpose(-1, -2))
     return logits + torch.einsum("bhqm,qkm->bhqk", qr, oh)
 
 
-def output_with_rpr_onehot(w, v, table, max_relative_position: int):
+def output_with_rpr_onehot(w, v, table, max_relative_position: int,
+                           q_offset: int = 0):
     """w @ v + bucket-summed weights @ table."""
     lq, lk = w.shape[2], w.shape[3]
-    oh = _dist_onehot(lq, lk, max_relative_position, w.dtype, w.device)
+    oh = _dist_onehot(lq, lk, max_relative_position, w.dtype, w.device,
+                      q_offset)
     wb = torch.einsum("bhqk,qkm->bhqm", w, oh)
     o = torch.matmul(w, v)
     return o + torch.einsum("bhqm,md->bhqd", wb, table.to(w.dtype))

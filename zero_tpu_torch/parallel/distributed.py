@@ -17,8 +17,12 @@ the whole model, its moments and its EMA; the collectives are explicit:
     ``reduce_scatter_sum`` sums gradients into them, ``all_gather_shards``
     makes leaves whole again (the updated weights, the stage-3 forward,
     ``host_fetchable``), in the same flat fp32 buckets;
-  * the processes form ``make_mesh``'s grid ``data x model [x expert]``
-    (``Grid``): the collectives above run over the data group; tensor
+  * the processes form ``make_mesh``'s grid ``data x model x seq x
+    expert`` (``Grid``): the collectives above run over the data group
+    (the gradients over the data and seq groups); sequence parallelism
+    ('seq', ring attention) passes K/V blocks round its line
+    (``ring_shift``), gathers the encoder output (``gather_seq``) and
+    sums the per-sentence loss terms over it (``global_sum``); tensor
     parallelism ('model', Megatron) and expert parallelism ('expert')
     enter and leave their split regions through ``copy_in`` (identity
     forward, all-reduce backward) and ``reduce_out`` (all-reduce
@@ -59,7 +63,7 @@ BUCKET_BYTES = 64 << 20
 # gathers) and time since the last take_stats(): CUDA event pairs on a
 # card, host seconds on the CPU
 _KINDS = ("all_reduce", "reduce_scatter", "all_gather", "model_reduce",
-          "expert_reduce")
+          "expert_reduce", "seq_ring", "seq_gather")
 _stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
           for kind in _KINDS}
 
@@ -125,12 +129,12 @@ def destroy() -> None:
         tdist.destroy_process_group()
 
 
-AXES = ("data", "model", "expert")
+AXES = ("data", "model", "seq", "expert")
 
 
 class Grid:
-    """The processes as ``make_mesh``'s device grid: axes data, model and
-    expert (``zero_tpu/parallel/mesh.py:56-64``), process r at the
+    """The processes as ``make_mesh``'s device grid: axes data, model, seq
+    and expert (``zero_tpu/parallel/mesh.py:56-64``), process r at the
     row-major coordinates of r. ``group(axis)`` is the process group of
     this process's line along ``axis``: None for the default group (the
     axis spans every process), ALONE where the axis has one process and
@@ -180,18 +184,19 @@ _current = {"grid": None}
 def mesh_degrees(params, world: Optional[int] = None) -> dict:
     """{axis: degree} of ``params``' mesh over ``world`` processes (the
     group's by default): ``mesh_data`` -1 or 0 means every process the
-    model and expert degrees leave; their product must be the world
+    model, seq and expert degrees leave; their product must be the world
     size, else make_mesh's ValueError."""
     world = process_count() if world is None else int(world)
     model = max(int(getattr(params, "mesh_model", 1) or 1), 1)
+    seq = max(int(getattr(params, "mesh_seq", 1) or 1), 1)
     expert = max(int(getattr(params, "mesh_expert", 1) or 1), 1)
     data = int(getattr(params, "mesh_data", -1))
     if data <= 0:
-        data = world // (model * expert)
-    if data <= 0 or data * model * expert != world:
-        raise ValueError(mesh_message(data, model, expert, world,
+        data = world // (model * seq * expert)
+    if data <= 0 or data * model * seq * expert != world:
+        raise ValueError(mesh_message(data, model, seq, expert, world,
                                       params.device))
-    return {"data": data, "model": model, "expert": expert}
+    return {"data": data, "model": model, "seq": seq, "expert": expert}
 
 
 def make_grid(params) -> Grid:
@@ -233,17 +238,17 @@ def grid() -> Grid:
     return Grid({"data": process_count()}, process_index())
 
 
-def mesh_message(data: int, model: int, expert: int, world: int,
+def mesh_message(data: int, model: int, seq: int, expert: int, world: int,
                  platform) -> str:
     """make_mesh's error, for a mesh whose degrees do not multiply to the
     number of devices (one a process)."""
-    return ("make_mesh needs data*model*seq*pipe*expert = %s*%s*1*1*%s = %s "
+    return ("make_mesh needs data*model*seq*pipe*expert = %s*%s*%s*1*%s = %s "
             "devices but %d are available on platform %r (one device a "
             "process: mesh_data must be -1, 0 or the number of processes "
-            "over mesh_model * mesh_expert). Set mesh_data/mesh_model/"
-            "mesh_seq/mesh_pipe/mesh_expert to fit the hardware."
-            % (data, model, expert, max(data, 0) * model * expert, world,
-               str(platform)))
+            "over mesh_model * mesh_seq * mesh_expert). Set mesh_data/"
+            "mesh_model/mesh_seq/mesh_pipe/mesh_expert to fit the hardware."
+            % (data, model, seq, expert, max(data, 0) * model * seq * expert,
+               world, str(platform)))
 
 
 def _axis_group(axis: str):
@@ -364,9 +369,14 @@ def reduce_scatter_sum(tensors, dims):
     of their sum over the data group, fp32, each split along its ``dims``
     entry (not None). A shard along a dim d > 0 is not contiguous: dim d
     moves to the front, each process's block is one row of a [W, n]
-    matrix, and the buckets' rows are reduce-scattered flat. COLLECTIVE."""
+    matrix, and the buckets' rows are reduce-scattered flat. Over a split
+    sequence every tensor (a gradient) is partial on each process of the
+    seq line: it is summed over that line first. COLLECTIVE."""
     group, world = _axis_group("data")
     tensors = list(tensors)
+    if grid().degree("seq") > 1:
+        tensors = [t.float().clone() for t in tensors]
+        all_reduce_sum_(tensors, "seq")
     out = [None] * len(tensors)
     for bucket in _buckets(tensors):
         rows = [tensors[i].float().movedim(dims[i], 0).reshape(world, -1)
@@ -418,8 +428,10 @@ def all_gather_shards(shards, dims):
 def take_stats() -> dict:
     """The gradient all-reduce's {'calls', 'bytes', 'ms'} since the last
     call, with the same for 'reduce_scatter' and 'all_gather' under
-    ZeRO and for the split regions' all-reduces, 'model_reduce' and
-    'expert_reduce' (waits for the card's events), and resets them."""
+    ZeRO, for the split regions' all-reduces, 'model_reduce' and
+    'expert_reduce', and for sequence parallelism's ring steps and
+    gathers, 'seq_ring' and 'seq_gather' (waits for the card's events),
+    and resets them."""
     out = {}
     for kind in _KINDS:
         entry = _stats[kind]
@@ -434,13 +446,15 @@ def take_stats() -> dict:
     return dict(reduce, **out)
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the data group as its value, ``x``'s own
-    gradient: "global value, local gradient". A loss built of such sums
-    has the global batch's value on every process, and the sum of the
-    processes' gradients is the global loss's gradient (for ratios of sums
-    and non-linear terms alike). COLLECTIVE."""
-    group, _ = _axis_group("data")
+def global_sum(x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the data group (or this process's line along
+    mesh ``axis``: 'seq' sums a per-sentence term over the blocks of a
+    sequence) as its value, ``x``'s own gradient: "global value, local
+    gradient". A loss built of such sums has the global batch's value on
+    every process, and the sum of the processes' gradients is the global
+    loss's gradient (for ratios of sums and non-linear terms alike).
+    COLLECTIVE."""
+    group, _ = _axis_group(axis)
     if group == ALONE:
         return x
     total = x.detach().clone()
@@ -524,6 +538,95 @@ def max_over(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     if grid().degree(axis) == 1:
         return x
     return _region_sum(x, axis, tdist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism ('seq'): the ring's shifts and the gathered blocks
+# ---------------------------------------------------------------------------
+
+def ring_shift(tensors):
+    """Send ``tensors`` to the next process of this process's seq line
+    ((coord + 1) % n) and return those of the previous one ((coord - 1) %
+    n), of the same shapes and dtypes: one flat buffer each way for each
+    dtype among them (bf16 K/V travel as bf16 beside fp32 gradients), in
+    one ``batch_isend_irecv``. COLLECTIVE over the line, in one order."""
+    g = grid()
+    n = g.degree("seq")
+    tensors = list(tensors)
+    if n == 1:
+        return tensors
+    ranks = g.ranks("seq")
+    me = g.coord("seq")
+    group = g.group("seq")
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    flats = [torch.cat([tensors[i].reshape(-1) for i in idx])
+             for idx in by_dtype.values()]
+    dev = _comm_device(flats[0])
+    sends = [f.to(dev) for f in flats]
+    recvs = [torch.empty_like(f) for f in sends]
+    with _timed("seq_ring", sum(f.numel() * f.element_size() for f in sends),
+                flats[0].is_cuda):
+        ops = []
+        for tag, (send, recv) in enumerate(zip(sends, recvs)):
+            ops += [tdist.P2POp(tdist.isend, send, ranks[(me + 1) % n],
+                                group, tag),
+                    tdist.P2POp(tdist.irecv, recv, ranks[(me - 1) % n],
+                                group, tag)]
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        recvs = [r.to(f.device) for r, f in zip(recvs, flats)]
+    out = [None] * len(tensors)
+    for idx, recv in zip(by_dtype.values(), recvs):
+        offset = 0
+        for i in idx:
+            k = tensors[i].numel()
+            out[i] = recv[offset:offset + k].view(tensors[i].shape)
+            offset += k
+    return out
+
+
+def _seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every seq-line process's [B, l, ...] block joined along dim 1 in
+    coordinate order."""
+    group, n = _axis_group("seq")
+    front = x.detach().movedim(1, 0).contiguous()
+    whole = front.new_empty((n,) + tuple(front.shape))
+    with _timed("seq_gather", whole.numel() * whole.element_size(),
+                x.is_cuda):
+        _scatter_or_gather("all_gather", front.reshape(-1),
+                           whole.reshape(-1), group)
+    return whole.reshape((n * front.shape[0],) + tuple(front.shape[1:])) \
+        .movedim(0, 1).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The blocks gathered along dim 1; the backward sums the whole
+    gradient over the line and keeps this process's block of it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _seq_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n = _axis_group("seq")
+        gf = g.float()
+        front = gf.reshape((g.shape[0], n, g.shape[1] // n)
+                           + tuple(g.shape[2:])).movedim(1, 0).contiguous()
+        local = front.new_empty(front.shape[1:])
+        with _timed("seq_gather", front.numel() * 4, g.is_cuda):
+            _scatter_or_gather("reduce_scatter", front.reshape(-1),
+                               local.reshape(-1), group)
+        return local.to(g.dtype)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """This process's [B, L/n, ...] block -> the whole [B, L, ...] on every
+    process of the seq line; differentiable (the backward takes the
+    summed gradient's block). COLLECTIVE."""
+    return _GatherSeq.apply(x) if grid().degree("seq") > 1 else x
 
 
 def barrier() -> None:

@@ -64,8 +64,8 @@ def main(argv=None):
             words = WORDS if rate else (0, 0)
 
             def rpr(q, k, v, tk, tv, pad):
-                return fa._forward_rpr(q, k, v, pad, tk, tv, M, causal, rate,
-                                       words, route=route)
+                return fa._forward_rpr(q, k, v, pad, tk, tv, M, 0, causal,
+                                       rate, words, route=route)
 
             def plain_attention(q, k, v, tk, tv, pad):
                 return fa._forward_tc(q, k, v, pad, causal, rate, words)

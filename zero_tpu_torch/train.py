@@ -1,5 +1,5 @@
 """Training, evaluation and scoring loops: one device a process, data,
-tensor and expert parallelism across processes.
+tensor, sequence and expert parallelism across processes.
 
 Counterpart of ``zero_tpu/train.py`` without pipelines or rings: the
 epoch/step loop with update_cycle grouping, NaN abort (or the safe_nan
@@ -11,7 +11,8 @@ plus the ``--mode test`` (``evaluate``), ``--mode score`` (``scorer``) and
 ``--mode ensemble`` (``ensemble``) entry points, which decode on one
 device. Under several processes (parallel/distributed.py) each takes the
 slot of its data coordinate in every group of host batches (the
-processes of a model or expert line take the same), the primary saves
+processes of a model, seq or expert line take the same, and each
+process of a seq line runs its block of every sequence), the primary saves
 and samples, and the dev eval decodes each process's rows of every batch
 with the whole weights and gathers them; under ZeRO (``zero_stage``) or
 tensor and expert parallelism (``mesh_model``, ``mesh_expert``) the
@@ -73,7 +74,9 @@ def _make_dataset(params, src, tgt, train=False, data_par: int = 1):
     rows padded to a multiple of lcm(pad_batch_multiple, data_par); eval
     batches padded to lcm(eval_batch_size, data_par) rows, so the 'data'
     degree divides them. Lengths snap to pad_seq_multiple, as the JAX
-    package pads them. Speech: ``src`` is the TSV manifest (features,
+    package pads them (under mesh_seq the model pads a training length
+    further, to a multiple of the 'seq' degree: models/common.py:
+    seq_padded). Speech: ``src`` is the TSV manifest (features,
     transcript, translation), ``tgt`` still names the reference
     translations for BLEU, and the token budget counts frames."""
     bmult = dist.lcm(params.pad_batch_multiple, data_par) if train else 1
@@ -326,7 +329,7 @@ def _train(params, preempted) -> dict:
     nproc, pid = dist.process_count(), dist.process_index()
     check_ported(params, world=nproc)
     # the mesh grid over the processes, one device a process
-    # (parallel/distributed.py): 'data' x 'model' x 'expert'
+    # (parallel/distributed.py): 'data' x 'model' x 'seq' x 'expert'
     grid = dist.make_grid(params) if dist.active() else dist.grid()
     data_par, slot = grid.degree("data"), grid.coord("data")
     if nproc > 1:
@@ -342,7 +345,8 @@ def _train(params, preempted) -> dict:
     # every process builds the same batch stream (the seeds of run.py),
     # takes the slot of its data coordinate in each group of data_par
     # host batches and pads it to the group's shape: the global batch
-    # needs no communication, and a model or expert line holds one slot
+    # needs no communication, and a model, seq or expert line holds one
+    # slot (R3)
     train_dataset = _make_dataset(params, params.src_train_file,
                                   params.tgt_train_file, train=True,
                                   data_par=max(data_par // nproc, 1))

@@ -24,6 +24,11 @@ Counterpart of ``zero_tpu/parallel/train_step.py`` on one device a process:
     stage changes the layout only, never a value the host can observe;
     with a data degree of one every stage runs as stage 0, as in the JAX
     package
+  * sequence parallelism (``mesh_seq``; parallel/ring.py): each
+    process of a seq line runs its block of every sequence of the same
+    rows, and every gradient is partial there: the gradients are summed
+    over the seq line, then over the data group (ZeRO keeps its shards
+    over 'data' only)
   * tensor and expert parallelism (``mesh_model``, ``mesh_expert``;
     parallel/mesh.py's table, parallel/tensor.py's regions): each process
     holds its part of every split leaf, and ZeRO cuts that part further;
@@ -52,6 +57,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -228,17 +234,28 @@ def make_micro_backward(model, cfg):
     return micro_backward
 
 
+@contextlib.contextmanager
 def global_batch(rows: int):
     """The global batch that a microbatch of ``rows`` rows belongs to:
     under a process group, the concatenation of every data-group
     process's slice in data coordinate order (their slices share one
-    shape; a model or expert line holds one slice); else none."""
+    shape; a model, seq or expert line holds one slice), and under a seq
+    degree above 1 this process's block of every sequence
+    (ops/common.py:seq_parallel); else none."""
     if not dist.active():
-        return contextlib.nullcontext()
+        yield
+        return
     grid = dist.grid()
     data, coord = grid.degree("data"), grid.coord("data")
-    return ops_common.global_batch(coord * rows, rows, data * rows,
-                                   dist.global_sum)
+    with ops_common.global_batch(coord * rows, rows, data * rows,
+                                 dist.global_sum):
+        if grid.degree("seq") > 1:
+            with ops_common.seq_parallel(
+                    grid.coord("seq"), grid.degree("seq"),
+                    functools.partial(dist.global_sum, axis="seq")):
+                yield
+        else:
+            yield
 
 
 def make_train_step(model, cfg):
@@ -309,9 +326,13 @@ def make_train_step(model, cfg):
                 grads[i] = g
         if dist.active():
             # once a step: the global batch's gradient of every leaf not
-            # already reduce-scattered into its shard
-            dist.all_reduce_sum_([grads[i] for i in (
-                whole if stage >= 2 else range(len(named)))])
+            # already reduce-scattered into its shard, summed over the seq
+            # line first (each process's covers its block of the
+            # sequences)
+            held = [grads[i] for i in (
+                whole if stage >= 2 else range(len(named)))]
+            dist.all_reduce_sum_(held, "seq")
+            dist.all_reduce_sum_(held)
         if cycles > 1:
             grads = [g / cycles for g in grads]
             loss = loss / cycles
