@@ -164,7 +164,7 @@ non-zero):
              fp32 transformer + transformer_rela ensemble, card against CPU:
              identical sequences, scores within 1e-4
   deep_train configs/deep_transformer_fuse_l0drop.json (transformer_fuse;
-             at DEEP_CUT's 2+6 layers, 20+6 as written, for the script's
+             at DEEP_CUT's 2+3 layers, 20+6 as written, for the script's
              time; 512/2048, 8 heads,
              depth-scaled init, bf16, dropout 0.1, token_size 4096,
              update_cycle 4, use_remat) trained DEEP_STEPS steps with both
@@ -241,7 +241,7 @@ non-zero):
              transformer_l0drop with scan_layers (each stack one module of
              [L, ...] tensors), both kernel flags on, SCAN_STEPS steps:
              ms/step, tokens/s, MFU, peak memory; launches per microbatch
-             as unrolled (at DEEP_CUT's 2+6: 28 #1, 14 #2, 16 #11, 8
+             as unrolled (at DEEP_CUT's 2+3: 16 #1, 8 #2, 10 #11, 5
              #12); the stacked
              checkpoint restored in a fresh process (params, Adam state,
              EMA) equal to the file; --mode test at beam 4 (#8) and 1
@@ -485,10 +485,12 @@ TRAIN_STEPS = 2
 TEST_SENTENCES = 32
 # the earlier phases run at a cut depth (the script's time budget):
 # transformer-base's at 2+2 (6+6 as written, 3+3 until sequence
-# parallelism came; IBDecoder too, MoE at 2+2), config 4's at 2+6 (20+6;
-# scan_layers too), the multilingual config's at 1+1, config 5's at 1+1+1; the RNN phases at the default config's widths
+# parallelism came; IBDecoder too, MoE at 2+2), config 4's at 2+3 (20+6;
+# scan_layers too; 2+6 until the multilingual config's tensor-parallel
+# phase came), the multilingual config's at 1+1, config 5's at 1+1+1; the
+# RNN phases at the default config's widths
 BASE_CUT = ",num_encoder_layer=2,num_decoder_layer=2"
-DEEP_CUT = ",num_encoder_layer=2"
+DEEP_CUT = ",num_encoder_layer=2,num_decoder_layer=3"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16, the MFU denominator
 # the card spins this many cycles before each timed run (~0.25 s), so the
 # host enqueues the whole run first and events time device work only
@@ -2461,7 +2463,7 @@ MFU_NOTE = "model FLOPs (forward x3); use_remat's recompute not counted"
 
 def deep_train_phase(d, da):
     """configs/deep_transformer_fuse_l0drop.json at DEEP_CUT's depth
-    (transformer_fuse, 2+6, use_remat) DEEP_STEPS steps with both kernel
+    (transformer_fuse, 2+3, use_remat) DEEP_STEPS steps with both kernel
     flags on: per microbatch the encoder's #1 and #11 twice a layer (the
     recompute) and #2 and #12 once; the merged decoder takes no kernel.
     Then --mode test at beam 4 and --mode score (the encoder's #1 and #11,
@@ -2533,8 +2535,8 @@ def l0drop_serving(cfg, served, serve_launches, score_launches):
 
 def l0drop_train_phase(d, da):
     """The deep config as transformer_l0drop DEEP_STEPS steps with both
-    kernel flags on (every attention and FFN: 28 #1, 14 #2, 16 #11, 8 #12
-    per microbatch at DEEP_CUT's 2+6 under use_remat), the expected-L0
+    kernel flags on (every attention and FFN: 16 #1, 8 #2, 10 #11, 5 #12
+    per microbatch at DEEP_CUT's 2+3 under use_remat), the expected-L0
     penalty of each step beside its loss; served at beam 4 (#8) and beam
     1 (#10), at l0_compact_ratio 0 and 0.5 (the compacted memory's count
     softmax on the composite), and scored; then one batch at the same
@@ -3503,7 +3505,8 @@ def long_reference_bf16(model, gfeats, sa):
 # ---------------------------------------------------------------------------
 
 ML_CONFIG = os.path.join(REPO, "configs", "multilingual_robt_opus100.json")
-# config 4 at DEEP_CUT's 2+6 (20+6 as written) since the RNN phases came
+# config 4 at DEEP_CUT's 2+3 (20+6 as written; 2+6 from the RNN phases
+# until the multilingual config's tensor-parallel phase)
 SCAN_EXTRA = (",model_name=transformer_l0drop,scope_name=transformer_l0drop,"
               "scan_layers=true" + DEEP_CUT)
 # steps cut for the script's time as later slices' phases came (10, 12,
@@ -5160,8 +5163,9 @@ def dp_reference_run(rank, world):
 def dp_worker(spec_path):
     """One rank of the two that share the card (chip_smoke.py --dp-worker
     SPEC): its own gloo group, then the runs of dp_train, dp_reference,
-    zero_train, zero_reference, moe_dp, tp_train, tp_reference and
-    ep_train that SPEC's tasks name; writes their results (torch.save)."""
+    zero_train, zero_reference, moe_dp, tp_train, tp_reference,
+    tp_ml_train, ep_train, sp_train and sp_reference that SPEC's tasks
+    name; writes their results (torch.save)."""
     import torch.distributed as tdist
 
     with open(spec_path) as r:
@@ -5192,6 +5196,11 @@ def dp_worker(spec_path):
                 spec["extra"] + ZERO_EXTRA + TP_EXTRA)
         if "tp_reference" in spec["tasks"]:
             out["tp_reference"] = tp_reference_run()
+        if "tp_ml_train" in spec["tasks"]:
+            out["tp_ml_train"] = tp_ml_run(
+                os.path.join(spec["d"], "multilingual"),
+                os.path.join(spec["d"], "tp_ml_gloo"),
+                spec["extra"][len(BASE_CUT):] + ",mesh_model=2")
         if "ep_train" in spec["tasks"]:
             out["ep_train"] = ep_train_run(spec["d"])
         if "sp_train" in spec["tasks"]:
@@ -5272,14 +5281,15 @@ def dp_numbers(runs, cfg):
 
 
 DP_PHASES = {"dp_train", "dp_reference", "zero_train", "zero_reference",
-             "moe_dp", "tp_train", "tp_reference", "ep_train", "sp_train",
-             "sp_reference"}
+             "moe_dp", "tp_train", "tp_reference", "tp_ml_train",
+             "ep_train", "sp_train", "sp_reference"}
 DP_TASKS = (("dp_train", "train"), ("dp_reference", "reference"),
             ("zero_train", "zero_train"), ("zero_reference",
                                            "zero_reference"),
             ("moe_dp", "moe_dp"), ("tp_train", "tp_train"),
-            ("tp_reference", "tp_reference"), ("ep_train", "ep_train"),
-            ("sp_train", "sp_train"), ("sp_reference", "sp_reference"))
+            ("tp_reference", "tp_reference"), ("tp_ml_train", "tp_ml_train"),
+            ("ep_train", "ep_train"), ("sp_train", "sp_train"),
+            ("sp_reference", "sp_reference"))
 
 
 def dp_train_phase(d, todo):
@@ -5762,11 +5772,15 @@ def split_pass(cfg, feats):
     state = init_train_state(model, cfg, torch.Generator().manual_seed(SEED),
                              "cuda")
     names = [n for n, _ in state.params.named_parameters()]
-    with global_batch(feats["source"].shape[0]):
+    with global_batch(feats["target"].shape[0]):
         loss = model.train_fn(state.params, feats, cfg,
                               torch.Generator().manual_seed(SEED))["loss"]
-        grads = [g.contiguous() for g in torch.autograd.grad(
-            loss, list(state.params.parameters()))]
+        # the RNN models' feed_memory serves the decode only
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                 for p, g in zip(state.params.parameters(),
+                                 torch.autograd.grad(
+                                     loss, list(state.params.parameters()),
+                                     allow_unused=True))]
     make_train_step(model, cfg)(state, {k: v[None] for k, v in feats.items()},
                                 1e-3, torch.Generator().manual_seed(SEED))
     return (loss.item(), dict(zip(names, grads)),
@@ -5793,29 +5807,94 @@ def split_errors(got, one):
                 split_leaves=len(layout.splits))
 
 
+def _even_vocab(cfg):
+    """``cfg`` with a 44-row vocabulary (_small_model's 43 leave the
+    embeddings whole at W = 2: the divisibility fallback)."""
+    from zero_tpu_torch.vocab import Vocab
+
+    vocab = Vocab()
+    while vocab.size() < 44:
+        vocab.insert("w%d" % vocab.size())
+    cfg.src_vocab = cfg.tgt_vocab = vocab
+    return cfg
+
+
+def tp_reference_cases():
+    """(label, config, batch, the kernels each rank must launch) of
+    tp_reference: dp_reference's small fp32 transformer and
+    transformer_rpr (43 rows: whole embeddings), then at 44 rows the
+    models whose tensor parallelism came later: transformer_aan (with
+    use_ffn), transformer_fuse, transformer_clsr (3 languages, no
+    kernel), transformer_ibdecoder, transformer_afs (speech, CTC),
+    rnnsearch, deepnmt and rnnsearch_deepatt (no kernel, embeddings
+    split), and transformer_moe under scan_layers at mesh_expert=2 (no
+    kernel; its own init_fn ignores scan_layers, as the JAX package's).
+    Adam's epsilon is dp_reference's 1e-6, CLSR's 1e-5: its gated
+    ``shared`` projections take gradients of ~1e-7 of the largest, whose
+    fp32 rounding (another order of the line's sums) Adam at 1e-6 would
+    turn into 1.4e-5 of the largest weight in one step."""
+    core = ("fused_attention", "fused_attention_backward", "fused_ffn",
+            "fused_ffn_backward")
+    batch = _small_batch()
+    out = [("transformer", _small_model(0.1), batch, core),
+           ("transformer_rpr", _small_model(0.1, "transformer_rpr"), batch,
+            ("fused_attention_rpr", "fused_attention_rpr_backward"))]
+    for _, cfg, _, _ in out:
+        cfg.epsilon = 1e-6
+    for name, over, feats, want in (
+            ("transformer_aan", dict(use_ffn=True), batch, core),
+            ("transformer_fuse", {}, batch, core),
+            ("transformer_clsr", dict(num_languages=3, lang_id_offset=3,
+                                      clsr_budget=0.3, clsr_alpha=0.7,
+                                      epsilon=1e-5),
+             _tagged_small_batch(3), ()),
+            ("transformer_ibdecoder", {}, batch, core),
+            ("transformer_afs", None, _small_speech_batch(), core),
+            ("rnnsearch", {}, batch, ()),
+            ("deepnmt", dict(cell="sru", use_deep_att=True), batch, ()),
+            ("rnnsearch_deepatt", dict(cell="atr"), batch, ()),
+            ("transformer_moe", dict(scan_layers=True, moe_num_experts=4,
+                                     moe_top_k=2, moe_dispatch="einsum",
+                                     mesh_model=1, mesh_expert=2),
+             batch, ())):
+        if over is None:
+            cfg = _small_afs()
+            cfg.epsilon = 1e-6
+            cfg.st_context = False
+            feats = {k: v for k, v in feats.items()
+                     if not k.startswith("context")}
+        else:
+            cfg = _small_model(0.1, name)
+            cfg.epsilon = 1e-6
+            for k, v in over.items():
+                setattr(cfg, k, v)
+        out.append((name, _even_vocab(cfg), feats, want))
+    return out
+
+
 def tp_reference_run():
-    """tp_reference on one of the two ranks: the small fp32 transformer
-    and transformer_rpr (dp_reference's, dropout 0.1: the CUDA-core #1-#4
-    and #11/#12 over each rank's heads and hidden slice, at the whole
-    heads' and width's dropout index) at mesh_model=2 on the whole
-    _small_batch, against one process (the group out of reach: no
+    """tp_reference on one of the two ranks: each of tp_reference_cases'
+    small fp32 models (dropout 0.1: the CUDA-core #1-#4 and #11/#12 over
+    each rank's heads and hidden slice, at the whole heads' and width's
+    dropout index) at mesh_model=2 (transformer_moe at mesh_expert=2) on
+    its whole batch, against one process (the group out of reach: no
     collective). Returns {model: errors and launches}."""
     from zero_tpu_torch.ops.kernels import fused_attention as fa
     from zero_tpu_torch.ops.kernels import fused_ffn as ff
     from zero_tpu_torch.parallel import distributed as dist
 
-    feats = {k: v.cuda() for k, v in _small_batch().items()}
     out = {}
-    for name in ("transformer", "transformer_rpr"):
-        cfg = _small_model(0.1, name)
-        cfg.epsilon = 1e-6
+    for name, cfg, feats, _ in tp_reference_cases():
+        feats = {k: v.cuda() for k, v in feats.items()}
         cfg.device = "cuda"
-        cfg.mesh_model = 2
+        axis = "mesh_expert" if getattr(cfg, "mesh_expert", 1) > 1 \
+            else "mesh_model"
+        setattr(cfg, axis, 2)
         fa.launches.clear()
         ff.launches.clear()
         got = split_pass(cfg, feats)
         launches = collect((fa.launches, ff.launches))
-        cfg.mesh_model = 1
+        setattr(cfg, axis, 1)
         with mock.patch.object(dist, "active", lambda: False):
             one = split_pass(cfg, feats)
         out[name] = dict(split_errors(got, one), launches=launches)
@@ -5824,16 +5903,16 @@ def tp_reference_run():
 
 def tp_reference_phase(ranks):
     """tp_reference: the two ranks against one process (loss 1e-6
-    relative, grads and parameters 1e-5 of their max); #1/#2 and #11/#12
-    (transformer) and #3/#4 (transformer_rpr) launched on both ranks.
-    Returns each rank's launches over both models."""
-    want = {"transformer": ("fused_attention", "fused_attention_backward",
-                            "fused_ffn", "fused_ffn_backward"),
-            "transformer_rpr": ("fused_attention_rpr",
-                                "fused_attention_rpr_backward")}
+    relative, grads and parameters 1e-5 of their max), every model with
+    split leaves and its kernels (tp_reference_cases) launched on both
+    ranks. Returns each rank's launches over every model."""
+    want = {name: kernels for name, _, _, kernels in tp_reference_cases()}
     report, per_rank = {}, []
     for rank, got in enumerate(r["tp_reference"] for r in ranks):
         total = collections.Counter()
+        if sorted(got) != sorted(want):
+            raise AssertionError("tp_reference rank %d ran %s"
+                                 % (rank, sorted(got)))
         for name, errs in got.items():
             report["%s rank %d" % (name, rank)] = errs
             total.update(errs["launches"])
@@ -5844,7 +5923,8 @@ def tp_reference_phase(ranks):
                 raise AssertionError("tp_reference %s rank %d: %s"
                                      % (name, rank, errs))
         per_rank.append(dict(total))
-    phase("tp_reference", world=DP_WORLD, mesh="data 1 x model 2", **report)
+    phase("tp_reference", world=DP_WORLD, mesh="data 1 x model 2 "
+          "(transformer_moe: data 1 x expert 2)", **report)
     return per_rank
 
 
@@ -5922,6 +6002,133 @@ def tp_train_phase(ranks, one, cfg):
                                   share, diff, [r["model_reduce_per_step"]
                                                 for r in per]))
     return [r["train_launches"] for r in per]
+
+
+# tensor parallelism of the multilingual config (tp_ml_train): 100
+# languages at full width, both kernel flags, ROBT on, depth cut to
+# BASE_CUT's 2+2
+TP_ML_STEPS = 2
+TP_ML_EXTRA = BASE_CUT + ",use_flash_attention=true,use_fused_ffn=true"
+TP_ML_NOTE = ("the model computes in fp32 whatever default_dtype says (as "
+              "the JAX package); ROBT's greedy decode runs on whole "
+              "weights, gathered without gradient once a microbatch")
+
+
+def tp_ml_run(d, out, extra):
+    """--mode train of configs/multilingual_robt_opus100.json on the
+    multilingual corpus in ``d`` at TP_ML_EXTRA, TP_ML_STEPS steps, no
+    dev eval; ``extra`` adds the mesh and the process group. Returns its
+    numbers, launch counts (#1/#2, #11/#12 and ROBT's #10), its bytes of
+    parameters, moments and EMA beside the whole state's, and the model
+    line's all-reduces and column gathers a step."""
+    from zero_tpu_torch import run
+    from zero_tpu_torch import train as train_mod
+    from zero_tpu_torch.ops.kernels import decode_attention as da
+    from zero_tpu_torch.ops.kernels import fused_attention as fa
+    from zero_tpu_torch.ops.kernels import fused_ffn as ff
+    from zero_tpu_torch.parallel.mesh import per_rank_bytes, whole_size
+
+    held = {}
+    real = train_mod.init_train_state
+
+    def keep(*args, **kwargs):
+        state = held["state"] = real(*args, **kwargs)
+        return state
+
+    spec = ("src_vocab_file={0}/vocab.txt,tgt_vocab_file={0}/vocab.txt,"
+            "src_train_file={0}/train.src,tgt_train_file={0}/train.tgt,"
+            "output_dir={1},max_training_steps={2},disp_freq=1,save_freq=0,"
+            "eval_freq=0,sample_freq=0,epoches=100".format(d, out,
+                                                          TP_ML_STEPS)
+            + TP_ML_EXTRA + extra)
+    counters = (fa.launches, ff.launches, da.launches)
+    for c in counters:
+        c.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_mod, "init_train_state", keep):
+        summary = run.main(["--mode", "train", "--config", ML_CONFIG,
+                            "--parameters", spec])
+    torch.cuda.synchronize()
+    state = held.pop("state")
+    whole = whole_size(state.layout, state.params) * 4
+    steps = max(summary["steps"], 1)
+    reduce = summary["allreduce"]
+    ends = summary["step_end_times"]
+    return dict(
+        steps=summary["steps"], losses=summary["losses"],
+        shapes=summary["shapes"], tokens=summary["target_tokens"],
+        step_s=[b - a for a, b in zip(ends[:-1], ends[1:])],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=collect(counters),
+        per_rank_bytes={"params": per_rank_bytes(state.params),
+                        "moments": per_rank_bytes(state.opt),
+                        "ema": per_rank_bytes(state.ema)},
+        whole_bytes={"params": whole, "moments": 2 * whole + 4,
+                     "ema": whole if state.ema is not None else 0},
+        per_step={kind: {k: reduce[kind][k] / steps
+                         for k in ("calls", "bytes", "ms")}
+                  for kind in ("model_reduce", "model_gather")},
+        allreduce_per_step={k: reduce[k] / steps
+                            for k in ("calls", "bytes", "ms")})
+
+
+def tp_ml_train_phase(ranks, one):
+    """tp_ml_train: the two model ranks (mesh data 1 x model 2) against
+    the world of one on the same batches and seeds: steps, finite losses,
+    each within TP_SAME of the world of one's, the launches
+    ml_expected_launches counts on every rank (ROBT's encode and #10
+    decode on whole weights, every layer's #1/#11 over the rank's heads
+    and hidden columns), a rank's bytes at most TP_SHARE of the whole
+    state's, the model line's all-reduces and column gathers (``lalt``)
+    a step. Returns each rank's launches."""
+    from zero_tpu_torch.config import load_config_file
+
+    cfg = load_config_file(ML_CONFIG)
+    cfg.update(overrides(TP_ML_EXTRA))
+    per = [r["tp_ml_train"] for r in ranks]
+    for label, r in [("world of one", one)] + [
+            ("rank %d" % i, r) for i, r in enumerate(per)]:
+        want = ml_expected_launches(cfg, r)
+        if r["steps"] != TP_ML_STEPS or not all(map(math.isfinite,
+                                                    r["losses"])) \
+                or r["launches"] != want:
+            raise AssertionError("tp_ml_train %s: steps %d, losses %s, "
+                                 "launches %s, expected %s"
+                                 % (label, r["steps"], r["losses"],
+                                    r["launches"], want))
+    diff = max(abs(a - b) / abs(b) for r in per
+               for a, b in zip(r["losses"], one["losses"]))
+    share = {k: max(r["per_rank_bytes"][k] for r in per)
+             / per[0]["whole_bytes"][k] for k in ("params", "moments", "ema")}
+    step_s = sorted(s for r in per for s in r["step_s"])
+    timed = max(sum(r["step_s"]) for r in per)
+    one_s = sorted(one["step_s"])
+    phase("tp_ml_train", world=len(per), mesh="data 1 x model 2",
+          backend="gloo", steps=TP_ML_STEPS, note=DP_NOTE + "; " + TP_ML_NOTE,
+          languages=ML_LANGUAGES,
+          stacked_shapes=[stacked_shape(s) for s in per[0]["shapes"]],
+          ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+          target_tokens_per_s=sum(per[0]["tokens"][1:]) / timed,
+          world_of_one_ms_per_step=1e3 * one_s[len(one_s) // 2],
+          world_of_one_tokens_per_s=sum(one["tokens"][1:]) / sum(one_s),
+          peak_gib=[r["peak_gib"] for r in per],
+          world_of_one_peak_gib=one["peak_gib"],
+          per_rank_bytes=[r["per_rank_bytes"] for r in per],
+          whole_bytes=per[0]["whole_bytes"], share_of_whole=share,
+          model_reduce_per_step=[r["per_step"]["model_reduce"] for r in per],
+          model_gather_per_step=[r["per_step"]["model_gather"] for r in per],
+          launches_per_rank=[r["launches"] for r in per],
+          world_of_one_launches=one["launches"],
+          losses=[r["losses"] for r in per],
+          world_of_one_losses=one["losses"], rel_diff_from_world_of_one=diff)
+    if not (diff <= TP_SAME and all(v <= TP_SHARE for v in share.values())
+            and all(r["per_step"][k]["calls"] > 0 for r in per
+                    for k in ("model_reduce", "model_gather"))):
+        raise AssertionError("tp_ml_train: loss diff %g, shares %s, "
+                             "collectives %s" % (diff, share,
+                                                 [r["per_step"]
+                                                  for r in per]))
+    return [r["launches"] for r in per]
 
 
 # ---------------------------------------------------------------------------
@@ -6330,8 +6537,8 @@ PHASES = ("device", "build", "kernels", "train_kernels", "serve",
           "slice13_reference", "ib_train", "speech_train",
           "slice14_reference", "rnn_train", "deepnmt_train", "deepatt_train",
           "rnn_reference", "host", "dp_train", "dp_reference", "zero_train",
-          "zero_reference", "moe_dp", "tp_train", "tp_reference", "ep_train",
-          "sp_train", "sp_reference")
+          "zero_reference", "moe_dp", "tp_train", "tp_reference",
+          "tp_ml_train", "ep_train", "sp_train", "sp_reference")
 
 
 def main(argv=None):
@@ -6446,6 +6653,9 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as d:
         words = write_corpus(d)
+        ml_dir = os.path.join(d, "multilingual")
+        if todo & {"multilingual_train", "clsr_train", "tp_ml_train"}:
+            write_multilingual_corpus(ml_dir, words)
         if "serve" in todo:
             # serve transformer-base with random weights
             cfg = default_config().override_from_dict(
@@ -6476,6 +6686,10 @@ def main(argv=None):
             # card
             write_long_corpus(d, words)
             sp_one = sp_train_run(d, os.path.join(d, "sp_one"), "")
+        if "tp_ml_train" in todo:
+            # the world of one of tp_ml_train, before the two ranks take
+            # the card
+            tp_ml_one = tp_ml_run(ml_dir, os.path.join(d, "tp_ml_one"), "")
         if todo & DP_PHASES:
             dp_launches, dp_rank_launches, ranks, dp_one = dp_train_phase(
                 d, todo)
@@ -6498,6 +6712,8 @@ def main(argv=None):
                 tp_launches = tp_train_phase(ranks, dp_one, zero_cfg)
             if "tp_reference" in todo:
                 tp_reference_launches = tp_reference_phase(ranks)
+            if "tp_ml_train" in todo:
+                tp_ml_launches = tp_ml_train_phase(ranks, tp_ml_one)
             if "ep_train" in todo:
                 ep_train_phase(ranks)
             if "sp_train" in todo:
@@ -6536,8 +6752,6 @@ def main(argv=None):
             if "scan_train" in todo:
                 scan_restore()
         if "multilingual_train" in todo:
-            ml_dir = os.path.join(d, "multilingual")
-            write_multilingual_corpus(ml_dir, words)
             ml_results, ml_served, _ = multilingual_train_phase(ml_dir, da)
         if "clsr_train" in todo:
             clsr_results, clsr_served, clsr_ensemble = clsr_train_phase(
@@ -6633,6 +6847,10 @@ def main(argv=None):
             "decode_attention"],
         multilingual_robt_train_launches=ml_results["launches"][
             "decode_attention"],
+        # ROBT's greedy decode on whole weights on each of the two model
+        # ranks (tp_ml_train)
+        tp_ml_train_rank_launches=[r["decode_attention"]
+                                   for r in tp_ml_launches],
         # transformer_afs serves through #10 at beam 4 (rows folded over
         # the classic cache) and beam 1, and in its ensemble with itself;
         # transformer_ibdecoder's pair step takes no decode kernel
@@ -6706,6 +6924,11 @@ def main(argv=None):
         row["tp_train_rank_launches"] = [r[kernel] for r in tp_launches]
         row["tp_reference_rank_launches"] = [
             r.get(kernel, 0) for r in tp_reference_launches]
+        # the multilingual config (fp32: the CUDA-core route) at
+        # mesh_model=2 on the two gloo ranks, ROBT's encode on whole
+        # weights (tp_ml_train)
+        row["tp_ml_train_rank_launches"] = [r.get(kernel, 0)
+                                            for r in tp_ml_launches]
         # sequence parallelism at mesh_seq=2 on the two gloo ranks: each
         # rank's block of the long pairs (sp_train: the cross attention
         # streams there, so #1/#2 take none) and the CUDA-core route of

@@ -1,12 +1,12 @@
 """zero_tpu_torch refuses what it has not ported instead of ignoring it:
-the 'pipe' mesh axis raises in ``--mode train``, and so do the 'model'
-axis for a model outside TP_MODELS, the 'seq' axis for one outside
-SP_MODELS (and beside the 'expert' axis or ROBT) and the 'expert' axis
-for one other than transformer_moe, each naming the model; a mesh that
-one process cannot hold raises make_mesh's ValueError (the defaults,
-ZeRO, the sharded checkpoint, MoE over processes and tensor, sequence
-and expert parallelism over enough processes do not),
-and ``--mode test`` with a mesh decodes on the one device with the JAX
+the 'pipe' mesh axis raises in ``--mode train``, and so do the 'seq'
+axis for a model outside SP_MODELS (and beside the 'expert' axis or
+ROBT) and the 'expert' axis for one other than transformer_moe, each
+naming the model, while the 'model' axis runs for every model; a mesh
+that one process cannot hold raises make_mesh's ValueError (the
+defaults, ZeRO, the sharded checkpoint, MoE over processes and tensor,
+sequence and expert parallelism over enough processes do not), and
+``--mode test`` with a mesh decodes on the one device with the JAX
 package's warning. And ``decode_split_sweep.py --package DIR`` imports
 DIR's zero_tpu_torch in a fresh process."""
 
@@ -54,13 +54,13 @@ LATER_TP = ["transformer_aan", "transformer_fuse",
 
 @pytest.mark.parametrize("name", LATER_TP)
 def test_mesh_model_raises_for_a_model_of_a_later_slice(name):
-    """Two processes at mesh_model=2: the models outside TP_MODELS raise,
-    naming themselves and the later slice."""
+    """Two processes at mesh_model=2: these nine models raised here until
+    their tensor parallelism was ported; now every model trains on a
+    'model' axis (tests/test_torch_tensor_parallel_models.py), and
+    check_ported passes."""
     cfg = default_config()
     cfg.parse("device=cpu,mesh_model=2,model_name=" + name)
-    with pytest.raises(NotImplementedError,
-                       match="mesh_model=2 for %s.*later slice" % name):
-        check_ported(cfg, world=2)
+    assert check_ported(cfg, world=2) is None
 
 
 LATER_SP = ["transformer_aan", "transformer_fuse", "transformer_moe",
@@ -130,16 +130,14 @@ def test_expert_parallelism_raises_for_other_models_and_odd_heads():
 
 
 def test_expert_parallelism_under_scan_layers_raises():
-    """The expert rule would split a stacked expert leaf along its layer
-    dim: that combination comes with a later slice; tensor parallelism
-    under scan_layers runs."""
+    """Expert parallelism under scan_layers raised here until it was
+    ported: transformer_moe ignores scan_layers (its own init_fn, as in
+    the JAX package), so its experts split as without it, and
+    check_ported passes; so does tensor parallelism under scan_layers."""
     cfg = default_config()
     cfg.parse("device=cpu,mesh_expert=2,model_name=transformer_moe,"
               "scan_layers=true")
-    with pytest.raises(NotImplementedError,
-                       match="mesh_expert=2 with scan_layers for "
-                             "transformer_moe.*later slice"):
-        check_ported(cfg, world=2)
+    assert check_ported(cfg, world=2) is None
     cfg = default_config()
     cfg.parse("device=cpu,mesh_model=2,model_name=transformer_moe,"
               "scan_layers=true,use_remat=true")

@@ -167,3 +167,45 @@ def test_every_rank_s_rectangles_tile_every_leaf(zero):
                 cover[n][index] += 1
     for n, c in cover.items():
         assert (c == 1).all(), n
+
+
+def _short(names):
+    return {"/".join(p for p in n.replace(".", "/").split("/")
+                     if p not in ("ws", "b") and not p.isdigit())
+            for n in names}
+
+
+@pytest.mark.parametrize("ctc", [False, True], ids=["no_ctc", "ctc"])
+def test_afs_split_set_is_the_one_spec_for_param_gives(ctc):
+    """transformer_afs has no row in test_tp_specs.EXPECTED: its split set
+    is computed here from JAX's spec_for_param over the JAX init_fn's
+    leaves (the encoders' and decoder's core, the decoder's cross
+    attention, tgt_embedding; never the frontend, the gates or
+    ctc_head), and the port's param_specs split the same leaves on the
+    same dims as param_sharding. ctc_head matches no rule: both packages
+    report it as a large weight left whole."""
+    cfg = _cfg("transformer_afs", data_kind="speech", audio_num_mel_bins=8,
+               num_st_encoder_layer=1, ctc_enable=ctc,
+               coarse_label_base=60)
+    params = jget_model("transformer_afs").init_fn(jax.random.PRNGKey(0),
+                                                   cfg)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    paths = {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                      for p in path): leaf.shape for path, leaf in flat}
+    want = _short(p for p, shape in paths.items()
+                  if "model" in tuple(jspec(p, shape)))
+    assert {"asr_encoder/self/qkv", "st_encoder/ffn/enlarge",
+            "decoder/cross/v", "tgt_embedding"} <= want
+    assert not want & {"frontend", "afs_temporal", "afs_feature",
+                       "ctc_head"}
+    jmesh = make_mesh(data=4, model=2)
+    axes = _jax_axes(params, jmesh, zero=False)
+    shapes = _port_shapes(cfg)
+    got = mesh.param_specs(shapes, model=2)
+    assert _short(n for n, s in got.items() if "model" in s) == want
+    for n, shape in shapes.items():
+        assert got[n] == tuple(axes[n]) + (None,) * (
+            len(shape) - len(axes[n])), n
+    big = jbig(params, jmesh, min_elems=16 * 60)
+    assert mesh.unsharded_big_params(shapes, 2, min_elems=16 * 60) == big
+    assert big == (["ctc_head/ws/0"] if ctc else [])

@@ -49,9 +49,10 @@ def seeded_words(microbatch: int, site: int):
 
 
 @contextlib.contextmanager
-def seeded(noise=None):
+def seeded(noise=None, micro=None):
     """Within: common.RngGen draws seeded_words in place of the
-    generator's words, each training RngGen the next microbatch's; with
+    generator's words, each training RngGen the next microbatch's (the
+    k-th made draws those of microbatch ``micro(k)`` where given); with
     ``noise`` ({global shape: array}), the gate noise of a draw is this
     rank's rows of the array of its global shape."""
     made = [0]
@@ -62,7 +63,7 @@ def seeded(noise=None):
         self._gen = gen
         self._count = 0
         if gen is not None:
-            self._micro = made[0]
+            self._micro = made[0] if micro is None else micro(made[0])
             made[0] += 1
 
     def call(self):

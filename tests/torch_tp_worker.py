@@ -13,7 +13,11 @@ The spec names the group's port and world size and a list of cases:
     holds of each leaf after the last step ("held/"), the names of the
     leaves a model or expert axis splits and its bytes of parameters,
     moments and EMA (parallel/mesh.py:per_rank_bytes); gate noise as
-    torch_dp_worker injects it (``noise``).
+    torch_dp_worker injects it (``noise``). The batches file holds
+    ``src`` and ``tgt`` or any feature dict ([steps, C, B, ...] arrays
+    by feature name: speech); ``z`` ([B, 1] language indices) stands in
+    for ROBT's draw of the intermediate languages, whose two training
+    passes a microbatch draw the seed words of the JAX step's two keys.
   * "save": the state after one step written as a sharded checkpoint,
     then restored into a fresh state of the same mesh; the whole state
     and the restored parts.
@@ -22,6 +26,7 @@ The spec names the group's port and world size and a list of cases:
 import json
 import os
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -33,7 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch_dp_worker as dp  # noqa: E402
 from torch_zero_worker import whole_arrays  # noqa: E402
+from zero_tpu_torch import robt  # noqa: E402
 from zero_tpu_torch import saver as saver_mod  # noqa: E402
+from zero_tpu_torch.ops import common  # noqa: E402
 from zero_tpu_torch.models import get_model  # noqa: E402
 from zero_tpu_torch.parallel import distributed as dist  # noqa: E402
 from zero_tpu_torch.parallel.mesh import per_rank_bytes  # noqa: E402
@@ -81,19 +88,31 @@ def run_train(case, rank, world):
     out["split_names"] = np.array(sorted(state.layout.splits)
                                   if state.layout else [], dtype=str)
     step_fn = make_train_step(model, cfg)
+    names = {"src": "source", "tgt": "target"}
     with np.load(case["batches"]) as z:
-        src, tgt = z["src"], z["tgt"]
+        feats = {names.get(k, k): z[k] for k in z.files}
     noise = {}
     if case.get("noise"):
         with np.load(case["noise"]) as z:
             noise = {tuple(int(d) for d in k.split("x")): z[k]
                      for k in z.files}
     grid = dist.grid()
-    rows = src.shape[2] // grid.degree("data")
+    rows = feats["target"].shape[2] // grid.degree("data")
     mine = slice(grid.coord("data") * rows, (grid.coord("data") + 1) * rows)
-    with dp.seeded(noise):
-        for s in range(src.shape[0]):
-            batch = {"source": src[s][:, mine], "target": tgt[s][:, mine]}
+    micro, draw = None, robt.draw_languages
+    if case.get("z") is not None:
+        z = torch.tensor(case["z"])
+
+        def draw(gen, n, num_languages, device):
+            offset, local, _ = common.global_rows()
+            return (z[offset:offset + n] if local else z).to(device)
+
+        # the JAX step's keys a microbatch m: 3m (main), 3m + 1 (synthetic)
+        micro = lambda k: 3 * (k // 2) + k % 2  # noqa: E731
+    with dp.seeded(noise, micro), \
+            mock.patch.object(robt, "draw_languages", draw):
+        for s in range(feats["target"].shape[0]):
+            batch = {k: v[s][:, mine] for k, v in feats.items()}
             _, m = step_fn(state, batch, case["lrs"][s], torch.Generator())
             for key in ("loss", "gnorm", "pnorm"):
                 out["%s/%d" % (key, s)] = np.float64(m[key])

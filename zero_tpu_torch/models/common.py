@@ -33,7 +33,7 @@ Counterpart of ``zero_tpu/models/common.py``. Variants supply a
     draws them
 
 Data parallelism across processes runs (parallel/distributed.py), and
-for TP_MODELS tensor parallelism (``mesh_model``: vocab-parallel
+for every model tensor parallelism (``mesh_model``: vocab-parallel
 embeddings and cross entropy here, split attention and FFN in ops/;
 parallel/tensor.py), for transformer_moe expert parallelism
 (``mesh_expert``, ops/moe.py) and for SP_MODELS sequence parallelism
@@ -229,20 +229,27 @@ def emb_tables(params: Seq2Seq, cfg):
     return src, tgt, soft
 
 
+def lookup(table, ids, dtype=None):
+    """The rows of ``table`` at ``ids`` (in ``dtype`` when given). A
+    VocabPart looks up the ids in its rows, zero elsewhere, summed over
+    its line."""
+    if not isinstance(table, tp.VocabPart):
+        x = torch.nn.functional.embedding(ids.long(), table)
+        return x if dtype is None else x.to(dtype)
+    local = ids.long() - table.offset
+    inside = (local >= 0) & (local < table.table.shape[0])
+    x = torch.nn.functional.embedding(
+        torch.where(inside, local, torch.zeros_like(local)), table.table)
+    if dtype is not None:
+        x = x.to(dtype)
+    return dist.reduce_out(torch.where(inside[..., None], x,
+                                       torch.zeros_like(x)), table.axis)
+
+
 def embed_scaled(table, ids, bias, cfg, dtype):
-    """gather(emb) * sqrt(hidden) + bias. A VocabPart looks up the ids in
-    its rows, zero elsewhere, summed over its line."""
-    if isinstance(table, tp.VocabPart):
-        local = ids.long() - table.offset
-        inside = (local >= 0) & (local < table.table.shape[0])
-        x = torch.nn.functional.embedding(
-            torch.where(inside, local, torch.zeros_like(local)),
-            table.table).to(dtype)
-        x = dist.reduce_out(torch.where(inside[..., None], x,
-                                        torch.zeros_like(x)), table.axis)
-    else:
-        x = torch.nn.functional.embedding(ids.long(), table).to(dtype)
-    x = x * (cfg.hidden_size ** 0.5)
+    """gather(emb) * sqrt(hidden) + bias (``lookup``: a VocabPart's rows
+    summed over its line)."""
+    x = lookup(table, ids, dtype) * (cfg.hidden_size ** 0.5)
     return x + bias.to(dtype)
 
 
@@ -466,10 +473,6 @@ def parallel_options(cfg) -> list:
     return asked
 
 
-# the models that train under tensor parallelism (mesh_model > 1): the
-# JAX package's TRANSFORMER_CORE | DEC_SELF_CROSS family
-TP_MODELS = ("transformer", "transformer_rpr", "transformer_moe",
-             "transformer_rela", "transformer_fixup", "transformer_l0drop")
 # the models that train under expert parallelism (mesh_expert > 1)
 EP_MODELS = ("transformer_moe",)
 # the models that train under sequence parallelism (mesh_seq > 1): the
@@ -483,14 +486,14 @@ def check_ported(cfg, training: bool = True,
                  world: Optional[int] = None):
     """Raise on options of a later slice instead of ignoring them: in
     training ``mesh_pipe`` above 1 (and with it the pipeline over a
-    scan_layers stack), ``mesh_model`` above 1 for a model not in
-    TP_MODELS, ``mesh_seq`` above 1 for one not in SP_MODELS and
-    ``mesh_expert`` above 1 for one not in EP_MODELS, each naming the
-    model, and ``mesh_seq`` with ``mesh_expert``. Data parallelism across
-    ``world`` processes (by default the process group's, or
-    ``dist_num_processes`` before one exists) runs, with ZeRO
+    scan_layers stack), ``mesh_seq`` above 1 for a model not in SP_MODELS
+    and ``mesh_expert`` above 1 for one not in EP_MODELS, each naming the
+    model, and ``mesh_seq`` with ``mesh_expert`` or ROBT. Data
+    parallelism across ``world`` processes (by default the process
+    group's, or ``dist_num_processes`` before one exists) runs, with ZeRO
     (``zero_stage``), the sharded checkpoint and every model, and so do
-    tensor, sequence and expert parallelism for their models; mesh
+    tensor parallelism for every model, and sequence and expert
+    parallelism (under ``scan_layers`` too) for their models; mesh
     degrees whose product is not the world size raise make_mesh's
     ValueError, and a head count the model degree does not divide a
     ValueError. Evaluation decodes on one device with a warning instead
@@ -507,8 +510,7 @@ def check_ported(cfg, training: bool = True,
                 else int(cfg.dist_num_processes)
         dist.mesh_degrees(cfg, world)
     name = getattr(cfg, "model_name", "")
-    for key, models in (("mesh_model", TP_MODELS), ("mesh_seq", SP_MODELS),
-                        ("mesh_expert", EP_MODELS)):
+    for key, models in (("mesh_seq", SP_MODELS), ("mesh_expert", EP_MODELS)):
         if int(getattr(cfg, key, 1)) > 1 and name not in models:
             asked.append("%s=%s for %s" % (key, getattr(cfg, key), name))
     if int(getattr(cfg, "mesh_seq", 1)) > 1:
@@ -522,14 +524,6 @@ def check_ported(cfg, training: bool = True,
         raise NotImplementedError(
             "%s: not ported to zero_tpu_torch yet: it comes with a later "
             "slice" % ", ".join(asked))
-    if int(getattr(cfg, "mesh_expert", 1)) > 1 \
-            and bool(getattr(cfg, "scan_layers", False)):
-        # the expert rule splits a stacked [L, E, ...] expert leaf along
-        # its layer dim, not its experts
-        raise NotImplementedError(
-            "mesh_expert=%s with scan_layers for %s: not ported to "
-            "zero_tpu_torch yet: it comes with a later slice"
-            % (cfg.mesh_expert, name))
     model = int(getattr(cfg, "mesh_model", 1))
     if model > 1 and int(cfg.num_heads) % model:
         raise ValueError("num_heads %d is not divisible by mesh_model %d: "

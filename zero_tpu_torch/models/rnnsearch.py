@@ -26,6 +26,7 @@ from zero_tpu_torch.models import common
 from zero_tpu_torch.models.base import Inference, model_register
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import tensor as tp
 
 
 def init_tables(gen, cfg, init) -> dict:
@@ -45,17 +46,22 @@ def init_tables(gen, cfg, init) -> dict:
 
 
 def tables(params, cfg):
-    """(source, target, softmax) tables under the sharing flags."""
+    """(source, target, softmax) tables under the sharing flags; a table
+    split over the vocabulary (tensor parallelism) as its VocabPart."""
+    def table(name):
+        return tp.table(params, name, params[name])
     if cfg.shared_source_target_embedding:
-        e = params["embedding"]
+        e = table("embedding")
         return e, e, e
-    soft = (params["tgt_embedding"] if cfg.shared_target_softmax_embedding
-            else params["softmax_embedding"])
-    return params["src_embedding"], params["tgt_embedding"], soft
+    soft = (table("tgt_embedding") if cfg.shared_target_softmax_embedding
+            else table("softmax_embedding"))
+    return table("src_embedding"), table("tgt_embedding"), soft
 
 
 def embed(table, ids, bias):
-    return torch.nn.functional.embedding(ids.long(), table) + bias
+    """The rows of ``table`` (or of its VocabPart, summed over its line)
+    at ``ids``, plus ``bias``."""
+    return common.lookup(table, ids) + bias
 
 
 def shifted_inputs(params, target, cfg, rngs, training):

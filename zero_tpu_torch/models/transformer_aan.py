@@ -19,6 +19,8 @@ from zero_tpu_torch.models import common
 from zero_tpu_torch.models import transformer as base
 from zero_tpu_torch.models.base import model_register
 from zero_tpu_torch.ops import attention, nn
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 
 def init_dec_layer(gen, cfg, layer):
@@ -40,8 +42,18 @@ def init_dec_layer(gen, cfg, layer):
 
 
 def _gate(p, x, y):
-    """Input/forget gating: z = linear([x, y]); sig(i) * x + sig(f) * y."""
-    z = nn.linear(p.z_project, torch.cat([x, y], dim=-1))
+    """Input/forget gating: z = linear([x, y]); sig(i) * x + sig(f) * y.
+    Under tensor parallelism ``z_project`` holds a process's columns of
+    z (at W = 2 rank 0 all of i, rank 1 all of f): they are gathered
+    whole before the chunk."""
+    xy = torch.cat([x, y], dim=-1)
+    part = tp.column(p.z_project)
+    if part is None:
+        z = nn.linear(p.z_project, xy)
+    else:
+        z = dist.gather_cols(nn.linear(p.z_project,
+                                       dist.copy_in(xy, part.axis)),
+                             part.axis)
     i, f = z.chunk(2, dim=-1)
     return torch.sigmoid(i) * x + torch.sigmoid(f) * y
 

@@ -47,6 +47,7 @@ from zero_tpu_torch.models.transformer_l0drop import compact_encodings
 from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.ops import ctc, l0norm, nn
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import tensor as tp
 
 
 def _ctc_vocab_size(cfg) -> int:
@@ -90,10 +91,15 @@ def init_fn(gen, cfg) -> common.Seq2Seq:
     return common.Seq2Seq(tables, [], decoder, modules)
 
 
+def _tgt_table(params):
+    """The target table, or its VocabPart where split."""
+    return tp.table(params, "tgt_embedding", params.tgt_embedding)
+
+
 def _soft_table(params, cfg):
     if cfg.shared_target_softmax_embedding:
-        return params.tgt_embedding
-    return params.softmax_embedding
+        return _tgt_table(params)
+    return tp.table(params, "softmax_embedding", params.softmax_embedding)
 
 
 def _frontend(params, audio, mask, cfg, rngs, training):
@@ -203,7 +209,7 @@ def _encode(params, audio, mask, cfg, rngs, training, context=None,
 
 def _decode_train(params, target, state, cfg, rngs, training):
     dmask = (target != 0).float()
-    x = common.embed_scaled(params.tgt_embedding, target, params.emb_bias,
+    x = common.embed_scaled(_tgt_table(params), target, params.emb_bias,
                             cfg, dtypes.compute_dtype(cfg))
     x = nn.add_timing_signal(common.shift_right(x))
     x = dropout(rngs(), x, cfg.dropout if training else None)
@@ -302,7 +308,7 @@ def infer_fn(cfg):
                            for p in params.decoder]}
 
     def decode_step(params, prev_tok, state, cache, time):
-        x = common.embed_scaled(params.tgt_embedding, prev_tok,
+        x = common.embed_scaled(_tgt_table(params), prev_tok,
                                 params.emb_bias, cfg, dtype)
         if time == 0:
             x = torch.zeros_like(x)

@@ -32,6 +32,8 @@ from zero_tpu_torch.models.transformer_multilingual import (
 from zero_tpu_torch.ops import attention, l0norm, nn
 from zero_tpu_torch.ops import common as ops_common
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 
 # -- CLSR unit ----------------------------------------------------------------
@@ -57,7 +59,11 @@ def init_clsr(gen, cfg) -> ClsrUnit:
 
 
 def clsr(params: ClsrUnit, x, lang, rngs, training, gate_sums):
-    """Apply one CLSR unit; appends (sum g, count) to gate_sums."""
+    """Apply one CLSR unit; appends (sum g, count) to gate_sums. Under
+    tensor parallelism ``shared`` and ``lang`` hold a process's columns:
+    the gate and its noise are whole and the same on every process of
+    the line, and both projections are gathered whole (one call) before
+    the gate mixes them."""
     log_alpha = nn.linear(params.gate, x).float()                 # [B,L,1]
     if training:
         # x may be a sequence block: its noise indexes the whole sequence
@@ -66,8 +72,15 @@ def clsr(params: ClsrUnit, x, lang, rngs, training, gate_sums):
             split=ops_common.seq_split(1, log_alpha.shape[1]))
     else:
         g = l0norm.hard_concrete_mean(log_alpha)
-    h_shared = nn.linear(params.shared, x)
-    h_lang = lang_matmul(x, params.lang, lang)
+    part = tp.column(params.shared)
+    if part is None:
+        h_shared = nn.linear(params.shared, x)
+        h_lang = lang_matmul(x, params.lang, lang)
+    else:
+        xs = dist.copy_in(x, part.axis)
+        h_lang, h_shared = dist.gather_cols(torch.stack([
+            lang_matmul(xs, params.lang, lang),
+            nn.linear(params.shared, xs)]), part.axis).unbind(0)
     gx = g.to(x.dtype)
     out = gx * h_lang + (1.0 - gx) * h_shared
     if gate_sums is not None:

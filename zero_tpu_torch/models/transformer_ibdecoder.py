@@ -40,6 +40,7 @@ from zero_tpu_torch.models import transformer as base
 from zero_tpu_torch.models.base import model_register
 from zero_tpu_torch.ops import nn
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import tensor as tp
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +144,9 @@ def _embed_z(params, z, cfg):
     slots = torch.arange(z_len, device=z.device)
     sig = nn.timing_signal(z_len, cfg.embed_size, device=z.device)  # [Z, E]
     x = x + sig[slots // 2][None]
-    return x + params.dir_embedding.to(x.dtype)[slots % 2][None]
+    # split over its two rows under tensor parallelism (a VocabPart)
+    dirs = tp.table(params, "dir_embedding", params.dir_embedding)
+    return x + common.lookup(dirs, slots % 2, x.dtype)[None]
 
 
 def _pair_shift(x):

@@ -29,6 +29,8 @@ from zero_tpu_torch.models import transformer as base
 from zero_tpu_torch.models.base import Inference, model_register
 from zero_tpu_torch.ops import attention, nn
 from zero_tpu_torch.ops.common import RngGen, dropout
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 
 def lang_from_source(source, cfg):
@@ -160,7 +162,15 @@ def _dec_layer_train(p, x, state, self_keep, mem_keep, cfg, rngs, lang):
 
 
 def _lalt(params, x, lang):
-    return lang_matmul(x, params.lalt, lang)
+    """LaLT. Under tensor parallelism ``lalt`` holds a process's columns
+    of every language's projection: they are gathered whole before the
+    vocab-parallel cross entropy."""
+    tag = tp.leaf_part(params, "lalt")
+    if tag is None:
+        return lang_matmul(x, params.lalt, lang)
+    axis = tag[0].axis
+    return dist.gather_cols(lang_matmul(dist.copy_in(x, axis), params.lalt,
+                                        lang), axis)
 
 
 def _decode_train(params, target, state, cfg, rngs, training):

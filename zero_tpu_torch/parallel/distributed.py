@@ -26,7 +26,9 @@ the whole model, its moments and its EMA; the collectives are explicit:
     parallelism ('model', Megatron) and expert parallelism ('expert')
     enter and leave their split regions through ``copy_in`` (identity
     forward, all-reduce backward) and ``reduce_out`` (all-reduce
-    forward, identity backward) over the model or expert group;
+    forward, identity backward) over the model or expert group, and a
+    column part that an elementwise op reads is made whole by
+    ``gather_cols`` (all-gather forward, its own columns backward);
   * ``any_flag`` agrees on a host flag (the preemption signal);
   * eval batches, identical on every process, are split by rows
     (``put_eval_batch``) and their decodes gathered
@@ -63,7 +65,7 @@ BUCKET_BYTES = 64 << 20
 # gathers) and time since the last take_stats(): CUDA event pairs on a
 # card, host seconds on the CPU
 _KINDS = ("all_reduce", "reduce_scatter", "all_gather", "model_reduce",
-          "expert_reduce", "seq_ring", "seq_gather")
+          "expert_reduce", "model_gather", "seq_ring", "seq_gather")
 _stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0, "events": []}
           for kind in _KINDS}
 
@@ -429,7 +431,8 @@ def take_stats() -> dict:
     """The gradient all-reduce's {'calls', 'bytes', 'ms'} since the last
     call, with the same for 'reduce_scatter' and 'all_gather' under
     ZeRO, for the split regions' all-reduces, 'model_reduce' and
-    'expert_reduce', and for sequence parallelism's ring steps and
+    'expert_reduce', for tensor parallelism's column gathers,
+    'model_gather', and for sequence parallelism's ring steps and
     gathers, 'seq_ring' and 'seq_gather' (waits for the card's events),
     and resets them."""
     out = {}
@@ -587,18 +590,18 @@ def ring_shift(tensors):
     return out
 
 
-def _seq_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every seq-line process's [B, l, ...] block joined along dim 1 in
-    coordinate order."""
-    group, n = _axis_group("seq")
-    front = x.detach().movedim(1, 0).contiguous()
+def _gather_dim(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """Every ``axis``-line process's ``x`` joined along ``dim`` in
+    coordinate order, counted as one ``<axis>_gather`` call."""
+    group, n = _axis_group(axis)
+    front = x.detach().movedim(dim, 0).contiguous()
     whole = front.new_empty((n,) + tuple(front.shape))
-    with _timed("seq_gather", whole.numel() * whole.element_size(),
+    with _timed(axis + "_gather", whole.numel() * whole.element_size(),
                 x.is_cuda):
         _scatter_or_gather("all_gather", front.reshape(-1),
                            whole.reshape(-1), group)
     return whole.reshape((n * front.shape[0],) + tuple(front.shape[1:])) \
-        .movedim(0, 1).contiguous()
+        .movedim(0, dim).contiguous()
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -607,7 +610,7 @@ class _GatherSeq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        return _seq_gather(x)
+        return _gather_dim(x, 1, "seq")
 
     @staticmethod
     def backward(ctx, g):
@@ -627,6 +630,32 @@ def gather_seq(x: torch.Tensor) -> torch.Tensor:
     process of the seq line; differentiable (the backward takes the
     summed gradient's block). COLLECTIVE."""
     return _GatherSeq.apply(x) if grid().degree("seq") > 1 else x
+
+
+class _GatherCols(torch.autograd.Function):
+    """The column parts gathered along the last dim; the backward keeps
+    this process's columns of the gradient, which the replicated compute
+    downstream made whole and the same on every process of the line."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _gather_dim(x, x.dim() - 1, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        width = g.shape[-1] // grid().degree(ctx.axis)
+        lo = grid().coord(ctx.axis) * width
+        return g[..., lo:lo + width].contiguous(), None
+
+
+def gather_cols(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """A column-parallel region's [..., n/W] part -> the whole [..., n] on
+    every process of the ``axis`` line (the parts in coordinate order),
+    where an elementwise op, not a row-parallel map, reads the columns;
+    differentiable (the backward takes this process's columns, no sum).
+    COLLECTIVE."""
+    return _GatherCols.apply(x, axis) if grid().degree(axis) > 1 else x
 
 
 def barrier() -> None:
@@ -701,6 +730,22 @@ def host_fetchable(tree, layout=None):
             assign(v)
     for module in modules:
         tensor.clear_tags(module)
+    return out
+
+
+def whole_parts(module, layout) -> dict:
+    """{name: whole tensor} of ``module``'s leaves that ``layout`` splits
+    over a model or expert axis, gathered over their lines, without
+    gradient. COLLECTIVE."""
+    named = [(n, p.detach()) for n, p in module.named_parameters()
+             if layout.split(n) is not None]
+    out = {}
+    for axis in ("model", "expert"):
+        mine = [(n, p) for n, p in named if layout.split(n).axis == axis]
+        if mine:
+            gathered = _all_gather_parts([p for _, p in mine], axis)
+            for (n, _), every in zip(mine, gathered):
+                out[n] = layout.split(n).join(every).contiguous()
     return out
 
 

@@ -28,6 +28,7 @@ tagged and runs whole on every process of the line, as under GSPMD.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -71,6 +72,19 @@ def tag_module(module: torch.nn.Module, layout) -> None:
 def clear_tags(module: torch.nn.Module) -> None:
     for sub in module.modules():
         sub.__dict__.pop("tp_parts", None)
+
+
+@contextlib.contextmanager
+def untagged(module: torch.nn.Module):
+    """Within: ``module`` carries no split tag (it runs on whole tensors
+    substituted through functional_call); the tags come back after."""
+    saved = [(sub, sub.__dict__.pop("tp_parts")) for sub in module.modules()
+             if "tp_parts" in sub.__dict__]
+    try:
+        yield
+    finally:
+        for sub, tags in saved:
+            sub.__dict__["tp_parts"] = tags
 
 
 def leaf_part(module, leaf: str) -> Optional[tuple]:

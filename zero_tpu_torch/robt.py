@@ -7,7 +7,9 @@ the current model by greedy decoding, and train on the synthetic pair
 whose source carries the leading target-language tag
 (transformer_multilingual). The back-translation runs without autograd,
 on the parameters from before the step's update, and keeps the batch's
-padded shapes.
+padded shapes. Under tensor parallelism it runs on whole weights,
+gathered without gradient once a microbatch (the decode steps read no
+split tag), so every process of a model line decodes the same tokens.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from zero_tpu_torch.ops import common
+from zero_tpu_torch.parallel import distributed as dist
+from zero_tpu_torch.parallel import tensor as tp
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -45,6 +49,18 @@ def greedy_decode(params, source, inference, cfg, out_len: int):
     return torch.stack(toks, dim=1)
 
 
+def whole_call(params, layout, fn):
+    """fn(params) on whole weights: under ``layout``'s model or expert
+    splits each split leaf gathered whole over its line and the split
+    tags set aside, so the module runs as on one device. COLLECTIVE
+    there."""
+    if layout is None or not layout.splits:
+        return fn(params)
+    wholes = dist.whole_parts(params, layout)
+    with tp.untagged(params):
+        return torch.func.functional_call(params, wholes, (fn,))
+
+
 def draw_languages(gen: torch.Generator, rows: int, num_languages: int,
                    device) -> torch.Tensor:
     """The intermediate language index of each row, uniform over
@@ -59,22 +75,24 @@ def draw_languages(gen: torch.Generator, rows: int, num_languages: int,
 
 
 def make_augment(model, cfg):
-    """(params, feats, gen) -> the synthetic ROBT feature dict: per row,
-    the source [tag(z), y] is back-translated greedily, and the synthetic
-    tokens are paired with the row's ORIGINAL tag, so the model learns
-    z -> lang(y). Rows of padding (an all-pad target) stay all-pad."""
+    """(params, feats, gen, layout) -> the synthetic ROBT feature dict
+    (``layout``: the state's, whose split leaves the decode gathers): per
+    row, the source [tag(z), y] is back-translated greedily, and the
+    synthetic tokens are paired with the row's ORIGINAL tag, so the model
+    learns z -> lang(y). Rows of padding (an all-pad target) stay
+    all-pad."""
     inference = model.infer_fn(cfg)
     num_languages = int(cfg.num_languages)
     lang_id_offset = int(cfg.lang_id_offset)
 
-    def augment(params, feats, gen):
+    def augment(params, feats, gen, layout=None):
         src, tgt = feats["source"], feats["target"]
         z_tag = (draw_languages(gen, src.shape[0], num_languages, src.device)
                  + lang_id_offset).to(tgt.dtype)
         bt_input = torch.cat([z_tag, tgt], dim=1)
         with torch.no_grad():
-            synth = greedy_decode(params, bt_input, inference, cfg,
-                                  src.shape[1] - 1)
+            synth = whole_call(params, layout, lambda m: greedy_decode(
+                m, bt_input, inference, cfg, src.shape[1] - 1))
         new_src = torch.cat([src[:, :1], synth.to(src.dtype)], dim=1)
         real = (tgt != 0).sum(dim=1) > 0
         out = dict(feats)

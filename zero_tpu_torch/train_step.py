@@ -207,24 +207,25 @@ def gathered_call(params, named, sharded, dims, fn):
 
 
 def make_micro_backward(model, cfg):
-    """(params, feats, gen, step) -> one microbatch's detached loss, its
-    grads accumulated into the parameters' .grad. With ``robt`` the loss
-    is (loss + robt_weight * bt_loss) / (1 + robt_weight), as the JAX
-    package's loss_fn: the main pass's backward runs before the
+    """(params, feats, gen, step, layout) -> one microbatch's detached
+    loss, its grads accumulated into the parameters' .grad. With ``robt``
+    the loss is (loss + robt_weight * bt_loss) / (1 + robt_weight), as
+    the JAX package's loss_fn: the main pass's backward runs before the
     back-translation, so its activations are freed first, and the z draw
-    and the synthetic pass's seeds follow the main pass's on ``gen``."""
+    and the synthetic pass's seeds follow the main pass's on ``gen``;
+    the back-translation gathers ``layout``'s split leaves whole."""
     robt_on = bool(getattr(cfg, "robt", False))
     if robt_on:
         augment = robt_lib.make_augment(model, cfg)
         robt_weight = float(getattr(cfg, "robt_weight", 1.0))
 
-    def micro_backward(params, feats, gen, step):
+    def micro_backward(params, feats, gen, step, layout=None):
         loss = model.train_fn(params, feats, cfg, gen, step=step)["loss"]
         if not robt_on:
             loss.backward()
             return loss.detach()
         (loss / (1.0 + robt_weight)).backward()
-        bt_feats = augment(params, feats, gen)
+        bt_feats = augment(params, feats, gen, layout)
         bt_loss = model.train_fn(params, bt_feats, cfg, gen,
                                  step=step)["loss"]
         (bt_loss * (robt_weight / (1.0 + robt_weight))).backward()
@@ -305,9 +306,11 @@ def make_train_step(model, cfg):
                 if stage >= 3:
                     micro = gathered_call(
                         params, named, sharded, dims,
-                        lambda m: micro_backward(m, feats, gen, state.step))
+                        lambda m: micro_backward(m, feats, gen, state.step,
+                                                 layout))
                 else:
-                    micro = micro_backward(params, feats, gen, state.step)
+                    micro = micro_backward(params, feats, gen, state.step,
+                                           layout)
             if stage == 2:
                 # this microbatch's gradient into the shard accumulator
                 shards = dist.reduce_scatter_sum(
